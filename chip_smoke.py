@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port of greptimedb_tpu on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
+                          [--mesh-hosts 8192] [--mesh-hours 6]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -31,6 +32,23 @@ result line):
              and timed with CUDA events beside their plain versions, one
              PyTorch library call computing the same function, and the
              card's bound for the work.
+5. profile — one warm Q1, Q2 and one window's merge under torch.profiler.
+6. mesh    — the series-sharded RANGE path: TSBS devops at 8192 hosts (the
+             JAX package's multichip probe size, past the planner's
+             shard_min_series = 4096), 6 h at 10 s, written like phase 2
+             and compacted on the card. Three engines run Q1 and Q2 cold,
+             then warm (median of 5): one device; a mesh of the card named
+             four times (four shards on one card) with default options,
+             which must decide shard(large_grid) with the ring kernels
+             (K2's seed and continuation, the extreme, the one-hot add);
+             and the same mesh with kernels off (the gather twin). Q2 and
+             Q1's keys, timestamps and presence must be bit-identical
+             across the three; Q1's sums and means too, or within the
+             reduction-order bound. Kernel counts are zeroed before each
+             engine and read after it: the ring kernels must launch on the
+             ring engine and never on the gather engine. Then each new
+             kernel at the shapes the mesh path gave it is held against its
+             plain version and timed, and one warm sharded Q2 is profiled.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -128,12 +146,30 @@ def profiled(fn, top=4):
             rows.append((us / 1e3, evt.key, evt.count))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows) if rows else None
+    # the port's own kernels (csrc/*.cu keep them in an anonymous
+    # namespace; torch's there name at:: types), by name with template
+    # arguments
+    ours = {}
+    for ms, k, c in rows:
+        k = k.removeprefix("void ")
+        name = k.split("::", 1)[-1].split("(")[0]
+        if k.startswith("(anonymous namespace)::") and "at::" not in name:
+            ours[name] = {"ms": ms, "calls": c}
     return {
         "wall_ms": wall, "device_ms": dev_ms,
         "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall,
         "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                 for ms, k, c in rows[:top]],
+        "ours": ours,
     }
+
+
+def device_ms_per_launch(prof, match) -> float | None:
+    """Profiler device time per launch of the port's kernels whose names
+    satisfy `match` (None when the profile saw none)."""
+    hits = [v for k, v in prof.get("ours", {}).items() if match(k)]
+    calls = sum(v["calls"] for v in hits)
+    return sum(v["ms"] for v in hits) / calls if calls else None
 
 
 def make_plans(P):
@@ -306,9 +342,10 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
         "shape": {"P": p, "n": n, "n_out": n_out}, "bytes": k1_bytes,
     })
     # ---- K2 -------------------------------------------------------------
-    fm = memo["fold_members"]
-    arr_f = entry.fields["usage_user"]["s"]
-    arr_i = entry.nrow
+    # one device: every per-shard list of the entry holds one tensor
+    fm = memo["fold_members"][0]
+    arr_f = entry.fields["usage_user"]["s"][0]
+    arr_i = entry.nrow[0]
     err = 0.0
     for arr in (arr_f, arr_i):
         got = rf.blocked_fold_sum(arr, fm)
@@ -324,7 +361,7 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
     m = fm.member.numel()
     k2_bytes = 4 * m * nb + 4 * fm.g * nb + 4 * m + 4 * fm.ptr.numel()
     k2_ops = m * nb
-    gid64 = memo["gid"].clamp(max=fm.g).to(torch.int64)
+    gid64 = memo["gid"][0].clamp(max=fm.g).to(torch.int64)
 
     def library():
         acc = torch.zeros((fm.g + 1, nb), dtype=arr_f.dtype, device=dev)
@@ -350,6 +387,326 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
         "bytes": k2_bytes,
     })
     return out
+
+
+RING_KERNELS = ("fold_cont", "extreme", "onehot_add")
+
+
+def counts(rf, mg):
+    """Launch counts of every kernel wrapper."""
+    return {"gather_planes": mg.gather_planes.launches,
+            **{f: getattr(rf, f).launches for f in (
+                "blocked_fold_sum", "block_partials") + RING_KERNELS}}
+
+
+def zero_counts(rf, mg):
+    mg.gather_planes.launches = 0
+    for f in ("blocked_fold_sum", "block_partials") + RING_KERNELS:
+        getattr(rf, f).launches = 0
+
+
+def _bits(v):
+    v = np.asarray(v)
+    return v.view(np.uint64) if v.dtype == np.float64 else v
+
+
+def same_column(a, b) -> bool:
+    """Values bit for bit (NaN equal to NaN) and presence."""
+    va, vb = np.asarray(a.values), np.asarray(b.values)
+    if not np.array_equal(a.valid_mask, b.valid_mask) or va.shape != vb.shape:
+        return False
+    if va.dtype == object:
+        return bool((va == vb).all())
+    return bool(np.array_equal(_bits(va), _bits(vb)))
+
+
+def compare_engines(name, ref, got, w, bounded=()):
+    """`got` against `ref` column by column: bit-identical, except the
+    columns named in `bounded` (Q1's disjoint-window means), whose keys,
+    presence and timestamps must still be identical and whose values stay
+    within 2 (w - 1) 2^-24 relative. Returns (identical, max rel diff)."""
+    if got.names != ref.names or got.num_rows != ref.num_rows:
+        raise AssertionError(f"{name}: shape {got.names}/{got.num_rows} vs "
+                             f"{ref.names}/{ref.num_rows}")
+    identical, worst = True, 0.0
+    for col, a, b in zip(ref.names, ref.cols, got.cols):
+        if same_column(a, b):
+            continue
+        if col not in bounded or not np.array_equal(a.valid_mask,
+                                                     b.valid_mask):
+            raise AssertionError(f"{name}: column {col} differs")
+        identical = False
+        m = a.valid_mask
+        av, bv = np.asarray(a.values)[m], np.asarray(b.values)[m]
+        rel = np.abs(av - bv) / np.abs(av)
+        worst = max(worst, float(rel.max()))
+        if not np.all(np.abs(av - bv) <= 2 * (w - 1) * U * np.abs(av)):
+            raise AssertionError(f"{name}: {col} past the bound")
+    return identical, worst
+
+
+def mesh_kernel_rows(dev, entry, memo, launches):
+    """The ring kernels and K2's partials form at the shapes the sharded
+    Q2 gave them (shards 0 and 1 of the ring engine's grid), held against
+    their plain versions and timed."""
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.query import device_range as dr
+
+    fms, gids, g = memo["fold_members"], memo["gid"], memo["g"]
+    st = entry.fields["usage_user"]
+    nb = entry.nb
+    plane = g * nb
+
+    def exact(name, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name} differs from its plain version")
+        return float((got.double() - want.double()).abs().max())
+
+    def bound(nbytes, ops):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+    src = "greptimedb_tpu_torch/parallel/kernels/csrc/ring_fold.cu"
+    rows = []
+    # ---- row 3: K2's continuation, shard 1 onto shard 0's seed ----------
+    fm = fms[1]
+    m = fm.member.numel()
+    err = 0.0
+    for arr0, arr1 in ((st["s"][0], st["s"][1]), (entry.nrow[0],
+                                                  entry.nrow[1])):
+        acc = rf.blocked_fold_sum(arr0, fms[0])
+        err = max(err, exact("fold_cont", rf.fold_cont(acc, arr1, fm),
+                             rf.fold_cont_plain(acc, arr1, fm)))
+    acc = rf.blocked_fold_sum(st["s"][0], fms[0])
+    acc_i = rf.blocked_fold_sum(entry.nrow[0], fms[0])
+    arr1 = st["s"][1]
+    gid64 = gids[1].clamp(max=g).to(torch.int64)
+
+    def index_add():
+        return torch.zeros((g + 1, nb), dtype=torch.float32,
+                           device=dev).index_add_(0, gid64, arr1)
+
+    rows.append({
+        "name": "fold_cont", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:44 "
+                    "(_fold_cont_kernel, through _call2:84)",
+        "launches": launches["fold_cont"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.fold_cont(acc, arr1, fm)),
+        "plain_ms": cuda_ms(lambda: rf.fold_cont_plain(acc, arr1, fm)),
+        **bound(4 * m * nb + 2 * 4 * plane, m * nb + fm.fb * plane),
+        "library_ms": cuda_ms(index_add),
+        "ms_int32": cuda_ms(lambda: rf.fold_cont(acc_i, entry.nrow[1], fm)),
+        "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
+                  "fb_local": fm.fb, "members": m},
+    })
+    # ---- row 4: the extreme, f32 (the m plane) and int32 (win_t) -------
+    xs = {tm: [dr._segment_ext(st["mx" if tm else "mn"][k], gids[k], g, tm)
+               for k in (0, 1)] for tm in (True, False)}
+    ts = [dr._segment_ext(st["il"][k], gids[k], g, True) for k in (0, 1)]
+    err = 0.0
+    for tm in (True, False):
+        a, b = xs[tm]
+        err = max(err, exact("extreme", rf.extreme(a, b, tm),
+                             rf.extreme_plain(a, b, tm)))
+    exact("extreme int32", rf.extreme(ts[0], ts[1], True),
+          rf.extreme_plain(ts[0], ts[1], True))
+    a, b = xs[True]
+    rows.append({
+        "name": "extreme", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:53 "
+                    "(_ext_max_kernel) and :59 (_ext_min_kernel), through "
+                    "_call2:84",
+        "launches": launches["extreme"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.extreme(a, b, True)),
+        "plain_ms": cuda_ms(lambda: rf.extreme_plain(a, b, True)),
+        **bound(3 * 4 * plane, plane),
+        "library_ms": cuda_ms(lambda: torch.maximum(a, b)),
+        "ms_int32": cuda_ms(lambda: rf.extreme(ts[0], ts[1], True)),
+        "shape": {"g": g, "nb": nb},
+    })
+    # ---- row 5: the one-hot add (first/last winner values) --------------
+    has = [st["n"][k] > 0 for k in (0, 1)]
+    oh = [dr._segment_sum_onehot(torch.where(
+        has[k] & (st["il"][k] == ts[k][gids[k].clamp(max=g - 1).long()]),
+        st["vl"][k], 0.0), gids[k], g) for k in (0, 1)]
+    err = exact("onehot_add", rf.onehot_add(oh[0], oh[1]),
+                rf.onehot_add_plain(oh[0], oh[1]))
+    rows.append({
+        "name": "onehot_add", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:65 "
+                    "(_add_kernel, through _call2:84)",
+        "launches": launches["onehot_add"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.onehot_add(oh[0], oh[1])),
+        "plain_ms": cuda_ms(lambda: rf.onehot_add_plain(oh[0], oh[1])),
+        **bound(3 * 4 * plane, plane),
+        "library_ms": cuda_ms(lambda: torch.add(oh[0], oh[1])),
+        "shape": {"g": g, "nb": nb},
+    })
+    # ---- K2's partials form (the gather twin's block partials) ----------
+    err = exact("block_partials", rf.block_partials(arr1, fm),
+                rf.block_partials_plain(arr1, fm))
+    per = fm.s // fm.fb
+    bid = torch.arange(fm.s, device=dev) // per
+    seg = torch.where(gids[1] < g, bid * g + gids[1], fm.fb * g).long()
+    rows.append({
+        "name": "block_partials", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/query/device_range.py:1509 (blocked_sum"
+                    "'s per-block segment_sum, which the gather program "
+                    "concatenates across shards)",
+        "launches": launches["block_partials"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.block_partials(arr1, fm)),
+        "plain_ms": cuda_ms(lambda: rf.block_partials_plain(arr1, fm)),
+        **bound(4 * m * nb + 4 * fm.fb * plane, m * nb),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            (fm.fb * g + 1, nb), device=dev).index_add_(0, seg, arr1)),
+        "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
+                  "fb_local": fm.fb, "members": m},
+    })
+    return rows
+
+
+def mesh_phase(args, dev, P):
+    from greptimedb_tpu_torch.catalog.table import Table
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
+    from greptimedb_tpu_torch.query.executor import QueryEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 1)
+    hosts = np.array([f"host_{i}" for i in range(args.mesh_hosts)])
+    region_of = np.array(AWS_REGIONS)[rng.integers(0, len(AWS_REGIONS),
+                                                    args.mesh_hosts)]
+    table = Table("cpu", ts_name="ts", tag_names=["hostname", "region"],
+                  fields=FIELDS)
+    q1, q2 = make_plans(P)
+    zero_counts(rf, mg)
+    seconds = {}
+    t = time.perf_counter()
+    written = ingest(table, rng, hosts, region_of, args.mesh_hours)
+    seconds["ingest"] = time.perf_counter() - t
+    t = time.perf_counter()
+    table.compact(device=dev, kernels="on")
+    torch.cuda.synchronize()
+    seconds["compact"] = time.perf_counter() - t
+    compact_counts = counts(rf, mg)
+
+    mesh = make_mesh([dev] * 4)
+    engines = {
+        "single": QueryEngine(device=dev),
+        "ring": QueryEngine(device=dev, mesh=mesh),
+        "gather": QueryEngine(device=dev, mesh=mesh,
+                              mesh_opts=MeshOptions(pallas_kernels="off")),
+    }
+    results, per_engine, info = {}, {}, {}
+    for name, eng in engines.items():
+        zero_counts(rf, mg)
+        timing = {}
+        for qn, plan in (("q1", q1), ("q2", q2)):
+            t = time.perf_counter()
+            results[name, qn] = eng.execute(plan, table)
+            torch.cuda.synchronize()
+            timing[f"{qn}_cold"] = time.perf_counter() - t
+        for qn, plan in (("q1", q1), ("q2", q2)):
+            times = []
+            for _ in range(5):
+                t = time.perf_counter()
+                eng.execute(plan, table)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            timing[f"{qn}_warm_median"] = float(np.median(times))
+            info[name, qn] = dict(eng.last_range)
+        per_engine[name] = {"seconds": timing, "launches": counts(rf, mg),
+                            "q1": info[name, "q1"], "q2": info[name, "q2"]}
+    launches = {k: compact_counts[k] + sum(
+        per_engine[e]["launches"][k] for e in engines) for k in compact_counts}
+
+    ring_q2 = info["ring", "q2"]
+    if (ring_q2["decision"] != "shard(large_grid)"
+            or ring_q2["kernel"] != "ring(ring_fold)"
+            or ring_q2["shards"] != 4):
+        raise AssertionError(f"ring engine decided {ring_q2}")
+    if info["gather", "q2"]["kernel"] != "gather(kernels_off)":
+        raise AssertionError(f"gather engine decided {info['gather', 'q2']}")
+    for k in RING_KERNELS:
+        if per_engine["ring"]["launches"][k] == 0:
+            raise AssertionError(f"{k} never launched on the ring engine")
+        if per_engine["gather"]["launches"][k] != 0:
+            raise AssertionError(f"{k} launched on the gather engine")
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {k} never launched on the mesh "
+                                 f"path")
+
+    # ---- checks -------------------------------------------------------
+    w1, w2 = HOUR_MS // STEP_MS, 2 * HOUR_MS // STEP_MS
+    r1, r2 = results["single", "q1"], results["single", "q2"]
+    if r1.num_rows != args.mesh_hosts * args.mesh_hours:
+        raise AssertionError(f"mesh Q1 rows {r1.num_rows}")
+    if r2.num_rows != len(set(region_of)) * (args.mesh_hours + 1):
+        raise AssertionError(f"mesh Q2 rows {r2.num_rows}")
+    means = {f"avg({f})" for f in FIELDS}
+    checks = {}
+    for name in ("ring", "gather"):
+        compare_engines(f"{name} Q2", r2, results[name, "q2"], w2)
+        ident, worst = compare_engines(f"{name} Q1", r1, results[name, "q1"],
+                                       w1, bounded=means)
+        checks[name] = {"q2_identical": True, "q1_identical": ident,
+                        "q1_max_rel_diff": worst}
+    compare_engines("ring vs gather Q2", results["ring", "q2"],
+                    results["gather", "q2"], w2)
+
+    # ---- kernels at the mesh path's shapes, and one warm profile -------
+    ring = engines["ring"]
+    entry = next(iter(ring.range_cache._entries.values()))
+    memo = next(m for m in entry.query_memo.values() if m["fold"])
+    t = time.perf_counter()
+    rows = mesh_kernel_rows(dev, entry, memo, launches)
+    kernel_seconds = time.perf_counter() - t
+    profs = {name: profiled(lambda: eng.execute(q2, table))
+             for name, eng in engines.items()}
+    # device time per launch on the warm Q2 (the events' times above
+    # include the wrapper's host overhead when it outlasts the kernel)
+    def fold(mode):   # fold_kernel<T, mode>: 0 seed, 1 cont, 2 partials
+        return lambda k: (k.startswith("fold_kernel<")
+                          and k.endswith(f", {mode}>"))
+
+    per_launch = {
+        "blocked_fold_sum": device_ms_per_launch(profs["ring"], fold(0)),
+        "fold_cont": device_ms_per_launch(profs["ring"], fold(1)),
+        "extreme": device_ms_per_launch(
+            profs["ring"], lambda k: k.startswith("extreme_")),
+        "onehot_add": device_ms_per_launch(
+            profs["ring"], lambda k: k.startswith("onehot_add")),
+        "block_partials": device_ms_per_launch(profs["gather"], fold(2)),
+    }
+    for row in rows:
+        row["device_ms_per_launch_q2"] = per_launch[row["name"]]
+    emit({"phase": "mesh", "seconds": seconds, "rows_written": written,
+          "hosts": args.mesh_hosts, "hours": args.mesh_hours,
+          "grid": {"series": entry.num_series, "cells": entry.nb,
+                   "shards": len(entry.devices),
+                   "device_bytes": entry.bytes()},
+          "engines": per_engine, "checks": checks, "launches": launches,
+          "q2_hop_bytes": ring_q2["comm_bytes"],
+          "q2_warm_profiles": profs, "kernel_seconds": kernel_seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return (rows, per_engine["ring"]["launches"]["blocked_fold_sum"],
+            per_launch["blocked_fold_sum"])
+
+
+def merge_kernel_rows(kernels, mesh_out):
+    """Phase 4's rows plus the mesh phase's: K2 gains its launches on the
+    ring engine (the ring's seeds) and their device time; the ring
+    kernels follow."""
+    rows, ring_seeds, seed_ms = mesh_out
+    for row in kernels:
+        if row["name"] == "blocked_fold_sum":
+            row["launches_mesh_ring"] = ring_seeds
+            row["device_ms_per_launch_mesh_q2"] = seed_ms
+    return kernels + rows
 
 
 def run(args) -> int:
@@ -488,6 +845,8 @@ def run(args) -> int:
           "merge_one_window": profiled(lambda: merge_rows(
               rows0, drop_deletes=True, device=dev, kernels="on")),
           "seconds": time.perf_counter() - t})
+    # ---- 6. mesh -----------------------------------------------------
+    kernels = merge_kernel_rows(kernels, mesh_phase(args, dev, P))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
@@ -501,6 +860,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--hosts", type=int, default=4000)
     ap.add_argument("--hours", type=int, default=12)
+    ap.add_argument("--mesh-hosts", type=int, default=8192)
+    ap.add_argument("--mesh-hours", type=int, default=6)
     args = ap.parse_args()
     try:
         return run(args)

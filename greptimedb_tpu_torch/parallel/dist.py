@@ -1,4 +1,19 @@
-"""Fold hooks of the blocked exact group fold (single card only)."""
+"""Fold hooks of the blocked exact group fold, over per-shard values.
+
+Shards are list positions: a hook takes the list of per-shard values in
+shard order and returns the combined value on every shard's device, in
+shard order. The fold hooks are the only points where shards meet.
+
+- LocalFoldCtx: one shard; K2 folds the group sums in one launch and the
+  extreme/sum hooks are the identity.
+- ShardFoldCtx: the gather twin the JAX package runs with kernels off —
+  every shard's (fb_local, g, nb) block partials are concatenated in shard
+  order and left-folded; extremes and one-hot sums fold in shard order.
+- parallel/kernels/ring_fold.RingFoldCtx: the ring with the hand kernels.
+
+All three add the same per-block partials in the same order, so their
+results are bit-identical.
+"""
 
 from __future__ import annotations
 
@@ -15,25 +30,61 @@ def left_fold_sum(parts: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def gather_blocks(parts: list, dim: int = 0) -> torch.Tensor:
+    """Concatenate per-shard tensors along `dim` in shard order, on the
+    first shard's device. Pure data movement — exact."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def replicate(x: torch.Tensor, like: list) -> list:
+    """`x` on the device of every shard of `like`, in shard order."""
+    return [x.to(t.device) for t in like]
+
+
 class LocalFoldCtx:
-    """Cross-shard hooks for blocked exact folds, single-card instance:
-    every hook is the identity and `fold_blocks` is the canonical left
-    fold. The multi-card twin will recombine with collectives in the same
-    order."""
+    """Single-shard hooks: K2 is the whole fold, the rest is identity."""
 
     shards = 1
 
-    def sid_base(self, s_local: int) -> int:
-        return 0
+    def fold_sum(self, arrs: list, fms: list) -> list:
+        """Per-group sums of (S, nb) per-series states in the blocked
+        fold order (K2, one launch)."""
+        from greptimedb_tpu_torch.parallel.kernels import ring_fold
 
-    def gather(self, partial):
-        return partial
+        return [ring_fold.blocked_fold_sum(arrs[0], fms[0])]
 
-    def fold_blocks(self, partial):
-        return left_fold_sum(self.gather(partial))
+    def pext(self, xs: list, take_max: bool) -> list:
+        return xs
 
-    def pext(self, x, take_max: bool):
-        return x
+    def psum(self, xs: list) -> list:
+        return xs
 
-    def psum(self, x):
-        return x
+
+class ShardFoldCtx(LocalFoldCtx):
+    """Gather-and-left-fold hooks over `shards` shards (kernels off)."""
+
+    def __init__(self, shards: int):
+        self.shards = shards
+
+    def fold_sum(self, arrs: list, fms: list) -> list:
+        from greptimedb_tpu_torch.parallel.kernels import ring_fold
+
+        parts = [ring_fold.block_partials(a, fm) for a, fm in zip(arrs, fms)]
+        return replicate(left_fold_sum(gather_blocks(parts)), arrs)
+
+    def pext(self, xs: list, take_max: bool) -> list:
+        from greptimedb_tpu_torch.parallel.kernels import ring_fold
+
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = ring_fold.extreme_plain(acc, x.to(acc.device), take_max)
+        return replicate(acc, xs)
+
+    def psum(self, xs: list) -> list:
+        """Sum in shard order; exact for the masked one-nonzero payloads
+        the range fold hands it (ring_fold.ring_psum_onehot)."""
+        acc = xs[0]
+        for x in xs[1:]:
+            acc = acc + x.to(acc.device)
+        return replicate(acc, xs)

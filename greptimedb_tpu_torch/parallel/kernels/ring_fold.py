@@ -1,22 +1,27 @@
-"""K2: the blocked group fold on one card.
+"""The blocked group fold (K2) and the ring combines across shards.
 
-Folds per-series cell states (S, nb) into per-group states (g, nb) in the
-fixed order that carries the JAX package's bit-identity contract:
+K2 folds per-series cell states (S, nb) into per-group states (g, nb) in
+the fixed order that carries the JAX package's bit-identity contract:
 
 1. per series block b (S / fb consecutive sids), a segment sum over the
    block's members of each group, starting from 0 and adding members in
    ascending sid order (jax.ops.segment_sum's order as XLA's scatter runs
    it);
 2. a left fold of the fb block partials, starting FROM block 0's partial
-   (parallel/dist.left_fold_sum, the body of the Pallas _fold_seed_kernel).
+   (parallel/dist.left_fold_sum, the body of the Pallas _fold_seed_kernel)
+   — or, continuing a ring, from the accumulator that arrived
+   (`fold_cont`, the body of _fold_cont_kernel).
 
 On CUDA, index_add_/scatter_add_ add floats with atomics in no fixed
-order, so this needs its own kernel even on one card (csrc/ring_fold.cu).
-The plain version below keeps the same order: it steps through member
-ranks, adding the k-th member of every (block, group) at step k.
+order, so the fold needs its own kernel even on one card
+(csrc/ring_fold.cu). The plain versions below keep the same order: they
+step through member ranks, adding the k-th member of every (block, group)
+at step k.
 
-The ring entry points of the JAX module (ring_fold_blocks, RingFoldCtx)
-run across cards and are not part of this slice.
+The ring entry points (`ring_fold_blocks`, `ring_pext`,
+`ring_psum_onehot`, `RingFoldCtx`) run over per-shard lists through
+parallel/kernels/base.sequential_ring; every combine of a hop is one of
+this module's kernels (`fold_cont`, `extreme`, `onehot_add`).
 """
 
 from __future__ import annotations
@@ -27,7 +32,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from greptimedb_tpu_torch.parallel.dist import left_fold_sum
+from greptimedb_tpu_torch.parallel.dist import ShardFoldCtx, left_fold_sum
+from greptimedb_tpu_torch.parallel.kernels.base import (
+    ring_comm_bytes,
+    sequential_ring,
+)
 
 
 @dataclass
@@ -83,6 +92,10 @@ def fold_members(gid: np.ndarray, g: int, fb: int, device) -> FoldMembers:
     )
 
 
+# ----------------------------------------------------------------------
+# plain versions (the CPU path, and the card's reference)
+# ----------------------------------------------------------------------
+
 def block_partials_plain(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """(fb, g, nb) block partials in the kernel's order: every partial
     starts at 0 and its k-th member (ascending sid) is added at step k.
@@ -98,19 +111,78 @@ def block_partials_plain(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     return parts.reshape(fm.fb, fm.g, nb)
 
 
+def fold_from(acc: torch.Tensor, parts: torch.Tensor) -> torch.Tensor:
+    """acc + parts[0] + ... + parts[-1], left to right: the body of the
+    Pallas _fold_cont_kernel."""
+    for i in range(parts.shape[0]):
+        acc = acc + parts[i]
+    return acc
+
+
 def blocked_fold_sum_plain(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """Plain PyTorch version of K2."""
     return left_fold_sum(block_partials_plain(arr, fm))
 
 
-_KERNEL_SYMBOL = {torch.float32: "gtt_blocked_fold_sum_f32",
-                  torch.int32: "gtt_blocked_fold_sum_i32"}
+def fold_cont_plain(acc: torch.Tensor, arr: torch.Tensor,
+                    fm: FoldMembers) -> torch.Tensor:
+    """Plain PyTorch version of K2's continuation."""
+    return fold_from(acc, block_partials_plain(arr, fm))
 
 
-def _check(arr: torch.Tensor, fm: FoldMembers) -> None:
-    if arr.dtype not in _KERNEL_SYMBOL:
-        raise TypeError(f"blocked_fold_sum takes float32 or int32, not "
-                        f"{arr.dtype}")
+def extreme_plain(acc: torch.Tensor, x: torch.Tensor,
+                  take_max: bool) -> torch.Tensor:
+    """jnp.maximum(acc, x) / jnp.minimum(acc, x) with XLA:CPU's bits.
+
+    Integers: the plain extreme. Floats: NaN propagates and -0.0 orders
+    below +0.0, as in jnp; which operand's bits come out follows LLVM's x86
+    lowering of llvm.maximum/minimum, which XLA:CPU emits — order the pair
+    by the sign bit of acc, compare, and a NaN first operand wins. Every
+    step is a selection, so NaN payloads pass through unchanged."""
+    if not acc.dtype.is_floating_point:
+        return torch.maximum(acc, x) if take_max else torch.minimum(acc, x)
+    neg = torch.signbit(acc)
+    if take_max:
+        p, q = torch.where(neg, acc, x), torch.where(neg, x, acc)
+        take_p = p > q
+    else:
+        p, q = torch.where(neg, x, acc), torch.where(neg, acc, x)
+        take_p = p < q
+    return torch.where(torch.isnan(p) | take_p, p, q)
+
+
+def onehot_add_plain(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the one-hot add."""
+    return acc + x
+
+
+# ----------------------------------------------------------------------
+# kernel wrappers: launch on a CUDA tensor, plain version on a CPU one
+# ----------------------------------------------------------------------
+
+_FOLD_TYPES = {torch.float32: "f32", torch.int32: "i32"}
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _launch(symbol: str, argtypes: list, args: tuple, device,
+            what: str) -> None:
+    from greptimedb_tpu_torch.parallel.kernels import build
+
+    lib = build.load("ring_fold")
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes + [_PTR]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    build.check_launch(lib, rc, what)
+
+
+def _check_fold(what: str, arr: torch.Tensor, fm: FoldMembers) -> None:
+    if arr.dtype not in _FOLD_TYPES:
+        raise TypeError(f"{what} takes float32 or int32, not {arr.dtype}")
     if arr.dim() != 2 or arr.shape[0] != fm.s:
         raise ValueError(f"arr shape {tuple(arr.shape)} does not match "
                          f"{fm.s} series")
@@ -121,30 +193,171 @@ def _check(arr: torch.Tensor, fm: FoldMembers) -> None:
         raise ValueError("arr must be contiguous")
 
 
+def _check_pair(what: str, acc: torch.Tensor, x: torch.Tensor,
+                dtypes) -> None:
+    if acc.dtype not in dtypes or x.dtype != acc.dtype:
+        raise TypeError(f"{what} takes two tensors of one of {dtypes}, not "
+                        f"{acc.dtype} and {x.dtype}")
+    if acc.shape != x.shape:
+        raise ValueError(f"{what}: shapes {tuple(acc.shape)} and "
+                         f"{tuple(x.shape)} differ")
+    if acc.device != x.device:
+        raise ValueError(f"{what}: tensors on {acc.device} and {x.device}")
+    if not (acc.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _fold_launch(kind: str, arr, fm, out, acc=None) -> None:
+    sym = f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}"
+    ptrs = [arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr()]
+    if acc is not None:
+        ptrs.append(acc.data_ptr())
+    _launch(sym, [_PTR] * (len(ptrs) + 1) + [_INT] * 3,
+            (*ptrs, out.data_ptr(), fm.g, fm.fb, arr.shape[1]),
+            arr.device, kind)
+
+
 def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """(S, nb) float32/int32 per-series states -> (g, nb) per-group sums,
-    segment-summed per series block and left-folded over the blocks."""
-    _check(arr, fm)
+    segment-summed per series block and left-folded over the blocks from
+    block 0 (K2; the ring's seed on shard 0)."""
+    _check_fold("blocked_fold_sum", arr, fm)
     if arr.device.type == "cpu":
         return blocked_fold_sum_plain(arr, fm)
-    from greptimedb_tpu_torch.parallel.kernels import build
-
-    nb = arr.shape[1]
-    out = torch.empty((fm.g, nb), dtype=arr.dtype, device=arr.device)
-    if fm.g == 0 or nb == 0:
+    out = torch.empty((fm.g, arr.shape[1]), dtype=arr.dtype,
+                      device=arr.device)
+    if out.numel() == 0:
         return out
-    lib = build.load("ring_fold")
-    fn = getattr(lib, _KERNEL_SYMBOL[arr.dtype])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(arr.device):
-        stream = torch.cuda.current_stream(arr.device).cuda_stream
-        rc = fn(arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr(),
-                out.data_ptr(), fm.g, fm.fb, nb, stream)
-    build.check_launch(lib, rc, "blocked_fold_sum")
+    _fold_launch("blocked_fold_sum", arr, fm, out)
     blocked_fold_sum.launches += 1
     return out
 
 
-blocked_fold_sum.launches = 0
+def fold_cont(acc: torch.Tensor, arr: torch.Tensor,
+              fm: FoldMembers) -> torch.Tensor:
+    """acc (g, nb) + this shard's block partials of arr, in block order
+    (K2's continuation: every ring shard after the first)."""
+    _check_fold("fold_cont", arr, fm)
+    if acc.dtype != arr.dtype:
+        raise TypeError(f"fold_cont: acc is {acc.dtype}, arr {arr.dtype}")
+    if (tuple(acc.shape) != (fm.g, arr.shape[1])
+            or acc.device != arr.device or not acc.is_contiguous()):
+        raise ValueError(f"fold_cont: acc {tuple(acc.shape)} on "
+                         f"{acc.device} is not a contiguous ({fm.g}, "
+                         f"{arr.shape[1]}) tensor beside arr")
+    if arr.device.type == "cpu":
+        return fold_cont_plain(acc, arr, fm)
+    out = torch.empty_like(acc)
+    if out.numel() == 0:
+        return out
+    _fold_launch("fold_cont", arr, fm, out, acc=acc)
+    fold_cont.launches += 1
+    return out
+
+
+def block_partials(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
+    """(S, nb) per-series states -> the (fb, g, nb) unfolded block
+    partials (K2's partials form; the gather twin folds them)."""
+    _check_fold("block_partials", arr, fm)
+    if arr.device.type == "cpu":
+        return block_partials_plain(arr, fm)
+    out = torch.empty((fm.fb, fm.g, arr.shape[1]), dtype=arr.dtype,
+                      device=arr.device)
+    if out.numel() == 0:
+        return out
+    _fold_launch("block_partials", arr, fm, out)
+    block_partials.launches += 1
+    return out
+
+
+def extreme(acc: torch.Tensor, x: torch.Tensor,
+            take_max: bool) -> torch.Tensor:
+    """Elementwise max/min of two float32 or int32 tensors with
+    jnp.maximum/minimum's bits (see extreme_plain)."""
+    _check_pair("extreme", acc, x, _FOLD_TYPES)
+    if acc.device.type == "cpu":
+        return extreme_plain(acc, x, take_max)
+    out = torch.empty_like(acc)
+    if out.numel() == 0:
+        return out
+    _launch(f"gtt_extreme_{_FOLD_TYPES[acc.dtype]}",
+            [_PTR, _PTR, _PTR, _LL, _INT],
+            (acc.data_ptr(), x.data_ptr(), out.data_ptr(), acc.numel(),
+             int(take_max)), acc.device, "extreme")
+    extreme.launches += 1
+    return out
+
+
+def onehot_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """acc + x over float32 tensors (the one-hot sum's hop)."""
+    _check_pair("onehot_add", acc, x, (torch.float32,))
+    if acc.device.type == "cpu":
+        return onehot_add_plain(acc, x)
+    out = torch.empty_like(acc)
+    if out.numel() == 0:
+        return out
+    _launch("gtt_onehot_add_f32", [_PTR, _PTR, _PTR, _LL],
+            (acc.data_ptr(), x.data_ptr(), out.data_ptr(), acc.numel()),
+            acc.device, "onehot_add")
+    onehot_add.launches += 1
+    return out
+
+
+for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
+            onehot_add):
+    _fn.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the ring over per-shard lists
+# ----------------------------------------------------------------------
+
+def ring_fold_blocks(arrs: list, fms: list) -> list:
+    """Per-group sums of every shard's (s_local, nb) states through the
+    ring: shard 0 seeds with K2 over its fb_local blocks, and each later
+    shard folds its blocks onto the accumulator that arrived (fold_cont).
+    Bit-identical to dist.left_fold_sum(dist.gather_blocks(partials)).
+    (The ring reads only the seed and the devices of the later shards'
+    entries of its `local` list.)"""
+    return sequential_ring(
+        [blocked_fold_sum(arrs[0], fms[0])] + list(arrs[1:]),
+        lambda s, acc: fold_cont(acc, arrs[s], fms[s]),
+    )
+
+
+def ring_pext(xs: list, take_max: bool) -> list:
+    """Cross-shard elementwise extreme around the ring. With the JAX
+    package's bits the sequential order matches pmin/pmax (min/max are
+    exactly associative)."""
+    return sequential_ring(
+        xs, lambda s, acc: extreme(acc, xs[s], take_max))
+
+
+def ring_psum_onehot(xs: list) -> list:
+    """Cross-shard sum around the ring for MASKED ONE-NONZERO payloads
+    (the staged first/last winner extraction: per element exactly one
+    shard contributes the winner value, every other shard +0.0). x + 0.0
+    is exact for every x except -0.0 -> +0.0, as in psum. NOT exact for
+    general summands; those go through ring_fold_blocks."""
+    return sequential_ring(xs, lambda s, acc: onehot_add(acc, xs[s]))
+
+
+def fold_comm_bytes(ns: int, g: int, nb: int, passes: int = 1) -> int:
+    """Declared inter-card traffic of `passes` ring passes over a (g, nb)
+    f32 accumulator."""
+    return ring_comm_bytes(ns, 4 * int(g) * int(nb)) * max(int(passes), 1)
+
+
+class RingFoldCtx(ShardFoldCtx):
+    """Kernel-path twin of dist.ShardFoldCtx: the same hooks, with the
+    ring kernels behind them. Each hook is bit-identical to its gather
+    counterpart for the payloads the range fold produces."""
+
+    def fold_sum(self, arrs: list, fms: list) -> list:
+        return ring_fold_blocks(arrs, fms)
+
+    def pext(self, xs: list, take_max: bool) -> list:
+        return ring_pext(xs, take_max)
+
+    def psum(self, xs: list) -> list:
+        return ring_psum_onehot(xs)

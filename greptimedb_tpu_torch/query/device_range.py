@@ -1,4 +1,4 @@
-"""Device-resident RANGE execution on one card.
+"""Device-resident RANGE execution, on one device or series-sharded.
 
 RANGE queries (`agg(x) RANGE 'r' ... ALIGN 'a' BY (tags)`) run over
 device-resident (series x time-cell) partial-state grids:
@@ -15,13 +15,20 @@ device-resident (series x time-cell) partial-state grids:
   data_version holds;
 - the query program (_range_body) is plain torch on the card except the
   grouped sum fold, which runs K2 (parallel/kernels/ring_fold) because its
-  fixed order of float additions is the bit-identity contract.
+  fixed order of float additions is the bit-identity contract;
+- with a mesh, the replicate-vs-shard planner decides placement at build
+  time: a sharded entry holds one slice of the series axis per shard
+  device (every grid is a list of per-shard tensors; an unsharded entry
+  is a list of one). Each shard masks and segment-folds its own rows, the
+  fold ctx (parallel/dist, parallel/kernels/ring_fold) is the only place
+  shards meet, and results are bit-identical to the one-device engine.
 
 States are float32/int32 as in the JAX package's device path; indices are
 int64 only where torch indexing requires it. Shapes the port does not run
 yet (tag matchers, residual filters, expression arguments, unaligned time
-bounds, oversized grids) raise UnsupportedError naming the shape: there is
-no host path to fall back to in this slice.
+bounds, oversized grids, a sharded fold past the blocked-fold cap) raise
+UnsupportedError naming the shape: there is no host path to fall back to
+in this slice.
 """
 
 from __future__ import annotations
@@ -34,11 +41,11 @@ import numpy as np
 import torch
 
 from greptimedb_tpu_torch.errors import UnsupportedError
-from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx
+from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
-from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS
+from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
 from greptimedb_tpu_torch.query import readback
-from greptimedb_tpu_torch.query.planner import Column
+from greptimedb_tpu_torch.query.planner import Column, decide_mesh_execution
 
 _CELL_CAP = 256 * 1024 * 1024    # max S*NB cells per cached array (1GB f32)
 _MAX_ENTRIES = 8                 # LRU entry-count cap across all tables
@@ -49,6 +56,8 @@ _FOLD_CAP = 256_000_000          # max cells of a (blocks, g, nb) partial
 _I32_MAX = 2**31 - 1
 _I32_MIN = -(2**31)
 
+# every one of these folds exactly across shards (blocked partials plus
+# ordered extreme/one-hot combines), which the mesh planner relies on
 _DEVICE_RANGE_OPS = {
     "count", "sum", "mean", "min", "max",
     "var_pop", "var_samp", "stddev_pop", "stddev_samp",
@@ -94,8 +103,12 @@ class _Entry:
     num_series: int
     registry: object             # SeriesRegistry of the building scan
     rows_scanned: int
-    device: torch.device = torch.device("cpu")
-    # field name -> state key -> device (S, NB) tensor
+    # one device per shard (one entry: unsharded); every grid below is a
+    # list of per-shard (S / shards, NB) tensors in shard order
+    devices: list = dc_field(default_factory=lambda: [torch.device("cpu")])
+    mesh: object = None          # the Mesh a sharded entry spans
+    mesh_decision: object = None  # planner.MeshDecision (with a mesh)
+    # field name -> state key -> per-shard (S, NB) grids
     fields: dict = dc_field(default_factory=dict)
     # field name -> True when data and f32 partials are all finite, so
     # presence can ride inside the value plane as NaN
@@ -262,25 +275,39 @@ def _pick_res(plan, ts: np.ndarray, num_series: int) -> int | None:
     return r0
 
 
-def _series_pad(s: int) -> int:
-    """Pad the series axis to the fold-block multiple: block boundaries
-    are part of the numeric contract (the blocked group fold combines
-    per-block f32 partials in one fixed order)."""
-    return -(-s // FOLD_BLOCKS) * FOLD_BLOCKS
+def _series_pad(s: int, mesh=None) -> int:
+    """Pad the series axis to the fold-block multiple (and the shard
+    count): block boundaries are part of the numeric contract — the
+    blocked group fold combines per-block f32 partials in one fixed order,
+    so sharded and one-device entries of the same table get identical
+    block contents and bit-identical results."""
+    n = shard_count(mesh)
+    mult = FOLD_BLOCKS * n // math.gcd(FOLD_BLOCKS, n)
+    return -(-s // mult) * mult
 
 
-def _put(device):
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def _put(devices):
+    """Host -> device placement: the series axis (dim 0) cut into one
+    equal slice per shard device, in shard order."""
+    ns = len(devices)
+
+    def put(a: np.ndarray) -> list:
+        a = np.ascontiguousarray(a)
+        per = a.shape[0] // ns
+        return [torch.from_numpy(np.ascontiguousarray(a[k * per:(k + 1) * per]))
+                .to(d) for k, d in enumerate(devices)]
     return put
 
 
-def build_entry(plan, table, items, *, device,
+def build_entry(plan, table, items, *, device, mesh=None, mesh_opts=None,
                 byte_budget: int = _BYTE_BUDGET,
                 keep_host: bool = False) -> _Entry:
     """Scan the table once and build the device cell-state grids.
-    keep_host=True also keeps the host-side grid arrays on
-    entry.host_snap."""
+
+    With a mesh, the replicate-vs-shard planner decides placement from the
+    series count: large grids are cut along the series axis over the
+    mesh's devices, small ones stay on `device`. keep_host=True also keeps
+    the host-side grid arrays on entry.host_snap."""
     needed: dict[str, set] = {}
     for fname, op in items:
         if fname != "__rows__":
@@ -302,7 +329,12 @@ def build_entry(plan, table, items, *, device,
     else:
         reorder = None
     S = max(data.registry.num_series, int(sid.max()) + 1 if len(sid) else 1)
-    S = _series_pad(S)
+    decision = None
+    if mesh is not None:
+        decision = decide_mesh_execution(mesh, series=S, opts=mesh_opts)
+        if not decision.shard:
+            mesh = None
+    S = _series_pad(S, mesh)
     res = _pick_res(plan, ts, S)
     if res is None or res >= _I32_MAX:
         raise UnsupportedError("grid resolution past the cell cap")
@@ -323,14 +355,15 @@ def build_entry(plan, table, items, *, device,
     # exact intra-cell ms offset (0 <= intra < res < 2^31)
     intra = (ts - t0c - cell * res).astype(np.int64)
 
-    dev = torch.device(device)
     entry = _Entry(
         version=version, res=res, phase=phase, t0c=t0c, nb=nb,
         num_series=S, registry=data.registry, rows_scanned=len(rows),
-        device=dev,
+        devices=(list(mesh.devices) if mesh is not None
+                 else [torch.device(device)]),
+        mesh=mesh, mesh_decision=decision,
     )
     snap = {} if keep_host else None
-    put = _put(dev)
+    put = _put(entry.devices)
     shape = (S, nb)
     nrow = np.bincount(seg, minlength=nseg).reshape(shape).astype(np.int32)
     if snap is not None:
@@ -467,12 +500,12 @@ def entry_from_host_arrays(snap: dict, meta: dict, *, registry, device,
     phase, t0c, nb, num_series and optionally nan_ok ({field: bool}).
     Both range programs can then run on bit-identical grids."""
     dev = torch.device(device)
-    put = _put(dev)
+    put = _put([dev])
     entry = _Entry(
         version=version, res=int(meta["res"]), phase=int(meta["phase"]),
         t0c=int(meta["t0c"]), nb=int(meta["nb"]),
         num_series=int(meta["num_series"]), registry=registry,
-        rows_scanned=int(meta.get("rows_scanned", 0)), device=dev,
+        rows_scanned=int(meta.get("rows_scanned", 0)), devices=[dev],
     )
     entry.nrow = put(snap["nrow"])
     entry.imin = put(snap["imin"])
@@ -539,7 +572,7 @@ def _ensure_states_locked(entry, table, items, cache) -> bool:
         return False
     intra = (ts - entry.t0c - cell * entry.res).astype(np.int64)
     shape = (entry.num_series, entry.nb)
-    put = _put(entry.device)
+    put = _put(entry.devices)
     for fname, keys in missing.items():
         vals = rows.fields[fname]
         valid = (rows.field_valid or {}).get(fname)
@@ -572,31 +605,42 @@ def _clamp_i32(v: int) -> int:
 
 def run_prelude(entry: _Entry, sid_mask: np.ndarray | None, lo: int, hi: int):
     """Exact (active sids, filtered ts_min, ts_max) from cell states.
-    Memoized per (mask signature, bounds) on the entry."""
+    Memoized per (mask signature, bounds) on the entry. A sharded entry
+    reduces its per-shard partials explicitly, on the first shard's
+    device; any/min/max are exact in any order."""
     key = (sid_mask.tobytes() if sid_mask is not None else None, lo, hi)
     hit = entry.prelude.get(key)
     if hit is not None:
         return hit
     if len(entry.prelude) >= 32:
         entry.prelude.pop(next(iter(entry.prelude)))
-    dev = entry.device
-    mask = (torch.from_numpy(sid_mask).to(dev) if sid_mask is not None
-            else torch.ones(entry.num_series, dtype=torch.bool, device=dev))
-    nb = entry.nrow.shape[1]
-    cells = torch.arange(nb, dtype=torch.int32, device=dev)
-    cmask = (cells >= _clamp_i32(lo)) & (cells < _clamp_i32(hi))
-    act = (entry.nrow > 0) & cmask[None, :] & mask[:, None]
-    sid_active = act.any(dim=1)
-    colact = act.any(dim=0)
+    masks = (_put(entry.devices)(sid_mask) if sid_mask is not None
+             else [None] * len(entry.devices))
+    nb = entry.nb
+    dev0 = entry.devices[0]
+    acts, cells = [], []
+    for nrow, mask in zip(entry.nrow, masks):
+        c = torch.arange(nb, dtype=torch.int32, device=nrow.device)
+        act = (nrow > 0) & ((c >= _clamp_i32(lo)) & (c < _clamp_i32(hi)))[
+            None, :]
+        acts.append(act if mask is None else act & mask[:, None])
+        cells.append(c)
+    colact = acts[0].any(dim=0)
+    for a in acts[1:]:
+        colact = colact | a.any(dim=0).to(dev0)
     # global min ts lives in the first active cell (cells are
     # time-ordered), global max in the last: two exact int32 stages
-    c_lo = torch.where(colact, cells, _I32_MAX).min()
-    c_hi = torch.where(colact, cells, -1).max()
-    i_lo = torch.where(act & (cells[None, :] == c_lo), entry.imin,
-                       _I32_MAX).min()
-    i_hi = torch.where(act & (cells[None, :] == c_hi), entry.imax,
-                       -1).max()
-    act_h = readback.read_full(sid_active)
+    c_lo = torch.where(colact, cells[0], _I32_MAX).min()
+    c_hi = torch.where(colact, cells[0], -1).max()
+    i_lo = i_hi = None
+    for act, c, imin, imax in zip(acts, cells, entry.imin, entry.imax):
+        lo_k = torch.where(act & (c[None, :] == c_lo.to(c.device)), imin,
+                           _I32_MAX).min().to(dev0)
+        hi_k = torch.where(act & (c[None, :] == c_hi.to(c.device)), imax,
+                           -1).max().to(dev0)
+        i_lo = lo_k if i_lo is None else torch.minimum(i_lo, lo_k)
+        i_hi = hi_k if i_hi is None else torch.maximum(i_hi, hi_k)
+    act_h = readback.read_gathered([a.any(dim=1) for a in acts])
     c_lo, i_lo, c_hi, i_hi = (int(v) for v in readback.read_full(
         torch.stack([c_lo, i_lo, c_hi, i_hi])))
     if not act_h.any():
@@ -774,57 +818,63 @@ def _segment_sum_onehot(x: torch.Tensor, gid: torch.Tensor, g: int):
     return out[:g]
 
 
-def _fold_groups(op, state, q, g, ctx):
+def _fold_groups(op, states, q, g, ctx):
     """Fold per-series cell states into per-group states.
 
-    n/s/s2 fold through K2 (FOLD_BLOCKS series blocks combined in one
-    fixed left-fold order, bit-identical to the JAX package); min/max are
-    exactly associative; first/last winners resolve by exact (ts, sid)
-    staged selection and a masked one-nonzero sum."""
+    `states` holds one dict per shard (its slice of the series axis, in
+    shard order); the folded dict comes back on the first shard's device.
+    n/s/s2 fold through the ctx's blocked sum (FOLD_BLOCKS series blocks
+    combined in one fixed left-fold order, bit-identical to the JAX
+    package at every shard count); min/max are exactly associative;
+    first/last winners resolve by exact (ts, sid) staged selection and a
+    masked one-nonzero sum."""
     out = {}
-    gid = q["gid"]
-    fm = q["fold_members"]
-    s_local = state["n"].shape[0]
-    out["n"] = ring_fold.blocked_fold_sum(state["n"], fm)
-    if "s" in state:
-        out["s"] = ring_fold.blocked_fold_sum(state["s"], fm)
-    if "s2" in state:
-        out["s2"] = ring_fold.blocked_fold_sum(state["s2"], fm)
-    if "m" in state:
-        out["m"] = ctx.pext(_segment_ext(state["m"], gid, g,
-                                         take_max=op != "min"),
-                            take_max=op != "min")
+    gids = q["gid"]
+    fms = q["fold_members"]
+    s_local = states[0]["n"].shape[0]
+    for key in ("n", "s", "s2"):
+        if key in states[0]:
+            out[key] = ctx.fold_sum([st[key] for st in states], fms)[0]
+    if "m" in states[0]:
+        tm = op != "min"
+        out["m"] = ctx.pext([_segment_ext(st["m"], gid, g, take_max=tm)
+                             for st, gid in zip(states, gids)],
+                            take_max=tm)[0]
     # gathers by gid clamp inactive sids (gid == g) to g - 1, as JAX's
     # out-of-bounds gather does; those sids have n == 0, so they never tie
-    gidc = gid.clamp(max=g - 1).to(torch.int64)
+    gidcs = [gid.clamp(max=g - 1).to(torch.int64) for gid in gids]
+    # global sids: shard k holds sids [k * s_local, (k + 1) * s_local)
+    sids = [(k * s_local + torch.arange(s_local, dtype=torch.int32,
+                                        device=gid.device))[:, None]
+            for k, gid in enumerate(gids)]
+    has = [st["n"] > 0 for st in states]
 
     # first/last across sids within one cell: winner = (ts, sid)
     # lexicographic (max ts then max sid for last; min ts then min sid
     # for first). The winner is unique, so its value comes out of a
     # masked sum — exact for any float value incl. ±inf/NaN.
-    def fold_extreme(v_arr, t_arr, pick_max):
-        has = state["n"] > 0
-        sid = (ctx.sid_base(s_local)
-               + torch.arange(s_local, dtype=torch.int32,
-                              device=v_arr.device))[:, None]
+    def fold_extreme(vkey, tkey, pick_max):
         t_id = -1 if pick_max else _I32_MAX
-        t = torch.where(has, t_arr, t_id)
-        win_t = ctx.pext(_segment_ext(t, gid, g, pick_max),
+        ts = [torch.where(h, st[tkey], t_id) for h, st in zip(has, states)]
+        win_t = ctx.pext([_segment_ext(t, gid, g, pick_max)
+                          for t, gid in zip(ts, gids)], take_max=pick_max)
+        ties = [h & (t == w[gc])
+                for h, t, w, gc in zip(has, ts, win_t, gidcs)]
+        sid_w = ctx.pext([_segment_ext(torch.where(tie, sid, t_id), gid, g,
+                                       pick_max)
+                          for tie, sid, gid in zip(ties, sids, gids)],
                          take_max=pick_max)
-        tie = has & (t == win_t[gidc])
-        sid_w = ctx.pext(
-            _segment_ext(torch.where(tie, sid, t_id), gid, g, pick_max),
-            take_max=pick_max,
-        )
-        win = tie & (sid == sid_w[gidc])
-        v = ctx.psum(_segment_sum_onehot(torch.where(win, v_arr, 0.0),
-                                         gid, g))
-        return v, torch.clamp(win_t, 0, _I32_MAX - 1)
+        v = ctx.psum([
+            _segment_sum_onehot(
+                torch.where(tie & (sid == w[gc]), st[vkey], 0.0), gid, g)
+            for tie, sid, w, gc, st, gid in zip(ties, sids, sid_w, gidcs,
+                                                states, gids)])
+        return v[0], torch.clamp(win_t[0], 0, _I32_MAX - 1)
 
-    if "il" in state:
-        out["vl"], out["il"] = fold_extreme(state["vl"], state["il"], True)
-    if "if" in state:
-        out["vf"], out["if"] = fold_extreme(state["vf"], state["if"], False)
+    if "il" in states[0]:
+        out["vl"], out["il"] = fold_extreme("vl", "il", True)
+    if "if" in states[0]:
+        out["vf"], out["if"] = fold_extreme("vf", "if", False)
     return out
 
 
@@ -863,75 +913,98 @@ def _disjoint_reduce(op, state, n_steps, w):
     return out
 
 
+def _masked_state(op, raw: dict, live: torch.Tensor) -> dict:
+    """One shard's build-state grids masked to the query's live cells and
+    mapped to combine-state keys."""
+    state = {"n": torch.where(live, raw["n"], 0)}
+    for bk, ck in (("s", "s"), ("s2", "s2"), ("mn", "m"), ("mx", "m"),
+                   ("vl", "vl"), ("il", "il"), ("vf", "vf"), ("if", "if")):
+        if bk in raw and ck in _STATE_COMBINE.get(op, ()):
+            v = raw[bk]
+            if ck not in ("il", "if"):
+                v = v.to(torch.float32)
+            state[ck] = torch.where(live, v, _identity(bk, op))
+    return state
+
+
+def _window_finalize(op, state: dict, w: int, stride: int, n_steps: int,
+                     delta: int, nanenc: bool):
+    """The query's window over one (rows, nb) state: gather its cells,
+    combine every window of w cells, sample each step, finalize."""
+    nb = state["n"].shape[1]
+    dev = state["n"].device
+    # gather the query's cell window: nb_q cells starting at delta
+    # (delta and the clamped indices may be negative: they are python
+    # ints / int64, never floor-divided here)
+    nb_q = (n_steps - 1) * stride + w
+    idx = delta + torch.arange(nb_q, dtype=torch.int64, device=dev)
+    okc = (idx >= 0) & (idx < nb)
+    safe = torch.clamp(idx, 0, nb - 1)
+    state = {
+        k: torch.where(okc[None, :], v.index_select(1, safe),
+                       _identity(_ck_to_bk(k, op), op))
+        for k, v in state.items()
+    }
+    if op in ("first_value", "last_value"):
+        # cell keys for the lexicographic (cell, intra) ts compare;
+        # window position is monotone in absolute cell index
+        pres = state["n"] > 0
+        pos = torch.arange(nb_q, dtype=torch.int32, device=dev)[None, :]
+        state["cl"] = torch.where(pres, pos, -1)
+        state["cf"] = torch.where(pres, pos, _I32_MAX)
+    if w == stride and nb_q == n_steps * w:
+        # disjoint windows: reshape-reduce (the TSBS double-groupby shape
+        # — dense reductions, no stride doubling)
+        combined = _disjoint_reduce(op, state, n_steps, w)
+    else:
+        combined = _window_combine_j(op, state, w)
+        combined = {k: v[:, 0:(n_steps - 1) * stride + 1:stride]
+                    for k, v in combined.items()}
+    v, p = _finalize_j(op, combined)
+    if nanenc:
+        # presence rides inside the value plane as NaN (data is known
+        # all-finite): halves the result payload
+        v = torch.where(p, v, math.nan)
+    return v.to(torch.float32), p
+
+
 def _range_body(arrs, q, spec, ctx):
-    """One RANGE query over the cell-state grids. spec = (stride, n_steps,
-    g, fold, nanenc, items), items (op, w, field_key); q holds the
-    query's device inputs (gid, mask, fold members, delta, lo, hi)."""
+    """One RANGE query over the per-shard cell-state grids. spec =
+    (stride, n_steps, g, fold, nanenc, items), items (op, w, field_key);
+    q holds the query's per-shard device inputs (gid, mask, fold members)
+    and delta, lo, hi.
+
+    Every shard masks its own rows. fold=True folds the shards into one
+    group state (the ctx hooks are the only place shards meet) and runs
+    the window combine once; fold=False keeps one output per shard.
+    Returns the output tensors, one per part, in shard order."""
     stride, n_steps, g, fold, nanenc, items = spec
-    vals_out = []
-    pres_out = []
-    sid_mask = q["mask"]
-    delta = q["delta"]
-    nb = next(iter(next(iter(arrs.values())).values())).shape[1]
-    dev = sid_mask.device
-    cell_ids = torch.arange(nb, dtype=torch.int32, device=dev)
-    cmask = (cell_ids >= q["lo"]) & (cell_ids < q["hi"])
-    live = cmask[None, :] & sid_mask[:, None]
+    nb = next(iter(next(iter(arrs.values())).values()))[0].shape[1]
+    lives = []
+    for mask in q["mask"]:
+        c = torch.arange(nb, dtype=torch.int32, device=mask.device)
+        lives.append(((c >= q["lo"]) & (c < q["hi"]))[None, :]
+                     & mask[:, None])
+    n_parts = 1 if fold else len(lives)
+    vals_out = [[] for _ in range(n_parts)]
+    pres_out = [[] for _ in range(n_parts)]
     for op, w, fkey in items:
         raw = arrs[fkey]
-        # map build-state keys to combine-state keys
-        state = {"n": torch.where(live, raw["n"], 0)}
-        for bk, ck in (("s", "s"), ("s2", "s2"), ("mn", "m"), ("mx", "m"),
-                       ("vl", "vl"), ("il", "il"), ("vf", "vf"),
-                       ("if", "if")):
-            if bk in raw and ck in _STATE_COMBINE.get(op, ()):
-                v = raw[bk]
-                if ck not in ("il", "if"):
-                    v = v.to(torch.float32)
-                state[ck] = torch.where(live, v, _identity(bk, op))
+        states = [_masked_state(op, {bk: v[k] for bk, v in raw.items()},
+                                live) for k, live in enumerate(lives)]
         if fold:
-            state = _fold_groups(op, state, q, g, ctx)
-        # gather the query's cell window: nb_q cells starting at delta
-        # (delta and the clamped indices may be negative: they are
-        # python ints / int64, never floor-divided here)
-        nb_q = (n_steps - 1) * stride + w
-        idx = delta + torch.arange(nb_q, dtype=torch.int64, device=dev)
-        okc = (idx >= 0) & (idx < nb)
-        safe = torch.clamp(idx, 0, nb - 1)
-        state = {
-            k: torch.where(okc[None, :], v.index_select(1, safe),
-                           _identity(_ck_to_bk(k, op), op))
-            for k, v in state.items()
-        }
-        if op in ("first_value", "last_value"):
-            # cell keys for the lexicographic (cell, intra) ts compare;
-            # window position is monotone in absolute cell index
-            pres = state["n"] > 0
-            pos = torch.arange(nb_q, dtype=torch.int32, device=dev)[None, :]
-            state["cl"] = torch.where(pres, pos, -1)
-            state["cf"] = torch.where(pres, pos, _I32_MAX)
-        if w == stride and nb_q == n_steps * w:
-            # disjoint windows: reshape-reduce (the TSBS double-groupby
-            # shape — dense reductions, no stride doubling)
-            combined = _disjoint_reduce(op, state, n_steps, w)
-        else:
-            combined = _window_combine_j(op, state, w)
-            combined = {k: v[:, 0:(n_steps - 1) * stride + 1:stride]
-                        for k, v in combined.items()}
-        v, p = _finalize_j(op, combined)
-        if nanenc:
-            # presence rides inside the value plane as NaN (data is known
-            # all-finite): halves the result payload
-            v = torch.where(p, v, math.nan)
-        vals_out.append(v.to(torch.float32))
-        pres_out.append(p)
-    # ONE output tensor -> one device->host transfer per query
+            states = [_fold_groups(op, states, q, g, ctx)]
+        for part, state in enumerate(states):
+            v, p = _window_finalize(op, state, w, stride, n_steps,
+                                    q["delta"], nanenc)
+            vals_out[part].append(v)
+            pres_out[part].append(p)
+    # ONE output tensor per part -> one device->host transfer per query
     if nanenc:
-        return torch.stack(vals_out)
-    return torch.cat(
-        [torch.stack(vals_out), torch.stack(pres_out).to(torch.float32)],
-        dim=0,
-    )
+        return [torch.stack(v) for v in vals_out]
+    return [torch.cat([torch.stack(v), torch.stack(p).to(torch.float32)],
+                      dim=0)
+            for v, p in zip(vals_out, pres_out)]
 
 
 # ----------------------------------------------------------------------
@@ -998,6 +1071,7 @@ def execute_range_device(engine, plan, table):
         entry = None
     if entry is None:
         entry = build_entry(plan, table, items, device=engine.device,
+                            mesh=engine.mesh, mesh_opts=engine.mesh_opts,
                             byte_budget=cache.byte_budget)
         if entry is None:
             return engine._empty_result([nm for _, nm in plan.post_items])
@@ -1060,14 +1134,26 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         fold = not (g <= entry.num_series
                     and np.array_equal(gid_full[:g], np.arange(g))
                     and (gid_full[g:] == g).all())
-        dev = entry.device
+        ns = len(entry.devices)
+        fb = _fold_blocks(g, entry.nb, entry.num_series)
+        if fold and ns > 1 and fb == 1:
+            # the JAX package leaves this shape to XLA's auto-SPMD program
+            # and its combine order; the port has no such program
+            raise UnsupportedError(
+                f"sharded fold of {g} groups x {entry.nb} cells: "
+                f"{FOLD_BLOCKS} x {g} x {entry.nb} block partials are past "
+                f"the blocked-fold cap of {_FOLD_CAP} cells")
+        put = _put(entry.devices)
+        per = entry.num_series // ns
         memo = {
-            "gid": torch.from_numpy(gid_full).to(dev),
-            "mask": torch.from_numpy(np.ascontiguousarray(active)).to(dev),
+            "gid": put(gid_full),
+            "mask": put(active),
             "g": g, "key_cols": key_cols, "fold": fold,
-            "fold_members": (ring_fold.fold_members(
-                gid_full, g, _fold_blocks(g, entry.nb, entry.num_series),
-                dev) if fold else None),
+            # shard k folds global blocks [k * fb / ns, (k + 1) * fb / ns):
+            # its slice of gid cut into fb / ns blocks of the same width
+            "fold_members": ([ring_fold.fold_members(
+                gid_full[k * per:(k + 1) * per], g, fb // ns, dev)
+                for k, dev in enumerate(entry.devices)] if fold else None),
             "delta": int(delta), "lo": lo_c, "hi": hi_c,
         }
         if len(entry.query_memo) >= 32:
@@ -1096,10 +1182,32 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         entry.nan_ok.get(fname, fname == "__rows__") for fname, _ in items
     )
     spec = (stride, n_steps, g, memo["fold"], nanenc, prog_items)
-    out_dev = _range_body(arrs, memo, spec, LocalFoldCtx())
-    # fold=False leaves the series axis un-folded: rows [g:] are the
-    # padded/inactive tail; slice on the card before the readback
-    out = readback.read_full(out_dev if memo["fold"] else out_dev[:, :g])
+    ns = len(entry.devices)
+    comm_bytes = 0
+    if entry.mesh is None:
+        ctx, program = LocalFoldCtx(), "single"
+    elif entry.mesh_decision.kernel == "ring":
+        ctx, program = ring_fold.RingFoldCtx(ns), "sharded_ring"
+        if memo["fold"]:
+            for op_i, w_i, _ in prog_items:
+                planes = 1 + len(_STATE_COMBINE.get(op_i, ()))
+                comm_bytes += ring_fold.fold_comm_bytes(
+                    ns, g, (n_steps - 1) * stride + w_i, planes)
+    else:
+        ctx, program = ShardFoldCtx(ns), "sharded_gather"
+    engine.last_range = {
+        "program": program, "shards": ns, "comm_bytes": comm_bytes,
+        "decision": (entry.mesh_decision.label()
+                     if entry.mesh_decision is not None else None),
+        "kernel": (entry.mesh_decision.kernel_label()
+                   if entry.mesh is not None else None),
+    }
+    parts = _range_body(arrs, memo, spec, ctx)
+    # fold=False leaves the series axis un-folded and series-sharded: the
+    # shards' outputs concatenate in shard order, and rows [g:] are the
+    # padded/inactive tail, cut on the card before the one readback
+    out = readback.read_gathered(parts, dim=1,
+                                 stop=None if memo["fold"] else g)
     n_items = len(plan.range_items)
     vals = out[:n_items].astype(np.float64)
     if nanenc:

@@ -1,9 +1,10 @@
 """Query engine: RANGE plans over a table, executed on the card.
 
-`QueryEngine(device=...)` is the seam the JAX package's engine exposes as
-`QueryEngine(...).execute(plan, table)`. This slice executes RANGE plans
-through query/device_range; result assembly (fill, group order, output
-projection) is copied from the JAX package's executor. Plain and
+`QueryEngine(device=..., mesh=..., mesh_opts=...)` is the seam the JAX
+package's engine exposes as `QueryEngine(...).execute(plan, table)`. The
+port executes RANGE plans through query/device_range; result assembly
+(fill, group order, output projection) is copied from the JAX package's
+executor. Plain and
 aggregate plans, ORDER BY, HAVING and DISTINCT are later slices and raise
 UnsupportedError.
 """
@@ -99,12 +100,25 @@ def _apply_fill(vals, present, fill):
 
 
 class QueryEngine:
-    def __init__(self, device=None, prefer_device: bool = True,
+    """Executes RANGE plans against a table on `device` (default CUDA).
+
+    `mesh` (parallel/mesh.make_mesh) lets the planner shard large grids
+    over the series axis; `mesh_opts` (parallel/mesh.MeshOptions) holds
+    its thresholds and the ring-kernel knob."""
+
+    def __init__(self, device=None, mesh=None, mesh_opts=None,
+                 prefer_device: bool = True,
                  byte_budget: int = device_range._BYTE_BUDGET):
         self.device = resolve_device(device)
         if not prefer_device:
             raise UnsupportedError("the host RANGE path is not ported yet")
+        self.mesh = mesh
+        self.mesh_opts = mesh_opts
         self.range_cache = device_range.DeviceRangeCache(byte_budget)
+        # the last RANGE execution: program variant, shard count, mesh
+        # decision and declared ring bytes (the JAX package's EXPLAIN
+        # ANALYZE notes)
+        self.last_range = None
 
     def execute(self, plan, table) -> QueryResult:
         if plan.kind != "range":

@@ -1,5 +1,5 @@
-"""RANGE plan dataclasses: the fields of the JAX package's SelectPlan that
-device_range and result assembly read.
+"""RANGE plan dataclasses (the fields of the JAX package's SelectPlan that
+device_range and result assembly read) and the replicate-vs-shard planner.
 
 SQL text is not part of this slice: a plan is either built directly or
 copied with `plan_from_fields` from any object shaped like a JAX
@@ -70,6 +70,82 @@ class SelectPlan:
     ts_out_name: str | None = None
     grid_ts_min: int | None = None
     grid_ts_max: int | None = None
+
+
+# ----------------------------------------------------------------------
+# replicate-vs-shard planning (copied from the JAX package's planner)
+#
+# Small grids replicate (one device: launch and hop latency dominate);
+# large decomposable reductions shard the series axis across the mesh.
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshDecision:
+    mode: str            # "shard" | "replicate"
+    reason: str          # why (no mesh, mesh geometry, grid size)
+    devices: int = 1     # shard-axis devices the query will use
+    # program variant of a sharded execution: "ring" when the ring
+    # kernels carry the cross-shard combine (parallel/kernels/ring_fold.
+    # RingFoldCtx), "gather" for the gather-and-left-fold twin
+    # (parallel/dist.ShardFoldCtx)
+    kernel: str = "gather"
+    kernel_reason: str = ""
+
+    @property
+    def shard(self) -> bool:
+        return self.mode == "shard"
+
+    def label(self) -> str:
+        return f"{self.mode}({self.reason})"
+
+    def kernel_label(self) -> str:
+        return f"{self.kernel}({self.kernel_reason})"
+
+
+def decide_mesh_execution(mesh, *, series: int,
+                          opts=None) -> MeshDecision:
+    """Choose replicate vs shard for one RANGE grid of `series` rows (the
+    JAX package's kind="range" gate). Every op the port lowers to a grid
+    folds exactly across shards (device_range._DEVICE_RANGE_OPS), so the
+    JAX gate's non-decomposable-op branch has no counterpart here."""
+    from greptimedb_tpu_torch.parallel.mesh import (
+        FOLD_BLOCKS, MeshOptions, shard_count,
+    )
+
+    n_dev = shard_count(mesh)
+    if mesh is None or n_dev <= 1:
+        return MeshDecision("replicate", "no_mesh")
+    opts = opts or MeshOptions()
+    if FOLD_BLOCKS % n_dev != 0:
+        # blocked exact folds need the shard count to divide the fixed
+        # block count; other geometries run replicated (still correct)
+        return MeshDecision("replicate", "mesh_indivisible", devices=n_dev)
+    if series < max(opts.shard_min_series, 1):
+        return MeshDecision("replicate", "small_grid", devices=n_dev)
+    kernel, kreason = decide_kernel(series=series, opts=opts,
+                                    device=mesh.devices[0])
+    return MeshDecision("shard", "large_grid", devices=n_dev,
+                        kernel=kernel, kernel_reason=kreason)
+
+
+def decide_kernel(*, series: int, opts=None,
+                  device=None) -> tuple[str, str]:
+    """Choose the program variant of one sharded RANGE grid: "ring" runs
+    the ring kernels, "gather" the gather-and-left-fold twin. "auto" means
+    kernels for CUDA tensors (device.kernels_enabled), where the JAX
+    package's means the native TPU backend."""
+    from greptimedb_tpu_torch.device import kernel_mode, kernels_enabled
+    from greptimedb_tpu_torch.parallel.mesh import MeshOptions
+
+    opts = opts or MeshOptions()
+    mode = kernel_mode(opts.pallas_kernels)
+    if mode == "off":
+        return "gather", "kernels_off"
+    if not kernels_enabled(mode, "cpu" if device is None else device):
+        return "gather", "no_cuda"
+    if series < max(opts.pallas_min_series, 1):
+        return "gather", "small_grid"
+    return "ring", "ring_fold"
 
 
 def convert_expr(e):

@@ -13,6 +13,7 @@ import torch
 from greptimedb_tpu_torch.catalog.table import Table
 from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
 from greptimedb_tpu_torch.query.executor import QueryEngine
 from greptimedb_tpu_torch.query.planner import (
     Column, KeySpec, RangeItemSpec, SelectPlan,
@@ -74,6 +75,90 @@ def test_blocked_fold_sum_kernel_matches_plain(cuda, s, g, dtype):
                        got.view(torch.int32))
 
 
+def _bits32(t):
+    return t.cpu().view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_fold_cont_and_block_partials_kernels_match_plain(cuda, dtype):
+    rng = np.random.default_rng(11)
+    s, nb, g, fb = 2048, 2160, 9, 2
+    if dtype == torch.float32:
+        arr = (rng.standard_normal((s, nb))
+               * 10.0 ** rng.integers(-3, 4, (s, nb))).astype(np.float32)
+        arr[rng.random((s, nb)) < 0.05] = -0.0
+        acc = rng.standard_normal((g, nb)).astype(np.float32)
+        acc[:, :64] = -0.0
+    else:
+        arr = rng.integers(0, 5, (s, nb)).astype(np.int32)
+        acc = rng.integers(0, 1000, (g, nb)).astype(np.int32)
+    gid = rng.integers(0, g + 1, s).astype(np.int32)
+    fm = rf.fold_members(gid, g, fb, cuda)
+    x = torch.from_numpy(arr).to(cuda)
+    a = torch.from_numpy(acc).to(cuda)
+    before = (rf.fold_cont.launches, rf.block_partials.launches)
+    cont = rf.fold_cont(a, x, fm)
+    parts = rf.block_partials(x, fm)
+    torch.cuda.synchronize()
+    assert (rf.fold_cont.launches, rf.block_partials.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(_bits32(cont), _bits32(rf.fold_cont_plain(a, x, fm)))
+    assert torch.equal(_bits32(parts),
+                       _bits32(rf.block_partials_plain(x, fm)))
+
+
+def _specials(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    r = rng.random(shape)
+    x[r < 0.1] = 0.0
+    x[(r >= 0.1) & (r < 0.2)] = -0.0
+    x[(r >= 0.2) & (r < 0.25)] = np.inf
+    x[(r >= 0.25) & (r < 0.3)] = -np.inf
+    nan = (r >= 0.3) & (r < 0.45)
+    bits = (rng.integers(0, 2**22, shape) | 0x7FC00000
+            | (rng.integers(0, 2, shape) << 31)).astype(np.uint32)
+    x[nan] = bits.view(np.float32)[nan]
+    return x
+
+
+@pytest.mark.parametrize("take_max", [False, True])
+def test_extreme_kernel_matches_plain_and_the_cpu(cuda, take_max):
+    """NaN payloads, ±0 and ±inf: the kernel's bits equal the plain
+    version's on the card and on the CPU (the JAX package's bits)."""
+    rng = np.random.default_rng(13 + take_max)
+    a, b = _specials(rng, (9, 2160)), _specials(rng, (9, 2160))
+    want = rf.extreme(torch.from_numpy(a), torch.from_numpy(b), take_max)
+    ac, bc = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    before = rf.extreme.launches
+    got = rf.extreme(ac, bc, take_max)
+    torch.cuda.synchronize()
+    assert rf.extreme.launches == before + 1
+    assert torch.equal(_bits32(got), want.view(torch.int32))
+    assert torch.equal(_bits32(rf.extreme_plain(ac, bc, take_max)),
+                       want.view(torch.int32))
+    ai = torch.from_numpy(rng.integers(-2**31, 2**31, (9, 2160),
+                                       dtype=np.int64).astype(np.int32))
+    bi = torch.from_numpy(rng.integers(-2**31, 2**31, (9, 2160),
+                                       dtype=np.int64).astype(np.int32))
+    got_i = rf.extreme(ai.to(cuda), bi.to(cuda), take_max)
+    assert torch.equal(got_i.cpu(), rf.extreme(ai, bi, take_max))
+
+
+def test_onehot_add_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(17)
+    a = rng.standard_normal((9, 2160)).astype(np.float32)
+    x = np.where(rng.random((9, 2160)) < 0.5, 0.0,
+                 rng.standard_normal((9, 2160))).astype(np.float32)
+    a[:, :8] = -0.0
+    ac, xc = torch.from_numpy(a).to(cuda), torch.from_numpy(x).to(cuda)
+    before = rf.onehot_add.launches
+    got = rf.onehot_add(ac, xc)
+    torch.cuda.synchronize()
+    assert rf.onehot_add.launches == before + 1
+    assert torch.equal(_bits32(got), _bits32(rf.onehot_add_plain(ac, xc)))
+    assert torch.equal(_bits32(got), _bits32(torch.from_numpy(a + x)))
+
+
 def _runs(rng, n=300_000, n_sid=500):
     f = rng.standard_normal(n)
     f[rng.random(n) < 0.01] = np.nan
@@ -126,3 +211,17 @@ def test_range_queries_on_cuda_match_cpu(cuda):
     for a, b in zip(got.cols, want.cols):
         assert np.array_equal(a.valid_mask, b.valid_mask)
         assert np.array_equal(a.values, b.values)
+    # four shards on the one card: ring kernels and the gather twin
+    low = {"shard_min_series": 1, "pallas_min_series": 1}
+    for kernels, program in (("auto", "sharded_ring"),
+                             ("off", "sharded_gather")):
+        eng = QueryEngine(device=cuda, mesh=make_mesh([cuda] * 4),
+                          mesh_opts=MeshOptions(pallas_kernels=kernels,
+                                                **low))
+        before = rf.extreme.launches
+        sharded = eng.execute(plan, t)
+        assert eng.last_range["program"] == program
+        assert (rf.extreme.launches > before) == (kernels == "auto")
+        for a, b in zip(sharded.cols, want.cols):
+            assert np.array_equal(a.valid_mask, b.valid_mask)
+            assert np.array_equal(a.values, b.values)

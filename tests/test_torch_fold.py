@@ -99,10 +99,11 @@ def test_port_fold_groups_matches_jax(op):
     # inactive sids carry no rows, as the range program guarantees
     st["n"][gid >= g] = 0
     want, keys = _jax_fold(op, st, gid, g)
-    q = {"gid": torch.from_numpy(gid),
-         "fold_members": trf.fold_members(gid, g,
-                                          tdr._fold_blocks(g, nb, s), "cpu")}
-    got = tdr._fold_groups(op, {k: torch.from_numpy(st[k]) for k in keys},
+    # one shard: the per-shard lists hold one entry each
+    q = {"gid": [torch.from_numpy(gid)],
+         "fold_members": [trf.fold_members(gid, g, tdr._fold_blocks(g, nb, s),
+                                           "cpu")]}
+    got = tdr._fold_groups(op, [{k: torch.from_numpy(st[k]) for k in keys}],
                            q, g, LocalFoldCtx())
     assert set(got) == set(want)
     for k in want:
