@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
+                          [--prom-series 1000000]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -49,6 +50,22 @@ result line):
              ring engine and never on the gather engine. Then each new
              kernel at the shapes the mesh path gave it is held against its
              plain version and timed, and one warm sharded Q2 is profiled.
+7. promql  — the PromQL fast path at the JAX package's PromQL benchmark
+             size: 1,000,000 series (host_i, dc = i % 32), 10 samples at
+             30 s, seed 11 (10 M rows), written through the port's Table.
+             Four queries (sum by (dc) (rate(...[1m])), topk(5, ...),
+             topk(100, ...), bottomk(100, ...), 8 steps) run through
+             PromEngine.query_range on one device, on the card named four
+             times with default options (shard(large_grid), the topk ring
+             with the merge kernel) and with kernels off (the gather twin):
+             cold, warm (median of 5) and one profiled warm call each. The
+             three engines must agree bit for bit; the one-device topk
+             results must equal the port on the CPU bit for bit, and the
+             aggregate the CPU run within the bound of two matrix-product
+             orders; the ring must launch the merge kernel three times per
+             warm topk query and the gather engine never. Then the merge
+             kernel at the path's shapes and on edge cases is held against
+             its plain version (bit for bit) and timed.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -709,6 +726,257 @@ def merge_kernel_rows(kernels, mesh_out):
     return kernels + rows
 
 
+PROM_T0 = 1_700_000_000_000
+PROM_QUERIES = ("sum by (dc) (rate(prom_bench[1m]))",
+                "topk(5, rate(prom_bench[1m]))",
+                "topk(100, rate(prom_bench[1m]))",
+                "bottomk(100, rate(prom_bench[1m]))")
+# bench.py's query span: start t0 + 60 s, end t0 + 270 s, step 30 s
+PROM_SPAN = (PROM_T0 + 60_000, PROM_T0 + 270_000, 30_000)
+
+
+def prom_ingest(table, n_series):
+    """bench.py's prom_bench data: n_series series (host_i, dc = i % 32),
+    10 samples at 30 s, each a fresh cumsum of seeded uniforms plus 50
+    per sample. Returns rows written."""
+    hosts = np.asarray([f"host_{i}" for i in range(n_series)], object)
+    dcs = np.asarray([f"dc{i % 32}" for i in range(n_series)], object)
+    rng = np.random.default_rng(11)
+    written = 0
+    for s in range(10):
+        ts = np.full(n_series, PROM_T0 + s * 30_000, np.int64)
+        written += table.write(
+            {"host": hosts, "dc": dcs}, ts,
+            {"greptime_value": np.cumsum(rng.random(n_series)) + s * 50.0})
+    return written
+
+
+def same_vector(a, b) -> bool:
+    """Two PromQL vectors: labels in order, presence, and the float32 bits
+    of every present value."""
+    if a.labels != b.labels or not np.array_equal(a.present, b.present):
+        return False
+    va = a.values[a.present].astype(np.float32).view(np.uint32)
+    vb = b.values[b.present].astype(np.float32).view(np.uint32)
+    return bool(np.array_equal(va, vb))
+
+
+def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
+    """The merge kernel at the ring's shapes (shards 0 and 1 of the warm
+    topk(100) query: J = 8, kk = kl = 100) and on edge cases, held against
+    its plain version bit for bit and timed."""
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+    from greptimedb_tpu_torch.promql import fast as TF
+    from greptimedb_tpu_torch.promql.engine import EvalParams
+
+    ev = EvalParams(*PROM_SPAN)
+    win = TF._plan_windows(ring_entry, ev, 60_000, 0)
+    smask, _ = TF._matcher_mask_dev(ring_entry, [])
+    s_loc = ring_entry.s_pad // ring_entry.shards
+    cands = []
+    for s in (0, 1):
+        out, pres = TF._eval_side(
+            ring_entry.vals[s], ring_entry.has[s], ring_entry.tsg[s],
+            smask[s], win.lo[s], win.hi[s], win.t_end[s], fname="rate",
+            range_ticks=win.range_ticks, l_cells=win.l_cells,
+            tps=ring_entry.spec.tps, lookback_ticks=300_000)
+        cands.append(TF._local_candidates(
+            out, pres, TF._topk_key(out, pres, True), 100, s * s_loc))
+    acc, loc = cands
+
+    def check(a, b, what):
+        got = tm.merge_candidates(a, b)
+        want = tm.merge_candidates_plain(a, b)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            gi = g.view(torch.int32) if g.dtype == torch.float32 else g
+            wi = w.view(torch.int32) if w.dtype == torch.float32 else w
+            if not torch.equal(gi, wi):
+                raise AssertionError(f"merge_candidates ({what}) differs "
+                                     f"from its plain version")
+
+    check(acc, loc, "main path")
+    rng = np.random.default_rng(7)
+
+    def edge(j, width, sort=True):
+        key = rng.choice(np.array([2.0, 1.0, 0.0, -0.0, -np.inf],
+                                  np.float32), (j, width))
+        if sort:
+            key = -np.sort(-key, axis=1)
+        val = rng.standard_normal((j, width)).astype(np.float32)
+        val[:, ::3] = -0.0
+        val[:, 1::5] = np.frombuffer(np.full(
+            val[:, 1::5].size, 0x7FC12345, np.uint32).tobytes(), np.float32
+        ).reshape(val[:, 1::5].shape)
+        idx = rng.integers(0, 2**31 - 1, (j, width)).astype(np.int32)
+        pres = rng.random((j, width)) < 0.8
+        return tm.Candidates(*(torch.from_numpy(np.ascontiguousarray(p))
+                               .to(dev) for p in (key, val, idx, pres)))
+
+    check(edge(8, 100), edge(8, 100), "cross-list ties, -inf, NaN, -0.0")
+    check(edge(8, 100), edge(8, 37), "kl < kk")
+    check(edge(5, 64, sort=False), edge(5, 64, sort=False), "unsorted")
+    j, kk = acc.key.shape
+    kl = loc.key.shape[1]
+    nbytes = 13 * j * (kk + kl) + 13 * j * kk
+    ops = 2 * j * kk * kl
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    cat_key = torch.cat([acc.key, loc.key], dim=1)
+    return {
+        "name": "merge_candidates", "route": "cuda",
+        "source": "greptimedb_tpu_torch/parallel/kernels/csrc/topk_merge.cu",
+        "replaces": "greptimedb_tpu/parallel/kernels/topk_merge.py:87 "
+                    "(merge_candidates, body _merge_topk_kernel:29, ring "
+                    "ring_topk_merge:103)",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: tm.merge_candidates(acc, loc)),
+        "plain_ms": cuda_ms(lambda: tm.merge_candidates_plain(acc, loc)),
+        "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "library_ms": cuda_ms(lambda: torch.topk(cat_key, kk, dim=1)),
+        "device_ms_per_launch": per_launch_ms,
+        "shape": {"J": j, "kk": kk, "kl": kl}, "bytes": nbytes,
+    }
+
+
+def promql_phase(args, dev):
+    import types
+
+    from greptimedb_tpu_torch.catalog.manager import CatalogManager
+    from greptimedb_tpu_torch.catalog.table import Table
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+    from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
+    from greptimedb_tpu_torch.promql import fast as TF
+    from greptimedb_tpu_torch.promql.engine import PromEngine
+    from greptimedb_tpu_torch.query.executor import QueryEngine
+
+    t_phase = time.perf_counter()
+    n = args.prom_series
+    table = Table("prom_bench", ts_name="ts", tag_names=["host", "dc"],
+                  fields=["greptime_value"])
+    t = time.perf_counter()
+    written = prom_ingest(table, n)
+    seconds = {"ingest": time.perf_counter() - t}
+    catalog = CatalogManager()
+    catalog.register(table)
+
+    def engine(device, mesh=None, opts=None):
+        return PromEngine(types.SimpleNamespace(
+            catalog=catalog, query_engine=QueryEngine(
+                device=device, mesh=mesh, mesh_opts=opts)))
+
+    mesh = make_mesh([dev] * 4)
+    engines = {"single": engine(dev), "ring": engine(dev, mesh),
+               "gather": engine(dev, mesh,
+                                MeshOptions(pallas_kernels="off"))}
+    results, per_engine, notes = {}, {}, {}
+    for name, eng in engines.items():
+        stats = {}
+        for q in PROM_QUERIES:
+            run = (lambda eng=eng, q=q: eng.query_range(q, *PROM_SPAN)[0])
+            tm.merge_candidates.launches = 0
+            t = time.perf_counter()
+            results[name, q] = run()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t
+            cold_launches = tm.merge_candidates.launches
+            times = []
+            tm.merge_candidates.launches = 0
+            for _ in range(5):
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            warm_launches = tm.merge_candidates.launches
+            prof = profiled(run)
+            notes[name, q] = dict(eng.last_fast)
+            stats[q] = {"cold_s": cold, "warm_median_s": float(
+                np.median(times)), "launches_cold": cold_launches,
+                "launches_per_warm": warm_launches / 5,
+                "device_ms": prof["device_ms"],
+                "idle_share": prof["idle_share"], "top": prof["top"],
+                "ours": prof["ours"], "note": notes[name, q]}
+        per_engine[name] = stats
+
+    # ---- checks -------------------------------------------------------
+    topk_qs = PROM_QUERIES[1:]
+    for q in PROM_QUERIES:
+        for name in ("ring", "gather"):
+            if not same_vector(results["single", q], results[name, q]):
+                raise AssertionError(f"promql {name} differs from one "
+                                     f"device on {q}")
+        note = notes["ring", q]
+        if note["decision"] != "shard(large_grid)" or note["shards"] != 4:
+            raise AssertionError(f"ring engine decided {note} on {q}")
+        ring_l = per_engine["ring"][q]["launches_per_warm"]
+        gather_l = per_engine["gather"][q]["launches_per_warm"]
+        if q in topk_qs:
+            if note["kernel"] != "ring(ring_topk)":
+                raise AssertionError(f"ring engine kernel {note} on {q}")
+            if ring_l != 3 or gather_l != 0:
+                raise AssertionError(f"merge launches ring {ring_l}, "
+                                     f"gather {gather_l} on {q}")
+    agg = results["single", PROM_QUERIES[0]]
+    if agg.num_series != 32 or not agg.present.all():
+        raise AssertionError(f"aggregate has {agg.num_series} groups")
+    for q in topk_qs:
+        v = results["single", q]
+        if not np.isfinite(v.values[v.present]).all():
+            raise AssertionError(f"non-finite winners on {q}")
+        k = int(q.split("(")[1].split(",")[0])
+        if not (v.present.sum(axis=0) == k).all():
+            raise AssertionError(f"{q}: not {k} winners at every step")
+    t = time.perf_counter()
+    cpu = engine("cpu")
+    cpu_res = {q: cpu.query_range(q, *PROM_SPAN)[0] for q in PROM_QUERIES}
+    seconds["cpu_reference"] = time.perf_counter() - t
+    for q in topk_qs:
+        if not same_vector(results["single", q], cpu_res[q]):
+            raise AssertionError(f"promql one device differs from the CPU "
+                                 f"on {q}")
+    # the aggregate: both runs add each fold block's rows in a float32
+    # matrix product, in cuBLAS's order on the card and the CPU BLAS's
+    # here: |diff| <= 2 gamma_n sum |x_i|, n = rows per block + 8 blocks
+    a, c = results["single", PROM_QUERIES[0]], cpu_res[PROM_QUERIES[0]]
+    if a.labels != c.labels or not np.array_equal(a.present, c.present):
+        raise AssertionError("aggregate groups differ from the CPU run")
+    s_pad = 1 << max(3, (n - 1).bit_length())
+    rows = s_pad // 8 + 8
+    gamma = rows * U / (1 - rows * U)
+    rates = results["single", "topk(100, rate(prom_bench[1m]))"]
+    max_rate = float(np.abs(rates.values[rates.present]).max())
+    members = np.bincount(np.arange(n) % 32, minlength=32)
+    bound = 2 * gamma * members[:, None] * max_rate
+    diff = np.abs(a.values - c.values)
+    if not np.all(diff <= bound):
+        raise AssertionError("aggregate past the matrix-product bound")
+    agg_rel = float(np.max(diff / np.abs(c.values)))
+
+    # ---- the merge kernel --------------------------------------------
+    ring_entry = next(e for k, e in TF._CACHE._entries.items()
+                      if k[3] is not None and k[4] is None)
+    prof = per_engine["ring"]["topk(100, rate(prom_bench[1m]))"]
+    per_launch = device_ms_per_launch(
+        {"ours": prof["ours"]}, lambda k: k.startswith("merge_topk"))
+    launches = sum(per_engine["ring"][q]["launches_cold"]
+                   + 5 * per_engine["ring"][q]["launches_per_warm"]
+                   for q in topk_qs)
+    if launches == 0:
+        raise AssertionError("merge_candidates never launched")
+    row = merge_kernel_row(dev, ring_entry, int(launches), per_launch)
+    emit({"phase": "promql", "seconds": seconds, "rows_written": written,
+          "series": n, "grid": {"s_pad": ring_entry.s_pad,
+                                "cells": ring_entry.spec.num_cells,
+                                "device_bytes": ring_entry.nbytes},
+          "engines": per_engine,
+          "checks": {"engines_identical": True, "topk_equal_cpu": True,
+                     "agg_max_rel_diff_vs_cpu": agg_rel,
+                     "agg_groups": agg.num_series},
+          "ring_comm_bytes": notes["ring", topk_qs[1]]["comm_bytes"],
+          "phase_seconds": time.perf_counter() - t_phase})
+    return row
+
+
 def run(args) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -847,6 +1115,8 @@ def run(args) -> int:
           "seconds": time.perf_counter() - t})
     # ---- 6. mesh -----------------------------------------------------
     kernels = merge_kernel_rows(kernels, mesh_phase(args, dev, P))
+    # ---- 7. promql ---------------------------------------------------
+    kernels.append(promql_phase(args, dev))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
@@ -862,6 +1132,7 @@ def main() -> int:
     ap.add_argument("--hours", type=int, default=12)
     ap.add_argument("--mesh-hosts", type=int, default=8192)
     ap.add_argument("--mesh-hours", type=int, default=6)
+    ap.add_argument("--prom-series", type=int, default=1_000_000)
     args = ap.parse_args()
     try:
         return run(args)

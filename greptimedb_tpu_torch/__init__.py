@@ -1,9 +1,12 @@
 """greptimedb_tpu_torch: the PyTorch/CUDA port of greptimedb_tpu.
 
-This slice covers the single-card write -> compaction -> RANGE query
+The port covers the single-card write -> compaction -> RANGE query
 path: runs appended to an in-memory region, per-window compaction through
 the device merge program and the merge-gather kernel, and RANGE queries
 over device-resident cell-state grids whose grouped fold runs the blocked
-fold kernel. Entry points run on CUDA unless the caller passes
+fold kernel, sharded over a mesh with the ring kernels; and PromQL
+(promql/engine.PromEngine) over device-resident selector grids, one
+device or sharded, whose sharded topk merges candidates with the topk
+merge kernel. Entry points run on CUDA unless the caller passes
 ``device="cpu"``; there the kernels' plain PyTorch versions run.
 """

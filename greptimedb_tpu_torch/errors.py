@@ -1,4 +1,4 @@
-"""The error classes this slice raises (copies of greptimedb_tpu.errors)."""
+"""The error classes the port raises (copies of greptimedb_tpu.errors)."""
 
 
 class GreptimeError(Exception):
@@ -11,3 +11,15 @@ class CompactionError(GreptimeError):
 
 class UnsupportedError(GreptimeError):
     """A query shape or option the port does not run yet."""
+
+
+class InvalidSyntaxError(GreptimeError):
+    """A query text that does not parse."""
+
+
+class PlanError(GreptimeError):
+    """A query that parses but cannot be planned."""
+
+
+class TableNotFoundError(GreptimeError):
+    """A table or field that does not exist."""

@@ -1,5 +1,7 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 - merge_gather.gather_planes (K1): the compaction merge-gather.
-- ring_fold.blocked_fold_sum (K2): the blocked group fold.
+- ring_fold.blocked_fold_sum (K2): the blocked group fold, with the ring
+  combines fold_cont, extreme and onehot_add.
+- topk_merge.merge_candidates: the topk ring's candidate merge.
 """

@@ -38,6 +38,7 @@ class MeshOptions:
     # plain versions stand in on the CPU); off = never (gather twin)
     pallas_kernels: str = "auto"
     pallas_min_series: int = 4096   # kernel grid paths below this gather
+    pallas_max_k: int = 128         # the topk merge kernel is O(k^2) a hop
 
 
 class Mesh:

@@ -331,7 +331,8 @@ def build_entry(plan, table, items, *, device, mesh=None, mesh_opts=None,
     S = max(data.registry.num_series, int(sid.max()) + 1 if len(sid) else 1)
     decision = None
     if mesh is not None:
-        decision = decide_mesh_execution(mesh, series=S, opts=mesh_opts)
+        decision = decide_mesh_execution(mesh, kind="range", series=S,
+                                         opts=mesh_opts)
         if not decision.shard:
             mesh = None
     S = _series_pad(S, mesh)

@@ -102,16 +102,20 @@ class MeshDecision:
         return f"{self.kernel}({self.kernel_reason})"
 
 
-def decide_mesh_execution(mesh, *, series: int,
+def decide_mesh_execution(mesh, *, kind: str = "range", series: int,
                           opts=None) -> MeshDecision:
-    """Choose replicate vs shard for one RANGE grid of `series` rows (the
-    JAX package's kind="range" gate). Every op the port lowers to a grid
-    folds exactly across shards (device_range._DEVICE_RANGE_OPS), so the
-    JAX gate's non-decomposable-op branch has no counterpart here."""
+    """Choose replicate vs shard for one grid of `series` rows (the JAX
+    package's gate for the grid kinds: "range" for the RANGE grid,
+    "promql" for the PromQL selector grid). Every op the port lowers to a
+    grid folds exactly across shards (device_range._DEVICE_RANGE_OPS and
+    ops/promql's aggregations), so the JAX gate's non-decomposable-op
+    branch has no counterpart here."""
     from greptimedb_tpu_torch.parallel.mesh import (
         FOLD_BLOCKS, MeshOptions, shard_count,
     )
 
+    if kind not in ("range", "promql"):
+        raise ValueError(f"unknown grid kind: {kind}")
     n_dev = shard_count(mesh)
     if mesh is None or n_dev <= 1:
         return MeshDecision("replicate", "no_mesh")
@@ -122,18 +126,20 @@ def decide_mesh_execution(mesh, *, series: int,
         return MeshDecision("replicate", "mesh_indivisible", devices=n_dev)
     if series < max(opts.shard_min_series, 1):
         return MeshDecision("replicate", "small_grid", devices=n_dev)
-    kernel, kreason = decide_kernel(series=series, opts=opts,
+    kernel, kreason = decide_kernel(kind, series=series, opts=opts,
                                     device=mesh.devices[0])
     return MeshDecision("shard", "large_grid", devices=n_dev,
                         kernel=kernel, kernel_reason=kreason)
 
 
-def decide_kernel(*, series: int, opts=None,
-                  device=None) -> tuple[str, str]:
-    """Choose the program variant of one sharded RANGE grid: "ring" runs
-    the ring kernels, "gather" the gather-and-left-fold twin. "auto" means
-    kernels for CUDA tensors (device.kernels_enabled), where the JAX
-    package's means the native TPU backend."""
+def decide_kernel(kind: str = "range", *, series: int, k: int | None = None,
+                  opts=None, device=None) -> tuple[str, str]:
+    """Choose the program variant of one sharded grid: "ring" runs the
+    ring kernels (ring_fold's for "range"/"promql", topk_merge's for
+    "topk"), "gather" the gather twin. "auto" means kernels for CUDA
+    tensors (device.kernels_enabled), where the JAX package's means the
+    native TPU backend. `k` caps the topk merge kernel (O(k^2) rank
+    comparisons per hop)."""
     from greptimedb_tpu_torch.device import kernel_mode, kernels_enabled
     from greptimedb_tpu_torch.parallel.mesh import MeshOptions
 
@@ -143,9 +149,12 @@ def decide_kernel(*, series: int, opts=None,
         return "gather", "kernels_off"
     if not kernels_enabled(mode, "cpu" if device is None else device):
         return "gather", "no_cuda"
+    if k is not None and k > max(opts.pallas_max_k, 1):
+        return "gather", "k_too_large"
     if series < max(opts.pallas_min_series, 1):
         return "gather", "small_grid"
-    return "ring", "ring_fold"
+    return "ring", ("ring_topk" if kind == "topk" or k is not None
+                    else "ring_fold")
 
 
 def convert_expr(e):

@@ -1,8 +1,8 @@
 """Per-region series registry: tag-value tuples -> dense int32 series ids.
 
 Sids are what runs store and what the device grids are indexed by; tag
-strings live only here (copy of the JAX package's SeriesRegistry, without
-persistence and matcher evaluation, which this slice does not run).
+strings live only here (copy of the JAX package's SeriesRegistry with its
+matcher algebra, without persistence).
 """
 
 from __future__ import annotations
@@ -12,6 +12,49 @@ import threading
 import numpy as np
 
 from greptimedb_tpu_torch.datatypes.batch import Dictionary
+
+
+def missing_tag_ok(op: str, value) -> bool:
+    """Constant matcher verdict for a tag name absent from the schema —
+    a missing tag behaves as the empty string on every series."""
+    if op == "eq":
+        return value == ""
+    if op == "ne":
+        return value != ""
+    if op == "in":
+        return "" in value
+    if op == "nin":
+        return "" not in value
+    if op == "re":
+        return bool(value.fullmatch(""))
+    if op == "nre":
+        return not value.fullmatch("")
+    raise ValueError(op)
+
+
+def ok_codes_for(vals: np.ndarray, op: str, value) -> np.ndarray:
+    """Per-distinct-value matcher verdicts over one tag dictionary:
+    (len(vals),) bool. All predicate string/regex work happens here —
+    O(distinct values) — and is broadcast through the int32 code
+    columns by match_mask."""
+    if op == "eq":
+        ok_codes = vals == value
+    elif op == "ne":
+        ok_codes = vals != value
+    elif op == "in":
+        ok_codes = np.isin(vals.astype(str), list(value))
+    elif op == "nin":
+        ok_codes = ~np.isin(vals.astype(str), list(value))
+    elif op == "re":
+        # dtype=bool: an EMPTY comprehension defaults to float64
+        ok_codes = np.asarray(
+            [bool(value.fullmatch(str(v))) for v in vals], dtype=bool)
+    elif op == "nre":
+        ok_codes = np.asarray(
+            [not value.fullmatch(str(v)) for v in vals], dtype=bool)
+    else:
+        raise ValueError(op)
+    return np.asarray(ok_codes, dtype=bool)
 
 
 class SeriesRegistry:
@@ -114,3 +157,30 @@ class SeriesRegistry:
         i = self.tag_names.index(tag_name)
         d = self.dicts[i]
         return np.asarray([d.decode(r[i]) for r in self._rows], dtype=object)
+
+    def match_mask(self, matchers: list[tuple[str, str, object]]
+                   ) -> np.ndarray:
+        """(num_series,) bool mask of series satisfying all matchers.
+
+        Predicates are evaluated once per distinct dictionary value
+        (regexes included), then broadcast through the int32 code columns
+        — O(distinct values) string work instead of O(series)."""
+        n = len(self._rows)
+        keep = np.ones(n, dtype=bool)
+        codes = self.codes_matrix()
+        for name, op, value in matchers:
+            if name not in self.tag_names:
+                if not missing_tag_ok(op, value):
+                    keep[:] = False
+                continue
+            i = self.tag_names.index(name)
+            vals = np.asarray(list(self.dicts[i].values), dtype=object)
+            keep &= ok_codes_for(vals, op, value)[codes[:, i]]
+        return keep
+
+    def series_tags(self, sid: int) -> dict[str, str]:
+        row = self._rows[sid]
+        return {
+            name: d.decode(code)
+            for name, d, code in zip(self.tag_names, self.dicts, row)
+        }

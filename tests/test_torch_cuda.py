@@ -13,8 +13,11 @@ import torch
 from greptimedb_tpu_torch.catalog.table import Table
 from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
 from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
 from greptimedb_tpu_torch.query.executor import QueryEngine
+from greptimedb_tpu_torch.catalog.manager import CatalogManager
+from greptimedb_tpu_torch.promql.engine import PromEngine
 from greptimedb_tpu_torch.query.planner import (
     Column, KeySpec, RangeItemSpec, SelectPlan,
 )
@@ -225,3 +228,116 @@ def test_range_queries_on_cuda_match_cpu(cuda):
         for a, b in zip(sharded.cols, want.cols):
             assert np.array_equal(a.valid_mask, b.valid_mask)
             assert np.array_equal(a.values, b.values)
+
+
+def _candidates(rng, j, width, *, sort=True, ties=True):
+    """(J, width) candidate planes; tie-heavy keys from a small value set
+    (with -inf fills and both zeros) or continuous keys; values with NaN
+    payloads and -0.0."""
+    shape = (j, width)
+    if ties:
+        key = rng.choice(np.array([2.0, 1.0, 0.0, -0.0, -1.0, -np.inf],
+                                  np.float32), shape)
+    else:
+        key = rng.standard_normal(shape).astype(np.float32)
+    if sort:
+        key = -np.sort(-key, axis=1)
+    val = _specials(rng, shape)
+    idx = rng.integers(0, 2**31 - 1, shape).astype(np.int32)
+    pres = rng.random(shape) < 0.8
+    return tm.Candidates(*(torch.from_numpy(np.ascontiguousarray(p))
+                           for p in (key, val, idx, pres)))
+
+
+@pytest.mark.parametrize("j,kk,kl,sort,ties", [
+    (8, 100, 100, True, True), (8, 100, 100, True, False),
+    (8, 5, 5, True, True), (3, 128, 40, True, True),
+    (16, 7, 13, False, True), (1, 512, 512, True, True)])
+def test_merge_candidates_kernel_matches_plain(cuda, j, kk, kl, sort, ties):
+    """Every slot of every plane bit for bit against the plain version,
+    sorted inputs or not."""
+    rng = np.random.default_rng(j + kk + kl + sort + ties)
+    acc = _candidates(rng, j, kk, sort=sort, ties=ties)
+    loc = _candidates(rng, j, kl, sort=sort, ties=ties)
+    want = tm.merge_candidates(acc, loc)
+    before = tm.merge_candidates.launches
+    got = tm.merge_candidates(acc.to(cuda), loc.to(cuda))
+    torch.cuda.synchronize()
+    assert tm.merge_candidates.launches == before + 1
+    for w, g in zip(want, got):
+        if w.dtype == torch.float32:
+            assert torch.equal(_bits32(g), w.view(torch.int32))
+        else:
+            assert torch.equal(g.cpu(), w)
+    plain = tm.merge_candidates_plain(acc.to(cuda), loc.to(cuda))
+    for p, g in zip(plain, got):
+        assert torch.equal(p, g) or torch.equal(_bits32(p), _bits32(g))
+
+
+def test_merge_candidates_refuses_bad_launches(cuda):
+    rng = np.random.default_rng(0)
+    acc = _candidates(rng, 4, 8).to(cuda)
+    loc = _candidates(rng, 4, 8).to(cuda)
+    before = tm.merge_candidates.launches
+    with pytest.raises(TypeError):
+        tm.merge_candidates(acc._replace(val=acc.val.double()), loc)
+    with pytest.raises(ValueError):
+        tm.merge_candidates(acc, loc.to("cpu"))
+    big = _candidates(rng, 2, 600).to(cuda)
+    with pytest.raises(ValueError):
+        tm.merge_candidates(big, big)
+    assert tm.merge_candidates.launches == before
+
+
+def test_promql_on_cuda_matches_cpu(cuda):
+    """One device, four ring shards and four gather shards on the card
+    against the port on the CPU: aggregates within float32 rounding of
+    the CPU run (the card's matrix products add in another order), topk
+    winners and values bit-identical; the ring launches the merge kernel
+    three times per query."""
+    import types
+
+    rng = np.random.default_rng(5)
+    n_s, t0 = 5000, 1_700_000_000_000
+    table = Table("prom_bench", ts_name="ts", tag_names=["host", "dc"],
+                  fields=["greptime_value"])
+    tags = {"host": np.array([f"host_{i}" for i in range(n_s)], object),
+            "dc": np.array([f"dc{i % 32}" for i in range(n_s)], object)}
+    base = np.cumsum(rng.random(n_s))
+    for k in range(10):
+        table.write(tags, np.full(n_s, t0 + k * 30_000, np.int64),
+                    {"greptime_value": base + k * 50.0})
+    catalog = CatalogManager()
+    catalog.register(table)
+    low = {"shard_min_series": 1, "pallas_min_series": 1}
+
+    def engine(device, mesh=None, opts=None):
+        return PromEngine(types.SimpleNamespace(
+            catalog=catalog, query_engine=QueryEngine(
+                device=device, mesh=mesh, mesh_opts=opts)))
+
+    engines = {
+        "cuda": engine(cuda),
+        "ring": engine(cuda, make_mesh([cuda] * 4), MeshOptions(**low)),
+        "gather": engine(cuda, make_mesh([cuda] * 4),
+                         MeshOptions(pallas_kernels="off", **low)),
+    }
+    cpu = engine("cpu")
+    span = (t0 + 60_000, t0 + 270_000, 30_000)
+    for q in ("topk(100, rate(prom_bench[1m]))",
+              "bottomk(7, rate(prom_bench[1m]))",
+              "sum by (dc) (rate(prom_bench[1m]))"):
+        want, _ = cpu.query_range(q, *span)
+        for name, eng in engines.items():
+            before = tm.merge_candidates.launches
+            got, _ = eng.query_range(q, *span)
+            launched = tm.merge_candidates.launches - before
+            ring_topk = name == "ring" and q.startswith(("topk", "bottomk"))
+            assert launched == (3 if ring_topk else 0), (name, q)
+            assert got.labels == want.labels, (name, q)
+            assert np.array_equal(got.present, want.present)
+            if q.startswith("sum"):
+                np.testing.assert_allclose(got.values, want.values,
+                                           rtol=1e-5)
+            else:
+                assert np.array_equal(got.values, want.values), (name, q)

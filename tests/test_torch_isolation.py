@@ -64,6 +64,21 @@ plan = SelectPlan(
     align_ms=3_600_000)
 res = QueryEngine(device="cpu").execute(plan, t)
 assert res.num_rows > 0
+
+import types
+from greptimedb_tpu_torch.catalog.manager import CatalogManager
+from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
+from greptimedb_tpu_torch.promql.engine import PromEngine
+
+catalog = CatalogManager()
+catalog.register(t)
+for mesh in (None, make_mesh(["cpu"] * 4)):
+    holder = types.SimpleNamespace(catalog=catalog, query_engine=QueryEngine(
+        device="cpu", mesh=mesh, mesh_opts=MeshOptions(
+            shard_min_series=1, pallas_kernels="on", pallas_min_series=1)))
+    for q in ("sum by (region) (rate(cpu[1m]))", "topk(3, rate(cpu[1m]))"):
+        v, _ = PromEngine(holder).query_range(q, 600_000, 1_200_000, 60_000)
+        assert v.num_series > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu"))
 print("LEAKED", leaked)
