@@ -40,16 +40,18 @@ result line):
              and compacted on the card. Three engines run Q1 and Q2 cold,
              then warm (median of 5): one device; a mesh of the card named
              four times (four shards on one card) with default options,
-             which must decide shard(large_grid) with the ring kernels
-             (K2's seed and continuation, the extreme, the one-hot add);
+             which must decide shard(large_grid) with the ring kernels;
              and the same mesh with kernels off (the gather twin). Q2 and
              Q1's keys, timestamps and presence must be bit-identical
              across the three; Q1's sums and means too, or within the
              reduction-order bound. Kernel counts are zeroed before each
-             engine and read after it: the ring kernels must launch on the
-             ring engine and never on the gather engine. Then each new
-             kernel at the shapes the mesh path gave it is held against its
-             plain version and timed, and one warm sharded Q2 is profiled.
+             engine and read after it. Every shard lies on the one card, so
+             the ring engine folds groups with the fused ring kernel (one
+             launch a fold, no seed or continuation) beside the extreme and
+             the one-hot add; none of them may launch on the gather engine.
+             Then each ring kernel at the shapes the mesh path gave it (the
+             fused ring also on edge bits) is held against its plain
+             version and timed, and one warm sharded Q2 is profiled.
 7. promql  — the PromQL fast path at the JAX package's PromQL benchmark
              size: 1,000,000 series (host_i, dc = i % 32), 10 samples at
              30 s, seed 11 (10 M rows), written through the port's Table.
@@ -66,6 +68,25 @@ result line):
              warm topk query and the gather engine never. Then the merge
              kernel at the path's shapes and on edge cases is held against
              its plain version (bit for bit) and timed.
+8. sql     — SQL in: Instance(...).sql(text) answers bench.py's TSBS RANGE
+             suite (the headline double-groupby-all and its nine device
+             shapes, bench.py:2131-2201, cut to the table's hours) and Q2
+             written as SQL, over the tables of phases 2 and 6 (no new
+             ingest): one device on the 4000-host table; one device, the
+             fused ring (the default), the hop ring (RingFoldCtx with
+             fused=False: K2's seed, then fold_cont hop by hop) and the
+             gather twin on the 8192-host table over make_mesh([dev] * 4),
+             each Instance on the query engine of phase 2 or 6 (its grid
+             built; the hop ring shares the ring engine's). Each query
+             runs cold (the first SQL run on that engine), warm (median
+             of 3) and once under the profiler. Every shape must take the
+             device path with bench.py's row count at the table's size;
+             the SQL Q1/Q2 must equal the plan-built Q1/Q2 of phases 2
+             and 6 bit for bit; the four mesh engines must agree bit for
+             bit (Q1-shaped means within the reduction-order bound); the
+             fused kernel must launch on every sharded query that folds
+             groups, and on no other engine.
+             Kernel counts are zeroed before the phase and read after it.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -74,6 +95,8 @@ line, and last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -406,20 +429,37 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
     return out
 
 
-RING_KERNELS = ("fold_cont", "extreme", "onehot_add")
+RING_KERNELS = ("fold_cont", "extreme", "onehot_add", "ring_fold_fused")
+FOLD_KERNELS = ("blocked_fold_sum", "block_partials") + RING_KERNELS
 
 
 def counts(rf, mg):
     """Launch counts of every kernel wrapper."""
     return {"gather_planes": mg.gather_planes.launches,
-            **{f: getattr(rf, f).launches for f in (
-                "blocked_fold_sum", "block_partials") + RING_KERNELS}}
+            **{f: getattr(rf, f).launches for f in FOLD_KERNELS}}
 
 
 def zero_counts(rf, mg):
     mg.gather_planes.launches = 0
-    for f in ("blocked_fold_sum", "block_partials") + RING_KERNELS:
+    for f in FOLD_KERNELS:
         getattr(rf, f).launches = 0
+
+
+@contextlib.contextmanager
+def ring_form(rf, form):
+    """Run the ring engine's folds as `form`: "fused" is RingFoldCtx's own
+    choice for shards on one card; "hops" is RingFoldCtx(ns, fused=False)
+    (K2's seed, then fold_cont hop by hop), which the query path builds
+    while this block is open."""
+    if form != "hops":
+        yield
+        return
+    real = rf.RingFoldCtx
+    rf.RingFoldCtx = functools.partial(real, fused=False)
+    try:
+        yield
+    finally:
+        rf.RingFoldCtx = real
 
 
 def _bits(v):
@@ -437,12 +477,16 @@ def same_column(a, b) -> bool:
     return bool(np.array_equal(_bits(va), _bits(vb)))
 
 
-def compare_engines(name, ref, got, w, bounded=()):
+def compare_engines(name, ref, got, w, bounded=(), names=True):
     """`got` against `ref` column by column: bit-identical, except the
     columns named in `bounded` (Q1's disjoint-window means), whose keys,
     presence and timestamps must still be identical and whose values stay
-    within 2 (w - 1) 2^-24 relative. Returns (identical, max rel diff)."""
-    if got.names != ref.names or got.num_rows != ref.num_rows:
+    within 2 (w - 1) 2^-24 relative. names=False compares columns by
+    position (a SQL result against a plan-built one). Returns (identical,
+    max rel diff)."""
+    if ((names and got.names != ref.names)
+            or len(got.names) != len(ref.names)
+            or got.num_rows != ref.num_rows):
         raise AssertionError(f"{name}: shape {got.names}/{got.num_rows} vs "
                              f"{ref.names}/{ref.num_rows}")
     identical, worst = True, 0.0
@@ -581,7 +625,80 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
                   "fb_local": fm.fb, "members": m},
     })
+    # ---- row 6: the fused ring over every shard, one launch a fold ------
+    ns = len(fms)
+    s_f, s_i = list(st["s"]), list(entry.nrow)
+    err = 0.0
+    for arrs in (s_f, s_i):
+        got, want = rf.ring_fold_fused(arrs, fms), rf.ring_fold_fused_plain(
+            arrs, fms)
+        for k in range(ns):
+            err = max(err, exact("ring_fold_fused", got[k], want[k]))
+    # edge bits at the path's shapes and member lists: NaN payloads, -0.0,
+    # ±inf, int32 sums that wrap (the card's add gives its canonical NaN
+    # in kernel and plain version alike)
+    rng = np.random.default_rng(23)
+    s_local = s_f[0].shape[0]
+    for dtype in ("f32", "i32"):
+        edge = [torch.from_numpy(ring_edge_input(rng, s_local, nb, dtype))
+                .to(dev) for _ in range(ns)]
+        got, want = rf.ring_fold_fused(edge, fms), rf.ring_fold_fused_plain(
+            edge, fms)
+        for k in range(ns):
+            exact(f"ring_fold_fused ({dtype} edge bits)", got[k], want[k])
+    m_all = sum(f.member.numel() for f in fms)
+    fused_bytes = (4 * m_all * nb + 4 * ns * plane
+                   + 2 * 2 * (ns - 1) * 4 * plane)
+    arr_all = torch.cat(s_f)
+    gid_all = torch.cat([gd.clamp(max=g) for gd in gids]).to(torch.int64)
+    rows.append({
+        "name": "ring_fold_fused", "route": "cuda",
+        "source": "greptimedb_tpu_torch/parallel/kernels/csrc/"
+                  "ring_fold_fused.cu",
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:217 "
+                    "_tpu_ring_fold_call",
+        "launches": launches["ring_fold_fused"], "max_abs_err": err,
+        "ms": cuda_ms(lambda: rf.ring_fold_fused(s_f, fms)),
+        "plain_ms": cuda_ms(lambda: rf.ring_fold_fused_plain(s_f, fms)),
+        **bound(fused_bytes, m_all * nb + ns * fms[0].fb * plane),
+        # the total once (not on every shard), over the shards' rows laid
+        # end to end
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            (g + 1, nb), device=dev).index_add_(0, gid_all, arr_all)),
+        "ms_int32": cuda_ms(lambda: rf.ring_fold_fused(s_i, fms)),
+        # the hop ring on the same inputs: K2's seed + ns - 1 fold_cont
+        "hops_ms": cuda_ms(lambda: rf.ring_fold_blocks(s_f, fms)),
+        "shape": {"shards": ns, "s_local": s_local, "nb": nb, "g": g,
+                  "fb_local": fms[0].fb, "members": m_all},
+        "bytes": fused_bytes,
+    })
     return rows
+
+
+def ring_edge_input(rng, s_local, nb, dtype):
+    """One shard's (s_local, nb) states with the fold's edge bits: float32
+    with wide magnitudes, -0.0 (a whole cell of it), ±inf in two cells of
+    three and NaN payloads in the third; int32 with extremes whose sums
+    wrap."""
+    if dtype == "i32":
+        x = rng.integers(-1000, 1000, (s_local, nb)).astype(np.int32)
+        r = rng.random(x.shape)
+        x[r < 0.05] = 2**31 - 1
+        x[(r >= 0.05) & (r < 0.1)] = -(2**31)
+        return x
+    x = (rng.standard_normal((s_local, nb))
+         * 10.0 ** rng.integers(-4, 5, (s_local, nb))).astype(np.float32)
+    r = rng.random(x.shape)
+    x[r < 0.1] = -0.0
+    x[:, nb // 2] = -0.0
+    inf_cell = np.arange(nb) % 3 != 0
+    inf_cell[nb // 2] = False
+    x[(r >= 0.1) & (r < 0.12) & inf_cell] = np.inf
+    x[(r >= 0.12) & (r < 0.14) & inf_cell] = -np.inf
+    nan = (r >= 0.14) & (r < 0.15) & ~inf_cell
+    bits = (rng.integers(0, 2**22, x.shape) | 0x7FC00000).astype(np.uint32)
+    x[nan] = bits.view(np.float32)[nan]
+    return x
 
 
 def mesh_phase(args, dev, P):
@@ -620,7 +737,7 @@ def mesh_phase(args, dev, P):
     results, per_engine, info = {}, {}, {}
     for name, eng in engines.items():
         zero_counts(rf, mg)
-        timing = {}
+        timing, warm_launches = {}, {}
         for qn, plan in (("q1", q1), ("q2", q2)):
             t = time.perf_counter()
             results[name, qn] = eng.execute(plan, table)
@@ -628,14 +745,19 @@ def mesh_phase(args, dev, P):
             timing[f"{qn}_cold"] = time.perf_counter() - t
         for qn, plan in (("q1", q1), ("q2", q2)):
             times = []
+            before = counts(rf, mg)
             for _ in range(5):
                 t = time.perf_counter()
                 eng.execute(plan, table)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t)
+            after = counts(rf, mg)
+            warm_launches[qn] = {k: (after[k] - before[k]) / 5
+                                 for k in after if after[k] > before[k]}
             timing[f"{qn}_warm_median"] = float(np.median(times))
             info[name, qn] = dict(eng.last_range)
         per_engine[name] = {"seconds": timing, "launches": counts(rf, mg),
+                            "launches_per_warm_query": warm_launches,
                             "q1": info[name, "q1"], "q2": info[name, "q2"]}
     launches = {k: compact_counts[k] + sum(
         per_engine[e]["launches"][k] for e in engines) for k in compact_counts}
@@ -643,17 +765,25 @@ def mesh_phase(args, dev, P):
     ring_q2 = info["ring", "q2"]
     if (ring_q2["decision"] != "shard(large_grid)"
             or ring_q2["kernel"] != "ring(ring_fold)"
+            or ring_q2["ring_form"] != "fused"
             or ring_q2["shards"] != 4):
         raise AssertionError(f"ring engine decided {ring_q2}")
     if info["gather", "q2"]["kernel"] != "gather(kernels_off)":
         raise AssertionError(f"gather engine decided {info['gather', 'q2']}")
-    for k in RING_KERNELS:
-        if per_engine["ring"]["launches"][k] == 0:
+    # the fused ring folds every group sum in one launch: no seed and no
+    # continuation on the ring engine (the hop ring runs in phase 8)
+    ring_l = per_engine["ring"]["launches"]
+    for k in ("extreme", "onehot_add", "ring_fold_fused"):
+        if ring_l[k] == 0:
             raise AssertionError(f"{k} never launched on the ring engine")
+    for k in ("blocked_fold_sum", "fold_cont"):
+        if ring_l[k] != 0:
+            raise AssertionError(f"{k} launched on the fused ring engine")
+    for k in RING_KERNELS:
         if per_engine["gather"]["launches"][k] != 0:
             raise AssertionError(f"{k} launched on the gather engine")
     for k, n in launches.items():
-        if n == 0:
+        if n == 0 and k != "fold_cont":
             raise AssertionError(f"kernel {k} never launched on the mesh "
                                  f"path")
 
@@ -686,21 +816,20 @@ def mesh_phase(args, dev, P):
              for name, eng in engines.items()}
     # device time per launch on the warm Q2 (the events' times above
     # include the wrapper's host overhead when it outlasts the kernel)
-    def fold(mode):   # fold_kernel<T, mode>: 0 seed, 1 cont, 2 partials
-        return lambda k: (k.startswith("fold_kernel<")
-                          and k.endswith(f", {mode}>"))
-
     per_launch = {
-        "blocked_fold_sum": device_ms_per_launch(profs["ring"], fold(0)),
-        "fold_cont": device_ms_per_launch(profs["ring"], fold(1)),
         "extreme": device_ms_per_launch(
             profs["ring"], lambda k: k.startswith("extreme_")),
         "onehot_add": device_ms_per_launch(
             profs["ring"], lambda k: k.startswith("onehot_add")),
         "block_partials": device_ms_per_launch(profs["gather"], fold(2)),
+        "ring_fold_fused": device_ms_per_launch(profs["ring"],
+                                                is_fused_kernel),
     }
     for row in rows:
-        row["device_ms_per_launch_q2"] = per_launch[row["name"]]
+        if row["name"] in per_launch:
+            row["device_ms_per_launch_q2"] = per_launch[row["name"]]
+        row["launches_per_warm_q2"] = per_engine["ring"][
+            "launches_per_warm_query"]["q2"].get(row["name"], 0)
     emit({"phase": "mesh", "seconds": seconds, "rows_written": written,
           "hosts": args.mesh_hosts, "hours": args.mesh_hours,
           "grid": {"series": entry.num_series, "cells": entry.nb,
@@ -710,20 +839,21 @@ def mesh_phase(args, dev, P):
           "q2_hop_bytes": ring_q2["comm_bytes"],
           "q2_warm_profiles": profs, "kernel_seconds": kernel_seconds,
           "phase_seconds": time.perf_counter() - t_phase})
-    return (rows, per_engine["ring"]["launches"]["blocked_fold_sum"],
-            per_launch["blocked_fold_sum"])
+    return {"rows": rows, "table": table, "engines": engines,
+            "hosts": args.mesh_hosts,
+            "hours": args.mesh_hours, "regions": len(set(region_of)),
+            "q1": results["single", "q1"], "q2": results["single", "q2"]}
 
 
-def merge_kernel_rows(kernels, mesh_out):
-    """Phase 4's rows plus the mesh phase's: K2 gains its launches on the
-    ring engine (the ring's seeds) and their device time; the ring
-    kernels follow."""
-    rows, ring_seeds, seed_ms = mesh_out
-    for row in kernels:
-        if row["name"] == "blocked_fold_sum":
-            row["launches_mesh_ring"] = ring_seeds
-            row["device_ms_per_launch_mesh_q2"] = seed_ms
-    return kernels + rows
+def fold(mode):
+    """Profiler-name matcher of K2's forms: fold_kernel<T, mode>, 0 seed,
+    1 continuation, 2 partials."""
+    return lambda k: k.startswith("fold_kernel<") and k.endswith(f", {mode}>")
+
+
+def is_fused_kernel(k):
+    """Profiler-name matcher of the fused ring kernel."""
+    return k.startswith("ring_fold_fused_kernel<")
 
 
 PROM_T0 = 1_700_000_000_000
@@ -977,6 +1107,194 @@ def promql_phase(args, dev):
     return row
 
 
+SQL_Q2_OPS = ["count", "sum", "min", "max", "avg", "stddev_samp",
+              "first_value", "last_value"]
+
+
+def sql_suite(hosts, hours, regions):
+    """bench.py's TSBS RANGE suite (bench.py:2131-2201: the headline and
+    the nine device shapes) at a table of `hosts` x `hours`, and Q2 as
+    SQL: (name, sql, rows bench.py wants at that size, disjoint-window
+    mean columns)."""
+    end_ms = hours * HOUR_MS
+    hosts8 = ", ".join(f"'host_{i}'" for i in range(8))
+
+    def items(op, rng, fields):
+        return ", ".join(f"{op}({f}) RANGE '{rng}'" for f in fields)
+
+    means = [f"avg({f}) RANGE '1h'" for f in FIELDS]
+    return [
+        ("double_groupby_all", f"SELECT ts, hostname, "
+         f"{items('avg', '1h', FIELDS)} FROM cpu ALIGN '1h' BY (hostname)",
+         hosts * hours, means),
+        ("lastpoint", "SELECT ts, hostname, last_value(usage_user) RANGE "
+         "'12h' FROM cpu ALIGN '12h' TO '1970-01-01 00:00:00' BY (hostname)",
+         hosts * -(-hours // 12), ()),
+        ("groupby_orderby_limit", "SELECT ts, max(usage_user) RANGE '1m' "
+         f"FROM cpu WHERE ts < {end_ms - HOUR_MS} ALIGN '1m' BY () "
+         "ORDER BY ts DESC LIMIT 5", min(5, (hours - 1) * 60), ()),
+        ("single_groupby_1_1_1", "SELECT ts, max(usage_user) RANGE '1m' "
+         f"FROM cpu WHERE hostname = 'host_17' AND ts >= {end_ms - HOUR_MS} "
+         f"AND ts < {end_ms} ALIGN '1m' BY (hostname)", 60, ()),
+        ("single_groupby_1_1_12", "SELECT ts, max(usage_user) RANGE '1m' "
+         "FROM cpu WHERE hostname = 'host_17' ALIGN '1m' BY (hostname)",
+         hours * 60, ()),
+        ("single_groupby_5_8_1", f"SELECT ts, hostname, "
+         f"{items('max', '1m', FIELDS[:5])} FROM cpu WHERE hostname IN "
+         f"({hosts8}) AND ts >= {end_ms - HOUR_MS} AND ts < {end_ms} "
+         "ALIGN '1m' BY (hostname)", 8 * 60, ()),
+        ("cpu_max_all_1", f"SELECT ts, {items('max', '1h', FIELDS)} FROM cpu "
+         "WHERE hostname = 'host_42' ALIGN '1h' BY (hostname) LIMIT 8",
+         min(8, hours), ()),
+        ("cpu_max_all_8", f"SELECT ts, hostname, "
+         f"{items('max', '1h', FIELDS)} FROM cpu WHERE hostname IN "
+         f"({hosts8}) AND ts < {8 * HOUR_MS} ALIGN '1h' BY (hostname)",
+         8 * min(8, hours), ()),
+        ("double_groupby_1", "SELECT ts, hostname, avg(usage_user) RANGE "
+         "'1h' FROM cpu ALIGN '1h' BY (hostname)", hosts * hours,
+         means[:1]),
+        ("double_groupby_5", f"SELECT ts, hostname, "
+         f"{items('avg', '1h', FIELDS[:5])} FROM cpu ALIGN '1h' "
+         "BY (hostname)", hosts * hours, means[:5]),
+        ("q2_by_region", "SELECT ts, region, " + ", ".join(
+            f"{op}(usage_user) RANGE '2h'" for op in SQL_Q2_OPS)
+         + " FROM cpu ALIGN '1h' BY (region)", regions * (hours + 1), ()),
+    ]
+
+
+def sql_phase(args, dev, slice_out, mesh_out):
+    """Phase 8 (see the module docstring). Returns the phase's launch
+    counts, those of the hop-ring engine alone, and per kernel the
+    profiler's device time per launch on the warm SQL Q2 (K2's seed and
+    fold_cont on the hop ring, the fused ring on the default ring)."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+
+    t_phase = time.perf_counter()
+    mesh_engines = mesh_out["engines"]
+    # (table's phase, engine) -> (table, query engine, ring form). Each
+    # Instance runs on the query engine that answered the plan-built
+    # Q1/Q2 of its phase, so its grid is built already (cold is the SQL
+    # shape's state growth); the hop ring runs on the ring engine's grid.
+    runs = {
+        ("slice", "single"): (slice_out, slice_out["engine"], "fused"),
+        ("mesh", "single"): (mesh_out, mesh_engines["single"], "fused"),
+        ("mesh", "fused"): (mesh_out, mesh_engines["ring"], "fused"),
+        ("mesh", "hops"): (mesh_out, mesh_engines["ring"], "hops"),
+        ("mesh", "gather"): (mesh_out, mesh_engines["gather"], "fused"),
+    }
+    zero_counts(rf, mg)
+    results, stats, fused_warm, run_launches = {}, {}, {}, {}
+    for (tname, ename), (tab, engine, form) in runs.items():
+        before_run = counts(rf, mg)
+        inst = Instance(device=dev, mesh=engine.mesh,
+                        mesh_opts=engine.mesh_opts)
+        inst.query_engine = engine
+        inst.catalog.register(tab["table"])
+        suite = sql_suite(tab["hosts"], tab["hours"], tab["regions"])
+        per_shape = {}
+        with ring_form(rf, form):
+            for name, sql, want_rows, _ in suite:
+                t = time.perf_counter()
+                res = inst.sql(sql)
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t
+                eng = inst.query_engine
+                if eng.last_exec_path != "device":
+                    raise AssertionError(f"{name} ran {eng.last_exec_path}")
+                if res.num_rows != want_rows:
+                    raise AssertionError(f"{tname} {ename} {name}: "
+                                         f"{res.num_rows} rows, bench.py "
+                                         f"wants {want_rows}")
+                results[tname, ename, name] = res
+                times = []
+                before = rf.ring_fold_fused.launches
+                for _ in range(3):
+                    t = time.perf_counter()
+                    inst.sql(sql)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                fused_warm[tname, ename, name] = (
+                    rf.ring_fold_fused.launches - before) / 3
+                prof = profiled(lambda: inst.sql(sql))
+                info = dict(eng.last_range)
+                per_shape[name] = {
+                    "cold_s": cold, "warm_median_s": float(np.median(times)),
+                    "device_ms": prof["device_ms"],
+                    "idle_share": prof["idle_share"],
+                    "fused_launches_per_warm": fused_warm[tname, ename,
+                                                          name],
+                    "folds": info["comm_bytes"] > 0, "program":
+                    info["program"], "ring_form": info["ring_form"],
+                    "ours": prof["ours"]}
+        stats[f"{tname}_{ename}"] = per_shape
+        after_run = counts(rf, mg)
+        run_launches[f"{tname}_{ename}"] = {
+            k: after_run[k] - before_run[k] for k in after_run
+            if after_run[k] > before_run[k]}
+    launches = counts(rf, mg)
+
+    # ---- checks -------------------------------------------------------
+    w1 = HOUR_MS // STEP_MS
+    for tname, out in (("slice", slice_out), ("mesh", mesh_out)):
+        # SQL Q1/Q2 against the plan-built Q1/Q2 of the same table, one
+        # device (the mesh engines are held to one device below)
+        compare_engines(f"{tname} SQL Q1", out["q1"],
+                        results[tname, "single", "double_groupby_all"], w1,
+                        names=False)
+        compare_engines(f"{tname} SQL Q2", out["q2"],
+                        results[tname, "single", "q2_by_region"], w1,
+                        names=False)
+    suite = sql_suite(mesh_out["hosts"], mesh_out["hours"],
+                      mesh_out["regions"])
+    checks = {}
+    for name, _, _, means in suite:
+        ref = results["mesh", "single", name]
+        worst = 0.0
+        for ename in ("fused", "hops", "gather"):
+            _, rel = compare_engines(f"mesh {ename} {name}", ref,
+                                     results["mesh", ename, name], w1,
+                                     bounded=set(means))
+            worst = max(worst, rel)
+            st = stats[f"mesh_{ename}"][name]
+            want_prog = ("sharded_gather" if ename == "gather"
+                         else "sharded_ring")
+            if st["program"] != want_prog or (
+                    ename != "gather" and st["ring_form"] != ename):
+                raise AssertionError(f"mesh {ename} {name} ran {st}")
+            launched = st["fused_launches_per_warm"]
+            if ename == "fused" and st["folds"] and launched < 1:
+                raise AssertionError(f"{name}: the fused ring never "
+                                     f"launched on a folding query")
+            if (ename != "fused" or not st["folds"]) and launched:
+                raise AssertionError(f"{name}: the fused ring launched on "
+                                     f"the {ename} engine")
+        checks[name] = {"engines_identical": worst == 0.0,
+                        "max_rel_diff_means": worst,
+                        "folds": stats["mesh_fused"][name]["folds"]}
+    if not any(c["folds"] for c in checks.values()):
+        raise AssertionError("no suite query folded groups on the mesh")
+    for k in ("ring_fold_fused", "fold_cont", "blocked_fold_sum"):
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched in phase sql")
+
+    q2 = "q2_by_region"
+    per_launch = {
+        "ring_fold_fused": device_ms_per_launch(
+            {"ours": stats["mesh_fused"][q2]["ours"]}, is_fused_kernel),
+        "blocked_fold_sum": device_ms_per_launch(
+            {"ours": stats["mesh_hops"][q2]["ours"]}, fold(0)),
+        "fold_cont": device_ms_per_launch(
+            {"ours": stats["mesh_hops"][q2]["ours"]}, fold(1)),
+    }
+    emit({"phase": "sql", "engines": stats, "checks": checks,
+          "launches": launches, "launches_by_engine": run_launches,
+          "device_ms_per_launch_q2": per_launch,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, run_launches["mesh_hops"], per_launch
+
+
 def run(args) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1114,9 +1432,31 @@ def run(args) -> int:
               rows0, drop_deletes=True, device=dev, kernels="on")),
           "seconds": time.perf_counter() - t})
     # ---- 6. mesh -----------------------------------------------------
-    kernels = merge_kernel_rows(kernels, mesh_phase(args, dev, P))
+    mesh_out = mesh_phase(args, dev, P)
+    kernels += mesh_out["rows"]
     # ---- 7. promql ---------------------------------------------------
     kernels.append(promql_phase(args, dev))
+    # ---- 8. sql ------------------------------------------------------
+    slice_out = {"table": table, "engine": eng, "hosts": args.hosts,
+                 "hours": args.hours, "regions": len(set(region_of)),
+                 "q1": r1, "q2": r2}
+    sql_launches, hop_launches, sql_per_launch = sql_phase(
+        args, dev, slice_out, mesh_out)
+    # every kernel's launches over the main-path runs of phases 2, 6, 7
+    # and 8; the hop ring's seed and continuation ran in phase 8 only
+    for row in kernels:
+        row["launches"] += sql_launches.get(row["name"], 0)
+        if row["name"] == "blocked_fold_sum":
+            row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
+            row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
+                "blocked_fold_sum"]
+        elif row["name"] == "fold_cont":
+            row["device_ms_per_launch_q2"] = sql_per_launch["fold_cont"]
+        elif row["name"] == "ring_fold_fused":
+            row["device_ms_per_launch_sql_q2"] = sql_per_launch[
+                "ring_fold_fused"]
+        if row["launches"] == 0:
+            raise AssertionError(f"kernel {row['name']} never launched")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -31,6 +31,11 @@ class TableSchema:
     def field_names(self) -> list[str]:
         return list(self.field_dtypes)
 
+    @property
+    def column_names(self) -> list[str]:
+        """Time index, tags, then fields (what SELECT * expands to)."""
+        return [self.ts_name, *self.tag_names, *self.field_names]
+
 
 @dataclass
 class TableScanData:

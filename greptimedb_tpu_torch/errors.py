@@ -21,5 +21,13 @@ class PlanError(GreptimeError):
     """A query that parses but cannot be planned."""
 
 
+class ExecutionError(GreptimeError):
+    """A planned query that fails while it runs."""
+
+
 class TableNotFoundError(GreptimeError):
     """A table or field that does not exist."""
+
+
+class ColumnNotFoundError(GreptimeError):
+    """A column an expression names that its source does not hold."""

@@ -24,7 +24,7 @@ from pathlib import Path
 
 from greptimedb_tpu_torch.device import native_available
 
-SOURCES = ("merge_gather", "ring_fold", "topk_merge")
+SOURCES = ("merge_gather", "ring_fold", "ring_fold_fused", "topk_merge")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

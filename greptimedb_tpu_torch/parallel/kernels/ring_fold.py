@@ -19,9 +19,16 @@ step through member ranks, adding the k-th member of every (block, group)
 at step k.
 
 The ring entry points (`ring_fold_blocks`, `ring_pext`,
-`ring_psum_onehot`, `RingFoldCtx`) run over per-shard lists through
+`ring_psum_onehot`) run over per-shard lists through
 parallel/kernels/base.sequential_ring; every combine of a hop is one of
 this module's kernels (`fold_cont`, `extreme`, `onehot_add`).
+
+`ring_fold_fused` is the whole reduce-then-broadcast ring of the group
+fold in ONE launch (csrc/ring_fold_fused.cu, the Pallas
+_tpu_ring_fold_call): every shard's block partials, then 2(ns - 1) ring
+steps over per-shard double buffers with the fold turns and latches.
+`RingFoldCtx` takes it when every shard lies on one device, and the hop
+ring otherwise (or when asked with fused=False).
 """
 
 from __future__ import annotations
@@ -167,10 +174,10 @@ _LL = ctypes.c_longlong
 
 
 def _launch(symbol: str, argtypes: list, args: tuple, device,
-            what: str) -> None:
+            what: str, lib_name: str = "ring_fold") -> None:
     from greptimedb_tpu_torch.parallel.kernels import build
 
-    lib = build.load("ring_fold")
+    lib = build.load(lib_name)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes + [_PTR]
     fn.restype = ctypes.c_int
@@ -309,6 +316,111 @@ for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
 
 
 # ----------------------------------------------------------------------
+# the fused ring (row 6): one launch per fold across every shard
+# ----------------------------------------------------------------------
+
+_MAX_SHARDS = 8          # FOLD_BLOCKS: a ring shard holds >= 1 block
+_MAX_FB = 8
+_FUSED_THREADS = 256     # elements per tile (csrc/ring_fold_fused.cu)
+
+
+def ring_fold_fused_plain(arrs: list, fms: list) -> list:
+    """Plain PyTorch version of the fused ring, step by step as the kernel
+    (and the Pallas _tpu_ring_fold_call) runs it: every shard computes its
+    fb_local block partials and seeds its send value with their left fold;
+    at step k every shard stores its send value into its right
+    neighbour's receive slot (k + 1) % 2, then takes what arrived. For
+    k < ns - 1 the shard whose turn it is (s == k + 1) folds its own
+    partials onto it, and shard ns - 1 latches the total at k = ns - 2;
+    for k >= ns - 1 the total passes by and shard k - (ns - 1) latches
+    it. Returns the total on every shard, in shard order."""
+    ns = len(arrs)
+    parts = [block_partials_plain(a, fm) for a, fm in zip(arrs, fms)]
+    cur = [left_fold_sum(p) for p in parts]
+    out = list(cur)
+    buf = [[None, None] for _ in range(ns)]
+    for k in range(2 * ns - 2):
+        slot = (k + 1) % 2
+        for s in range(ns):
+            right = (s + 1) % ns
+            buf[right][slot] = cur[s].to(arrs[right].device)
+        for s in range(ns):
+            v = buf[s][slot]
+            if k < ns - 1:
+                if s == k + 1:
+                    v = fold_from(v, parts[s])
+                if k == ns - 2 and s == ns - 1:
+                    out[s] = v
+            elif s == k - (ns - 1):
+                out[s] = v
+            cur[s] = v
+    return out
+
+
+def _check_fused(arrs: list, fms: list) -> None:
+    if not arrs or len(arrs) != len(fms):
+        raise ValueError(f"ring_fold_fused: {len(arrs)} shards, "
+                         f"{len(fms)} member lists")
+    if len(arrs) > _MAX_SHARDS:
+        raise ValueError(f"ring_fold_fused takes at most {_MAX_SHARDS} "
+                         f"shards, not {len(arrs)}")
+    fm0 = fms[0]
+    if fm0.fb > _MAX_FB:
+        raise ValueError(f"ring_fold_fused takes at most {_MAX_FB} blocks "
+                         f"a shard, not {fm0.fb}")
+    for a, fm in zip(arrs, fms):
+        _check_fold("ring_fold_fused", a, fm)
+        if (fm.g, fm.fb) != (fm0.g, fm0.fb):
+            raise ValueError("ring_fold_fused: shards differ in groups or "
+                             "blocks")
+        if (a.dtype, a.shape[1], a.device) != (
+                arrs[0].dtype, arrs[0].shape[1], arrs[0].device):
+            raise ValueError("ring_fold_fused: shards differ in dtype, "
+                             "cells or device")
+
+
+def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
+    """Per-group sums of every shard's (s_local, nb) float32/int32 states,
+    the total on every shard, in one launch of the fused ring kernel;
+    bit-identical to ring_fold_blocks (the hop ring) and to the gather
+    twin. Every shard's tensors must lie on one device: a CPU device runs
+    the plain version, a CUDA card the kernel. `grid_x` sets the number of
+    tile slots per shard (0: as many as can be co-resident); a grid that
+    cannot be co-resident raises before any launch."""
+    _check_fused(arrs, fms)
+    if arrs[0].device.type == "cpu":
+        return ring_fold_fused_plain(arrs, fms)
+    ns = len(arrs)
+    g, fb, nb = fms[0].g, fms[0].fb, arrs[0].shape[1]
+    outs = [torch.empty((g, nb), dtype=arrs[0].dtype, device=a.device)
+            for a in arrs]
+    plane = g * nb
+    if plane == 0:
+        return outs
+    dev = arrs[0].device
+    bufs = torch.empty((ns, 2, plane), dtype=arrs[0].dtype, device=dev)
+    tiles = -(-plane // _FUSED_THREADS)
+    # recv and ack flags per (shard, tile), zeroed on the launch's stream
+    # so no flag of an earlier launch can satisfy a wait
+    flags = torch.zeros((ns, 2, tiles), dtype=torch.int32, device=dev)
+
+    def ptrs(ts):
+        return (_PTR * _MAX_SHARDS)(*[t.data_ptr() for t in ts])
+
+    _launch(f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
+            [_PTR] * 6 + [_INT] * 5,
+            (ptrs(arrs), ptrs([fm.member for fm in fms]),
+             ptrs([fm.ptr for fm in fms]), ptrs(outs), ptrs(bufs),
+             ptrs(flags), ns, g, fb, nb, int(grid_x)),
+            dev, "ring_fold_fused", lib_name="ring_fold_fused")
+    ring_fold_fused.launches += 1
+    return outs
+
+
+ring_fold_fused.launches = 0
+
+
+# ----------------------------------------------------------------------
 # the ring over per-shard lists
 # ----------------------------------------------------------------------
 
@@ -351,9 +463,32 @@ def fold_comm_bytes(ns: int, g: int, nb: int, passes: int = 1) -> int:
 class RingFoldCtx(ShardFoldCtx):
     """Kernel-path twin of dist.ShardFoldCtx: the same hooks, with the
     ring kernels behind them. Each hook is bit-identical to its gather
-    counterpart for the payloads the range fold produces."""
+    counterpart for the payloads the range fold produces.
+
+    `fused` mirrors the JAX package's `interpret=`: None takes the fused
+    ring (one ring_fold_fused launch per fold) when every shard lies on
+    one device, and the hop ring (K2's seed, then fold_cont hop by hop)
+    when the shards span devices — the peer-copy form of the fused kernel
+    belongs to the multi-card slice; False always takes the hop ring and
+    True always the fused one (which raises for shards on several
+    devices). A choice from the device list, never a fallback: a failed
+    fused launch raises."""
+
+    def __init__(self, shards: int, fused: bool | None = None):
+        super().__init__(shards)
+        self.fused = fused
+
+    def form(self, devices) -> str:
+        """"fused" or "hops": the ring this ctx runs over shards on
+        `devices`."""
+        if self.fused is None:
+            one = len({torch.device(d) for d in devices}) == 1
+            return "fused" if one else "hops"
+        return "fused" if self.fused else "hops"
 
     def fold_sum(self, arrs: list, fms: list) -> list:
+        if self.form([a.device for a in arrs]) == "fused":
+            return ring_fold_fused(arrs, fms)
         return ring_fold_blocks(arrs, fms)
 
     def pext(self, xs: list, take_max: bool) -> list:

@@ -24,9 +24,11 @@ device-resident (series x time-cell) partial-state grids:
   shards meet, and results are bit-identical to the one-device engine.
 
 States are float32/int32 as in the JAX package's device path; indices are
-int64 only where torch indexing requires it. Shapes the port does not run
-yet (tag matchers, residual filters, expression arguments, unaligned time
-bounds, oversized grids, a sharded fold past the blocked-fold cap) raise
+int64 only where torch indexing requires it. Tag matchers of the WHERE
+clause become a host sid mask (index/tag_index.match_sids) that the
+prelude and every shard's program apply. Shapes the port does not run
+yet (residual filters, expression arguments, unaligned time bounds,
+oversized grids, a sharded fold past the blocked-fold cap) raise
 UnsupportedError naming the shape: there is no host path to fall back to
 in this slice.
 """
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from greptimedb_tpu_torch.errors import UnsupportedError
+from greptimedb_tpu_torch.index import tag_index
 from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
@@ -797,7 +800,11 @@ def _segment_ext(x: torch.Tensor, gid: torch.Tensor, g: int,
     """jax.ops.segment_max/min over dim 0: empty segments hold the JAX
     identity (-inf/+inf for floats, INT32_MIN/MAX for int32), never zero.
     Sids with gid >= g land in an extra segment that is sliced off.
-    min/max are order-free, so the scatter's order does not matter."""
+    min/max are order-free except for signed zeros: scatter_reduce compares
+    -0.0 and +0.0 equal and keeps either, where XLA orders -0.0 below +0.0,
+    so a float zero result takes its sign from whether the segment holds
+    the winning zero (+0.0 for max, -0.0 for min), as
+    ops/promql.segment_ext does."""
     if x.dtype.is_floating_point:
         ident = -math.inf if take_max else math.inf
     else:
@@ -805,8 +812,17 @@ def _segment_ext(x: torch.Tensor, gid: torch.Tensor, g: int,
     out = torch.full((g + 1, x.shape[1]), ident, dtype=x.dtype,
                      device=x.device)
     idx = gid.clamp(max=g).to(torch.int64)[:, None].expand_as(x)
-    out.scatter_reduce_(0, idx, x, reduce="amax" if take_max else "amin",
-                        include_self=True)
+    reduce = "amax" if take_max else "amin"
+    out.scatter_reduce_(0, idx, x, reduce=reduce, include_self=True)
+    if x.dtype.is_floating_point:
+        winner = (x == 0) & (torch.signbit(x) != take_max)
+        has_winner = torch.zeros((g + 1, x.shape[1]), dtype=torch.int32,
+                                 device=x.device)
+        has_winner.scatter_reduce_(0, idx, winner.to(torch.int32),
+                                   reduce="amax", include_self=True)
+        zero, other = (0.0, -0.0) if take_max else (-0.0, 0.0)
+        out = torch.where(out == 0, torch.where(has_winner > 0, zero, other),
+                          out)
     return out[:g]
 
 
@@ -1085,8 +1101,6 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     if items is None:
         items = plan_lowering(plan, table)
     s = plan.scan
-    if s.matchers:
-        raise UnsupportedError("tag matchers in WHERE")
     if plan.grid_ts_min is not None or plan.grid_ts_max is not None:
         raise UnsupportedError("distributed fill-grid override")
     align = plan.align_ms
@@ -1103,7 +1117,19 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
 
     names = [nm for _, nm in plan.post_items]
     empty = engine._empty_result(names)
-    active, ts_min_f, ts_max_f = run_prelude(entry, None, lo, hi)
+    sid_mask = None
+    mask_key = None
+    if s.matchers:
+        sids = tag_index.match_sids(entry.registry, s.matchers)
+        if len(sids) == 0:
+            return empty
+        sid_mask = np.zeros(entry.num_series, bool)
+        sid_mask[sids[sids < entry.num_series]] = True
+        # memo on the canonical matcher key + registry version instead
+        # of hashing an O(num_series) mask per query
+        mask_key = (tag_index.matcher_key(s.matchers),
+                    entry.registry.version)
+    active, ts_min_f, ts_max_f = run_prelude(entry, sid_mask, lo, hi)
     if ts_min_f is None:
         return empty
 
@@ -1123,7 +1149,8 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     lo_c = _clamp_i32(lo)
     hi_c = _clamp_i32(hi)
 
-    memo_key = (tuple(k.expr.name for k in plan.keys), delta, lo_c, hi_c)
+    memo_key = (mask_key, tuple(k.expr.name for k in plan.keys), delta,
+                lo_c, hi_c)
     memo = entry.query_memo.get(memo_key)
     if memo is None:
         gid_full, g, key_cols = _group_ids_from_sids(
@@ -1185,10 +1212,12 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     spec = (stride, n_steps, g, memo["fold"], nanenc, prog_items)
     ns = len(entry.devices)
     comm_bytes = 0
+    ring_form = None
     if entry.mesh is None:
         ctx, program = LocalFoldCtx(), "single"
     elif entry.mesh_decision.kernel == "ring":
         ctx, program = ring_fold.RingFoldCtx(ns), "sharded_ring"
+        ring_form = ctx.form(entry.devices)
         if memo["fold"]:
             for op_i, w_i, _ in prog_items:
                 planes = 1 + len(_STATE_COMBINE.get(op_i, ()))
@@ -1202,6 +1231,9 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
                      if entry.mesh_decision is not None else None),
         "kernel": (entry.mesh_decision.kernel_label()
                    if entry.mesh is not None else None),
+        # "fused" (one ring kernel per fold) or "hops" (seed + fold_cont
+        # hop by hop) on the ring engine, None otherwise
+        "ring_form": ring_form,
     }
     parts = _range_body(arrs, memo, spec, ctx)
     # fold=False leaves the series axis un-folded and series-sharded: the

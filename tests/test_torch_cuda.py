@@ -162,6 +162,179 @@ def test_onehot_add_kernel_matches_plain(cuda):
     assert torch.equal(_bits32(got), _bits32(torch.from_numpy(a + x)))
 
 
+def _ring_input(rng, ns, s_local, nb, dtype):
+    """Per-shard states with the fold's edge bits: float32 with wide
+    magnitudes, -0.0 (a whole cell of it), ±inf in two cells of three and
+    at most one NaN payload per (group, cell) chain in the third; int32
+    with extremes whose sums wrap."""
+    if dtype == torch.int32:
+        x = rng.integers(-1000, 1000, (ns, s_local, nb)).astype(np.int32)
+        r = rng.random(x.shape)
+        x[r < 0.05] = 2**31 - 1
+        x[(r >= 0.05) & (r < 0.1)] = -(2**31)
+        return x
+    x = (rng.standard_normal((ns, s_local, nb))
+         * 10.0 ** rng.integers(-4, 5, (ns, s_local, nb))).astype(np.float32)
+    r = rng.random(x.shape)
+    x[r < 0.1] = -0.0
+    x[:, :, nb // 2] = -0.0
+    inf_cell = (np.arange(nb) % 3 != 0)[None, None, :]
+    inf_cell[..., nb // 2] = False
+    x[(r >= 0.1) & (r < 0.12) & inf_cell] = np.inf
+    x[(r >= 0.12) & (r < 0.14) & inf_cell] = -np.inf
+    for c in range(0, nb, 3):
+        bits = np.uint32(int(rng.integers(0, 2**22)) | 0x7FC00000)
+        x[rng.integers(ns), rng.integers(s_local), c] = bits.view(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("ns,s_local,nb,g,dtype,grid_x", [
+    (4, 2048, 2160, 9, torch.float32, 0),     # the mesh phase's Q2 shape
+    (4, 2048, 2160, 9, torch.int32, 0),
+    (4, 2048, 2160, 9, torch.float32, 1),     # one block walks every tile
+    (2, 64, 37, 5, torch.float32, 0),
+    (8, 16, 300, 3, torch.int32, 2),
+    (8, 16, 300, 3, torch.float32, 0),
+    (4, 1024, 1, 1, torch.float32, 0),        # BY (): one group, one cell
+])
+def test_ring_fold_fused_kernel_matches_plain(cuda, ns, s_local, nb, g,
+                                              dtype, grid_x):
+    """Every shard's output bit for bit against the plain version on the
+    card and against the hop ring, one launch a fold; against the CPU bit
+    for bit except for which NaN comes out (the card's float add returns
+    its canonical NaN where the CPU's keeps an operand's payload)."""
+    rng = np.random.default_rng(ns * 1000 + nb + g)
+    x = _ring_input(rng, ns, s_local, nb, dtype)
+    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+    fb = 8 // ns
+    cpu = [torch.from_numpy(np.ascontiguousarray(x[k])) for k in range(ns)]
+    fms_cpu = [rf.fold_members(gid[k], g, fb, "cpu") for k in range(ns)]
+    want = rf.ring_fold_fused(cpu, fms_cpu)
+    arrs = [t.to(cuda) for t in cpu]
+    fms = [rf.fold_members(gid[k], g, fb, cuda) for k in range(ns)]
+    before = rf.ring_fold_fused.launches
+    got = rf.ring_fold_fused(arrs, fms, grid_x=grid_x)
+    torch.cuda.synchronize()
+    assert rf.ring_fold_fused.launches == before + 1
+    plain = rf.ring_fold_fused_plain(arrs, fms)
+    hops = rf.ring_fold_blocks(arrs, fms)
+    for k in range(ns):
+        nan = torch.isnan(want[k]) if dtype == torch.float32 else None
+        if nan is not None:
+            assert torch.equal(torch.isnan(got[k]).cpu(), nan), k
+            assert torch.equal(_bits32(got[k])[~nan],
+                               want[k].view(torch.int32)[~nan]), k
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+        assert torch.equal(_bits32(got[k]), _bits32(plain[k])), k
+        assert torch.equal(_bits32(got[k]), _bits32(hops[k])), k
+
+
+def test_card_add_returns_its_canonical_nan(cuda):
+    """Why a folded sum that is NaN has other bits on the card than on the
+    CPU: the card's float add returns 0x7FFFFFFF for a NaN operand and for
+    inf + (-inf), where the CPU keeps the operand's payload."""
+    x = torch.tensor([0x7FC12345, 0x7F800000, -0x00800000],
+                     dtype=torch.int32).view(torch.float32)
+    assert (x[:1] + 1.0).view(torch.int32).item() == 0x7FC12345
+    assert torch.isnan(x[1:2] + x[2:3]).all()
+    xc = x.to(cuda)
+    assert (xc[:1] + 1.0).view(torch.int32).item() == 0x7FFFFFFF
+    assert (xc[1:2] + xc[2:3]).view(torch.int32).item() == 0x7FFFFFFF
+
+
+def test_ring_fold_fused_refuses_a_grid_that_cannot_be_co_resident(cuda):
+    """A ring whose blocks spin on each other must never launch with more
+    blocks than the card holds at once: the wrapper raises instead."""
+    rng = np.random.default_rng(0)
+    ns, g = 4, 9
+    x = _ring_input(rng, ns, 256, 2160, torch.float32)
+    gid = rng.integers(0, g, (ns, 256)).astype(np.int32)
+    arrs = [torch.from_numpy(np.ascontiguousarray(x[k])).to(cuda)
+            for k in range(ns)]
+    fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
+    props = torch.cuda.get_device_properties(cuda)
+    before = rf.ring_fold_fused.launches
+    with pytest.raises(RuntimeError, match="ring_fold_fused"):
+        rf.ring_fold_fused(arrs, fms, grid_x=64 * props.multi_processor_count)
+    assert rf.ring_fold_fused.launches == before
+    with pytest.raises(ValueError):                # shards on two devices
+        rf.ring_fold_fused([arrs[0], arrs[1].cpu()], fms[:2])
+    # the card is still usable: the next ring runs and is right
+    got = rf.ring_fold_fused(arrs, fms)
+    want = rf.ring_fold_fused_plain(arrs, fms)
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits32(a), _bits32(b)) for a, b in zip(got, want))
+
+
+def test_sql_on_cuda_matches_cpu(cuda):
+    """Instance.sql on the card (one device; four shards as the fused ring,
+    the hop ring and the gather twin) against Instance(device="cpu").sql,
+    bit for bit; the fused kernel carries every sharded fold of the
+    default ring and launches on no other engine."""
+    import functools
+
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.query import device_range as dr
+
+    rng = np.random.default_rng(4)
+    t = Table("cpu", ts_name="ts", tag_names=["hostname", "region"],
+              fields=["u", "v"])
+    hosts = np.array([f"host_{i}" for i in range(300)])
+    regions = np.array(["a", "b", "c"])[rng.integers(0, 3, 300)]
+    ts = np.tile(np.arange(720) * 10_000, 300)
+    hi = np.repeat(np.arange(300), 720)
+    t.write({"hostname": hosts[hi], "region": regions[hi]}, ts,
+            {"u": rng.random(len(ts)) * 100, "v": rng.random(len(ts))})
+    queries = [
+        "SELECT ts, region, count(u) RANGE '1h', sum(u) RANGE '1h', "
+        "min(u) RANGE '1h', max(v) RANGE '1h', avg(u) RANGE '1h', "
+        "first_value(v) RANGE '1h', last_value(u) RANGE '1h' FROM cpu "
+        "ALIGN '30m' BY (region)",
+        "SELECT ts, max(u) RANGE '1m' FROM cpu WHERE ts < 3600000 "
+        "ALIGN '1m' BY () ORDER BY ts DESC LIMIT 5",
+        "SELECT ts, max(u) RANGE '1m' FROM cpu WHERE hostname = 'host_17' "
+        "ALIGN '1m' BY (hostname)",
+        "SELECT ts, hostname, avg(u) RANGE '2h' FROM cpu WHERE hostname IN "
+        "('host_1', 'host_250') ALIGN '1h' BY (hostname)",
+    ]
+    cpu_inst = Instance(device="cpu")
+    cpu_inst.catalog.register(t)
+    want = [cpu_inst.sql(q) for q in queries]
+    low = {"shard_min_series": 1, "pallas_min_series": 1}
+    mesh = make_mesh([cuda] * 4)
+    engines = {"single": (None, None, True),
+               "fused": (mesh, MeshOptions(**low), True),
+               "hops": (mesh, MeshOptions(**low), False),
+               "gather": (mesh, MeshOptions(pallas_kernels="off", **low),
+                          True)}
+    real_ctx = rf.RingFoldCtx
+    for name, (m, opts, fused) in engines.items():
+        inst = Instance(device=cuda, mesh=m, mesh_opts=opts)
+        inst.catalog.register(t)
+        for q, w in zip(queries, want):
+            before = rf.ring_fold_fused.launches
+            dr.ring_fold.RingFoldCtx = (real_ctx if fused else
+                                        functools.partial(real_ctx,
+                                                          fused=False))
+            try:
+                got = inst.sql(q)
+            finally:
+                dr.ring_fold.RingFoldCtx = real_ctx
+            torch.cuda.synchronize()
+            info = inst.query_engine.last_range
+            launched = rf.ring_fold_fused.launches - before
+            assert (launched > 0) == (name == "fused"
+                                      and info["comm_bytes"] > 0), (name, q)
+            if name in ("fused", "hops"):
+                assert info["ring_form"] == name
+            assert got.names == w.names and got.num_rows == w.num_rows > 0
+            for a, b in zip(got.cols, w.cols):
+                assert np.array_equal(a.valid_mask, b.valid_mask), (name, q)
+                assert np.array_equal(np.asarray(a.values),
+                                      np.asarray(b.values)), (name, q)
+
+
 def _runs(rng, n=300_000, n_sid=500):
     f = rng.standard_normal(n)
     f[rng.random(n) < 0.01] = np.nan

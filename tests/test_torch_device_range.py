@@ -226,8 +226,8 @@ def test_unported_shapes_raise(tables):
     _, tt = tables
     eng = QueryEngine(device="cpu")
     for sql in (
-        Q2.replace("FROM cpu", "FROM cpu WHERE hostname = 'host_1'"),
-        Q1 + " ORDER BY ts",
+        Q2.replace("FROM cpu", "FROM cpu WHERE usage_user > 50.0"),
+        "SELECT hostname, avg(usage_user) FROM cpu GROUP BY hostname",
         "SELECT ts, avg(usage_user * 2) RANGE '1h' FROM cpu ALIGN '1h'",
     ):
         with pytest.raises(UnsupportedError):

@@ -79,6 +79,20 @@ for mesh in (None, make_mesh(["cpu"] * 4)):
     for q in ("sum by (region) (rate(cpu[1m]))", "topk(3, rate(cpu[1m]))"):
         v, _ = PromEngine(holder).query_range(q, 600_000, 1_200_000, 60_000)
         assert v.num_series > 0
+
+from greptimedb_tpu_torch.instance import Instance
+
+for mesh in (None, make_mesh(["cpu"] * 4)):
+    inst = Instance(device="cpu", mesh=mesh, mesh_opts=MeshOptions(
+        shard_min_series=1, pallas_kernels="on", pallas_min_series=1))
+    inst.catalog.register(t)
+    res = inst.sql("SELECT ts, region, sum(u) RANGE '2h' FROM cpu WHERE "
+                   "hostname IN ('h1', 'h2', 'h7') ALIGN '1h' BY (region) "
+                   "ORDER BY ts DESC LIMIT 3")
+    assert res.num_rows == 3
+    assert PromEngine(inst).query_range(
+        "sum by (region) (rate(cpu[1m]))", 600_000, 1_200_000,
+        60_000)[0].num_series > 0
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu"))
 print("LEAKED", leaked)
@@ -115,6 +129,16 @@ def test_entry_points_refuse_to_fall_back_without_cuda(no_cuda):
     # an explicit CPU request runs the plain versions
     out, path = merge_rows(rows, device="cpu")
     assert path == "host" and len(out) == 4
+
+
+def test_instance_refuses_to_fall_back_without_cuda(no_cuda):
+    from greptimedb_tpu_torch.instance import Instance
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Instance()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Instance(device="cuda")
+    assert Instance(device="cpu").query_engine.device.type == "cpu"
 
 
 def test_kernel_gate_semantics():
