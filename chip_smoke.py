@@ -87,6 +87,8 @@ result line):
              fused kernel must launch on every sharded query that folds
              groups, and on no other engine.
              Kernel counts are zeroed before the phase and read after it.
+             Then the warm SQL Q2 runs on the fused ring and the hop ring
+             in turn, 30 times each, for their host walls.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -125,6 +127,8 @@ Q2_OPS = ["count", "sum", "min", "max", "mean", "stddev_samp",
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 U = 2.0 ** -24
+# warm SQL Q2 runs per ring form in the sql phase's interleaved timing
+Q2_WALL_REPS = 30
 
 
 def _device() -> torch.device:
@@ -158,6 +162,21 @@ def cuda_ms(fn, reps=20, warm=3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps=20, warm=3) -> float:
+    """Median host time of one call (its return, not its kernels': the
+    card is synchronized after each call, outside the timing)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
     return float(np.median(times))
 
 
@@ -647,8 +666,12 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         for k in range(ns):
             exact(f"ring_fold_fused ({dtype} edge bits)", got[k], want[k])
     m_all = sum(f.member.numel() for f in fms)
-    fused_bytes = (4 * m_all * nb + 4 * ns * plane
-                   + 2 * 2 * (ns - 1) * 4 * plane)
+    # what the function must move: the member rows in, ns outputs out. The
+    # ring's hops (2(ns - 1) stores and loads of the plane) are the
+    # algorithm's, pass through L2 on one card, and are reported apart for
+    # the cell where they cross cards
+    fused_bytes = 4 * m_all * nb + 4 * ns * plane
+    hop_bytes = 2 * 2 * (ns - 1) * 4 * plane
     arr_all = torch.cat(s_f)
     gid_all = torch.cat([gd.clamp(max=g) for gd in gids]).to(torch.int64)
     rows.append({
@@ -668,9 +691,13 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "ms_int32": cuda_ms(lambda: rf.ring_fold_fused(s_i, fms)),
         # the hop ring on the same inputs: K2's seed + ns - 1 fold_cont
         "hops_ms": cuda_ms(lambda: rf.ring_fold_blocks(s_f, fms)),
+        # the wrappers' host time alone (events time = host time until
+        # the launch + the kernels' time)
+        "host_ms": host_ms(lambda: rf.ring_fold_fused(s_f, fms)),
+        "hops_host_ms": host_ms(lambda: rf.ring_fold_blocks(s_f, fms)),
         "shape": {"shards": ns, "s_local": s_local, "nb": nb, "g": g,
                   "fb_local": fms[0].fb, "members": m_all},
-        "bytes": fused_bytes,
+        "bytes": fused_bytes, "bytes_hops": hop_bytes,
     })
     return rows
 
@@ -1186,10 +1213,11 @@ def sql_phase(args, dev, slice_out, mesh_out):
     }
     zero_counts(rf, mg)
     results, stats, fused_warm, run_launches = {}, {}, {}, {}
+    insts = {}
     for (tname, ename), (tab, engine, form) in runs.items():
         before_run = counts(rf, mg)
-        inst = Instance(device=dev, mesh=engine.mesh,
-                        mesh_opts=engine.mesh_opts)
+        inst = insts[tname, ename] = Instance(device=dev, mesh=engine.mesh,
+                                              mesh_opts=engine.mesh_opts)
         inst.query_engine = engine
         inst.catalog.register(tab["table"])
         suite = sql_suite(tab["hosts"], tab["hours"], tab["regions"])
@@ -1279,7 +1307,22 @@ def sql_phase(args, dev, slice_out, mesh_out):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched in phase sql")
 
+    # warm SQL Q2 of the two ring forms on the same grid, one after the
+    # other in turn so both see the same host (after the main-path counts
+    # were read)
     q2 = "q2_by_region"
+    q2_sql = next(sql for name, sql, _, _ in suite if name == q2)
+    walls = {"fused": [], "hops": []}
+    for _ in range(Q2_WALL_REPS):
+        for form in walls:
+            with ring_form(rf, form):
+                t = time.perf_counter()
+                insts["mesh", form].sql(q2_sql)
+                torch.cuda.synchronize()
+                walls[form].append((time.perf_counter() - t) * 1e3)
+    q2_walls = {form: {"median_ms": float(np.median(w)),
+                       "min_ms": float(np.min(w)), "reps": len(w)}
+                for form, w in walls.items()}
     per_launch = {
         "ring_fold_fused": device_ms_per_launch(
             {"ours": stats["mesh_fused"][q2]["ours"]}, is_fused_kernel),
@@ -1291,6 +1334,7 @@ def sql_phase(args, dev, slice_out, mesh_out):
     emit({"phase": "sql", "engines": stats, "checks": checks,
           "launches": launches, "launches_by_engine": run_launches,
           "device_ms_per_launch_q2": per_launch,
+          "q2_warm_wall_by_ring_form": q2_walls,
           "phase_seconds": time.perf_counter() - t_phase})
     return launches, run_launches["mesh_hops"], per_launch
 

@@ -36,22 +36,28 @@
 // block's stores, by thread 0 with __threadfence() then an atomic store
 // (a release); it is read by thread 0 with volatile loads, then
 // __threadfence() and __syncthreads() (an acquire). Buffers move through
-// L2 (__stcg/__ldcg), never a stale L1 line. The wrapper zeroes the flags
-// on the launch's stream before every launch, so no flag of an earlier
-// launch can satisfy a wait.
+// L2 (__stcg/__ldcg), never a stale L1 line. Flags and buffers outlive the
+// launch (the wrapper keeps them per device and stream), so every launch
+// carries an epoch `base`: it raises flags to base + k + 1 and waits for
+// values at least base + 1, while every launch before it left values below
+// that (ring_fold.py _FUSED_EPOCH_STRIDE). No memset between launches.
 //
 // Co-residency. A spin-wait on a block that is not resident would hang the
 // card, so the launch is cooperative (cudaLaunchCooperativeKernel, which
 // refuses a grid that cannot be co-resident) and the launcher checks the
 // grid against the occupancy times the SM count first and returns
-// cudaErrorCooperativeLaunchTooLarge instead of launching.
+// cudaErrorCooperativeLaunchTooLarge instead of launching. The SM count,
+// the cooperative attribute and the occupancy are queried once per device
+// and dtype.
 //
 // Bound on this card: bytes — the member rows read once (4 * m * nb over
-// all shards), ns outputs written (4 * ns * g * nb), and the hop traffic of
-// one ring pass, 2(ns - 1) hops of the (g, nb) plane each written and read
-// (2 * 2(ns - 1) * 4 * g * nb). At the range path's shapes the launch is
-// latency-bound: 2(ns - 1) flag round trips through L2 per tile.
+// all shards) and ns outputs written (4 * ns * g * nb). The ring's hops
+// (2(ns - 1) stores and loads of the plane) stay in L2 at the range path's
+// shapes and are an artifact of the algorithm, not of the function. At
+// those shapes the launch is latency-bound: 2(ns - 1) flag round trips
+// through L2 per tile.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,6 +66,7 @@ namespace {
 constexpr int kMaxShards = 8;   // FOLD_BLOCKS: every shard holds >= 1 block
 constexpr int kMaxBlocks = 8;   // fb_local <= FOLD_BLOCKS
 constexpr int kThreads = 256;   // one tile; ring_fold.py _FUSED_THREADS
+constexpr int kMaxDevices = 64; // devices whose launch limits are cached
 
 template <typename T>
 struct RingArgs {
@@ -70,6 +77,7 @@ struct RingArgs {
   T* buf[kMaxShards];                 // (2, g * nb) receive slots per shard
   int* flags[kMaxShards];             // (2, tiles): recv, then ack
   int ns, g, fb, nb, tiles;
+  int base;                           // this launch's epoch: flags > base
   long long plane;
 };
 
@@ -133,12 +141,12 @@ __global__ void __launch_bounds__(kThreads)
     for (int k = 0; k < 2 * ns - 2; ++k) {
       const long long slot = (k + 1) & 1;
       // the right neighbour has read what this shard sent at step k - 2
-      if (k >= 2) wait_flag(&my_ack[tile], k - 1);
+      if (k >= 2) wait_flag(&my_ack[tile], a.base + k - 1);
       if (live) __stcg(a.buf[right] + slot * a.plane + e, cur);
-      raise_flag(&right_recv[tile], k + 1);
-      wait_flag(&my_recv[tile], k + 1);
+      raise_flag(&right_recv[tile], a.base + k + 1);
+      wait_flag(&my_recv[tile], a.base + k + 1);
       T v = live ? __ldcg(a.buf[s] + slot * a.plane + e) : T(0);
-      raise_flag(&left_ack[tile], k + 1);
+      raise_flag(&left_ack[tile], a.base + k + 1);
       if (k < ns - 1) {
         // fold phase: the shard whose turn it is continues the left fold
         if (live && s == k + 1) {
@@ -157,13 +165,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The blocks of ring_fold_fused_kernel<T> resident at once on device
+// `dev` (occupancy times SMs; 0 when the device has no cooperative
+// launch), queried on the first launch on each device and kept.
+template <typename T>
+cudaError_t resident_blocks(int dev, long long* resident) {
+  static std::atomic<long long> cache[kMaxDevices];   // 0: not queried yet
+  if (dev >= 0 && dev < kMaxDevices) {
+    const long long known = cache[dev].load(std::memory_order_relaxed);
+    if (known != 0) {
+      *resident = known - 1;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0;
+  int coop = 0;
+  int per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, ring_fold_fused_kernel<T>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  *resident = coop ? static_cast<long long>(per_sm) * sms : 0;
+  if (dev >= 0 && dev < kMaxDevices) {
+    cache[dev].store(*resident + 1, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch_ring(const void* const* arrs, const void* const* members,
                 const void* const* ptrs, void* const* outs,
                 void* const* bufs, void* const* flags, int ns, int g,
-                int fb, int nb, int grid_x, void* stream) {
+                int fb, int nb, int base, int grid_x, void* stream) {
   if (ns < 1 || ns > kMaxShards || fb < 1 || fb > kMaxBlocks || g < 0 ||
-      nb < 0) {
+      nb < 0 || base < 0 || base > 0x7fffffff - 2 * kMaxShards) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long plane = static_cast<long long>(g) * nb;
@@ -185,27 +224,20 @@ int launch_ring(const void* const* arrs, const void* const* members,
   a.fb = fb;
   a.nb = nb;
   a.tiles = static_cast<int>(tiles);
+  a.base = base;
   a.plane = plane;
 
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0;
-  int coop = 0;
-  int per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long resident = 0;
+  err = resident_blocks<T>(dev, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_fold_fused_kernel<T>, kThreads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long resident = static_cast<long long>(per_sm) * sms;
   long long gx = grid_x > 0 ? grid_x : resident / ns;
   if (grid_x <= 0 && gx > tiles) gx = tiles;
   // every block spins on its neighbours: never launch a grid that cannot
   // be co-resident
-  if (!coop || gx < 1 || gx * ns > resident || gx > 0x7fffffffLL) {
+  if (gx < 1 || gx * ns > resident || gx > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   }
   dim3 grid(static_cast<unsigned int>(gx), static_cast<unsigned int>(ns));
@@ -225,10 +257,10 @@ extern "C" int gtt_ring_fold_fused_f32(const void* const* arrs,
                                        const void* const* ptrs,
                                        void* const* outs, void* const* bufs,
                                        void* const* flags, int ns, int g,
-                                       int fb, int nb, int grid_x,
-                                       void* stream) {
+                                       int fb, int nb, int base,
+                                       int grid_x, void* stream) {
   return launch_ring<float>(arrs, members, ptrs, outs, bufs, flags, ns, g, fb,
-                            nb, grid_x, stream);
+                            nb, base, grid_x, stream);
 }
 
 extern "C" int gtt_ring_fold_fused_i32(const void* const* arrs,
@@ -236,10 +268,10 @@ extern "C" int gtt_ring_fold_fused_i32(const void* const* arrs,
                                        const void* const* ptrs,
                                        void* const* outs, void* const* bufs,
                                        void* const* flags, int ns, int g,
-                                       int fb, int nb, int grid_x,
-                                       void* stream) {
+                                       int fb, int nb, int base,
+                                       int grid_x, void* stream) {
   return launch_ring<int32_t>(arrs, members, ptrs, outs, bufs, flags, ns, g,
-                              fb, nb, grid_x, stream);
+                              fb, nb, base, grid_x, stream);
 }
 
 extern "C" const char* gtt_error_string(int code) {

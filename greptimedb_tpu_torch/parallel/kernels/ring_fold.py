@@ -34,12 +34,14 @@ ring otherwise (or when asked with fused=False).
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from greptimedb_tpu_torch.parallel.dist import ShardFoldCtx, left_fold_sum
+from greptimedb_tpu_torch.parallel.kernels import build
 from greptimedb_tpu_torch.parallel.kernels.base import (
     ring_comm_bytes,
     sequential_ring,
@@ -174,10 +176,8 @@ _LL = ctypes.c_longlong
 
 
 def _launch(symbol: str, argtypes: list, args: tuple, device,
-            what: str, lib_name: str = "ring_fold") -> None:
-    from greptimedb_tpu_torch.parallel.kernels import build
-
-    lib = build.load(lib_name)
+            what: str) -> None:
+    lib = build.load("ring_fold")
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes + [_PTR]
     fn.restype = ctypes.c_int
@@ -379,42 +379,104 @@ def _check_fused(arrs: list, fms: list) -> None:
                              "cells or device")
 
 
+class _RingScratch:
+    """The fused ring's double buffers and flags on one (device, stream),
+    kept from launch to launch: both only grow, and the flags are never
+    cleared between launches — each launch waits for flag values above its
+    own epoch, which every earlier launch left below (the kernel's
+    `base`)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.bufs = torch.empty(0, dtype=torch.int32, device=dev)
+        self.flags = torch.empty(0, dtype=torch.int32, device=dev)
+        self.epoch = 0
+
+    def take(self, buf_elems: int, flag_elems: int) -> int:
+        """Grow to the launch's sizes and return its epoch base."""
+        if self.bufs.numel() < buf_elems:
+            self.bufs = torch.empty(buf_elems, dtype=torch.int32,
+                                    device=self.dev)
+        if self.flags.numel() < flag_elems:
+            self.flags = torch.zeros(flag_elems, dtype=torch.int32,
+                                     device=self.dev)
+        self.epoch += 1
+        if self.epoch > _FUSED_MAX_EPOCH:
+            # the int32 flags would wrap: start over from cleared flags
+            self.flags.zero_()
+            self.epoch = 1
+        return self.epoch * _FUSED_EPOCH_STRIDE
+
+
+# a launch raises flags to base + 1 .. base + 2(ns - 1), below the next
+# launch's base + 1
+_FUSED_EPOCH_STRIDE = 2 * _MAX_SHARDS
+_FUSED_MAX_EPOCH = (2**31 - 1) // _FUSED_EPOCH_STRIDE - 1
+_scratch: dict = {}
+_fused_fns: dict = {}
+# one launch at a time takes its epoch and launches: launches on one stream
+# must run in the order of their epochs
+_scratch_lock = threading.Lock()
+
+
 def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
     """Per-group sums of every shard's (s_local, nb) float32/int32 states,
     the total on every shard, in one launch of the fused ring kernel;
     bit-identical to ring_fold_blocks (the hop ring) and to the gather
     twin. Every shard's tensors must lie on one device: a CPU device runs
-    the plain version, a CUDA card the kernel. `grid_x` sets the number of
-    tile slots per shard (0: as many as can be co-resident); a grid that
-    cannot be co-resident raises before any launch."""
+    the plain version, a CUDA card the kernel. `grid_x` is a test hook: it
+    sets the number of blocks per shard (0, the default: as many as can be
+    co-resident, so the default grid always fits) and lets a test ask for
+    a grid that cannot be co-resident, which raises before any launch."""
     _check_fused(arrs, fms)
     if arrs[0].device.type == "cpu":
         return ring_fold_fused_plain(arrs, fms)
     ns = len(arrs)
     g, fb, nb = fms[0].g, fms[0].fb, arrs[0].shape[1]
-    outs = [torch.empty((g, nb), dtype=arrs[0].dtype, device=a.device)
-            for a in arrs]
+    dev = arrs[0].device
+    outs = list(torch.empty((ns, g, nb), dtype=arrs[0].dtype,
+                            device=dev).unbind(0))
     plane = g * nb
     if plane == 0:
         return outs
-    dev = arrs[0].device
-    bufs = torch.empty((ns, 2, plane), dtype=arrs[0].dtype, device=dev)
     tiles = -(-plane // _FUSED_THREADS)
-    # recv and ack flags per (shard, tile), zeroed on the launch's stream
-    # so no flag of an earlier launch can satisfy a wait
-    flags = torch.zeros((ns, 2, tiles), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptrs(ts):
         return (_PTR * _MAX_SHARDS)(*[t.data_ptr() for t in ts])
 
-    _launch(f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
-            [_PTR] * 6 + [_INT] * 5,
-            (ptrs(arrs), ptrs([fm.member for fm in fms]),
-             ptrs([fm.ptr for fm in fms]), ptrs(outs), ptrs(bufs),
-             ptrs(flags), ns, g, fb, nb, int(grid_x)),
-            dev, "ring_fold_fused", lib_name="ring_fold_fused")
+    def cut(t, per):
+        return (_PTR * _MAX_SHARDS)(*[t.data_ptr() + 4 * per * s
+                                      for s in range(ns)])
+
+    lib, fn = _fused_entry(arrs[0].dtype)
+    with _scratch_lock, torch.cuda.device(dev):
+        sc = _scratch.get((dev, stream))
+        if sc is None:
+            sc = _scratch[dev, stream] = _RingScratch(dev)
+        # per shard: (2, plane) receive slots and (2, tiles) recv/ack flags
+        base = sc.take(ns * 2 * plane, ns * 2 * tiles)
+        rc = fn(ptrs(arrs), ptrs([fm.member for fm in fms]),
+                ptrs([fm.ptr for fm in fms]), ptrs(outs),
+                cut(sc.bufs, 2 * plane), cut(sc.flags, 2 * tiles), ns, g,
+                fb, nb, base, int(grid_x), stream)
+    build.check_launch(lib, rc, "ring_fold_fused")
     ring_fold_fused.launches += 1
     return outs
+
+
+def _fused_entry(dtype):
+    """The fused ring's library and its launcher for `dtype`, bound once
+    (the wrapper's host time is most of a fold's time at the range path's
+    shapes)."""
+    entry = _fused_fns.get(dtype)
+    if entry is None:
+        lib = build.load("ring_fold_fused")
+        fn = getattr(lib, f"gtt_ring_fold_fused_{_FOLD_TYPES[dtype]}")
+        fn.argtypes = [_PTR] * 6 + [_INT] * 6 + [_PTR]
+        fn.restype = ctypes.c_int
+        entry = _fused_fns[dtype] = (lib, fn)
+    return entry
 
 
 ring_fold_fused.launches = 0
@@ -465,14 +527,13 @@ class RingFoldCtx(ShardFoldCtx):
     ring kernels behind them. Each hook is bit-identical to its gather
     counterpart for the payloads the range fold produces.
 
-    `fused` mirrors the JAX package's `interpret=`: None takes the fused
-    ring (one ring_fold_fused launch per fold) when every shard lies on
-    one device, and the hop ring (K2's seed, then fold_cont hop by hop)
-    when the shards span devices — the peer-copy form of the fused kernel
-    belongs to the multi-card slice; False always takes the hop ring and
-    True always the fused one (which raises for shards on several
-    devices). A choice from the device list, never a fallback: a failed
-    fused launch raises."""
+    `fused` mirrors the JAX package's `interpret=`. By default the devices
+    decide: the fused ring (one ring_fold_fused launch per fold) when
+    every shard lies on one device, the hop ring (K2's seed, then
+    fold_cont hop by hop) when the shards span devices — the peer-copy
+    form of the fused kernel belongs to the multi-card slice. fused=False
+    always takes the hop ring. A choice from the device list, never a
+    fallback: a failed fused launch raises."""
 
     def __init__(self, shards: int, fused: bool | None = None):
         super().__init__(shards)
@@ -481,10 +542,8 @@ class RingFoldCtx(ShardFoldCtx):
     def form(self, devices) -> str:
         """"fused" or "hops": the ring this ctx runs over shards on
         `devices`."""
-        if self.fused is None:
-            one = len({torch.device(d) for d in devices}) == 1
-            return "fused" if one else "hops"
-        return "fused" if self.fused else "hops"
+        one = len({torch.device(d) for d in devices}) == 1
+        return "fused" if one and self.fused is not False else "hops"
 
     def fold_sum(self, arrs: list, fms: list) -> list:
         if self.form([a.device for a in arrs]) == "fused":

@@ -267,6 +267,35 @@ def test_ring_fold_fused_refuses_a_grid_that_cannot_be_co_resident(cuda):
     assert all(torch.equal(_bits32(a), _bits32(b)) for a, b in zip(got, want))
 
 
+def test_ring_fold_fused_reuses_its_flags_across_launches(cuda):
+    """The flags and double buffers outlive a launch and are never cleared
+    between launches: launch after launch, with the shard count, the
+    plane and the dtype changing, and across the epoch's wrap (flags
+    cleared once), every ring equals its plain version."""
+    rng = np.random.default_rng(9)
+    cases = [(4, 512, 2160, 9, torch.float32), (2, 64, 37, 5, torch.int32),
+             (8, 16, 300, 3, torch.float32), (4, 512, 2160, 9, torch.int32),
+             (4, 64, 7, 1, torch.float32)]
+    inputs = []
+    for ns, s_local, nb, g, dtype in cases:
+        x = _ring_input(rng, ns, s_local, nb, dtype)
+        gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+        arrs = [torch.from_numpy(np.ascontiguousarray(x[k])).to(cuda)
+                for k in range(ns)]
+        fms = [rf.fold_members(gid[k], g, 8 // ns, cuda) for k in range(ns)]
+        inputs.append((arrs, fms, rf.ring_fold_fused_plain(arrs, fms)))
+    key = (inputs[0][0][0].device, torch.cuda.current_stream(cuda).cuda_stream)
+    for rnd in range(3):
+        if rnd == 2:
+            rf._scratch[key].epoch = rf._FUSED_MAX_EPOCH - 2
+        for arrs, fms, want in inputs * 2:
+            got = rf.ring_fold_fused(arrs, fms)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(_bits32(a), _bits32(b))
+    assert rf._scratch[key].epoch < 10
+
+
 def test_sql_on_cuda_matches_cpu(cuda):
     """Instance.sql on the card (one device; four shards as the fused ring,
     the hop ring and the gather twin) against Instance(device="cpu").sql,
