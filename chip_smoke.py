@@ -46,12 +46,18 @@ result line):
              across the three; Q1's sums and means too, or within the
              reduction-order bound. Kernel counts are zeroed before each
              engine and read after it. Every shard lies on the one card, so
-             the ring engine folds groups with the fused ring kernel (one
-             launch a fold, no seed or continuation) beside the extreme and
-             the one-hot add; none of them may launch on the gather engine.
-             Then each ring kernel at the shapes the mesh path gave it (the
-             fused ring also on edge bits) is held against its plain
-             version and timed, and one warm sharded Q2 is profiled.
+             the ring engine runs every ring in one launch: the fused ring
+             kernel for each group fold, ring_pext_fused for each extreme
+             and ring_psum_onehot_fused for each one-hot sum (10 and 4 per
+             warm Q2), with no seed, continuation or hop combine; none of
+             them may launch on the gather engine. Then each ring kernel
+             at the shapes the mesh path gave it (the fused ring also on
+             edge bits; the hop combines on shards 0 and 1, their ring
+             forms on all four) is held against its plain version and
+             timed, with an empty kernel through the same launch path as
+             the floor of a launch; one warm sharded Q2 is profiled on
+             every engine and on the hop ring; and each step of the
+             kernels' host-side launch path is timed per call.
 7. promql  — the PromQL fast path at the JAX package's PromQL benchmark
              size: 1,000,000 series (host_i, dc = i % 32), 10 samples at
              30 s, seed 11 (10 M rows), written through the port's Table.
@@ -85,7 +91,10 @@ result line):
              and 6 bit for bit; the four mesh engines must agree bit for
              bit (Q1-shaped means within the reduction-order bound); the
              fused kernel must launch on every sharded query that folds
-             groups, and on no other engine.
+             groups, and on no other engine; the one-ring forms only on
+             the fused ring and the hop combines only on the hop ring (per
+             warm SQL Q2: 10 ring extremes and 4 ring one-hot sums, or 30
+             extreme and 12 one-hot add hops, and none on gather).
              Kernel counts are zeroed before the phase and read after it.
              Then the warm SQL Q2 runs on the fused ring and the hop ring
              in turn, 30 times each, for their host walls.
@@ -437,6 +446,7 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
         "launches": launches["blocked_fold_sum"],
         "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.blocked_fold_sum(arr_f, fm)),
+        "host_ms": host_ms(lambda: rf.blocked_fold_sum(arr_f, fm)),
         "plain_ms": cuda_ms(lambda: rf.blocked_fold_sum_plain(arr_f, fm)),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -448,7 +458,17 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
     return out
 
 
-RING_KERNELS = ("fold_cont", "extreme", "onehot_add", "ring_fold_fused")
+RING_KERNELS = ("fold_cont", "extreme", "onehot_add", "ring_fold_fused",
+                "ring_pext_fused", "ring_psum_onehot_fused")
+# the hop ring's combines: phase 8's fused=False engine runs them
+HOP_KERNELS = ("blocked_fold_sum", "fold_cont", "extreme", "onehot_add")
+# the one-launch ring forms, on shards that share a card
+ONE_RING_KERNELS = ("ring_fold_fused", "ring_pext_fused",
+                    "ring_psum_onehot_fused")
+# per warm mesh Q2 on four shards: 10 ring extremes and 4 ring one-hot
+# sums (3 hops each on the hop ring)
+Q2_RINGS = {"ring_pext_fused": 10, "ring_psum_onehot_fused": 4}
+Q2_HOPS = {"extreme": 30, "onehot_add": 12}
 FOLD_KERNELS = ("blocked_fold_sum", "block_partials") + RING_KERNELS
 
 
@@ -574,6 +594,7 @@ def mesh_kernel_rows(dev, entry, memo, launches):
                     "(_fold_cont_kernel, through _call2:84)",
         "launches": launches["fold_cont"], "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.fold_cont(acc, arr1, fm)),
+        "host_ms": host_ms(lambda: rf.fold_cont(acc, arr1, fm)),
         "plain_ms": cuda_ms(lambda: rf.fold_cont_plain(acc, arr1, fm)),
         **bound(4 * m * nb + 2 * 4 * plane, m * nb + fm.fb * plane),
         "library_ms": cuda_ms(index_add),
@@ -581,18 +602,53 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
                   "fb_local": fm.fb, "members": m},
     })
-    # ---- row 4: the extreme, f32 (the m plane) and int32 (win_t) -------
+    # ---- rows 4 and 5: the hop form on shards 0 and 1, the one-launch
+    # ring form over all ns shards: the extreme, f32 (the m plane) and
+    # int32 (win_t), and the one-hot add (first/last winner values) ------
+    ns = len(fms)
     xs = {tm: [dr._segment_ext(st["mx" if tm else "mn"][k], gids[k], g, tm)
-               for k in (0, 1)] for tm in (True, False)}
-    ts = [dr._segment_ext(st["il"][k], gids[k], g, True) for k in (0, 1)]
+               for k in range(ns)] for tm in (True, False)}
+    ts = [dr._segment_ext(st["il"][k], gids[k], g, True) for k in range(ns)]
     err = 0.0
     for tm in (True, False):
-        a, b = xs[tm]
+        a, b = xs[tm][:2]
         err = max(err, exact("extreme", rf.extreme(a, b, tm),
                              rf.extreme_plain(a, b, tm)))
     exact("extreme int32", rf.extreme(ts[0], ts[1], True),
           rf.extreme_plain(ts[0], ts[1], True))
-    a, b = xs[True]
+    ring_err = 0.0
+    for planes in (xs[True], xs[False], ts):
+        for tm in (True, False):
+            got = rf.ring_pext_fused(planes, tm)[0]
+            want = rf.ring_pext_fused_plain(planes, tm)[0]
+            ring_err = max(ring_err, exact("ring_pext_fused", got, want))
+            exact("ring_pext_fused against the hop ring", got,
+                  rf.ring_pext(planes, tm)[0])
+    win_t = rf.ring_pext_fused(ts, True)[0]
+    has = [st["n"][k] > 0 for k in range(ns)]
+    oh = [dr._segment_sum_onehot(torch.where(
+        has[k] & (st["il"][k] == win_t[gids[k].clamp(max=g - 1).long()]),
+        st["vl"][k], 0.0), gids[k], g) for k in range(ns)]
+    floor = {"launch_floor_ms": cuda_ms(lambda: rf.noop(dev)),
+             "launch_floor_host_ms": host_ms(lambda: rf.noop(dev))}
+    pext4 = xs[True]
+    a, b = pext4[:2]
+
+    def max_chain():
+        acc = pext4[0]
+        for x in pext4[1:]:
+            acc = torch.maximum(acc, x)
+        return acc
+
+    pext_ring = {
+        "ring_ms": cuda_ms(lambda: rf.ring_pext_fused(pext4, True)),
+        "ring_host_ms": host_ms(lambda: rf.ring_pext_fused(pext4, True)),
+        "ring_plain_ms": cuda_ms(
+            lambda: rf.ring_pext_fused_plain(pext4, True)),
+        "ring_bound_ms": 4 * (ns + 1) * plane / HBM_BYTES_PER_S * 1e3,
+        "library_chain_ms": cuda_ms(max_chain),
+        "ring_ms_int32": cuda_ms(lambda: rf.ring_pext_fused(ts, True)),
+    }
     rows.append({
         "name": "extreme", "route": "cuda", "source": src,
         "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:53 "
@@ -600,29 +656,74 @@ def mesh_kernel_rows(dev, entry, memo, launches):
                     "_call2:84",
         "launches": launches["extreme"], "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.extreme(a, b, True)),
+        "host_ms": host_ms(lambda: rf.extreme(a, b, True)),
         "plain_ms": cuda_ms(lambda: rf.extreme_plain(a, b, True)),
         **bound(3 * 4 * plane, plane),
         "library_ms": cuda_ms(lambda: torch.maximum(a, b)),
         "ms_int32": cuda_ms(lambda: rf.extreme(ts[0], ts[1], True)),
-        "shape": {"g": g, "nb": nb},
+        **pext_ring, **floor,
+        "shape": {"g": g, "nb": nb, "ring_shards": ns},
     })
-    # ---- row 5: the one-hot add (first/last winner values) --------------
-    has = [st["n"][k] > 0 for k in (0, 1)]
-    oh = [dr._segment_sum_onehot(torch.where(
-        has[k] & (st["il"][k] == ts[k][gids[k].clamp(max=g - 1).long()]),
-        st["vl"][k], 0.0), gids[k], g) for k in (0, 1)]
+    rows.append({
+        "name": "ring_pext_fused", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:109 "
+                    "ring_pext (the chain of _ext_max_kernel:53 or "
+                    "_ext_min_kernel:59 through _call2:80, hop by hop)",
+        "launches": launches["ring_pext_fused"], "max_abs_err": ring_err,
+        "ms": pext_ring["ring_ms"], "host_ms": pext_ring["ring_host_ms"],
+        "plain_ms": pext_ring["ring_plain_ms"],
+        **bound(4 * (ns + 1) * plane, (ns - 1) * plane),
+        "library_ms": pext_ring["library_chain_ms"],
+        "ms_int32": pext_ring["ring_ms_int32"], **floor,
+        "shape": {"shards": ns, "g": g, "nb": nb},
+    })
+
+    def add_chain():
+        acc = oh[0]
+        for x in oh[1:]:
+            acc = torch.add(acc, x)
+        return acc
+
     err = exact("onehot_add", rf.onehot_add(oh[0], oh[1]),
                 rf.onehot_add_plain(oh[0], oh[1]))
+    got = rf.ring_psum_onehot_fused(oh)[0]
+    ring_err = exact("ring_psum_onehot_fused", got,
+                     rf.ring_psum_onehot_fused_plain(oh)[0])
+    exact("ring_psum_onehot_fused against the hop ring", got,
+          rf.ring_psum_onehot(oh)[0])
+    psum_ring = {
+        "ring_ms": cuda_ms(lambda: rf.ring_psum_onehot_fused(oh)),
+        "ring_host_ms": host_ms(lambda: rf.ring_psum_onehot_fused(oh)),
+        "ring_plain_ms": cuda_ms(
+            lambda: rf.ring_psum_onehot_fused_plain(oh)),
+        "ring_bound_ms": 4 * (ns + 1) * plane / HBM_BYTES_PER_S * 1e3,
+        "library_chain_ms": cuda_ms(add_chain),
+    }
     rows.append({
         "name": "onehot_add", "route": "cuda", "source": src,
         "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:65 "
                     "(_add_kernel, through _call2:84)",
         "launches": launches["onehot_add"], "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.onehot_add(oh[0], oh[1])),
+        "host_ms": host_ms(lambda: rf.onehot_add(oh[0], oh[1])),
         "plain_ms": cuda_ms(lambda: rf.onehot_add_plain(oh[0], oh[1])),
         **bound(3 * 4 * plane, plane),
         "library_ms": cuda_ms(lambda: torch.add(oh[0], oh[1])),
-        "shape": {"g": g, "nb": nb},
+        **psum_ring, **floor,
+        "shape": {"g": g, "nb": nb, "ring_shards": ns},
+    })
+    rows.append({
+        "name": "ring_psum_onehot_fused", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:122 "
+                    "ring_psum_onehot (the chain of _add_kernel:65 through "
+                    "_call2:80, hop by hop)",
+        "launches": launches["ring_psum_onehot_fused"],
+        "max_abs_err": ring_err,
+        "ms": psum_ring["ring_ms"], "host_ms": psum_ring["ring_host_ms"],
+        "plain_ms": psum_ring["ring_plain_ms"],
+        **bound(4 * (ns + 1) * plane, (ns - 1) * plane),
+        "library_ms": psum_ring["library_chain_ms"], **floor,
+        "shape": {"shards": ns, "g": g, "nb": nb},
     })
     # ---- K2's partials form (the gather twin's block partials) ----------
     err = exact("block_partials", rf.block_partials(arr1, fm),
@@ -637,6 +738,7 @@ def mesh_kernel_rows(dev, entry, memo, launches):
                     "concatenates across shards)",
         "launches": launches["block_partials"], "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.block_partials(arr1, fm)),
+        "host_ms": host_ms(lambda: rf.block_partials(arr1, fm)),
         "plain_ms": cuda_ms(lambda: rf.block_partials_plain(arr1, fm)),
         **bound(4 * m * nb + 4 * fm.fb * plane, m * nb),
         "library_ms": cuda_ms(lambda: torch.zeros(
@@ -645,7 +747,6 @@ def mesh_kernel_rows(dev, entry, memo, launches):
                   "fb_local": fm.fb, "members": m},
     })
     # ---- row 6: the fused ring over every shard, one launch a fold ------
-    ns = len(fms)
     s_f, s_i = list(st["s"]), list(entry.nrow)
     err = 0.0
     for arrs in (s_f, s_i):
@@ -797,20 +898,26 @@ def mesh_phase(args, dev, P):
         raise AssertionError(f"ring engine decided {ring_q2}")
     if info["gather", "q2"]["kernel"] != "gather(kernels_off)":
         raise AssertionError(f"gather engine decided {info['gather', 'q2']}")
-    # the fused ring folds every group sum in one launch: no seed and no
-    # continuation on the ring engine (the hop ring runs in phase 8)
+    # every ring is one launch on shards that share the card: no seed,
+    # continuation or hop combine on the ring engine (the hop ring runs in
+    # phase 8)
     ring_l = per_engine["ring"]["launches"]
-    for k in ("extreme", "onehot_add", "ring_fold_fused"):
+    for k in ONE_RING_KERNELS:
         if ring_l[k] == 0:
             raise AssertionError(f"{k} never launched on the ring engine")
-    for k in ("blocked_fold_sum", "fold_cont"):
+    for k in HOP_KERNELS:
         if ring_l[k] != 0:
             raise AssertionError(f"{k} launched on the fused ring engine")
+    warm_q2 = per_engine["ring"]["launches_per_warm_query"]["q2"]
+    for k, n in {**Q2_RINGS, "extreme": 0, "onehot_add": 0}.items():
+        if warm_q2.get(k, 0) != n:
+            raise AssertionError(f"{k}: {warm_q2.get(k, 0)} launches per "
+                                 f"warm mesh Q2 on the ring engine, not {n}")
     for k in RING_KERNELS:
         if per_engine["gather"]["launches"][k] != 0:
             raise AssertionError(f"{k} launched on the gather engine")
     for k, n in launches.items():
-        if n == 0 and k != "fold_cont":
+        if n == 0 and k not in ("fold_cont", *Q2_HOPS):
             raise AssertionError(f"kernel {k} never launched on the mesh "
                                  f"path")
 
@@ -841,22 +948,36 @@ def mesh_phase(args, dev, P):
     kernel_seconds = time.perf_counter() - t
     profs = {name: profiled(lambda: eng.execute(q2, table))
              for name, eng in engines.items()}
+    # the hop ring on the ring engine's grid (one warm-up run first): the
+    # hop combines' device time, which the fused engine no longer launches
+    with ring_form(rf, "hops"):
+        ring.execute(q2, table)
+        profs["hops"] = profiled(lambda: ring.execute(q2, table))
     # device time per launch on the warm Q2 (the events' times above
     # include the wrapper's host overhead when it outlasts the kernel)
     per_launch = {
         "extreme": device_ms_per_launch(
-            profs["ring"], lambda k: k.startswith("extreme_")),
+            profs["hops"], lambda k: k.startswith("extreme_")),
         "onehot_add": device_ms_per_launch(
-            profs["ring"], lambda k: k.startswith("onehot_add")),
+            profs["hops"], lambda k: k.startswith("onehot_add")),
         "block_partials": device_ms_per_launch(profs["gather"], fold(2)),
         "ring_fold_fused": device_ms_per_launch(profs["ring"],
                                                 is_fused_kernel),
+        "ring_pext_fused": device_ms_per_launch(profs["ring"],
+                                                ring_combine(0, 1, 2, 3)),
+        "ring_psum_onehot_fused": device_ms_per_launch(profs["ring"],
+                                                       ring_combine(4)),
     }
     for row in rows:
         if row["name"] in per_launch:
             row["device_ms_per_launch_q2"] = per_launch[row["name"]]
-        row["launches_per_warm_q2"] = per_engine["ring"][
-            "launches_per_warm_query"]["q2"].get(row["name"], 0)
+        row["launches_per_warm_q2"] = warm_q2.get(row["name"], 0)
+    by_name = {row["name"]: row for row in rows}
+    for hop, one in (("extreme", "ring_pext_fused"),
+                     ("onehot_add", "ring_psum_onehot_fused")):
+        by_name[hop]["ring_device_ms_per_launch_q2"] = per_launch[one]
+    a, b = (t.contiguous() for t in entry.fields["usage_user"]["mx"][:2])
+    steps = launch_path_steps(a[:9], b[:9])
     emit({"phase": "mesh", "seconds": seconds, "rows_written": written,
           "hosts": args.mesh_hosts, "hours": args.mesh_hours,
           "grid": {"series": entry.num_series, "cells": entry.nb,
@@ -865,11 +986,88 @@ def mesh_phase(args, dev, P):
           "engines": per_engine, "checks": checks, "launches": launches,
           "q2_hop_bytes": ring_q2["comm_bytes"],
           "q2_warm_profiles": profs, "kernel_seconds": kernel_seconds,
+          "launch_path_ns": steps,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"rows": rows, "table": table, "engines": engines,
             "hosts": args.mesh_hosts,
             "hours": args.mesh_hours, "regions": len(set(region_of)),
             "q1": results["single", "q1"], "q2": results["single", "q2"]}
+
+
+def launch_path_steps(a, b):
+    """Host ns per call of each step that ring_fold's launch path took on
+    every call before its launchers were bound once, and of what took
+    their place: the median over 7 batches of 1000 calls (after 200
+    warm-up calls; the card is synchronized between batches, outside the
+    timing). `empty_call` is the loop's own cost, included in every other
+    number. `a`, `b` are two (9, nb) float32 planes on the card."""
+    import ctypes
+
+    from greptimedb_tpu_torch.parallel.kernels import build
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+
+    idx = a.get_device()
+    dev = a.device
+    entry = rf._entry("ring_fold", "gtt_noop", ())
+    lib, fn = entry
+    stream = rf._stream(idx)
+
+    def bind():
+        f = getattr(build.load("ring_fold"), "gtt_noop")
+        f.argtypes = [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def before_path():
+        # the launch path as it was: bind, context, stream object, call
+        f = getattr(build.load("ring_fold"), "gtt_noop")
+        f.argtypes = [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            rc = f(torch.cuda.current_stream(dev).cuda_stream)
+        build.check_launch(lib, rc, "noop")
+
+    steps = {
+        "empty_call": lambda: None,
+        "load_lookup_and_type": bind,
+        "bound_entry_lookup": lambda: rf._entry("ring_fold", "gtt_noop", ()),
+        "device_context": device_context,
+        "current_device_check": lambda: torch._C._cuda_getDevice() == idx,
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: rf._stream(idx),
+        "check_pair": lambda: rf._check_pair("extreme", a, b,
+                                             rf._FOLD_TYPES),
+        "check_ring_4": lambda: rf._check_ring("ring_pext_fused",
+                                               [a, b, a, b], rf._FOLD_TYPES),
+        "shard_pointer_array_4": lambda: rf._SHARD_PTRS(
+            a.data_ptr(), b.data_ptr(), a.data_ptr(), b.data_ptr()),
+        "device_type_check": lambda: a.device.type == "cpu",
+        "is_cpu": lambda: a.is_cpu,
+        "empty_like": lambda: torch.empty_like(a),
+        "new_empty": lambda: a.new_empty(a.shape),
+        "ring_form_4": lambda: rf.RingFoldCtx(4).form(
+            [x.device for x in (a, b, a, b)]),
+        "noop_ctypes_call": lambda: fn(stream),
+        "noop_launch_before": before_path,
+        "noop_launch_bound": lambda: rf._launch(entry, "noop", idx),
+    }
+    out = {}
+    for name, step in steps.items():
+        for _ in range(200):
+            step()
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(7):
+            t = time.perf_counter_ns()
+            for _ in range(1000):
+                step()
+            batches.append((time.perf_counter_ns() - t) / 1000)
+            torch.cuda.synchronize()
+        out[name] = float(np.median(batches))
+    return out
 
 
 def fold(mode):
@@ -881,6 +1079,14 @@ def fold(mode):
 def is_fused_kernel(k):
     """Profiler-name matcher of the fused ring kernel."""
     return k.startswith("ring_fold_fused_kernel<")
+
+
+def ring_combine(*ops):
+    """Profiler-name matcher of the one-launch ring combines,
+    ring_combine_kernel<T, op, vec>: ops 0-3 the extreme (f32 max, min,
+    int32 max, min), 4 the one-hot sum."""
+    return lambda k: (k.startswith("ring_combine_kernel<")
+                      and int(k.split(",")[1]) in ops)
 
 
 PROM_T0 = 1_700_000_000_000
@@ -1212,7 +1418,7 @@ def sql_phase(args, dev, slice_out, mesh_out):
         ("mesh", "gather"): (mesh_out, mesh_engines["gather"], "fused"),
     }
     zero_counts(rf, mg)
-    results, stats, fused_warm, run_launches = {}, {}, {}, {}
+    results, stats, run_launches = {}, {}, {}
     insts = {}
     for (tname, ename), (tab, engine, form) in runs.items():
         before_run = counts(rf, mg)
@@ -1237,22 +1443,22 @@ def sql_phase(args, dev, slice_out, mesh_out):
                                          f"wants {want_rows}")
                 results[tname, ename, name] = res
                 times = []
-                before = rf.ring_fold_fused.launches
+                before = counts(rf, mg)
                 for _ in range(3):
                     t = time.perf_counter()
                     inst.sql(sql)
                     torch.cuda.synchronize()
                     times.append(time.perf_counter() - t)
-                fused_warm[tname, ename, name] = (
-                    rf.ring_fold_fused.launches - before) / 3
+                after = counts(rf, mg)
                 prof = profiled(lambda: inst.sql(sql))
                 info = dict(eng.last_range)
                 per_shape[name] = {
                     "cold_s": cold, "warm_median_s": float(np.median(times)),
                     "device_ms": prof["device_ms"],
                     "idle_share": prof["idle_share"],
-                    "fused_launches_per_warm": fused_warm[tname, ename,
-                                                          name],
+                    "launches_per_warm": {
+                        k: (after[k] - before[k]) / 3 for k in after
+                        if after[k] > before[k]},
                     "folds": info["comm_bytes"] > 0, "program":
                     info["program"], "ring_form": info["ring_form"],
                     "ours": prof["ours"]}
@@ -1291,26 +1497,50 @@ def sql_phase(args, dev, slice_out, mesh_out):
             if st["program"] != want_prog or (
                     ename != "gather" and st["ring_form"] != ename):
                 raise AssertionError(f"mesh {ename} {name} ran {st}")
-            launched = st["fused_launches_per_warm"]
+            warm = st["launches_per_warm"]
+            launched = warm.get("ring_fold_fused", 0)
             if ename == "fused" and st["folds"] and launched < 1:
                 raise AssertionError(f"{name}: the fused ring never "
                                      f"launched on a folding query")
             if (ename != "fused" or not st["folds"]) and launched:
                 raise AssertionError(f"{name}: the fused ring launched on "
                                      f"the {ename} engine")
+            # the one-ring forms only where the shards share the card's
+            # fused ring, the hop combines only on the hop ring
+            for k in ONE_RING_KERNELS if ename != "fused" else ():
+                if warm.get(k):
+                    raise AssertionError(f"{name}: {k} on the {ename} "
+                                         f"engine")
+            for k in HOP_KERNELS if ename != "hops" else ():
+                if warm.get(k):
+                    raise AssertionError(f"{name}: {k} on the {ename} "
+                                         f"engine")
         checks[name] = {"engines_identical": worst == 0.0,
                         "max_rel_diff_means": worst,
                         "folds": stats["mesh_fused"][name]["folds"]}
     if not any(c["folds"] for c in checks.values()):
         raise AssertionError("no suite query folded groups on the mesh")
-    for k in ("ring_fold_fused", "fold_cont", "blocked_fold_sum"):
+    for k in ONE_RING_KERNELS + HOP_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched in phase sql")
+    # launches per warm SQL Q2 on four shards: one launch per ring on the
+    # fused engine, ns - 1 hops per ring on the hop ring
+    q2 = "q2_by_region"
+    for ename, want in (("fused", {**Q2_RINGS, "extreme": 0,
+                                   "onehot_add": 0}),
+                        ("hops", {**Q2_HOPS, "ring_pext_fused": 0,
+                                  "ring_psum_onehot_fused": 0}),
+                        ("gather", {k: 0 for k in (*Q2_RINGS, *Q2_HOPS)})):
+        warm = stats[f"mesh_{ename}"][q2]["launches_per_warm"]
+        for k, n in want.items():
+            if warm.get(k, 0) != n:
+                raise AssertionError(f"{k}: {warm.get(k, 0)} launches per "
+                                     f"warm SQL Q2 on the {ename} engine, "
+                                     f"not {n}")
 
     # warm SQL Q2 of the two ring forms on the same grid, one after the
     # other in turn so both see the same host (after the main-path counts
     # were read)
-    q2 = "q2_by_region"
     q2_sql = next(sql for name, sql, _, _ in suite if name == q2)
     walls = {"fused": [], "hops": []}
     for _ in range(Q2_WALL_REPS):
@@ -1330,13 +1560,31 @@ def sql_phase(args, dev, slice_out, mesh_out):
             {"ours": stats["mesh_hops"][q2]["ours"]}, fold(0)),
         "fold_cont": device_ms_per_launch(
             {"ours": stats["mesh_hops"][q2]["ours"]}, fold(1)),
+        "extreme": device_ms_per_launch(
+            {"ours": stats["mesh_hops"][q2]["ours"]},
+            lambda k: k.startswith("extreme_")),
+        "onehot_add": device_ms_per_launch(
+            {"ours": stats["mesh_hops"][q2]["ours"]},
+            lambda k: k.startswith("onehot_add")),
+        "ring_pext_fused": device_ms_per_launch(
+            {"ours": stats["mesh_fused"][q2]["ours"]},
+            ring_combine(0, 1, 2, 3)),
+        "ring_psum_onehot_fused": device_ms_per_launch(
+            {"ours": stats["mesh_fused"][q2]["ours"]}, ring_combine(4)),
     }
+    engine_q2 = {e: {"device_ms": stats[f"mesh_{e}"][q2]["device_ms"],
+                     "idle_share": stats[f"mesh_{e}"][q2]["idle_share"],
+                     "launches_per_warm": stats[f"mesh_{e}"][q2][
+                         "launches_per_warm"]}
+                 for e in ("single", "fused", "hops", "gather")}
     emit({"phase": "sql", "engines": stats, "checks": checks,
           "launches": launches, "launches_by_engine": run_launches,
           "device_ms_per_launch_q2": per_launch,
+          "q2_by_engine": engine_q2,
           "q2_warm_wall_by_ring_form": q2_walls,
           "phase_seconds": time.perf_counter() - t_phase})
-    return launches, run_launches["mesh_hops"], per_launch
+    return (launches, run_launches["mesh_hops"], per_launch,
+            {e: v["launches_per_warm"] for e, v in engine_q2.items()})
 
 
 def run(args) -> int:
@@ -1469,12 +1717,15 @@ def run(args) -> int:
     from greptimedb_tpu_torch.storage.device_merge import merge_rows
 
     t = time.perf_counter()
-    emit({"phase": "profile",
-          "q1_warm": profiled(lambda: eng.execute(q1, table)),
-          "q2_warm": profiled(lambda: eng.execute(q2, table)),
-          "merge_one_window": profiled(lambda: merge_rows(
-              rows0, drop_deletes=True, device=dev, kernels="on")),
+    profs = {"q1_warm": profiled(lambda: eng.execute(q1, table)),
+             "q2_warm": profiled(lambda: eng.execute(q2, table))}
+    merge_prof = profs["merge_one_window"] = profiled(lambda: merge_rows(
+        rows0, drop_deletes=True, device=dev, kernels="on"))
+    emit({"phase": "profile", **profs,
           "seconds": time.perf_counter() - t})
+    # K1's device time in the profiled merge of window 0
+    kernels[0]["device_ms_per_launch_merge"] = device_ms_per_launch(
+        merge_prof, lambda k: k.startswith("gather_planes"))
     # ---- 6. mesh -----------------------------------------------------
     mesh_out = mesh_phase(args, dev, P)
     kernels += mesh_out["rows"]
@@ -1484,23 +1735,34 @@ def run(args) -> int:
     slice_out = {"table": table, "engine": eng, "hosts": args.hosts,
                  "hours": args.hours, "regions": len(set(region_of)),
                  "q1": r1, "q2": r2}
-    sql_launches, hop_launches, sql_per_launch = sql_phase(
+    sql_launches, hop_launches, sql_per_launch, q2_warm = sql_phase(
         args, dev, slice_out, mesh_out)
     # every kernel's launches over the main-path runs of phases 2, 6, 7
-    # and 8; the hop ring's seed and continuation ran in phase 8 only
+    # and 8; the hop ring's seed, continuation and combines ran in phase 8
+    # only
+    extreme_row = next(r for r in mesh_out["rows"] if r["name"] == "extreme")
+    floor = {k: v for k, v in extreme_row.items()
+             if k.startswith("launch_floor")}
     for row in kernels:
-        row["launches"] += sql_launches.get(row["name"], 0)
-        if row["name"] == "blocked_fold_sum":
+        name = row["name"]
+        row["launches"] += sql_launches.get(name, 0)
+        if name == "blocked_fold_sum":
             row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
             row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
                 "blocked_fold_sum"]
-        elif row["name"] == "fold_cont":
+        elif name == "fold_cont":
             row["device_ms_per_launch_q2"] = sql_per_launch["fold_cont"]
-        elif row["name"] == "ring_fold_fused":
-            row["device_ms_per_launch_sql_q2"] = sql_per_launch[
-                "ring_fold_fused"]
+        elif name in sql_per_launch:
+            row["device_ms_per_launch_sql_q2"] = sql_per_launch[name]
+        if name in Q2_HOPS:
+            row["launches_per_warm_sql_q2_hop_ring"] = q2_warm["hops"].get(
+                name, 0)
+        elif name in ONE_RING_KERNELS:
+            row["launches_per_warm_sql_q2"] = q2_warm["fused"].get(name, 0)
+        elif name == "merge_candidates":
+            row.update(floor)
         if row["launches"] == 0:
-            raise AssertionError(f"kernel {row['name']} never launched")
+            raise AssertionError(f"kernel {name} never launched")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {

@@ -48,6 +48,32 @@
 // sign of acc. CUDA's fmaxf/fminf return the non-NaN operand instead, so
 // the choice is written out as selections on bit patterns.
 //
+// pext_ring and psum_onehot_ring are the same combines over a whole ring
+// in one launch, for shards whose planes lie on one card: they replace the
+// chain of _ext_max_kernel:53, _ext_min_kernel:59 or _add_kernel:65
+// through _call2:80 that ring_pext:109 and ring_psum_onehot:122 of
+// greptimedb_tpu/parallel/kernels/ring_fold.py run hop by hop. Per element,
+//
+//   acc = x[0]; acc = comb(acc, x[s]) for s = 1 .. ns - 1; out = acc
+//
+// the hop ring's left chain in shard order. The float extreme's sign-bit
+// rule returns the first NaN in shard order, so the shards are never
+// reordered; the one-hot sum rounds in the chain's order and starts from
+// shard 0's value (not from 0), so a -0.0 winner comes out +0.0 exactly
+// as in the hop ring and in psum. The shard
+// pointers travel by value in the kernel's parameters (RingPlanes), filled
+// by the C launcher from a host array. Bound on this card: bytes,
+// 4 * (ns + 1) * g * nb (ns planes in, one out): 389 KB, 0.116 us at
+// 3.35 TB/s at the range path's (9, 2160) x 4 shards, below any launch's
+// floor. So the design aims at one launch per ring, not at the bound:
+// ns - 1 hop launches (and their host-side ctypes calls) become one. A
+// thread takes 4 consecutive elements with 16-byte loads when every
+// pointer is 16-byte aligned (n % 4 elements then go one per thread),
+// one element otherwise; 256 threads a block.
+//
+// noop is an empty kernel: the floor of a launch through the same bound
+// ctypes path.
+//
 // The kernels launch on the caller's stream and allocate nothing; the
 // wrappers (greptimedb_tpu_torch/parallel/kernels/ring_fold.py) own the
 // outputs and check the launch status these functions return.
@@ -155,6 +181,109 @@ unsigned int grid_for(long long n, int threads) {
   return static_cast<unsigned int>((n + threads - 1) / threads);
 }
 
+// ---- one launch per ring ------------------------------------------------
+
+constexpr int kMaxShards = 8;     // ring_fold.py _MAX_SHARDS
+constexpr int kRingThreads = 256;
+
+enum RingOp { kMaxF32 = 0, kMinF32 = 1, kMaxI32 = 2, kMinI32 = 3,
+              kAddF32 = 4 };
+
+template <typename T>
+struct RingPlanes {
+  const T* x[kMaxShards];         // (g, nb) per shard, in shard order
+};
+
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int32_t> { using type = int4; };
+
+template <int kOp, typename T>
+__device__ __forceinline__ T comb(T acc, T x) {
+  if constexpr (kOp == kMaxF32) {
+    return ext_f32<true>(acc, x);
+  } else if constexpr (kOp == kMinF32) {
+    return ext_f32<false>(acc, x);
+  } else if constexpr (kOp == kMaxI32) {
+    return acc > x ? acc : x;
+  } else if constexpr (kOp == kMinI32) {
+    return acc < x ? acc : x;
+  } else {
+    return __fadd_rn(acc, x);
+  }
+}
+
+template <int kOp, typename V>
+__device__ __forceinline__ V comb4(V acc, V x) {
+  acc.x = comb<kOp>(acc.x, x.x);
+  acc.y = comb<kOp>(acc.y, x.y);
+  acc.z = comb<kOp>(acc.z, x.z);
+  acc.w = comb<kOp>(acc.w, x.w);
+  return acc;
+}
+
+// kVec: threads [0, n / 4) take 4 elements each with 16-byte loads, the
+// next n % 4 threads one element each; otherwise one element a thread.
+template <typename T, int kOp, bool kVec>
+__global__ void __launch_bounds__(kRingThreads)
+ring_combine_kernel(RingPlanes<T> in, T* __restrict__ out, int ns,
+                    long long n) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    using V = typename Vec4<T>::type;
+    long long n4 = n >> 2;
+    if (i < n4) {
+      V acc = __ldg(reinterpret_cast<const V*>(in.x[0]) + i);
+#pragma unroll
+      for (int s = 1; s < kMaxShards; ++s) {
+        if (s < ns) {
+          acc = comb4<kOp>(acc, __ldg(reinterpret_cast<const V*>(in.x[s]) + i));
+        }
+      }
+      reinterpret_cast<V*>(out)[i] = acc;
+      return;
+    }
+    i = (n4 << 2) + (i - n4);
+  }
+  if (i >= n) return;
+  T acc = __ldg(in.x[0] + i);
+#pragma unroll
+  for (int s = 1; s < kMaxShards; ++s) {
+    if (s < ns) acc = comb<kOp>(acc, __ldg(in.x[s] + i));
+  }
+  out[i] = acc;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int kOp>
+int launch_ring_combine(const void* const* xs, void* out, int ns,
+                        long long n, void* stream) {
+  if (ns < 1 || ns > kMaxShards) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  RingPlanes<T> in{};
+  bool vec = aligned16(out);
+  for (int s = 0; s < ns; ++s) {
+    in.x[s] = static_cast<const T*>(xs[s]);
+    vec = vec && aligned16(xs[s]);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  T* o = static_cast<T*>(out);
+  if (vec) {
+    long long work = (n >> 2) + (n & 3);
+    ring_combine_kernel<T, kOp, true>
+        <<<grid_for(work, kRingThreads), kRingThreads, 0, st>>>(in, o, ns, n);
+  } else {
+    ring_combine_kernel<T, kOp, false>
+        <<<grid_for(n, kRingThreads), kRingThreads, 0, st>>>(in, o, ns, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void noop_kernel() {}
+
 }  // namespace
 
 extern "C" int gtt_blocked_fold_sum_f32(const void* arr, const void* member,
@@ -243,6 +372,30 @@ extern "C" int gtt_onehot_add_f32(const void* acc, const void* x, void* out,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(acc), static_cast<const float*>(x),
       static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gtt_pext_ring_f32(const void* const* xs, void* out, int ns,
+                                 long long n, int take_max, void* stream) {
+  return take_max
+             ? launch_ring_combine<float, kMaxF32>(xs, out, ns, n, stream)
+             : launch_ring_combine<float, kMinF32>(xs, out, ns, n, stream);
+}
+
+extern "C" int gtt_pext_ring_i32(const void* const* xs, void* out, int ns,
+                                 long long n, int take_max, void* stream) {
+  return take_max
+             ? launch_ring_combine<int32_t, kMaxI32>(xs, out, ns, n, stream)
+             : launch_ring_combine<int32_t, kMinI32>(xs, out, ns, n, stream);
+}
+
+extern "C" int gtt_psum_onehot_ring_f32(const void* const* xs, void* out,
+                                        int ns, long long n, void* stream) {
+  return launch_ring_combine<float, kAddF32>(xs, out, ns, n, stream);
+}
+
+extern "C" int gtt_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

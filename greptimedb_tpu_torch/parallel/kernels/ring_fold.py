@@ -18,17 +18,22 @@ order, so the fold needs its own kernel even on one card
 step through member ranks, adding the k-th member of every (block, group)
 at step k.
 
-The ring entry points (`ring_fold_blocks`, `ring_pext`,
+The hop ring's entry points (`ring_fold_blocks`, `ring_pext`,
 `ring_psum_onehot`) run over per-shard lists through
 parallel/kernels/base.sequential_ring; every combine of a hop is one of
 this module's kernels (`fold_cont`, `extreme`, `onehot_add`).
 
-`ring_fold_fused` is the whole reduce-then-broadcast ring of the group
-fold in ONE launch (csrc/ring_fold_fused.cu, the Pallas
-_tpu_ring_fold_call): every shard's block partials, then 2(ns - 1) ring
-steps over per-shard double buffers with the fold turns and latches.
-`RingFoldCtx` takes it when every shard lies on one device, and the hop
+The one-ring forms do a whole ring in ONE launch for shards on one
+device: `ring_fold_fused` (csrc/ring_fold_fused.cu, the Pallas
+_tpu_ring_fold_call: every shard's block partials, then 2(ns - 1) ring
+steps over per-shard double buffers with the fold turns and latches),
+and `ring_pext_fused` / `ring_psum_onehot_fused` (csrc/ring_fold.cu: the
+hop ring's chain of extremes or adds, in shard order, per element).
+`RingFoldCtx` takes them when every shard lies on one device, and the hop
 ring otherwise (or when asked with fused=False).
+
+Every launcher is bound once (`_entry`: library, symbol, argtypes) and
+called on the caller's current stream of the tensors' card.
 """
 
 from __future__ import annotations
@@ -175,16 +180,45 @@ _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-def _launch(symbol: str, argtypes: list, args: tuple, device,
-            what: str) -> None:
-    lib = build.load("ring_fold")
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes + [_PTR]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    build.check_launch(lib, rc, what)
+_entries: dict = {}
+
+
+def _entry(source: str, symbol: str, argtypes: tuple):
+    """(library, launcher) of one kernel symbol: loaded, looked up and
+    typed on its first call and kept, so that a launch costs the ctypes
+    call alone. `argtypes` leaves out the trailing stream."""
+    entry = _entries.get(symbol)
+    if entry is None:
+        lib = build.load(source)
+        fn = getattr(lib, symbol)
+        fn.argtypes = [*argtypes, _PTR]
+        fn.restype = ctypes.c_int
+        entry = _entries[symbol] = (lib, fn)
+    return entry
+
+
+def _stream(index: int) -> int:
+    """The caller's current stream on card `index`, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _on_card(index: int, fn, *args) -> int:
+    """fn(*args) with card `index` current: a kernel launches on the
+    current device, into a stream of that device. The device context is
+    entered only when another card is current."""
+    if torch._C._cuda_getDevice() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+def _launch(entry, what: str, index: int, *args) -> None:
+    """Launch a bound launcher on the current stream of card `index` and
+    raise if the launch was refused."""
+    lib, fn = entry
+    rc = _on_card(index, fn, *args, _stream(index))
+    if rc:
+        build.check_launch(lib, rc, what)
 
 
 def _check_fold(what: str, arr: torch.Tensor, fm: FoldMembers) -> None:
@@ -215,13 +249,13 @@ def _check_pair(what: str, acc: torch.Tensor, x: torch.Tensor,
 
 
 def _fold_launch(kind: str, arr, fm, out, acc=None) -> None:
-    sym = f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}"
     ptrs = [arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr()]
     if acc is not None:
         ptrs.append(acc.data_ptr())
-    _launch(sym, [_PTR] * (len(ptrs) + 1) + [_INT] * 3,
-            (*ptrs, out.data_ptr(), fm.g, fm.fb, arr.shape[1]),
-            arr.device, kind)
+    entry = _entry("ring_fold", f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}",
+                   (_PTR,) * (len(ptrs) + 1) + (_INT,) * 3)
+    _launch(entry, kind, arr.get_device(), *ptrs, out.data_ptr(), fm.g,
+            fm.fb, arr.shape[1])
 
 
 def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
@@ -229,7 +263,7 @@ def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     segment-summed per series block and left-folded over the blocks from
     block 0 (K2; the ring's seed on shard 0)."""
     _check_fold("blocked_fold_sum", arr, fm)
-    if arr.device.type == "cpu":
+    if arr.is_cpu:
         return blocked_fold_sum_plain(arr, fm)
     out = torch.empty((fm.g, arr.shape[1]), dtype=arr.dtype,
                       device=arr.device)
@@ -252,7 +286,7 @@ def fold_cont(acc: torch.Tensor, arr: torch.Tensor,
         raise ValueError(f"fold_cont: acc {tuple(acc.shape)} on "
                          f"{acc.device} is not a contiguous ({fm.g}, "
                          f"{arr.shape[1]}) tensor beside arr")
-    if arr.device.type == "cpu":
+    if arr.is_cpu:
         return fold_cont_plain(acc, arr, fm)
     out = torch.empty_like(acc)
     if out.numel() == 0:
@@ -266,7 +300,7 @@ def block_partials(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """(S, nb) per-series states -> the (fb, g, nb) unfolded block
     partials (K2's partials form; the gather twin folds them)."""
     _check_fold("block_partials", arr, fm)
-    if arr.device.type == "cpu":
+    if arr.is_cpu:
         return block_partials_plain(arr, fm)
     out = torch.empty((fm.fb, fm.g, arr.shape[1]), dtype=arr.dtype,
                       device=arr.device)
@@ -282,15 +316,15 @@ def extreme(acc: torch.Tensor, x: torch.Tensor,
     """Elementwise max/min of two float32 or int32 tensors with
     jnp.maximum/minimum's bits (see extreme_plain)."""
     _check_pair("extreme", acc, x, _FOLD_TYPES)
-    if acc.device.type == "cpu":
+    if acc.is_cpu:
         return extreme_plain(acc, x, take_max)
     out = torch.empty_like(acc)
     if out.numel() == 0:
         return out
-    _launch(f"gtt_extreme_{_FOLD_TYPES[acc.dtype]}",
-            [_PTR, _PTR, _PTR, _LL, _INT],
-            (acc.data_ptr(), x.data_ptr(), out.data_ptr(), acc.numel(),
-             int(take_max)), acc.device, "extreme")
+    entry = _entry("ring_fold", f"gtt_extreme_{_FOLD_TYPES[acc.dtype]}",
+                   (_PTR, _PTR, _PTR, _LL, _INT))
+    _launch(entry, "extreme", acc.get_device(), acc.data_ptr(),
+            x.data_ptr(), out.data_ptr(), acc.numel(), int(take_max))
     extreme.launches += 1
     return out
 
@@ -298,16 +332,26 @@ def extreme(acc: torch.Tensor, x: torch.Tensor,
 def onehot_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """acc + x over float32 tensors (the one-hot sum's hop)."""
     _check_pair("onehot_add", acc, x, (torch.float32,))
-    if acc.device.type == "cpu":
+    if acc.is_cpu:
         return onehot_add_plain(acc, x)
     out = torch.empty_like(acc)
     if out.numel() == 0:
         return out
-    _launch("gtt_onehot_add_f32", [_PTR, _PTR, _PTR, _LL],
-            (acc.data_ptr(), x.data_ptr(), out.data_ptr(), acc.numel()),
-            acc.device, "onehot_add")
+    entry = _entry("ring_fold", "gtt_onehot_add_f32",
+                   (_PTR, _PTR, _PTR, _LL))
+    _launch(entry, "onehot_add", acc.get_device(), acc.data_ptr(),
+            x.data_ptr(), out.data_ptr(), acc.numel())
     onehot_add.launches += 1
     return out
+
+
+def noop(device) -> None:
+    """Launch the empty kernel on the current stream of `device` through
+    the same bound launch path as the kernels above: the floor under every
+    launch of this module (a measurement hook; counted nowhere)."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    _launch(_entry("ring_fold", "gtt_noop", ()), "noop", index)
 
 
 for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
@@ -316,10 +360,109 @@ for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
 
 
 # ----------------------------------------------------------------------
-# the fused ring (row 6): one launch per fold across every shard
+# the ring extreme and the ring one-hot sum in one launch (rows 4 and 5)
 # ----------------------------------------------------------------------
 
 _MAX_SHARDS = 8          # FOLD_BLOCKS: a ring shard holds >= 1 block
+_SHARD_PTRS = _PTR * _MAX_SHARDS
+
+
+def ring_pext_fused_plain(xs: list, take_max: bool) -> list:
+    """Plain PyTorch version of the one-launch ring extreme: the hop
+    ring's chain extreme(... extreme(xs[0], xs[1]) ..., xs[ns - 1]) in
+    shard order, the total once for every shard."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = extreme_plain(acc, x, take_max)
+    return [acc] * len(xs)
+
+
+def ring_psum_onehot_fused_plain(xs: list) -> list:
+    """Plain PyTorch version of the one-launch ring one-hot sum: xs[0] +
+    xs[1] + ... in shard order, from shard 0's value (a -0.0 winner
+    comes out +0.0, as in the hop ring and in psum)."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = onehot_add_plain(acc, x)
+    return [acc] * len(xs)
+
+
+def _check_ring(what: str, xs: list, dtypes) -> None:
+    if not xs:
+        raise ValueError(f"{what}: no shards")
+    if len(xs) > _MAX_SHARDS:
+        raise ValueError(f"{what} takes at most {_MAX_SHARDS} shards, not "
+                         f"{len(xs)}")
+    x0 = xs[0]
+    if x0.dtype not in dtypes:
+        raise TypeError(f"{what} takes one of {dtypes}, not {x0.dtype}")
+    for x in xs:
+        if x.dtype != x0.dtype:
+            raise TypeError(f"{what}: shards of {x0.dtype} and {x.dtype}")
+        if x.shape != x0.shape:
+            raise ValueError(f"{what}: shapes {tuple(x0.shape)} and "
+                             f"{tuple(x.shape)} differ")
+        if x.device != x0.device:
+            raise ValueError(f"{what}: shards on {x0.device} and "
+                             f"{x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _ring_launch(wrapper, symbol: str, xs: list, *flags) -> list:
+    """One launch of a ring combine over every shard's plane, counted on
+    `wrapper`: the total, once for every shard."""
+    out = torch.empty_like(xs[0])
+    n = out.numel()
+    if n:
+        entry = _entry("ring_fold", symbol,
+                       (_PTR, _PTR, _INT, _LL) + (_INT,) * len(flags))
+        _launch(entry, wrapper.__name__, xs[0].get_device(),
+                _SHARD_PTRS(*[x.data_ptr() for x in xs]), out.data_ptr(),
+                len(xs), n, *flags)
+        wrapper.launches += 1
+    return [out] * len(xs)
+
+
+def ring_pext_fused(xs: list, take_max: bool) -> list:
+    """Cross-shard elementwise max/min of per-shard (g, nb) float32 or
+    int32 planes that lie on one device, in one launch: bit-identical to
+    ring_pext (the hop ring) and to the gather twin. Returns the total
+    once for every shard (the same tensor in every position); one shard
+    comes back as it is. A CPU device runs the plain version."""
+    _check_ring("ring_pext_fused", xs, _FOLD_TYPES)
+    if len(xs) == 1:
+        return [xs[0]]
+    if xs[0].is_cpu:
+        return ring_pext_fused_plain(xs, take_max)
+    return _ring_launch(ring_pext_fused,
+                        f"gtt_pext_ring_{_FOLD_TYPES[xs[0].dtype]}", xs,
+                        int(take_max))
+
+
+def ring_psum_onehot_fused(xs: list) -> list:
+    """Cross-shard sum of per-shard (g, nb) float32 MASKED ONE-NONZERO
+    planes (see ring_psum_onehot) that lie on one device, in one launch:
+    bit-identical to the hop ring and to the gather twin. Returns the
+    total once for every shard; one shard comes back as it is. A CPU
+    device runs the plain version."""
+    _check_ring("ring_psum_onehot_fused", xs, (torch.float32,))
+    if len(xs) == 1:
+        return [xs[0]]
+    if xs[0].is_cpu:
+        return ring_psum_onehot_fused_plain(xs)
+    return _ring_launch(ring_psum_onehot_fused, "gtt_psum_onehot_ring_f32",
+                        xs)
+
+
+ring_pext_fused.launches = 0
+ring_psum_onehot_fused.launches = 0
+
+
+# ----------------------------------------------------------------------
+# the fused ring (row 6): one launch per fold across every shard
+# ----------------------------------------------------------------------
+
 _MAX_FB = 8
 _FUSED_THREADS = 256     # elements per tile (csrc/ring_fold_fused.cu)
 
@@ -413,7 +556,6 @@ class _RingScratch:
 _FUSED_EPOCH_STRIDE = 2 * _MAX_SHARDS
 _FUSED_MAX_EPOCH = (2**31 - 1) // _FUSED_EPOCH_STRIDE - 1
 _scratch: dict = {}
-_fused_fns: dict = {}
 # one launch at a time takes its epoch and launches: launches on one stream
 # must run in the order of their epochs
 _scratch_lock = threading.Lock()
@@ -429,7 +571,7 @@ def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
     co-resident, so the default grid always fits) and lets a test ask for
     a grid that cannot be co-resident, which raises before any launch."""
     _check_fused(arrs, fms)
-    if arrs[0].device.type == "cpu":
+    if arrs[0].is_cpu:
         return ring_fold_fused_plain(arrs, fms)
     ns = len(arrs)
     g, fb, nb = fms[0].g, fms[0].fb, arrs[0].shape[1]
@@ -440,43 +582,34 @@ def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
     if plane == 0:
         return outs
     tiles = -(-plane // _FUSED_THREADS)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    index = arrs[0].get_device()
 
     def ptrs(ts):
-        return (_PTR * _MAX_SHARDS)(*[t.data_ptr() for t in ts])
+        return _SHARD_PTRS(*[t.data_ptr() for t in ts])
 
     def cut(t, per):
-        return (_PTR * _MAX_SHARDS)(*[t.data_ptr() + 4 * per * s
-                                      for s in range(ns)])
+        return _SHARD_PTRS(*[t.data_ptr() + 4 * per * s for s in range(ns)])
 
-    lib, fn = _fused_entry(arrs[0].dtype)
-    with _scratch_lock, torch.cuda.device(dev):
+    # bound once: the wrapper's host time is most of a fold's time at the
+    # range path's shapes
+    lib, fn = _entry("ring_fold_fused",
+                     f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
+                     (_PTR,) * 6 + (_INT,) * 6)
+    with _scratch_lock:
+        stream = _stream(index)
         sc = _scratch.get((dev, stream))
         if sc is None:
             sc = _scratch[dev, stream] = _RingScratch(dev)
         # per shard: (2, plane) receive slots and (2, tiles) recv/ack flags
         base = sc.take(ns * 2 * plane, ns * 2 * tiles)
-        rc = fn(ptrs(arrs), ptrs([fm.member for fm in fms]),
-                ptrs([fm.ptr for fm in fms]), ptrs(outs),
-                cut(sc.bufs, 2 * plane), cut(sc.flags, 2 * tiles), ns, g,
-                fb, nb, base, int(grid_x), stream)
-    build.check_launch(lib, rc, "ring_fold_fused")
+        rc = _on_card(index, fn, ptrs(arrs), ptrs([fm.member for fm in fms]),
+                      ptrs([fm.ptr for fm in fms]), ptrs(outs),
+                      cut(sc.bufs, 2 * plane), cut(sc.flags, 2 * tiles), ns,
+                      g, fb, nb, base, int(grid_x), stream)
+    if rc:
+        build.check_launch(lib, rc, "ring_fold_fused")
     ring_fold_fused.launches += 1
     return outs
-
-
-def _fused_entry(dtype):
-    """The fused ring's library and its launcher for `dtype`, bound once
-    (the wrapper's host time is most of a fold's time at the range path's
-    shapes)."""
-    entry = _fused_fns.get(dtype)
-    if entry is None:
-        lib = build.load("ring_fold_fused")
-        fn = getattr(lib, f"gtt_ring_fold_fused_{_FOLD_TYPES[dtype]}")
-        fn.argtypes = [_PTR] * 6 + [_INT] * 6 + [_PTR]
-        fn.restype = ctypes.c_int
-        entry = _fused_fns[dtype] = (lib, fn)
-    return entry
 
 
 ring_fold_fused.launches = 0
@@ -528,12 +661,13 @@ class RingFoldCtx(ShardFoldCtx):
     counterpart for the payloads the range fold produces.
 
     `fused` mirrors the JAX package's `interpret=`. By default the devices
-    decide: the fused ring (one ring_fold_fused launch per fold) when
-    every shard lies on one device, the hop ring (K2's seed, then
-    fold_cont hop by hop) when the shards span devices — the peer-copy
-    form of the fused kernel belongs to the multi-card slice. fused=False
-    always takes the hop ring. A choice from the device list, never a
-    fallback: a failed fused launch raises."""
+    decide: the one-ring forms (one ring_fold_fused, ring_pext_fused or
+    ring_psum_onehot_fused launch per ring) when every shard lies on one
+    device, the hop ring (K2's seed, then fold_cont, extreme or
+    onehot_add hop by hop) when the shards span devices — the peer-copy
+    form of the fused kernels belongs to the multi-card slice.
+    fused=False always takes the hop ring. A choice from the device list,
+    never a fallback: a failed fused launch raises."""
 
     def __init__(self, shards: int, fused: bool | None = None):
         super().__init__(shards)
@@ -551,7 +685,11 @@ class RingFoldCtx(ShardFoldCtx):
         return ring_fold_blocks(arrs, fms)
 
     def pext(self, xs: list, take_max: bool) -> list:
+        if self.form([x.device for x in xs]) == "fused":
+            return ring_pext_fused(xs, take_max)
         return ring_pext(xs, take_max)
 
     def psum(self, xs: list) -> list:
+        if self.form([x.device for x in xs]) == "fused":
+            return ring_psum_onehot_fused(xs)
         return ring_psum_onehot(xs)

@@ -162,6 +162,196 @@ def test_onehot_add_kernel_matches_plain(cuda):
     assert torch.equal(_bits32(got), _bits32(torch.from_numpy(a + x)))
 
 
+def _ring_planes(rng, ns, g, nb, offset, cuda):
+    """Per-shard (g, nb) planes on the card: float32 edge bits (NaN
+    payloads of either sign, ±0, ±inf), int32 extremes, and one-hot
+    float32 payloads (one winner shard per element, +0.0 elsewhere, the
+    winners edge bits too). offset > 0 cuts every plane out of a larger
+    buffer `offset` elements in: contiguous, but its pointer is off the
+    16-byte boundary, so the kernel takes its one-element path."""
+    f32 = np.stack([_specials(rng, (g, nb)) for _ in range(ns)])
+    i32 = rng.integers(-2**31, 2**31, (ns, g, nb), dtype=np.int64).astype(
+        np.int32)
+    r = rng.random(i32.shape)
+    i32[r < 0.1] = -2**31
+    i32[(r >= 0.1) & (r < 0.2)] = 2**31 - 1
+    win = rng.integers(0, ns, (g, nb))
+    oh = np.zeros((ns, g, nb), np.float32)
+    oh[win, np.arange(g)[:, None], np.arange(nb)[None, :]] = _specials(
+        rng, (g, nb))
+
+    def card(x):
+        out = []
+        for k in range(ns):
+            buf = torch.empty(offset + g * nb, dtype=torch.from_numpy(
+                x[:1]).dtype, device=cuda)
+            plane = buf[offset:].view(g, nb)
+            plane.copy_(torch.from_numpy(np.ascontiguousarray(x[k])))
+            out.append(plane)
+        return out
+
+    return {"f32": (f32, card(f32)), "i32": (i32, card(i32)),
+            "onehot": (oh, card(oh))}
+
+
+def _cpu_shards(x):
+    return [torch.from_numpy(np.ascontiguousarray(p)) for p in x]
+
+
+@pytest.mark.parametrize("ns,g,nb,offset", [
+    (4, 9, 2160, 0),        # the mesh phase's Q2 plane: 16-byte loads
+    (4, 9, 2161, 0),        # n % 4 == 1: 16-byte loads and a tail
+    (4, 9, 2160, 1),        # misaligned views: one element a thread
+    (2, 3, 7, 0),
+    (8, 5, 300, 3),
+    (8, 9, 2160, 0),
+])
+def test_ring_combine_kernels_match_plain_and_the_hop_ring(cuda, ns, g, nb,
+                                                           offset):
+    """ring_pext_fused (f32 and int32, max and min) and
+    ring_psum_onehot_fused, one launch per ring: bit for bit against their
+    plain versions and the hop ring on the card, and against the CPU (the
+    JAX package's bits) — the extreme exactly, the sum except for which
+    NaN comes out (the card's add returns its canonical NaN)."""
+    rng = np.random.default_rng(ns * 10_000 + nb + offset)
+    planes = _ring_planes(rng, ns, g, nb, offset, cuda)
+    if offset:
+        assert planes["f32"][1][0].data_ptr() % 16
+    for dt in ("f32", "i32"):
+        host, xs = planes[dt]
+        for take_max in (True, False):
+            before = (rf.ring_pext_fused.launches, rf.extreme.launches)
+            got = rf.ring_pext_fused(xs, take_max)
+            torch.cuda.synchronize()
+            assert (rf.ring_pext_fused.launches, rf.extreme.launches) == (
+                before[0] + 1, before[1])
+            assert len(got) == ns and all(o is got[0] for o in got)
+            want = rf.ring_pext_fused_plain(_cpu_shards(host), take_max)[0]
+            assert torch.equal(_bits32(got[0]), _bits32(want)), (dt, take_max)
+            assert torch.equal(
+                _bits32(got[0]),
+                _bits32(rf.ring_pext_fused_plain(xs, take_max)[0]))
+            hops = rf.ring_pext(xs, take_max)
+            assert all(torch.equal(_bits32(got[0]), _bits32(h))
+                       for h in hops)
+    for dt in ("onehot", "f32"):
+        host, xs = planes[dt]
+        before = rf.ring_psum_onehot_fused.launches
+        got = rf.ring_psum_onehot_fused(xs)
+        torch.cuda.synchronize()
+        assert rf.ring_psum_onehot_fused.launches == before + 1
+        plain = rf.ring_psum_onehot_fused_plain(xs)[0]
+        assert torch.equal(_bits32(got[0]), _bits32(plain)), dt
+        assert all(torch.equal(_bits32(got[0]), _bits32(h))
+                   for h in rf.ring_psum_onehot(xs))
+        want = rf.ring_psum_onehot_fused_plain(_cpu_shards(host))[0]
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got[0]).cpu(), nan)
+        assert torch.equal(_bits32(got[0])[~nan], _bits32(want)[~nan])
+        if dt == "onehot":
+            assert (_bits32(got[0])[nan] == 0x7FFFFFFF).all()
+
+
+def test_launch_floor_runs(cuda):
+    """The empty kernel through the bound launch path (chip_smoke.py's
+    launch_floor_ms) launches and leaves the card usable."""
+    for _ in range(3):
+        rf.noop(cuda)
+    torch.cuda.synchronize()
+
+
+def _stream_cases(cuda):
+    """(name, launch, want) for rows 2-6 and the ring forms over one set of
+    inputs: launch(*inputs) runs the kernel, want the plain version on the
+    CPU."""
+    rng = np.random.default_rng(21)
+    ns, s_local, nb, g = 4, 256, 300, 9
+    x = _ring_input(rng, ns, s_local, nb, torch.float32)
+    x[~np.isfinite(x)] = 1.0                   # no NaN: CPU bits == card's
+    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+    fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
+    fms_cpu = [rf.fold_members(gid[k], g, 2, "cpu") for k in range(ns)]
+    planes = rng.standard_normal((ns, g, nb)).astype(np.float32)
+    host = [x[k] for k in range(ns)] + [planes[k] for k in range(ns)]
+    arrs, pl = slice(0, ns), slice(ns, 2 * ns)
+    return host, [
+        ("blocked_fold_sum", lambda t: [rf.blocked_fold_sum(t[0], fms[0])],
+         lambda t: [rf.blocked_fold_sum(t[0], fms_cpu[0])]),
+        ("fold_cont", lambda t: [rf.fold_cont(t[ns], t[1], fms[1])],
+         lambda t: [rf.fold_cont(t[ns], t[1], fms_cpu[1])]),
+        ("extreme", lambda t: [rf.extreme(t[ns], t[ns + 1], True)],
+         lambda t: [rf.extreme(t[ns], t[ns + 1], True)]),
+        ("onehot_add", lambda t: [rf.onehot_add(t[ns], t[ns + 1])],
+         lambda t: [rf.onehot_add(t[ns], t[ns + 1])]),
+        ("ring_pext_fused", lambda t: rf.ring_pext_fused(t[pl], False),
+         lambda t: rf.ring_pext_fused(t[pl], False)),
+        ("ring_psum_onehot_fused",
+         lambda t: rf.ring_psum_onehot_fused(t[pl]),
+         lambda t: rf.ring_psum_onehot_fused(t[pl])),
+        ("ring_fold_fused", lambda t: rf.ring_fold_fused(t[arrs], fms),
+         lambda t: rf.ring_fold_fused(t[arrs], fms_cpu)),
+    ]
+
+
+def test_bound_launchers_run_on_the_callers_stream(cuda):
+    """Rows 2-6 and the ring forms launch on the caller's current stream:
+    inside torch.cuda.stream(s), each kernel queues behind a sleep and the
+    copy of its inputs on s, and reads the copied values. A launch on the
+    default stream would run at once and read the zeros left before (side
+    streams do not wait for the default stream)."""
+    host, cases = _stream_cases(cuda)
+    side = torch.cuda.Stream()
+    for name, launch, want_fn in cases:
+        cpu_in = [torch.from_numpy(np.ascontiguousarray(h)) for h in host]
+        want = want_fn(cpu_in)
+        dst = [torch.zeros_like(t, device=cuda) for t in cpu_in]
+        pinned = [t.pin_memory() for t in cpu_in]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(side):
+            assert rf._stream(torch.cuda.current_device()) == side.cuda_stream
+            torch.cuda._sleep(50_000_000)
+            for d, p in zip(dst, pinned):
+                d.copy_(p, non_blocking=True)
+            got = launch(dst)
+        side.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits32(a), _bits32(b)), name
+
+
+def test_bound_launchers_run_on_a_card_that_is_not_current(cuda):
+    """Inputs on card 1 while card 0 is current: every kernel launches on
+    card 1 (its current stream there), the current card stays 0, and a
+    hop ring across the two cards launches on each."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    host, cases = _stream_cases(other)
+    with torch.cuda.device(0):
+        for name, launch, want_fn in cases:
+            cpu_in = [torch.from_numpy(np.ascontiguousarray(h))
+                      for h in host]
+            got = launch([t.to(other) for t in cpu_in])
+            torch.cuda.synchronize(other)
+            assert torch.cuda.current_device() == 0
+            for a, b in zip(got, want_fn(cpu_in)):
+                assert a.device == other
+                assert torch.equal(_bits32(a), _bits32(b)), name
+        rng = np.random.default_rng(4)
+        host = np.stack([_specials(rng, (9, 300)) for _ in range(4)])
+        xs = [torch.from_numpy(host[k]).to(torch.device("cuda", k % 2))
+              for k in range(4)]
+        ctx = rf.RingFoldCtx(4)
+        assert ctx.form([x.device for x in xs]) == "hops"
+        before = (rf.extreme.launches, rf.ring_pext_fused.launches)
+        got = ctx.pext(xs, True)
+        assert (rf.extreme.launches, rf.ring_pext_fused.launches) == (
+            before[0] + 3, before[1])
+        want = rf.ring_pext_fused_plain(_cpu_shards(host), True)[0]
+        for k, t in enumerate(got):
+            assert t.device == xs[k].device
+            assert torch.equal(_bits32(t), _bits32(want))
+
+
 def _ring_input(rng, ns, s_local, nb, dtype):
     """Per-shard states with the fold's edge bits: float32 with wide
     magnitudes, -0.0 (a whole cell of it), ±inf in two cells of three and
@@ -416,17 +606,20 @@ def test_range_queries_on_cuda_match_cpu(cuda):
     for a, b in zip(got.cols, want.cols):
         assert np.array_equal(a.valid_mask, b.valid_mask)
         assert np.array_equal(a.values, b.values)
-    # four shards on the one card: ring kernels and the gather twin
+    # four shards on the one card: the one-launch ring kernels (never the
+    # hop combines) and the gather twin
     low = {"shard_min_series": 1, "pallas_min_series": 1}
     for kernels, program in (("auto", "sharded_ring"),
                              ("off", "sharded_gather")):
         eng = QueryEngine(device=cuda, mesh=make_mesh([cuda] * 4),
                           mesh_opts=MeshOptions(pallas_kernels=kernels,
                                                 **low))
-        before = rf.extreme.launches
+        before = (rf.ring_pext_fused.launches, rf.extreme.launches)
         sharded = eng.execute(plan, t)
         assert eng.last_range["program"] == program
-        assert (rf.extreme.launches > before) == (kernels == "auto")
+        assert (rf.ring_pext_fused.launches > before[0]) == (
+            kernels == "auto")
+        assert rf.extreme.launches == before[1]
         for a, b in zip(sharded.cols, want.cols):
             assert np.array_equal(a.valid_mask, b.valid_mask)
             assert np.array_equal(a.values, b.values)

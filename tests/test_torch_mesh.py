@@ -5,7 +5,8 @@ in their plain versions (CPU tensors, shards as list entries) against the
 JAX package's RingFoldCtx hooks inside shard_map on the 8 virtual CPU
 devices, with the Pallas ring kernels in interpret mode — at 2, 4 and 8
 shards, with NaN payloads, -0.0, ±inf and int32 extremes. Exact, bit for
-bit. The gather twin (ShardFoldCtx) must give the same bits.
+bit. The gather twin (ShardFoldCtx) and the one-launch ring forms
+(ring_pext_fused, ring_psum_onehot_fused) must give the same bits.
 
 (b) decide_mesh_execution/decide_kernel equal to the JAX package's RANGE
 gate (kind="range") over a grid of shard counts, series and knobs.
@@ -107,7 +108,10 @@ def test_ring_hooks_match_jax_ring(ns):
     - pext: max and min of f32 (NaN payloads, ±0, ±inf) and int32
       (extremes);
     - psum of a one-hot payload whose winners include NaN payloads, -0.0
-      and ±inf."""
+      and ±inf;
+
+    each against the port's hop ring, the gather twin and the one-launch
+    ring forms."""
     rng = np.random.default_rng(ns)
     s_local, nb, g = 16, 24, 3
     fb_local = JM.FOLD_BLOCKS // ns
@@ -165,11 +169,18 @@ def test_ring_hooks_match_jax_ring(ns):
             gathered[f"{nm}_{dt}"] = gather.pext(shards(x), tm)
     got["psum"] = trf.ring_psum_onehot(shards(oh))
     gathered["psum"] = gather.psum(shards(oh))
+    fused = {"psum": trf.ring_psum_onehot_fused(shards(oh))}
+    for dt, x in (("f32", ef), ("i32", ei)):
+        for tm, nm in ((True, "max"), (False, "min")):
+            fused[f"{nm}_{dt}"] = trf.ring_pext_fused(shards(x), tm)
     for name in names:
         assert np.array_equal(_bits(_stack(got[name])), _bits(want[name])), \
             name
         assert np.array_equal(_bits(_stack(gathered[name])),
                               _bits(want[name])), name
+    for name, res in fused.items():
+        assert len(res) == ns, name
+        assert np.array_equal(_bits(_stack(res)), _bits(want[name])), name
     # a -0.0 winner comes out +0.0, as in psum
     assert not np.signbit(want["psum"][0][onehot_vals == 0]).any()
 

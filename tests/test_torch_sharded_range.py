@@ -213,7 +213,8 @@ def test_sharded_range_matches_jax_and_one_device(setup, ns):
     assert ring.last_range["comm_bytes"] == 0        # no fold, no hops
     for fn in (ring_fold.blocked_fold_sum, ring_fold.fold_cont,
                ring_fold.block_partials, ring_fold.extreme,
-               ring_fold.onehot_add):
+               ring_fold.onehot_add, ring_fold.ring_pext_fused,
+               ring_fold.ring_psum_onehot_fused):
         assert fn.launches == 0                      # the CPU never launches
 
 
