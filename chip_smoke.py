@@ -48,12 +48,13 @@ result line):
              engine and read after it. Every shard lies on the one card, so
              the ring engine runs every ring in one launch: the fused ring
              kernel for each group fold, ring_pext_fused for each extreme
-             and ring_psum_onehot_fused for each one-hot sum (10 and 4 per
-             warm Q2), with no seed, continuation or hop combine; none of
-             them may launch on the gather engine. Then each ring kernel
+             and ring_psum_onehot_fused for each one-hot sum (12, 10 and 4
+             per warm Q2), with no seed, continuation or hop combine; none
+             of them may launch on the gather engine. Then each ring kernel
              at the shapes the mesh path gave it (the fused ring also on
-             edge bits; the hop combines on shards 0 and 1, their ring
-             forms on all four) is held against its plain version and
+             edge bits and on misaligned rows, and against the hop ring;
+             the hop combines on shards 0 and 1, their ring forms on all
+             four) is held against its plain version and
              timed, with an empty kernel through the same launch path as
              the floor of a launch; one warm sharded Q2 is profiled on
              every engine and on the hop ring; and each step of the
@@ -65,15 +66,20 @@ result line):
              topk(100, ...), bottomk(100, ...), 8 steps) run through
              PromEngine.query_range on one device, on the card named four
              times with default options (shard(large_grid), the topk ring
-             with the merge kernel) and with kernels off (the gather twin):
-             cold, warm (median of 5) and one profiled warm call each. The
-             three engines must agree bit for bit; the one-device topk
-             results must equal the port on the CPU bit for bit, and the
-             aggregate the CPU run within the bound of two matrix-product
-             orders; the ring must launch the merge kernel three times per
-             warm topk query and the gather engine never. Then the merge
-             kernel at the path's shapes and on edge cases is held against
-             its plain version (bit for bit) and timed.
+             in one launch: ring_topk_merge_fused) and with kernels off
+             (the gather twin), then the three topk queries on the ring
+             engine with the ring hop by hop (merge_candidates): cold, warm
+             (median of 5) and one profiled warm call each. The engines
+             must agree bit for bit; the one-device topk results must equal
+             the port on the CPU bit for bit, and the aggregate the CPU run
+             within the bound of two matrix-product orders; per warm topk
+             query the ring must launch ring_topk_merge_fused once and
+             merge_candidates never, the hop ring merge_candidates three
+             times, and the gather engine neither. Then both kernels at the
+             path's shapes and on edge cases (ties, -inf, -0.0, NaN
+             payloads and keys, unsorted, kl < k, 8 shards) are held
+             against their plain versions and the ring also against the
+             hop ring (bit for bit), and timed.
 8. sql     — SQL in: Instance(...).sql(text) answers bench.py's TSBS RANGE
              suite (the headline double-groupby-all and its nine device
              shapes, bench.py:2131-2201, cut to the table's hours) and Q2
@@ -107,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -403,6 +410,7 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
         "launches": launches["gather_planes"],
         "max_abs_err": k1_err,
         "ms": cuda_ms(lambda: mg.gather_planes(planes, src)),
+        "host_ms": host_ms(lambda: mg.gather_planes(planes, src)),
         "plain_ms": cuda_ms(lambda: mg.gather_planes_plain(planes, src)),
         "bound_ms": k1_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
@@ -467,9 +475,12 @@ ONE_RING_KERNELS = ("ring_fold_fused", "ring_pext_fused",
                     "ring_psum_onehot_fused")
 # per warm mesh Q2 on four shards: 10 ring extremes and 4 ring one-hot
 # sums (3 hops each on the hop ring)
-Q2_RINGS = {"ring_pext_fused": 10, "ring_psum_onehot_fused": 4}
+Q2_RINGS = {"ring_pext_fused": 10, "ring_psum_onehot_fused": 4,
+            "ring_fold_fused": 12}
 Q2_HOPS = {"extreme": 30, "onehot_add": 12}
 FOLD_KERNELS = ("blocked_fold_sum", "block_partials") + RING_KERNELS
+# the topk ring's kernels: the merge hop and the ring in one launch
+TOPK_KERNELS = ("merge_candidates", "ring_topk_merge_fused")
 
 
 def counts(rf, mg):
@@ -485,20 +496,25 @@ def zero_counts(rf, mg):
 
 
 @contextlib.contextmanager
-def ring_form(rf, form):
-    """Run the ring engine's folds as `form`: "fused" is RingFoldCtx's own
-    choice for shards on one card; "hops" is RingFoldCtx(ns, fused=False)
-    (K2's seed, then fold_cont hop by hop), which the query path builds
-    while this block is open."""
+def ring_form(form):
+    """Run the ring engines' rings as `form`: "fused" is the devices' own
+    choice for shards on one card (one launch a ring); "hops" is
+    RingFoldCtx(ns, fused=False) (K2's seed, then fold_cont hop by hop)
+    and ring_topk_merge_hops (merge_candidates hop by hop), which the
+    query paths take while this block is open."""
     if form != "hops":
         yield
         return
-    real = rf.RingFoldCtx
-    rf.RingFoldCtx = functools.partial(real, fused=False)
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+
+    real, real_topk = ring_fold.RingFoldCtx, tm.ring_topk_merge
+    ring_fold.RingFoldCtx = functools.partial(real, fused=False)
+    tm.ring_topk_merge = tm.ring_topk_merge_hops
     try:
         yield
     finally:
-        rf.RingFoldCtx = real
+        ring_fold.RingFoldCtx, tm.ring_topk_merge = real, real_topk
 
 
 def _bits(v):
@@ -752,8 +768,10 @@ def mesh_kernel_rows(dev, entry, memo, launches):
     for arrs in (s_f, s_i):
         got, want = rf.ring_fold_fused(arrs, fms), rf.ring_fold_fused_plain(
             arrs, fms)
+        hops = rf.ring_fold_blocks(arrs, fms)
         for k in range(ns):
             err = max(err, exact("ring_fold_fused", got[k], want[k]))
+            exact("ring_fold_fused against the hop ring", got[k], hops[k])
     # edge bits at the path's shapes and member lists: NaN payloads, -0.0,
     # ±inf, int32 sums that wrap (the card's add gives its canonical NaN
     # in kernel and plain version alike)
@@ -766,6 +784,19 @@ def mesh_kernel_rows(dev, entry, memo, launches):
             edge, fms)
         for k in range(ns):
             exact(f"ring_fold_fused ({dtype} edge bits)", got[k], want[k])
+    # rows one element past a 16-byte boundary (views into a larger
+    # tensor), at the path's cell count and at an odd one: the 4-byte
+    # copies, on ragged tiles
+    for width in (nb, nb + 1):
+        flat = [torch.from_numpy(ring_edge_input(
+            rng, s_local + 1, width, "f32")).to(dev).reshape(-1)
+            for _ in range(ns)]
+        mis = [f[1:1 + s_local * width].view(s_local, width) for f in flat]
+        got, want = rf.ring_fold_fused(mis, fms), rf.ring_fold_fused_plain(
+            mis, fms)
+        for k in range(ns):
+            exact(f"ring_fold_fused (misaligned, {width} cells)", got[k],
+                  want[k])
     m_all = sum(f.member.numel() for f in fms)
     # what the function must move: the member rows in, ns outputs out. The
     # ring's hops (2(ns - 1) stores and loads of the plane) are the
@@ -799,8 +830,28 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "shape": {"shards": ns, "s_local": s_local, "nb": nb, "g": g,
                   "fb_local": fms[0].fb, "members": m_all},
         "bytes": fused_bytes, "bytes_hops": hop_bytes,
+        "design": fused_design(rf),
     })
     return rows
+
+
+def fused_design(rf):
+    """The constants that csrc/ring_fold_fused.cu was built with, as its
+    library reports them: cells a tile, rows in a thread's ring of cp.async
+    slots, rows a wait, rows in flight, and the bytes of one copy on
+    aligned and on misaligned rows. The tile must be the wrapper's."""
+    from greptimedb_tpu_torch.parallel.kernels import build
+
+    out = (ctypes.c_int * 6)()
+    build.load("ring_fold_fused").gtt_ring_fold_fused_design(out)
+    keys = ("tile_cells", "ring_slots", "rows_per_wait", "rows_in_flight",
+            "copy_bytes", "misaligned_copy_bytes")
+    design = dict(zip(keys, out))
+    if design["tile_cells"] != rf._FUSED_CELLS:
+        raise AssertionError(f"ring_fold_fused built with tiles of "
+                             f"{design['tile_cells']} cells, the wrapper "
+                             f"sizes them as {rf._FUSED_CELLS}")
+    return design
 
 
 def ring_edge_input(rng, s_local, nb, dtype):
@@ -950,7 +1001,7 @@ def mesh_phase(args, dev, P):
              for name, eng in engines.items()}
     # the hop ring on the ring engine's grid (one warm-up run first): the
     # hop combines' device time, which the fused engine no longer launches
-    with ring_form(rf, "hops"):
+    with ring_form("hops"):
         ring.execute(q2, table)
         profs["hops"] = profiled(lambda: ring.execute(q2, table))
     # device time per launch on the warm Q2 (the events' times above
@@ -973,6 +1024,11 @@ def mesh_phase(args, dev, P):
             row["device_ms_per_launch_q2"] = per_launch[row["name"]]
         row["launches_per_warm_q2"] = warm_q2.get(row["name"], 0)
     by_name = {row["name"]: row for row in rows}
+    fused_row = by_name["ring_fold_fused"]
+    dev_ms = fused_row.get("device_ms_per_launch_q2")
+    if dev_ms:
+        fused_row["share_of_bound"] = fused_row["bound_ms"] / dev_ms
+        fused_row["achieved_gb_s"] = fused_row["bytes"] / dev_ms / 1e6
     for hop, one in (("extreme", "ring_pext_fused"),
                      ("onehot_add", "ring_psum_onehot_fused")):
         by_name[hop]["ring_device_ms_per_launch_q2"] = per_launch[one]
@@ -1001,16 +1057,14 @@ def launch_path_steps(a, b):
     warm-up calls; the card is synchronized between batches, outside the
     timing). `empty_call` is the loop's own cost, included in every other
     number. `a`, `b` are two (9, nb) float32 planes on the card."""
-    import ctypes
-
     from greptimedb_tpu_torch.parallel.kernels import build
     from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
 
     idx = a.get_device()
     dev = a.device
-    entry = rf._entry("ring_fold", "gtt_noop", ())
+    entry = build.entry("ring_fold", "gtt_noop", ())
     lib, fn = entry
-    stream = rf._stream(idx)
+    stream = build.stream(idx)
 
     def bind():
         f = getattr(build.load("ring_fold"), "gtt_noop")
@@ -1033,16 +1087,17 @@ def launch_path_steps(a, b):
     steps = {
         "empty_call": lambda: None,
         "load_lookup_and_type": bind,
-        "bound_entry_lookup": lambda: rf._entry("ring_fold", "gtt_noop", ()),
+        "bound_entry_lookup": lambda: build.entry("ring_fold", "gtt_noop",
+                                                  ()),
         "device_context": device_context,
         "current_device_check": lambda: torch._C._cuda_getDevice() == idx,
         "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
-        "raw_stream": lambda: rf._stream(idx),
+        "raw_stream": lambda: build.stream(idx),
         "check_pair": lambda: rf._check_pair("extreme", a, b,
                                              rf._FOLD_TYPES),
         "check_ring_4": lambda: rf._check_ring("ring_pext_fused",
                                                [a, b, a, b], rf._FOLD_TYPES),
-        "shard_pointer_array_4": lambda: rf._SHARD_PTRS(
+        "shard_pointer_array_4": lambda: build.SHARD_PTRS(
             a.data_ptr(), b.data_ptr(), a.data_ptr(), b.data_ptr()),
         "device_type_check": lambda: a.device.type == "cpu",
         "is_cpu": lambda: a.is_cpu,
@@ -1052,22 +1107,9 @@ def launch_path_steps(a, b):
             [x.device for x in (a, b, a, b)]),
         "noop_ctypes_call": lambda: fn(stream),
         "noop_launch_before": before_path,
-        "noop_launch_bound": lambda: rf._launch(entry, "noop", idx),
+        "noop_launch_bound": lambda: build.launch(entry, "noop", idx),
     }
-    out = {}
-    for name, step in steps.items():
-        for _ in range(200):
-            step()
-        torch.cuda.synchronize()
-        batches = []
-        for _ in range(7):
-            t = time.perf_counter_ns()
-            for _ in range(1000):
-                step()
-            batches.append((time.perf_counter_ns() - t) / 1000)
-            torch.cuda.synchronize()
-        out[name] = float(np.median(batches))
-    return out
+    return time_steps(steps)
 
 
 def fold(mode):
@@ -1124,10 +1166,11 @@ def same_vector(a, b) -> bool:
     return bool(np.array_equal(va, vb))
 
 
-def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
-    """The merge kernel at the ring's shapes (shards 0 and 1 of the warm
-    topk(100) query: J = 8, kk = kl = 100) and on edge cases, held against
-    its plain version bit for bit and timed."""
+def topk_kernel_rows(dev, ring_entry, launches, per_launch):
+    """Row 7 (the merge hop) and row 7r (the ring topk in one launch) at
+    the ring's shapes (every shard's candidates of the warm topk(100)
+    query: J = 8, k = kl = 100, four shards) and on edge cases, held
+    against their plain versions bit for bit and timed."""
     from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
     from greptimedb_tpu_torch.promql import fast as TF
     from greptimedb_tpu_torch.promql.engine import EvalParams
@@ -1135,9 +1178,10 @@ def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
     ev = EvalParams(*PROM_SPAN)
     win = TF._plan_windows(ring_entry, ev, 60_000, 0)
     smask, _ = TF._matcher_mask_dev(ring_entry, [])
-    s_loc = ring_entry.s_pad // ring_entry.shards
+    ns = ring_entry.shards
+    s_loc = ring_entry.s_pad // ns
     cands = []
-    for s in (0, 1):
+    for s in range(ns):
         out, pres = TF._eval_side(
             ring_entry.vals[s], ring_entry.has[s], ring_entry.tsg[s],
             smask[s], win.lo[s], win.hi[s], win.t_end[s], fname="rate",
@@ -1145,20 +1189,42 @@ def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
             tps=ring_entry.spec.tps, lookback_ticks=300_000)
         cands.append(TF._local_candidates(
             out, pres, TF._topk_key(out, pres, True), 100, s * s_loc))
-    acc, loc = cands
+    acc, loc = cands[:2]
 
-    def check(a, b, what):
-        got = tm.merge_candidates(a, b)
-        want = tm.merge_candidates_plain(a, b)
+    def same(got, want, what):
+        """Raise unless every plane agrees bit for bit; the largest
+        absolute difference of the planes' values (NaN - NaN and
+        inf - inf left out)."""
         torch.cuda.synchronize()
+        err = 0.0
         for g, w in zip(got, want):
             gi = g.view(torch.int32) if g.dtype == torch.float32 else g
             wi = w.view(torch.int32) if w.dtype == torch.float32 else w
             if not torch.equal(gi, wi):
-                raise AssertionError(f"merge_candidates ({what}) differs "
-                                     f"from its plain version")
+                raise AssertionError(f"{what} differs")
+            d = (g.double() - w.double()).abs()
+            d = d[~d.isnan()]
+            if d.numel():
+                err = max(err, float(d.max()))
+        return err
+
+    errs = {"hop": 0.0, "ring": 0.0}
+
+    def check(a, b, what):
+        errs["hop"] = max(errs["hop"], same(
+            tm.merge_candidates(a, b), tm.merge_candidates_plain(a, b),
+            f"merge_candidates ({what}) from its plain version"))
+
+    def check_ring(local, k, what):
+        got = tm.ring_topk_merge_fused(local, k)[0]
+        errs["ring"] = max(errs["ring"], same(
+            got, tm.ring_topk_merge_fused_plain(local, k)[0],
+            f"ring_topk_merge_fused ({what}) from its plain version"))
+        same(got, tm.ring_topk_merge_hops(local, k)[0],
+             f"ring_topk_merge_fused ({what}) from the hop ring")
 
     check(acc, loc, "main path")
+    check_ring(cands, 100, "main path")
     rng = np.random.default_rng(7)
 
     def edge(j, width, sort=True):
@@ -1166,6 +1232,8 @@ def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
                                   np.float32), (j, width))
         if sort:
             key = -np.sort(-key, axis=1)
+        else:
+            key[rng.random((j, width)) < 0.1] = np.nan
         val = rng.standard_normal((j, width)).astype(np.float32)
         val[:, ::3] = -0.0
         val[:, 1::5] = np.frombuffer(np.full(
@@ -1179,27 +1247,183 @@ def merge_kernel_row(dev, ring_entry, launches, per_launch_ms):
     check(edge(8, 100), edge(8, 100), "cross-list ties, -inf, NaN, -0.0")
     check(edge(8, 100), edge(8, 37), "kl < kk")
     check(edge(5, 64, sort=False), edge(5, 64, sort=False), "unsorted")
+    check_ring([edge(8, 100) for _ in range(4)], 100,
+               "cross-list ties, -inf, NaN, -0.0")
+    check_ring([edge(8, 37) for _ in range(4)], 100, "kl < k")
+    check_ring([edge(5, 64, sort=False) for _ in range(8)], 64,
+               "unsorted, NaN keys, 8 shards")
+
+    def bound(nbytes, ops):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        return {"bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
     j, kk = acc.key.shape
     kl = loc.key.shape[1]
-    nbytes = 13 * j * (kk + kl) + 13 * j * kk
-    ops = 2 * j * kk * kl
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    hop_bytes = 13 * j * (kk + kl) + 13 * j * kk
     cat_key = torch.cat([acc.key, loc.key], dim=1)
-    return {
-        "name": "merge_candidates", "route": "cuda",
-        "source": "greptimedb_tpu_torch/parallel/kernels/csrc/topk_merge.cu",
-        "replaces": "greptimedb_tpu/parallel/kernels/topk_merge.py:87 "
-                    "(merge_candidates, body _merge_topk_kernel:29, ring "
-                    "ring_topk_merge:103)",
-        "launches": launches, "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: tm.merge_candidates(acc, loc)),
-        "plain_ms": cuda_ms(lambda: tm.merge_candidates_plain(acc, loc)),
-        "bound_ms": max(b_ms, o_ms),
-        "bound_by": "bytes" if b_ms >= o_ms else "operations",
-        "library_ms": cuda_ms(lambda: torch.topk(cat_key, kk, dim=1)),
-        "device_ms_per_launch": per_launch_ms,
-        "shape": {"J": j, "kk": kk, "kl": kl}, "bytes": nbytes,
+    ring_bytes = 13 * j * (kk + (ns - 1) * kl) + 13 * j * kk
+    ring_ops = 2 * (ns - 1) * j * kk * kl
+    ring_key = torch.cat([c.key for c in cands], dim=1)
+    src = "greptimedb_tpu_torch/parallel/kernels/csrc/topk_merge.cu"
+    ring = {
+        "ring_ms": cuda_ms(lambda: tm.ring_topk_merge_fused(cands, kk)),
+        "ring_host_ms": host_ms(lambda: tm.ring_topk_merge_fused(cands, kk)),
+        "ring_device_ms_per_launch": per_launch["ring_topk_merge_fused"],
+        "ring_bound_ms": bound(ring_bytes, ring_ops)["bound_ms"],
+        "ring_plain_ms": cuda_ms(
+            lambda: tm.ring_topk_merge_fused_plain(cands, kk)),
+        # the one library call that selects the same top k
+        "library_ms_ring": cuda_ms(
+            lambda: torch.topk(ring_key, kk, dim=1)),
+        # the hop chain on the same inputs: ns - 1 merge launches
+        "hops_ms": cuda_ms(lambda: tm.ring_topk_merge_hops(cands, kk)),
+        "hops_host_ms": host_ms(lambda: tm.ring_topk_merge_hops(cands, kk)),
     }
+    hop = {
+        "name": "merge_candidates", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/topk_merge.py:87 "
+                    "(merge_candidates, body _merge_topk_kernel:29)",
+        "launches": launches["merge_candidates"],
+        "max_abs_err": errs["hop"],
+        "ms": cuda_ms(lambda: tm.merge_candidates(acc, loc)),
+        "host_ms": host_ms(lambda: tm.merge_candidates(acc, loc)),
+        "plain_ms": cuda_ms(lambda: tm.merge_candidates_plain(acc, loc)),
+        **bound(hop_bytes, 2 * j * kk * kl),
+        "library_ms": cuda_ms(lambda: torch.topk(cat_key, kk, dim=1)),
+        "device_ms_per_launch": per_launch["merge_candidates"],
+        **ring,
+        "shape": {"J": j, "kk": kk, "kl": kl}, "bytes": hop_bytes,
+        "launch_path_ns": topk_launch_path_steps(acc, loc),
+    }
+    fused = {
+        "name": "ring_topk_merge_fused", "route": "cuda", "source": src,
+        "replaces": "greptimedb_tpu/parallel/kernels/topk_merge.py:103 "
+                    "ring_topk_merge (the chain of merge_candidates:87 "
+                    "hops through sequential_ring)",
+        "launches": launches["ring_topk_merge_fused"],
+        "max_abs_err": errs["ring"],
+        "ms": ring["ring_ms"], "host_ms": ring["ring_host_ms"],
+        "plain_ms": ring["ring_plain_ms"], **bound(ring_bytes, ring_ops),
+        "library_ms": ring["library_ms_ring"],
+        "device_ms_per_launch": ring["ring_device_ms_per_launch"],
+        "hops_ms": ring["hops_ms"], "hops_host_ms": ring["hops_host_ms"],
+        "shape": {"shards": ns, "J": j, "k": kk, "kl": kl},
+        "bytes": ring_bytes,
+    }
+    return [hop, fused]
+
+
+def topk_launch_path_steps(acc, loc):
+    """Host ns per call of each step of merge_candidates' launch path as it
+    was before it was bound once, and of what took each step's place (as
+    launch_path_steps does for ring_fold). `acc`, `loc` are (J, 100)
+    candidate planes on the card."""
+    from greptimedb_tpu_torch.parallel.kernels import build
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+
+    dev = acc.key.device
+    idx = acc.key.get_device()
+    j, kk = acc.key.shape
+    kl = loc.key.shape[1]
+    types = (torch.float32, torch.float32, torch.int32, torch.bool)
+
+    def check_before():
+        # the per-plane checks as they were
+        for planes in (acc, loc):
+            for p, t in zip(planes, types):
+                if p.dtype != t:
+                    raise TypeError
+                if p.dim() != 2 or p.shape != planes.key.shape:
+                    raise ValueError
+                if p.device != acc.key.device:
+                    raise ValueError
+                if not p.is_contiguous():
+                    raise ValueError
+
+    def check_now():
+        tm._check("acc", acc)
+        tm._check("loc", loc)
+
+    def bind():
+        f = build.load("topk_merge").gtt_merge_topk
+        f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        f.restype = ctypes.c_int
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    def two_allocations():
+        # one int32 (3, J, kk) buffer (key, value, index as views) and one
+        # bool presence plane
+        buf = torch.empty((3, j, kk), dtype=torch.int32, device=dev)
+        return (buf[0].view(torch.float32), buf[1].view(torch.float32),
+                buf[2], torch.empty((j, kk), dtype=torch.bool, device=dev))
+
+    out = tm._alloc(acc, j, kk)
+    entry = build.entry("topk_merge", "gtt_merge_topk",
+                        (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 3)
+    ptrs = [p.data_ptr() for p in (*acc, *loc, *out)]
+
+    def launch_before():
+        lib = build.load("topk_merge")
+        fn = lib.gtt_merge_topk
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(*ptrs, j, kk, kl, stream)
+        build.check_launch(lib, rc, "merge_candidates")
+
+    steps = {
+        "empty_call": lambda: None,
+        "check_before": check_before,
+        "check": check_now,
+        # ring_topk_merge_fused's checks over four shards
+        "check_ring_4": lambda: [tm._check("ring", c)
+                                 for c in (acc, loc, acc, loc)],
+        "load_lookup_and_type": bind,
+        "bound_entry_lookup": lambda: build.entry(
+            "topk_merge", "gtt_merge_topk",
+            (ctypes.c_void_p,) * 12 + (ctypes.c_int,) * 3),
+        "device_context": device_context,
+        "stream_object": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: build.stream(idx),
+        "empty_like_4": lambda: [torch.empty_like(p) for p in acc],
+        "empty_4": lambda: [torch.empty((j, kk), dtype=t, device=dev)
+                            for t in types],
+        "alloc": lambda: tm._alloc(acc, j, kk),
+        "alloc_2_and_views": two_allocations,
+        "data_ptr_12": lambda: [p.data_ptr() for p in (*acc, *loc, *out)],
+        "launch_before": launch_before,
+        "launch_bound": lambda: build.launch(entry, "merge_candidates", idx,
+                                             *ptrs, j, kk, kl),
+        "merge_candidates": lambda: tm.merge_candidates(acc, loc),
+    }
+    return time_steps(steps)
+
+
+def time_steps(steps):
+    """Host ns per call of each step: the median over 7 batches of 1000
+    calls (after 200 warm-up calls; the card is synchronized between
+    batches, outside the timing)."""
+    out = {}
+    for name, step in steps.items():
+        for _ in range(200):
+            step()
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(7):
+            t = time.perf_counter_ns()
+            for _ in range(1000):
+                step()
+            batches.append((time.perf_counter_ns() - t) / 1000)
+            torch.cuda.synchronize()
+        out[name] = float(np.median(batches))
+    return out
 
 
 def promql_phase(args, dev):
@@ -1232,30 +1456,43 @@ def promql_phase(args, dev):
     engines = {"single": engine(dev), "ring": engine(dev, mesh),
                "gather": engine(dev, mesh,
                                 MeshOptions(pallas_kernels="off"))}
+    # the ring engine's topk queries again with the ring hop by hop
+    # (merge_candidates, ns - 1 launches a ring), after the other engines
+    runs = [(name, eng, "fused", PROM_QUERIES)
+            for name, eng in engines.items()]
+    runs.append(("hops", engines["ring"], "hops", PROM_QUERIES[1:]))
     results, per_engine, notes = {}, {}, {}
-    for name, eng in engines.items():
+
+    def topk_counts():
+        return {k: getattr(tm, k).launches for k in TOPK_KERNELS}
+
+    for name, eng, form, queries in runs:
         stats = {}
-        for q in PROM_QUERIES:
+        for q in queries:
             run = (lambda eng=eng, q=q: eng.query_range(q, *PROM_SPAN)[0])
-            tm.merge_candidates.launches = 0
-            t = time.perf_counter()
-            results[name, q] = run()
-            torch.cuda.synchronize()
-            cold = time.perf_counter() - t
-            cold_launches = tm.merge_candidates.launches
-            times = []
-            tm.merge_candidates.launches = 0
-            for _ in range(5):
+            with ring_form(form):
+                for k in TOPK_KERNELS:
+                    getattr(tm, k).launches = 0
                 t = time.perf_counter()
-                run()
+                results[name, q] = run()
                 torch.cuda.synchronize()
-                times.append(time.perf_counter() - t)
-            warm_launches = tm.merge_candidates.launches
-            prof = profiled(run)
+                cold = time.perf_counter() - t
+                cold_launches = topk_counts()
+                times = []
+                for k in TOPK_KERNELS:
+                    getattr(tm, k).launches = 0
+                for _ in range(5):
+                    t = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                warm_launches = topk_counts()
+                prof = profiled(run)
             notes[name, q] = dict(eng.last_fast)
             stats[q] = {"cold_s": cold, "warm_median_s": float(
                 np.median(times)), "launches_cold": cold_launches,
-                "launches_per_warm": warm_launches / 5,
+                "launches_per_warm": {k: n / 5 for k, n in
+                                      warm_launches.items()},
                 "device_ms": prof["device_ms"],
                 "idle_share": prof["idle_share"], "top": prof["top"],
                 "ours": prof["ours"], "note": notes[name, q]}
@@ -1263,22 +1500,33 @@ def promql_phase(args, dev):
 
     # ---- checks -------------------------------------------------------
     topk_qs = PROM_QUERIES[1:]
+    # per warm topk query: one ring launch on shards that share the card,
+    # ns - 1 merge hops on the hop ring, none elsewhere
+    want_launches = {
+        "ring": {"ring_topk_merge_fused": 1, "merge_candidates": 0},
+        "hops": {"ring_topk_merge_fused": 0, "merge_candidates": 3},
+        "gather": {"ring_topk_merge_fused": 0, "merge_candidates": 0},
+        "single": {"ring_topk_merge_fused": 0, "merge_candidates": 0},
+    }
     for q in PROM_QUERIES:
-        for name in ("ring", "gather"):
-            if not same_vector(results["single", q], results[name, q]):
+        for name in ("ring", "gather", "hops"):
+            if (name, q) in results and not same_vector(
+                    results["single", q], results[name, q]):
                 raise AssertionError(f"promql {name} differs from one "
                                      f"device on {q}")
         note = notes["ring", q]
         if note["decision"] != "shard(large_grid)" or note["shards"] != 4:
             raise AssertionError(f"ring engine decided {note} on {q}")
-        ring_l = per_engine["ring"][q]["launches_per_warm"]
-        gather_l = per_engine["gather"][q]["launches_per_warm"]
-        if q in topk_qs:
-            if note["kernel"] != "ring(ring_topk)":
-                raise AssertionError(f"ring engine kernel {note} on {q}")
-            if ring_l != 3 or gather_l != 0:
-                raise AssertionError(f"merge launches ring {ring_l}, "
-                                     f"gather {gather_l} on {q}")
+        if q in topk_qs and note["kernel"] != "ring(ring_topk)":
+            raise AssertionError(f"ring engine kernel {note} on {q}")
+        for name, want in want_launches.items():
+            if q not in per_engine[name]:
+                continue
+            got = per_engine[name][q]["launches_per_warm"]
+            want = want if q in topk_qs else {k: 0 for k in want}
+            if got != want:
+                raise AssertionError(f"topk launches per warm {q} on the "
+                                     f"{name} engine: {got}, not {want}")
     agg = results["single", PROM_QUERIES[0]]
     if agg.num_series != 32 or not agg.present.all():
         raise AssertionError(f"aggregate has {agg.num_series} groups")
@@ -1315,18 +1563,27 @@ def promql_phase(args, dev):
         raise AssertionError("aggregate past the matrix-product bound")
     agg_rel = float(np.max(diff / np.abs(c.values)))
 
-    # ---- the merge kernel --------------------------------------------
+    # ---- the topk kernels --------------------------------------------
     ring_entry = next(e for k, e in TF._CACHE._entries.items()
                       if k[3] is not None and k[4] is None)
-    prof = per_engine["ring"]["topk(100, rate(prom_bench[1m]))"]
-    per_launch = device_ms_per_launch(
-        {"ours": prof["ours"]}, lambda k: k.startswith("merge_topk"))
-    launches = sum(per_engine["ring"][q]["launches_cold"]
-                   + 5 * per_engine["ring"][q]["launches_per_warm"]
-                   for q in topk_qs)
-    if launches == 0:
-        raise AssertionError("merge_candidates never launched")
-    row = merge_kernel_row(dev, ring_entry, int(launches), per_launch)
+    q100 = "topk(100, rate(prom_bench[1m]))"
+    per_launch = {
+        "ring_topk_merge_fused": device_ms_per_launch(
+            per_engine["ring"][q100], lambda k: k.startswith(
+                "ring_topk_merge")),
+        "merge_candidates": device_ms_per_launch(
+            per_engine["hops"][q100], lambda k: k.startswith("merge_topk")),
+    }
+    # every launch of the main-path runs: the one-launch ring on the ring
+    # engine, the merge hop on the hop ring
+    launches = {k: int(sum(
+        st["launches_cold"][k] + 5 * st["launches_per_warm"][k]
+        for e in ("ring", "hops") for st in per_engine[e].values()))
+        for k in TOPK_KERNELS}
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched in phase promql")
+    rows = topk_kernel_rows(dev, ring_entry, launches, per_launch)
     emit({"phase": "promql", "seconds": seconds, "rows_written": written,
           "series": n, "grid": {"s_pad": ring_entry.s_pad,
                                 "cells": ring_entry.spec.num_cells,
@@ -1337,7 +1594,7 @@ def promql_phase(args, dev):
                      "agg_groups": agg.num_series},
           "ring_comm_bytes": notes["ring", topk_qs[1]]["comm_bytes"],
           "phase_seconds": time.perf_counter() - t_phase})
-    return row
+    return rows
 
 
 SQL_Q2_OPS = ["count", "sum", "min", "max", "avg", "stddev_samp",
@@ -1428,7 +1685,7 @@ def sql_phase(args, dev, slice_out, mesh_out):
         inst.catalog.register(tab["table"])
         suite = sql_suite(tab["hosts"], tab["hours"], tab["regions"])
         per_shape = {}
-        with ring_form(rf, form):
+        with ring_form(form):
             for name, sql, want_rows, _ in suite:
                 t = time.perf_counter()
                 res = inst.sql(sql)
@@ -1528,8 +1785,7 @@ def sql_phase(args, dev, slice_out, mesh_out):
     q2 = "q2_by_region"
     for ename, want in (("fused", {**Q2_RINGS, "extreme": 0,
                                    "onehot_add": 0}),
-                        ("hops", {**Q2_HOPS, "ring_pext_fused": 0,
-                                  "ring_psum_onehot_fused": 0}),
+                        ("hops", {**Q2_HOPS, **{k: 0 for k in Q2_RINGS}}),
                         ("gather", {k: 0 for k in (*Q2_RINGS, *Q2_HOPS)})):
         warm = stats[f"mesh_{ename}"][q2]["launches_per_warm"]
         for k, n in want.items():
@@ -1545,7 +1801,7 @@ def sql_phase(args, dev, slice_out, mesh_out):
     walls = {"fused": [], "hops": []}
     for _ in range(Q2_WALL_REPS):
         for form in walls:
-            with ring_form(rf, form):
+            with ring_form(form):
                 t = time.perf_counter()
                 insts["mesh", form].sql(q2_sql)
                 torch.cuda.synchronize()
@@ -1730,7 +1986,7 @@ def run(args) -> int:
     mesh_out = mesh_phase(args, dev, P)
     kernels += mesh_out["rows"]
     # ---- 7. promql ---------------------------------------------------
-    kernels.append(promql_phase(args, dev))
+    kernels += promql_phase(args, dev)
     # ---- 8. sql ------------------------------------------------------
     slice_out = {"table": table, "engine": eng, "hosts": args.hosts,
                  "hours": args.hours, "regions": len(set(region_of)),
@@ -1759,7 +2015,7 @@ def run(args) -> int:
                 name, 0)
         elif name in ONE_RING_KERNELS:
             row["launches_per_warm_sql_q2"] = q2_warm["fused"].get(name, 0)
-        elif name == "merge_candidates":
+        elif name in TOPK_KERNELS:
             row.update(floor)
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched")

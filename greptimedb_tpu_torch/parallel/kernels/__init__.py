@@ -2,6 +2,8 @@
 
 - merge_gather.gather_planes (K1): the compaction merge-gather.
 - ring_fold.blocked_fold_sum (K2): the blocked group fold, with the ring
-  combines fold_cont, extreme and onehot_add.
-- topk_merge.merge_candidates: the topk ring's candidate merge.
+  combines fold_cont, extreme and onehot_add, and the one-launch rings
+  ring_fold_fused, ring_pext_fused and ring_psum_onehot_fused.
+- topk_merge.merge_candidates: the topk ring's candidate merge, and
+  topk_merge.ring_topk_merge_fused: the whole topk ring in one launch.
 """

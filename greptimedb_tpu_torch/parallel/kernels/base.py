@@ -8,6 +8,17 @@ combine; the values it latches, and their order, are the same.
 
 from __future__ import annotations
 
+import torch
+
+
+def ring_form(devices, fused: bool | None = None) -> str:
+    """"fused" (the whole ring in one launch) when every shard lies on one
+    device and the caller did not ask for hops (fused=False), else "hops"
+    (one combine launch per shard, each on that shard's device). A choice
+    from the device list, never a fallback."""
+    one = len({torch.device(d) for d in devices}) == 1
+    return "fused" if one and fused is not False else "hops"
+
 
 def ring_comm_bytes(ns: int, plane_bytes: int) -> int:
     """Estimated inter-card bytes of one sequential ring pass: the

@@ -9,6 +9,10 @@ once and waits for all of them.
 
 Nothing here runs at import time: the kernel wrappers call `load` the
 first time they launch on a CUDA tensor.
+
+The launch path is bound once per symbol (`entry`: library, symbol,
+argtypes) and called on the caller's current stream of the tensors' card
+(`launch`), so that a launch costs the ctypes call alone.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from greptimedb_tpu_torch.device import native_available
 
@@ -115,3 +121,49 @@ def check_launch(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.gtt_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA launch failed ({rc}): {msg}")
+
+
+# up to 8 shard pointers travel by value in a kernel parameter (FOLD_BLOCKS:
+# a ring shard holds >= 1 series block)
+MAX_SHARDS = 8
+SHARD_PTRS = ctypes.c_void_p * MAX_SHARDS
+
+_entries: dict = {}
+
+
+def entry(source: str, symbol: str, argtypes: tuple):
+    """(library, launcher) of one kernel symbol: loaded, looked up and
+    typed on its first call and kept. `argtypes` leaves out the trailing
+    stream."""
+    found = _entries.get((source, symbol))
+    if found is None:
+        lib = load(source)
+        fn = getattr(lib, symbol)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        found = _entries[source, symbol] = (lib, fn)
+    return found
+
+
+def stream(index: int) -> int:
+    """The caller's current stream on card `index`, as a raw handle."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_card(index: int, fn, *args) -> int:
+    """fn(*args) with card `index` current: a kernel launches on the
+    current device, into a stream of that device. The device context is
+    entered only when another card is current."""
+    if torch._C._cuda_getDevice() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+def launch(bound, what: str, index: int, *args) -> None:
+    """Launch a bound launcher (`entry`) on the current stream of card
+    `index` and raise if the launch was refused."""
+    lib, fn = bound
+    rc = on_card(index, fn, *args, stream(index))
+    if rc:
+        check_launch(lib, rc, what)

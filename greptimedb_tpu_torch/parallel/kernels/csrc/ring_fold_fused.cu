@@ -17,236 +17,262 @@
 // Adds only: no multiply, so no FMA contraction can move a bit; NaN
 // payloads, -0.0 and +-inf pass as the add chain makes them.
 //
-// Design. One cooperative launch covers every shard: blockIdx.y is the
-// shard, and each block walks tiles of 256 (group, cell) elements of the
-// (g, nb) plane, one element a thread (tile-major: each tile runs its own
-// ring, with flags per (shard, tile); the chain is elementwise, so order
-// and bits are those of the whole-plane ring). Per tile a thread first
-// walks its fb_local block partials with K2's member walk and keeps them in
-// registers — all shards at once, where the hop ring ran them one launch
-// after another. Then the ring: at step k shard s stores its send value
-// into slot (k + 1) % 2 of shard (s + 1) % ns's buffer and raises that
-// shard's receive flag; it waits on its own receive flag, reads, acks to
-// its left neighbour (the slot may be overwritten two steps later, the role
-// of the Pallas send semaphore), and takes its fold turn or latch. On one
-// card a hop is a global store; the kernel takes raw per-shard pointers,
-// so peer pointers of other cards fit the same interface.
-//
-// Ordering. A flag is raised after a __syncthreads() that covers the
-// block's stores, by thread 0 with __threadfence() then an atomic store
-// (a release); it is read by thread 0 with volatile loads, then
-// __threadfence() and __syncthreads() (an acquire). Buffers move through
-// L2 (__stcg/__ldcg), never a stale L1 line. Flags and buffers outlive the
-// launch (the wrapper keeps them per device and stream), so every launch
-// carries an epoch `base`: it raises flags to base + k + 1 and waits for
-// values at least base + 1, while every launch before it left values below
-// that (ring_fold.py _FUSED_EPOCH_STRIDE). No memset between launches.
-//
-// Co-residency. A spin-wait on a block that is not resident would hang the
-// card, so the launch is cooperative (cudaLaunchCooperativeKernel, which
-// refuses a grid that cannot be co-resident) and the launcher checks the
-// grid against the occupancy times the SM count first and returns
-// cudaErrorCooperativeLaunchTooLarge instead of launching. The SM count,
-// the cooperative attribute and the occupancy are queried once per device
-// and dtype.
-//
 // Bound on this card: bytes — the member rows read once (4 * m * nb over
-// all shards) and ns outputs written (4 * ns * g * nb). The ring's hops
-// (2(ns - 1) stores and loads of the plane) stay in L2 at the range path's
-// shapes and are an artifact of the algorithm, not of the function. At
-// those shapes the launch is latency-bound: 2(ns - 1) flag round trips
-// through L2 per tile.
+// all shards) and ns outputs written (4 * ns * g * nb); 71.1 MB, 0.0212 ms
+// at 3.35 TB/s at the mesh Q2 shape (4 shards x 2048 series, nb = 2160,
+// g = 9, fb_local = 2).
+//
+// Design, for one card.
+//
+// 1. The member walk keeps loads in flight ahead of in-order adds. A block
+//    owns one block partial's tile: (shard, series block, group, chunk of
+//    kCells = 256 cells), grid (g * ceil(nb / 256), ns * fb_local), so
+//    every thread of a block walks the same member list, and a walk is
+//    one list of ~114 rows at the mesh Q2 shape (walking a shard's
+//    fb_local lists as one stream, 228 rows, was slower on the card). The
+//    list's sids are staged in shared memory, kMemberBatch at a time.
+//    Each of the 64 threads owns 4 consecutive cells and streams its 16
+//    bytes of each member row through a ring of kStages = 32 shared-memory
+//    slots with cp.async, in groups of kGroupRows = 8 rows: the copies of
+//    the next 3 groups (24 rows) are in flight while the thread adds the
+//    current group's rows onto its partial, in member order, with one
+//    wait per group (one wait per row was slower on the card). A thread
+//    reads back only what it copied itself, so cp.async.wait_group orders
+//    it and no barrier sits in the walk. In flight: 648 blocks x 24 KB =
+//    15.6 MB at the mesh Q2 shape, above the ~2.3 MB (3.35 TB/s x ~0.7 us)
+//    that HBM needs to run at its rate; the parent's one-load-per-thread
+//    walk kept ~0.3 MB in flight. cp.async (16-byte copies, commit/wait
+//    groups) was kept over TMA bulk copies: a copy is 16 bytes per thread
+//    and per row, every row lives at its own sid, and a per-thread ring
+//    needs no mbarrier. Where a row or its segment is not 16-byte aligned
+//    (nb % 4 != 0, or a shard's rows not 16-byte aligned) the same pipeline
+//    copies 4 bytes per cell (kAligned = false). The ragged last chunk of a
+//    row (nb % 256 cells) leaves the threads past its end idle.
+// 2. The cross-shard combine is one arrival per partial, in place of the
+//    parent's 2(ns - 1) flag round trips through L2 per tile. Each block
+//    stores its partial (partials, not a per-shard sum: the fold is left
+//    to right, so every partial after shard 0's first is added on its own)
+//    to a scratch plane with __stcg, fences, and thread 0 adds one to the
+//    tile's arrival count. The block that arrives last (the ns * fb_local-th)
+//    reads every partial of the tile (__ldcg, through L2), left-folds them
+//    in shard and block order from shard 0's first partial, writes the
+//    total to all ns outputs and resets the count to 0 for the next launch
+//    on the stream. Nothing spins, so the launch is an ordinary one: no
+//    cooperative launch, no co-residency check, no double buffers, no
+//    epochs.
+//
+// The kernel takes raw per-shard pointers (inputs, members, outputs), so
+// the cross-card form can pass peer pointers of other cards and keep the
+// scratch and the count in one card's memory, with the fence and the count
+// at system scope. The wrapper (greptimedb_tpu_torch/parallel/kernels/
+// ring_fold.py ring_fold_fused) keeps the scratch and the count per device
+// and stream, launches on the caller's stream and checks the status this
+// launcher returns; the kernel allocates nothing.
 
-#include <atomic>
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxShards = 8;   // FOLD_BLOCKS: every shard holds >= 1 block
 constexpr int kMaxBlocks = 8;   // fb_local <= FOLD_BLOCKS
-constexpr int kThreads = 256;   // one tile; ring_fold.py _FUSED_THREADS
-constexpr int kMaxDevices = 64; // devices whose launch limits are cached
+constexpr int kCells = 256;     // cells of one tile; ring_fold.py _FUSED_CELLS
+constexpr int kVec = 4;         // cells a thread owns: one 16-byte copy
+constexpr int kThreads = kCells / kVec;
+constexpr int kGroupRows = 8;   // member rows per cp.async group
+constexpr int kGroups = 4;      // groups in a thread's ring of slots
+constexpr int kStages = kGroupRows * kGroups;   // rows in the ring
+constexpr int kMemberBatch = 1024;   // sids staged in shared memory at once
 
 template <typename T>
-struct RingArgs {
-  const T* arr[kMaxShards];          // (s_local, nb) per shard
+struct FoldArgs {
+  const T* arr[kMaxShards];           // (s_local, nb) per shard
   const int32_t* member[kMaxShards];  // CSR members over (block, group)
   const int32_t* ptr[kMaxShards];     // (fb * g + 1,)
   T* out[kMaxShards];                 // (g, nb) per shard
-  T* buf[kMaxShards];                 // (2, g * nb) receive slots per shard
-  int* flags[kMaxShards];             // (2, tiles): recv, then ack
-  int ns, g, fb, nb, tiles;
-  int base;                           // this launch's epoch: flags > base
+  T* part;                            // (ns, fb, g, nb) block partials
+  unsigned int* count;                // (tiles,) arrivals; 0 between launches
+  int ns, g, fb, nb, chunks;
   long long plane;
 };
 
-// release: the block's stores of this step precede the flag
-__device__ __forceinline__ void raise_flag(int* flag, int value) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicExch(flag, value);
-  }
+// The copies and the wait are ordered against the thread's own shared
+// memory reads ("memory"): a slot is refilled only after the read of the
+// row it held, one group of rows later.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
-// acquire: nothing of the block reads before the flag reached `value`
-__device__ __forceinline__ void wait_flag(const int* flag, int value) {
-  if (threadIdx.x == 0) {
-    while (*reinterpret_cast<const volatile int*>(flag) < value) {
-      __nanosleep(32);
-    }
-    __threadfence();
-  }
-  __syncthreads();
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of every group but the newest kGroups - 2 landed
+__device__ __forceinline__ void cp_async_wait_oldest() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kGroups - 2) : "memory");
+}
+
+// a 32-bit word of shared memory as T
 template <typename T>
+__device__ __forceinline__ T bits(unsigned int u) {
+  if constexpr (std::is_same_v<T, float>) {
+    return __uint_as_float(u);
+  } else {
+    return static_cast<T>(u);
+  }
+}
+
+template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kThreads)
-    ring_fold_fused_kernel(RingArgs<T> a) {
-  const int s = blockIdx.y;
-  const int ns = a.ns;
-  const int right = (s + 1) % ns;
-  const int left = (s + ns - 1) % ns;
-  int* my_recv = a.flags[s];
-  int* my_ack = a.flags[s] + a.tiles;
-  int* right_recv = a.flags[right];
-  int* left_ack = a.flags[left] + a.tiles;
-  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
-    const long long e = static_cast<long long>(tile) * kThreads + threadIdx.x;
-    const bool live = e < a.plane;
-    T parts[kMaxBlocks];
-    T cur = T(0);
-    if (live) {
-      const int grp = static_cast<int>(e / a.nb);
-      const int cell = static_cast<int>(e - static_cast<long long>(grp) * a.nb);
-      const T* arr = a.arr[s];
-      const int32_t* member = a.member[s];
-      const int32_t* ptr = a.ptr[s];
-#pragma unroll
-      for (int b = 0; b < kMaxBlocks; ++b) {
-        if (b < a.fb) {
-          const int k0 = ptr[b * a.g + grp];
-          const int k1 = ptr[b * a.g + grp + 1];
-          T part = T(0);
-          for (int k = k0; k < k1; ++k) {
-            part = part + arr[static_cast<long long>(member[k]) * a.nb + cell];
-          }
-          parts[b] = part;
-          cur = b == 0 ? part : cur + part;   // the local seed
-        }
-      }
-    }
-    T out = cur;   // placeholder: every shard latches below when ns > 1
-    for (int k = 0; k < 2 * ns - 2; ++k) {
-      const long long slot = (k + 1) & 1;
-      // the right neighbour has read what this shard sent at step k - 2
-      if (k >= 2) wait_flag(&my_ack[tile], a.base + k - 1);
-      if (live) __stcg(a.buf[right] + slot * a.plane + e, cur);
-      raise_flag(&right_recv[tile], a.base + k + 1);
-      wait_flag(&my_recv[tile], a.base + k + 1);
-      T v = live ? __ldcg(a.buf[s] + slot * a.plane + e) : T(0);
-      raise_flag(&left_ack[tile], a.base + k + 1);
-      if (k < ns - 1) {
-        // fold phase: the shard whose turn it is continues the left fold
-        if (live && s == k + 1) {
-#pragma unroll
-          for (int b = 0; b < kMaxBlocks; ++b) {
-            if (b < a.fb) v = v + parts[b];
-          }
-        }
-        if (k == ns - 2 && s == ns - 1) out = v;   // the total
-      } else if (s == k - (ns - 1)) {
-        out = v;   // broadcast phase: latch the total as it passes by
-      }
-      cur = v;
-    }
-    if (live) a.out[s][e] = out;
-  }
-}
+    ring_fold_fused_kernel(FoldArgs<T> a) {
+  __shared__ __align__(16) T stage[kStages][kCells];
+  __shared__ int32_t sids[kMemberBatch];
+  __shared__ bool last;
 
-// The blocks of ring_fold_fused_kernel<T> resident at once on device
-// `dev` (occupancy times SMs; 0 when the device has no cooperative
-// launch), queried on the first launch on each device and kept.
-template <typename T>
-cudaError_t resident_blocks(int dev, long long* resident) {
-  static std::atomic<long long> cache[kMaxDevices];   // 0: not queried yet
-  if (dev >= 0 && dev < kMaxDevices) {
-    const long long known = cache[dev].load(std::memory_order_relaxed);
-    if (known != 0) {
-      *resident = known - 1;
-      return cudaSuccess;
+  const int tile = blockIdx.x;
+  const int sb = blockIdx.y;            // shard * fb + series block
+  const int s = sb / a.fb;
+  const int nb = a.nb;
+  const long long plane = a.plane;
+  const int grp = tile / a.chunks;
+  const int c0 = (tile - grp * a.chunks) * kCells;
+  const int lane = threadIdx.x;
+  const int cell = c0 + lane * kVec;    // this thread's first cell
+  int mine = nb - cell;                 // cells of the row this thread owns
+  mine = mine < 0 ? 0 : (mine > kVec ? kVec : mine);
+  const T* arr = a.arr[s] + cell;
+  const int slot = (sb - s * a.fb) * a.g + grp;
+  const int32_t* member = a.member[s] + a.ptr[s][slot];
+  const int rows = a.ptr[s][slot + 1] - a.ptr[s][slot];
+
+  T acc[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) acc[v] = T(0);
+  // the copies of batch rows [i0, min(i0 + kGroupRows, n)) (their sids
+  // staged in sids[]) into ring slots i % kStages, as one group
+  auto issue = [&](int i0, int n) {
+    for (int i = i0; i < i0 + kGroupRows && i < n; ++i) {
+      const T* src = arr + static_cast<long long>(sids[i]) * nb;
+      T* dst = &stage[i % kStages][lane * kVec];
+      if constexpr (kAligned) {
+        if (mine == kVec) cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          if (v < mine) cp_async4(dst + v, src + v);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int base = 0; base < rows; base += kMemberBatch) {
+    const int n = rows - base < kMemberBatch ? rows - base : kMemberBatch;
+    __syncthreads();   // every thread is done with the previous batch
+    for (int i = lane; i < n; i += kThreads) sids[i] = member[base + i];
+    __syncthreads();
+    // kGroups - 1 groups of rows in flight; a group refills the slots of
+    // the group read in the iteration before
+    for (int q = 0; q < kGroups - 1; ++q) issue(q * kGroupRows, n);
+    for (int i0 = 0; i0 < n; i0 += kGroupRows) {
+      cp_async_wait_oldest();
+      const int i1 = i0 + kGroupRows < n ? i0 + kGroupRows : n;
+      for (int i = i0; i < i1; ++i) {
+        // the thread's 4 cells of row i, one 16-byte shared memory load
+        const uint4 x4 =
+            *reinterpret_cast<const uint4*>(&stage[i % kStages][lane * kVec]);
+        const T x[kVec] = {bits<T>(x4.x), bits<T>(x4.y), bits<T>(x4.z),
+                           bits<T>(x4.w)};
+#pragma unroll
+        for (int v = 0; v < kVec; ++v) {
+          if (v < mine) acc[v] = acc[v] + x[v];
+        }
+      }
+      issue(i0 + (kGroups - 1) * kGroupRows, n);
     }
   }
-  int sms = 0;
-  int coop = 0;
-  int per_sm = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_fold_fused_kernel<T>, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  *resident = coop ? static_cast<long long>(per_sm) * sms : 0;
-  if (dev >= 0 && dev < kMaxDevices) {
-    cache[dev].store(*resident + 1, std::memory_order_relaxed);
+  const long long e = static_cast<long long>(grp) * nb + cell;
+  T* part = a.part + sb * plane + e;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    if (v < mine) __stcg(part + v, acc[v]);
   }
-  return cudaSuccess;
+
+  // one arrival per (shard, series block, tile); the last one folds them
+  const int parts = a.ns * a.fb;
+  __threadfence();
+  __syncthreads();
+  if (lane == 0) {
+    last = atomicAdd(&a.count[tile], 1u) == static_cast<unsigned>(parts - 1);
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const T* p0 = a.part + e;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    if (v < mine) {
+      T total = __ldcg(p0 + v);
+      for (int q = 1; q < parts; ++q) {
+        total = total + __ldcg(p0 + q * plane + v);
+      }
+      for (int t = 0; t < a.ns; ++t) a.out[t][e + v] = total;
+    }
+  }
+  if (lane == 0) a.count[tile] = 0u;
 }
 
 template <typename T>
 int launch_ring(const void* const* arrs, const void* const* members,
-                const void* const* ptrs, void* const* outs,
-                void* const* bufs, void* const* flags, int ns, int g,
-                int fb, int nb, int base, int grid_x, void* stream) {
+                const void* const* ptrs, void* const* outs, void* part,
+                void* count, int ns, int g, int fb, int nb, void* stream) {
   if (ns < 1 || ns > kMaxShards || fb < 1 || fb > kMaxBlocks || g < 0 ||
-      nb < 0 || base < 0 || base > 0x7fffffff - 2 * kMaxShards) {
+      nb < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long plane = static_cast<long long>(g) * nb;
   if (plane == 0) return 0;
-  RingArgs<T> a;
+  const long long chunks = (nb + kCells - 1) / kCells;
+  const long long tiles = g * chunks;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs<T> a;
+  bool aligned = nb % kVec == 0;
   for (int s = 0; s < kMaxShards; ++s) {
     const bool on = s < ns;
     a.arr[s] = on ? static_cast<const T*>(arrs[s]) : nullptr;
     a.member[s] = on ? static_cast<const int32_t*>(members[s]) : nullptr;
     a.ptr[s] = on ? static_cast<const int32_t*>(ptrs[s]) : nullptr;
     a.out[s] = on ? static_cast<T*>(outs[s]) : nullptr;
-    a.buf[s] = on ? static_cast<T*>(bufs[s]) : nullptr;
-    a.flags[s] = on ? static_cast<int*>(flags[s]) : nullptr;
+    if (on) aligned = aligned && reinterpret_cast<uintptr_t>(arrs[s]) % 16 == 0;
   }
-  const long long tiles = (plane + kThreads - 1) / kThreads;
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  a.part = static_cast<T*>(part);
+  a.count = static_cast<unsigned int*>(count);
   a.ns = ns;
   a.g = g;
   a.fb = fb;
   a.nb = nb;
-  a.tiles = static_cast<int>(tiles);
-  a.base = base;
+  a.chunks = static_cast<int>(chunks);
   a.plane = plane;
-
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long resident = 0;
-  err = resident_blocks<T>(dev, &resident);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long gx = grid_x > 0 ? grid_x : resident / ns;
-  if (grid_x <= 0 && gx > tiles) gx = tiles;
-  // every block spins on its neighbours: never launch a grid that cannot
-  // be co-resident
-  if (gx < 1 || gx * ns > resident || gx > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  dim3 grid(static_cast<unsigned int>(tiles),
+            static_cast<unsigned int>(ns * fb));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned) {
+    ring_fold_fused_kernel<T, true><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    ring_fold_fused_kernel<T, false><<<grid, kThreads, 0, st>>>(a);
   }
-  dim3 grid(static_cast<unsigned int>(gx), static_cast<unsigned int>(ns));
-  dim3 block(kThreads);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(ring_fold_fused_kernel<T>), grid, block, args,
-      0, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -255,23 +281,34 @@ int launch_ring(const void* const* arrs, const void* const* members,
 extern "C" int gtt_ring_fold_fused_f32(const void* const* arrs,
                                        const void* const* members,
                                        const void* const* ptrs,
-                                       void* const* outs, void* const* bufs,
-                                       void* const* flags, int ns, int g,
-                                       int fb, int nb, int base,
-                                       int grid_x, void* stream) {
-  return launch_ring<float>(arrs, members, ptrs, outs, bufs, flags, ns, g, fb,
-                            nb, base, grid_x, stream);
+                                       void* const* outs, void* part,
+                                       void* count, int ns, int g, int fb,
+                                       int nb, void* stream) {
+  return launch_ring<float>(arrs, members, ptrs, outs, part, count, ns, g, fb,
+                            nb, stream);
 }
 
 extern "C" int gtt_ring_fold_fused_i32(const void* const* arrs,
                                        const void* const* members,
                                        const void* const* ptrs,
-                                       void* const* outs, void* const* bufs,
-                                       void* const* flags, int ns, int g,
-                                       int fb, int nb, int base,
-                                       int grid_x, void* stream) {
-  return launch_ring<int32_t>(arrs, members, ptrs, outs, bufs, flags, ns, g,
-                              fb, nb, base, grid_x, stream);
+                                       void* const* outs, void* part,
+                                       void* count, int ns, int g, int fb,
+                                       int nb, void* stream) {
+  return launch_ring<int32_t>(arrs, members, ptrs, outs, part, count, ns, g,
+                              fb, nb, stream);
+}
+
+// The constants this library was built with, for a report of the design:
+// cells a tile (the wrapper sizes the arrival counts by it), rows in a
+// thread's ring of slots, rows a wait, rows in flight, and the bytes of one
+// copy on aligned and on misaligned rows.
+extern "C" void gtt_ring_fold_fused_design(int* out) {
+  out[0] = kCells;
+  out[1] = kStages;
+  out[2] = kGroupRows;
+  out[3] = (kGroups - 1) * kGroupRows;
+  out[4] = kVec * static_cast<int>(sizeof(float));
+  out[5] = static_cast<int>(sizeof(float));
 }
 
 extern "C" const char* gtt_error_string(int code) {

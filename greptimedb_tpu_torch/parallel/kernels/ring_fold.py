@@ -25,15 +25,17 @@ this module's kernels (`fold_cont`, `extreme`, `onehot_add`).
 
 The one-ring forms do a whole ring in ONE launch for shards on one
 device: `ring_fold_fused` (csrc/ring_fold_fused.cu, the Pallas
-_tpu_ring_fold_call: every shard's block partials, then 2(ns - 1) ring
-steps over per-shard double buffers with the fold turns and latches),
-and `ring_pext_fused` / `ring_psum_onehot_fused` (csrc/ring_fold.cu: the
-hop ring's chain of extremes or adds, in shard order, per element).
+_tpu_ring_fold_call: every shard's block partials through a pipelined
+member walk, then one left fold of all of them by the last block to
+arrive at each tile), and `ring_pext_fused` / `ring_psum_onehot_fused`
+(csrc/ring_fold.cu: the hop ring's chain of extremes or adds, in shard
+order, per element).
 `RingFoldCtx` takes them when every shard lies on one device, and the hop
 ring otherwise (or when asked with fused=False).
 
-Every launcher is bound once (`_entry`: library, symbol, argtypes) and
-called on the caller's current stream of the tensors' card.
+Every launcher is bound once (`build.entry`: library, symbol, argtypes)
+and called on the caller's current stream of the tensors' card
+(`build.launch`).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from greptimedb_tpu_torch.parallel.dist import ShardFoldCtx, left_fold_sum
 from greptimedb_tpu_torch.parallel.kernels import build
 from greptimedb_tpu_torch.parallel.kernels.base import (
     ring_comm_bytes,
+    ring_form,
     sequential_ring,
 )
 
@@ -180,47 +183,6 @@ _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
-_entries: dict = {}
-
-
-def _entry(source: str, symbol: str, argtypes: tuple):
-    """(library, launcher) of one kernel symbol: loaded, looked up and
-    typed on its first call and kept, so that a launch costs the ctypes
-    call alone. `argtypes` leaves out the trailing stream."""
-    entry = _entries.get(symbol)
-    if entry is None:
-        lib = build.load(source)
-        fn = getattr(lib, symbol)
-        fn.argtypes = [*argtypes, _PTR]
-        fn.restype = ctypes.c_int
-        entry = _entries[symbol] = (lib, fn)
-    return entry
-
-
-def _stream(index: int) -> int:
-    """The caller's current stream on card `index`, as a raw handle."""
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
-def _on_card(index: int, fn, *args) -> int:
-    """fn(*args) with card `index` current: a kernel launches on the
-    current device, into a stream of that device. The device context is
-    entered only when another card is current."""
-    if torch._C._cuda_getDevice() == index:
-        return fn(*args)
-    with torch.cuda.device(index):
-        return fn(*args)
-
-
-def _launch(entry, what: str, index: int, *args) -> None:
-    """Launch a bound launcher on the current stream of card `index` and
-    raise if the launch was refused."""
-    lib, fn = entry
-    rc = _on_card(index, fn, *args, _stream(index))
-    if rc:
-        build.check_launch(lib, rc, what)
-
-
 def _check_fold(what: str, arr: torch.Tensor, fm: FoldMembers) -> None:
     if arr.dtype not in _FOLD_TYPES:
         raise TypeError(f"{what} takes float32 or int32, not {arr.dtype}")
@@ -252,10 +214,10 @@ def _fold_launch(kind: str, arr, fm, out, acc=None) -> None:
     ptrs = [arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr()]
     if acc is not None:
         ptrs.append(acc.data_ptr())
-    entry = _entry("ring_fold", f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}",
-                   (_PTR,) * (len(ptrs) + 1) + (_INT,) * 3)
-    _launch(entry, kind, arr.get_device(), *ptrs, out.data_ptr(), fm.g,
-            fm.fb, arr.shape[1])
+    entry = build.entry("ring_fold", f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}",
+                        (_PTR,) * (len(ptrs) + 1) + (_INT,) * 3)
+    build.launch(entry, kind, arr.get_device(), *ptrs, out.data_ptr(), fm.g,
+                 fm.fb, arr.shape[1])
 
 
 def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
@@ -321,10 +283,11 @@ def extreme(acc: torch.Tensor, x: torch.Tensor,
     out = torch.empty_like(acc)
     if out.numel() == 0:
         return out
-    entry = _entry("ring_fold", f"gtt_extreme_{_FOLD_TYPES[acc.dtype]}",
-                   (_PTR, _PTR, _PTR, _LL, _INT))
-    _launch(entry, "extreme", acc.get_device(), acc.data_ptr(),
-            x.data_ptr(), out.data_ptr(), acc.numel(), int(take_max))
+    entry = build.entry("ring_fold",
+                        f"gtt_extreme_{_FOLD_TYPES[acc.dtype]}",
+                        (_PTR, _PTR, _PTR, _LL, _INT))
+    build.launch(entry, "extreme", acc.get_device(), acc.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), acc.numel(), int(take_max))
     extreme.launches += 1
     return out
 
@@ -337,10 +300,10 @@ def onehot_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(acc)
     if out.numel() == 0:
         return out
-    entry = _entry("ring_fold", "gtt_onehot_add_f32",
-                   (_PTR, _PTR, _PTR, _LL))
-    _launch(entry, "onehot_add", acc.get_device(), acc.data_ptr(),
-            x.data_ptr(), out.data_ptr(), acc.numel())
+    entry = build.entry("ring_fold", "gtt_onehot_add_f32",
+                        (_PTR, _PTR, _PTR, _LL))
+    build.launch(entry, "onehot_add", acc.get_device(), acc.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), acc.numel())
     onehot_add.launches += 1
     return out
 
@@ -351,7 +314,7 @@ def noop(device) -> None:
     launch of this module (a measurement hook; counted nowhere)."""
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    _launch(_entry("ring_fold", "gtt_noop", ()), "noop", index)
+    build.launch(build.entry("ring_fold", "gtt_noop", ()), "noop", index)
 
 
 for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
@@ -362,10 +325,6 @@ for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,
 # ----------------------------------------------------------------------
 # the ring extreme and the ring one-hot sum in one launch (rows 4 and 5)
 # ----------------------------------------------------------------------
-
-_MAX_SHARDS = 8          # FOLD_BLOCKS: a ring shard holds >= 1 block
-_SHARD_PTRS = _PTR * _MAX_SHARDS
-
 
 def ring_pext_fused_plain(xs: list, take_max: bool) -> list:
     """Plain PyTorch version of the one-launch ring extreme: the hop
@@ -390,9 +349,9 @@ def ring_psum_onehot_fused_plain(xs: list) -> list:
 def _check_ring(what: str, xs: list, dtypes) -> None:
     if not xs:
         raise ValueError(f"{what}: no shards")
-    if len(xs) > _MAX_SHARDS:
-        raise ValueError(f"{what} takes at most {_MAX_SHARDS} shards, not "
-                         f"{len(xs)}")
+    if len(xs) > build.MAX_SHARDS:
+        raise ValueError(f"{what} takes at most {build.MAX_SHARDS} shards, "
+                         f"not {len(xs)}")
     x0 = xs[0]
     if x0.dtype not in dtypes:
         raise TypeError(f"{what} takes one of {dtypes}, not {x0.dtype}")
@@ -415,11 +374,11 @@ def _ring_launch(wrapper, symbol: str, xs: list, *flags) -> list:
     out = torch.empty_like(xs[0])
     n = out.numel()
     if n:
-        entry = _entry("ring_fold", symbol,
-                       (_PTR, _PTR, _INT, _LL) + (_INT,) * len(flags))
-        _launch(entry, wrapper.__name__, xs[0].get_device(),
-                _SHARD_PTRS(*[x.data_ptr() for x in xs]), out.data_ptr(),
-                len(xs), n, *flags)
+        entry = build.entry("ring_fold", symbol,
+                            (_PTR, _PTR, _INT, _LL) + (_INT,) * len(flags))
+        build.launch(entry, wrapper.__name__, xs[0].get_device(),
+                     build.SHARD_PTRS(*[x.data_ptr() for x in xs]),
+                     out.data_ptr(), len(xs), n, *flags)
         wrapper.launches += 1
     return [out] * len(xs)
 
@@ -464,48 +423,29 @@ ring_psum_onehot_fused.launches = 0
 # ----------------------------------------------------------------------
 
 _MAX_FB = 8
-_FUSED_THREADS = 256     # elements per tile (csrc/ring_fold_fused.cu)
+_FUSED_CELLS = 256       # cells per tile (csrc/ring_fold_fused.cu kCells)
 
 
 def ring_fold_fused_plain(arrs: list, fms: list) -> list:
-    """Plain PyTorch version of the fused ring, step by step as the kernel
-    (and the Pallas _tpu_ring_fold_call) runs it: every shard computes its
-    fb_local block partials and seeds its send value with their left fold;
-    at step k every shard stores its send value into its right
-    neighbour's receive slot (k + 1) % 2, then takes what arrived. For
-    k < ns - 1 the shard whose turn it is (s == k + 1) folds its own
-    partials onto it, and shard ns - 1 latches the total at k = ns - 2;
-    for k >= ns - 1 the total passes by and shard k - (ns - 1) latches
-    it. Returns the total on every shard, in shard order."""
-    ns = len(arrs)
-    parts = [block_partials_plain(a, fm) for a, fm in zip(arrs, fms)]
-    cur = [left_fold_sum(p) for p in parts]
-    out = list(cur)
-    buf = [[None, None] for _ in range(ns)]
-    for k in range(2 * ns - 2):
-        slot = (k + 1) % 2
-        for s in range(ns):
-            right = (s + 1) % ns
-            buf[right][slot] = cur[s].to(arrs[right].device)
-        for s in range(ns):
-            v = buf[s][slot]
-            if k < ns - 1:
-                if s == k + 1:
-                    v = fold_from(v, parts[s])
-                if k == ns - 2 and s == ns - 1:
-                    out[s] = v
-            elif s == k - (ns - 1):
-                out[s] = v
-            cur[s] = v
-    return out
+    """Plain PyTorch version of the fused ring, in the kernel's order:
+    every shard's fb_local block partials (K2's member walk), then one left
+    fold of all of them in shard and block order from shard 0's first
+    partial — the order in which the Pallas _tpu_ring_fold_call's ring
+    steps add them. Returns the total on every shard's device, in shard
+    order."""
+    dev = arrs[0].device
+    parts = torch.cat([block_partials_plain(a, fm).to(dev)
+                       for a, fm in zip(arrs, fms)])
+    total = left_fold_sum(parts)
+    return [total.to(a.device) for a in arrs]
 
 
 def _check_fused(arrs: list, fms: list) -> None:
     if not arrs or len(arrs) != len(fms):
         raise ValueError(f"ring_fold_fused: {len(arrs)} shards, "
                          f"{len(fms)} member lists")
-    if len(arrs) > _MAX_SHARDS:
-        raise ValueError(f"ring_fold_fused takes at most {_MAX_SHARDS} "
+    if len(arrs) > build.MAX_SHARDS:
+        raise ValueError(f"ring_fold_fused takes at most {build.MAX_SHARDS} "
                          f"shards, not {len(arrs)}")
     fm0 = fms[0]
     if fm0.fb > _MAX_FB:
@@ -522,54 +462,37 @@ def _check_fused(arrs: list, fms: list) -> None:
                              "cells or device")
 
 
-class _RingScratch:
-    """The fused ring's double buffers and flags on one (device, stream),
-    kept from launch to launch: both only grow, and the flags are never
-    cleared between launches — each launch waits for flag values above its
-    own epoch, which every earlier launch left below (the kernel's
-    `base`)."""
+class _FoldScratch:
+    """The fused ring's scratch on one (device, stream), kept from launch
+    to launch: every shard's (fb, g, nb) block partials and one arrival
+    count per tile. Both only grow; every launch leaves the counts at 0."""
 
     def __init__(self, dev):
-        self.dev = dev
-        self.bufs = torch.empty(0, dtype=torch.int32, device=dev)
-        self.flags = torch.empty(0, dtype=torch.int32, device=dev)
-        self.epoch = 0
+        self.part = torch.empty(0, dtype=torch.int32, device=dev)
+        self.count = torch.empty(0, dtype=torch.int32, device=dev)
 
-    def take(self, buf_elems: int, flag_elems: int) -> int:
-        """Grow to the launch's sizes and return its epoch base."""
-        if self.bufs.numel() < buf_elems:
-            self.bufs = torch.empty(buf_elems, dtype=torch.int32,
-                                    device=self.dev)
-        if self.flags.numel() < flag_elems:
-            self.flags = torch.zeros(flag_elems, dtype=torch.int32,
-                                     device=self.dev)
-        self.epoch += 1
-        if self.epoch > _FUSED_MAX_EPOCH:
-            # the int32 flags would wrap: start over from cleared flags
-            self.flags.zero_()
-            self.epoch = 1
-        return self.epoch * _FUSED_EPOCH_STRIDE
+    def take(self, part_elems: int, tiles: int) -> tuple:
+        if self.part.numel() < part_elems:
+            self.part = torch.empty(part_elems, dtype=torch.int32,
+                                    device=self.part.device)
+        if self.count.numel() < tiles:
+            self.count = torch.zeros(tiles, dtype=torch.int32,
+                                     device=self.count.device)
+        return self.part.data_ptr(), self.count.data_ptr()
 
 
-# a launch raises flags to base + 1 .. base + 2(ns - 1), below the next
-# launch's base + 1
-_FUSED_EPOCH_STRIDE = 2 * _MAX_SHARDS
-_FUSED_MAX_EPOCH = (2**31 - 1) // _FUSED_EPOCH_STRIDE - 1
 _scratch: dict = {}
-# one launch at a time takes its epoch and launches: launches on one stream
-# must run in the order of their epochs
+# one launch at a time takes the scratch and launches: a buffer that grows
+# is freed on its stream, so no launch may still hold its pointer
 _scratch_lock = threading.Lock()
 
 
-def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
+def ring_fold_fused(arrs: list, fms: list) -> list:
     """Per-group sums of every shard's (s_local, nb) float32/int32 states,
     the total on every shard, in one launch of the fused ring kernel;
     bit-identical to ring_fold_blocks (the hop ring) and to the gather
     twin. Every shard's tensors must lie on one device: a CPU device runs
-    the plain version, a CUDA card the kernel. `grid_x` is a test hook: it
-    sets the number of blocks per shard (0, the default: as many as can be
-    co-resident, so the default grid always fits) and lets a test ask for
-    a grid that cannot be co-resident, which raises before any launch."""
+    the plain version, a CUDA card the kernel."""
     _check_fused(arrs, fms)
     if arrs[0].is_cpu:
         return ring_fold_fused_plain(arrs, fms)
@@ -578,34 +501,28 @@ def ring_fold_fused(arrs: list, fms: list, *, grid_x: int = 0) -> list:
     dev = arrs[0].device
     outs = list(torch.empty((ns, g, nb), dtype=arrs[0].dtype,
                             device=dev).unbind(0))
-    plane = g * nb
-    if plane == 0:
+    if g * nb == 0:
         return outs
-    tiles = -(-plane // _FUSED_THREADS)
     index = arrs[0].get_device()
 
     def ptrs(ts):
-        return _SHARD_PTRS(*[t.data_ptr() for t in ts])
-
-    def cut(t, per):
-        return _SHARD_PTRS(*[t.data_ptr() + 4 * per * s for s in range(ns)])
+        return build.SHARD_PTRS(*[t.data_ptr() for t in ts])
 
     # bound once: the wrapper's host time is most of a fold's time at the
     # range path's shapes
-    lib, fn = _entry("ring_fold_fused",
-                     f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
-                     (_PTR,) * 6 + (_INT,) * 6)
+    lib, fn = build.entry("ring_fold_fused",
+                          f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
+                          (_PTR,) * 6 + (_INT,) * 4)
     with _scratch_lock:
-        stream = _stream(index)
+        stream = build.stream(index)
         sc = _scratch.get((dev, stream))
         if sc is None:
-            sc = _scratch[dev, stream] = _RingScratch(dev)
-        # per shard: (2, plane) receive slots and (2, tiles) recv/ack flags
-        base = sc.take(ns * 2 * plane, ns * 2 * tiles)
-        rc = _on_card(index, fn, ptrs(arrs), ptrs([fm.member for fm in fms]),
-                      ptrs([fm.ptr for fm in fms]), ptrs(outs),
-                      cut(sc.bufs, 2 * plane), cut(sc.flags, 2 * tiles), ns,
-                      g, fb, nb, base, int(grid_x), stream)
+            sc = _scratch[dev, stream] = _FoldScratch(dev)
+        part, count = sc.take(ns * fb * g * nb, g * -(-nb // _FUSED_CELLS))
+        rc = build.on_card(index, fn, ptrs(arrs),
+                           ptrs([fm.member for fm in fms]),
+                           ptrs([fm.ptr for fm in fms]), ptrs(outs), part,
+                           count, ns, g, fb, nb, stream)
     if rc:
         build.check_launch(lib, rc, "ring_fold_fused")
     ring_fold_fused.launches += 1
@@ -675,9 +592,8 @@ class RingFoldCtx(ShardFoldCtx):
 
     def form(self, devices) -> str:
         """"fused" or "hops": the ring this ctx runs over shards on
-        `devices`."""
-        one = len({torch.device(d) for d in devices}) == 1
-        return "fused" if one and self.fused is not False else "hops"
+        `devices` (base.ring_form)."""
+        return ring_form(devices, self.fused)
 
     def fold_sum(self, arrs: list, fms: list) -> list:
         if self.form([a.device for a in arrs]) == "fused":

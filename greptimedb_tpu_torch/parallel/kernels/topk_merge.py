@@ -14,6 +14,13 @@ match the gather twin exactly.
 Planes are placed through the merge positions as int32 bit patterns,
 never through float arithmetic (a one-hot float product would turn
 -inf * 0 into NaN, and a float sum would turn -0.0 into +0.0).
+
+`ring_topk_merge` takes the whole ring in one launch
+(`ring_topk_merge_fused`, csrc/topk_merge.cu ring_topk_merge_kernel: the
+same chain of merges, shard by shard) when every shard lies on one
+device, and the hop ring (`ring_topk_merge_hops`: one `merge_candidates`
+launch per shard after the first) otherwise — base.ring_form, the rule of
+RingFoldCtx.form. Both launchers are bound once (build.entry).
 """
 
 from __future__ import annotations
@@ -23,13 +30,18 @@ from typing import NamedTuple
 
 import torch
 
+from greptimedb_tpu_torch.parallel.kernels import build
 from greptimedb_tpu_torch.parallel.kernels.base import (
     ring_comm_bytes,
+    ring_form,
     sequential_ring,
 )
 
 _IDX_SENTINEL = 2**31 - 1
 _MAX_THREADS = 1024
+_TYPES = (torch.float32, torch.float32, torch.int32, torch.bool)
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
 
 
 class Candidates(NamedTuple):
@@ -82,57 +94,67 @@ def merge_candidates_plain(acc: Candidates, loc: Candidates) -> Candidates:
     )
 
 
-def _check(acc: Candidates, loc: Candidates) -> None:
-    types = (torch.float32, torch.float32, torch.int32, torch.bool)
-    for name, planes in (("acc", acc), ("loc", loc)):
-        for p, t in zip(planes, types):
-            if p.dtype != t:
-                got = tuple(q.dtype for q in planes)
-                raise TypeError(f"merge_candidates: {name} planes must be "
-                                f"{types}, not {got}")
-            if p.dim() != 2 or p.shape != planes.key.shape:
-                raise ValueError(f"merge_candidates: {name} planes of "
-                                 f"shapes {[tuple(q.shape) for q in planes]}")
-            if p.device != acc.key.device:
-                raise ValueError("merge_candidates: planes on "
-                                 f"{p.device} and {acc.key.device}")
-            if not p.is_contiguous():
-                raise ValueError("merge_candidates takes contiguous planes")
-    if acc.key.shape[0] != loc.key.shape[0]:
-        raise ValueError(f"merge_candidates: {acc.key.shape[0]} and "
-                         f"{loc.key.shape[0]} rows")
-    if acc.key.shape[1] < 1:
-        raise ValueError("merge_candidates: the accumulator is empty")
+def _check(what: str, planes: Candidates) -> None:
+    """One candidate set: the four plane types, one (J, width) shape, one
+    device, contiguous."""
+    key = planes.key
+    if (key.dtype, planes.val.dtype, planes.idx.dtype,
+            planes.pres.dtype) != _TYPES:
+        raise TypeError(f"{what}: planes must be {_TYPES}, not "
+                        f"{tuple(p.dtype for p in planes)}")
+    shape, dev = key.shape, key.device
+    for p in planes:
+        if p.shape != shape or p.device != dev or not p.is_contiguous():
+            raise ValueError(f"{what}: planes of shapes "
+                             f"{[tuple(q.shape) for q in planes]} on "
+                             f"{[str(q.device) for q in planes]} (one "
+                             f"contiguous (J, width) shape on one device)")
+    if key.dim() != 2:
+        raise ValueError(f"{what}: planes of shape {tuple(shape)}, not "
+                         f"(J, width)")
+
+
+def _alloc(like: Candidates, j: int, kk: int) -> Candidates:
+    """The output planes (J, kk) beside `like`'s. empty_like where the
+    shape matches: on the card it costs less host time than torch.empty
+    with a shape, a dtype and a device (merge_candidates' launch_path_ns
+    in chip_smoke.py)."""
+    if like.key.shape == (j, kk):
+        return Candidates(*(torch.empty_like(p) for p in like))
+    dev = like.key.device
+    return Candidates(*(torch.empty((j, kk), dtype=t, device=dev)
+                        for t in _TYPES))
 
 
 def merge_candidates(acc: Candidates, loc: Candidates) -> Candidates:
     """One merge hop: acc (J, kk) and loc (J, kl) candidate planes, keys
     descending, -> the merged (J, kk) planes. Launches the kernel on a
     CUDA tensor, runs the plain version on a CPU one."""
-    _check(acc, loc)
-    if acc.device.type == "cpu":
+    _check("merge_candidates: acc", acc)
+    _check("merge_candidates: loc", loc)
+    ka, kb = acc.key, loc.key
+    if ka.device != kb.device:
+        raise ValueError(f"merge_candidates: planes on {ka.device} and "
+                         f"{kb.device}")
+    j, kk = ka.shape
+    kl = kb.shape[1]
+    if kb.shape[0] != j:
+        raise ValueError(f"merge_candidates: {j} and {kb.shape[0]} rows")
+    if kk < 1:
+        raise ValueError("merge_candidates: the accumulator is empty")
+    if ka.is_cpu:
         return merge_candidates_plain(acc, loc)
-    j, kk = acc.key.shape
-    kl = loc.key.shape[1]
     if kk + kl > _MAX_THREADS:
         raise ValueError(f"merge_candidates: kk + kl = {kk + kl} candidates "
                          f"past the kernel's {_MAX_THREADS} threads")
-    out = Candidates(torch.empty_like(acc.key), torch.empty_like(acc.val),
-                     torch.empty_like(acc.idx), torch.empty_like(acc.pres))
+    out = _alloc(acc, j, kk)
     if j == 0:
         return out
-    from greptimedb_tpu_torch.parallel.kernels import build
-
-    lib = build.load("topk_merge")
-    fn = lib.gtt_merge_topk
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(acc.device):
-        stream = torch.cuda.current_stream(acc.device).cuda_stream
-        rc = fn(*(p.data_ptr() for p in acc), *(p.data_ptr() for p in loc),
-                *(p.data_ptr() for p in out), j, kk, kl, stream)
-    build.check_launch(lib, rc, "merge_candidates")
+    entry = build.entry("topk_merge", "gtt_merge_topk",
+                        (_PTR,) * 12 + (_INT,) * 3)
+    build.launch(entry, "merge_candidates", ka.get_device(),
+                 *(p.data_ptr() for p in acc), *(p.data_ptr() for p in loc),
+                 *(p.data_ptr() for p in out), j, kk, kl)
     merge_candidates.launches += 1
     return out
 
@@ -140,26 +162,90 @@ def merge_candidates(acc: Candidates, loc: Candidates) -> Candidates:
 merge_candidates.launches = 0
 
 
+def _pad_seed(seed: Candidates, k: int) -> Candidates:
+    """The ring's seed: shard 0's (J, kl) planes padded to k slots with
+    -inf keys, 0.0 values, index 2^31 - 1 and absent presence."""
+    j, kl = seed.key.shape
+    if kl >= k:
+        return seed
+    pad = k - kl
+
+    def ext(x, fill):
+        return torch.cat([x, torch.full((j, pad), fill, dtype=x.dtype,
+                                        device=x.device)], dim=1)
+
+    return Candidates(ext(seed.key, float("-inf")), ext(seed.val, 0.0),
+                      ext(seed.idx, _IDX_SENTINEL), ext(seed.pres, False))
+
+
+def ring_topk_merge_hops(local: list, k: int) -> list:
+    """The hop ring: the padded seed walks the shards in order and each
+    shard merges its candidates on top (one merge_candidates launch per
+    shard after the first, each on that shard's device). Returns the
+    winners on every shard's device, in shard order."""
+    return sequential_ring([_pad_seed(local[0], k)] + list(local[1:]),
+                           lambda s, acc: merge_candidates(acc, local[s]))
+
+
+def ring_topk_merge_fused_plain(local: list, k: int) -> list:
+    """Plain PyTorch version of the one-launch ring: merge_candidates_plain
+    chained in shard order from the padded seed; the winners once for
+    every shard."""
+    acc = _pad_seed(local[0], k)
+    for loc in local[1:]:
+        acc = merge_candidates_plain(acc, loc)
+    return [acc] * len(local)
+
+
+def ring_topk_merge_fused(local: list, k: int) -> list:
+    """The ring topk over per-shard (J, kl) candidate planes that lie on
+    one device, in one launch (kl <= k, k + kl <= 1024 candidates, at most
+    8 shards): bit-identical to ring_topk_merge_hops on any input. Returns
+    the winners (J, k) as the same Candidates in every shard position. A
+    CPU device runs the plain version."""
+    if not local or len(local) > build.MAX_SHARDS:
+        raise ValueError(f"ring_topk_merge_fused takes 1 to "
+                         f"{build.MAX_SHARDS} shards, not {len(local)}")
+    c0 = local[0]
+    for c in local:
+        _check("ring_topk_merge_fused", c)
+        if c.key.shape != c0.key.shape or c.key.device != c0.key.device:
+            raise ValueError(f"ring_topk_merge_fused: shards of "
+                             f"{tuple(c0.key.shape)} on {c0.key.device} "
+                             f"and {tuple(c.key.shape)} on {c.key.device}")
+    j, kl = c0.key.shape
+    if not 0 <= kl <= k or k + kl > _MAX_THREADS:
+        raise ValueError(f"ring_topk_merge_fused: kl = {kl}, k = {k} (kl <= "
+                         f"k and k + kl <= {_MAX_THREADS})")
+    if c0.key.is_cpu:
+        return ring_topk_merge_fused_plain(local, k)
+    out = _alloc(c0, j, k)
+    if j:
+        planes = [build.SHARD_PTRS(*[c[i].data_ptr() for c in local])
+                  for i in range(4)]
+        entry = build.entry("topk_merge", "gtt_ring_topk_merge",
+                            (_PTR,) * 8 + (_INT,) * 4)
+        build.launch(entry, "ring_topk_merge_fused", c0.key.get_device(),
+                     *planes, *(p.data_ptr() for p in out), len(local), j,
+                     k, kl)
+        ring_topk_merge_fused.launches += 1
+    return [out] * len(local)
+
+
+ring_topk_merge_fused.launches = 0
+
+
 def ring_topk_merge(local: list, k: int) -> list:
     """Ring-merge per-shard candidate planes (J, kl each, shard order) into
-    the global (J, k) winners, on every shard's device in shard order.
-    kl may be below k (fewer local series than k): the seed pads with -inf
-    keys, 0.0 values, index 2^31 - 1 and absent presence, which only ever
-    tie with other absent candidates and are dropped by the caller's
-    isfinite(key) presence check."""
-    seed = local[0]
-    j, kl = seed.key.shape
-    if kl < k:
-        pad = k - kl
-
-        def ext(x, fill):
-            return torch.cat([x, torch.full((j, pad), fill, dtype=x.dtype,
-                                            device=x.device)], dim=1)
-
-        seed = Candidates(ext(seed.key, float("-inf")), ext(seed.val, 0.0),
-                          ext(seed.idx, _IDX_SENTINEL), ext(seed.pres, False))
-    return sequential_ring([seed] + list(local[1:]),
-                           lambda s, acc: merge_candidates(acc, local[s]))
+    the global (J, k) winners, on every shard's device in shard order: in
+    one launch when every shard lies on one device, else hop by hop. kl may be below k (fewer local series than k): the
+    seed pads with -inf keys, 0.0 values, index 2^31 - 1 and absent
+    presence, which only ever tie with other absent candidates and are
+    dropped by the caller's isfinite(key) presence check. A failed fused
+    launch raises."""
+    if ring_form([c.device for c in local]) == "fused":
+        return ring_topk_merge_fused(local, k)
+    return ring_topk_merge_hops(local, k)
 
 
 def topk_comm_bytes(ns: int, j: int, k: int) -> int:

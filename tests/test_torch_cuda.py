@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from greptimedb_tpu_torch.catalog.table import Table
+from greptimedb_tpu_torch.parallel.kernels import build
 from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
 from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
@@ -308,7 +309,8 @@ def test_bound_launchers_run_on_the_callers_stream(cuda):
         pinned = [t.pin_memory() for t in cpu_in]
         torch.cuda.synchronize()
         with torch.cuda.stream(side):
-            assert rf._stream(torch.cuda.current_device()) == side.cuda_stream
+            assert build.stream(torch.cuda.current_device()) == (
+                side.cuda_stream)
             torch.cuda._sleep(50_000_000)
             for d, p in zip(dst, pinned):
                 d.copy_(p, non_blocking=True)
@@ -378,17 +380,18 @@ def _ring_input(rng, ns, s_local, nb, dtype):
     return x
 
 
-@pytest.mark.parametrize("ns,s_local,nb,g,dtype,grid_x", [
-    (4, 2048, 2160, 9, torch.float32, 0),     # the mesh phase's Q2 shape
-    (4, 2048, 2160, 9, torch.int32, 0),
-    (4, 2048, 2160, 9, torch.float32, 1),     # one block walks every tile
-    (2, 64, 37, 5, torch.float32, 0),
-    (8, 16, 300, 3, torch.int32, 2),
-    (8, 16, 300, 3, torch.float32, 0),
-    (4, 1024, 1, 1, torch.float32, 0),        # BY (): one group, one cell
+@pytest.mark.parametrize("ns,s_local,nb,g,dtype", [
+    (4, 2048, 2160, 9, torch.float32),     # the mesh phase's Q2 shape
+    (4, 2048, 2160, 9, torch.int32),
+    (2, 64, 37, 5, torch.float32),         # nb % 4 != 0: the 4-byte copies
+    (8, 16, 300, 3, torch.int32),          # a ragged last chunk (300 % 256)
+    (8, 16, 300, 3, torch.float32),
+    (4, 1024, 1, 1, torch.float32),        # BY (): one group, one cell
+    (4, 3000, 40, 2, torch.float32),       # 1500 members a group: two
+                                           # member batches of the walk
 ])
 def test_ring_fold_fused_kernel_matches_plain(cuda, ns, s_local, nb, g,
-                                              dtype, grid_x):
+                                              dtype):
     """Every shard's output bit for bit against the plain version on the
     card and against the hop ring, one launch a fold; against the CPU bit
     for bit except for which NaN comes out (the card's float add returns
@@ -403,7 +406,7 @@ def test_ring_fold_fused_kernel_matches_plain(cuda, ns, s_local, nb, g,
     arrs = [t.to(cuda) for t in cpu]
     fms = [rf.fold_members(gid[k], g, fb, cuda) for k in range(ns)]
     before = rf.ring_fold_fused.launches
-    got = rf.ring_fold_fused(arrs, fms, grid_x=grid_x)
+    got = rf.ring_fold_fused(arrs, fms)
     torch.cuda.synchronize()
     assert rf.ring_fold_fused.launches == before + 1
     plain = rf.ring_fold_fused_plain(arrs, fms)
@@ -420,6 +423,26 @@ def test_ring_fold_fused_kernel_matches_plain(cuda, ns, s_local, nb, g,
         assert torch.equal(_bits32(got[k]), _bits32(hops[k])), k
 
 
+def test_ring_fold_fused_takes_misaligned_rows(cuda):
+    """Shards whose rows start 4 bytes past a 16-byte boundary (views one
+    element into a larger tensor), with nb % 4 == 0 and nb % 4 == 1, take
+    the 4-byte copies and still equal the plain version bit for bit."""
+    rng = np.random.default_rng(17)
+    ns, s_local, g = 4, 256, 9
+    for nb in (300, 301):
+        x = _ring_input(rng, ns, s_local + 1, nb, torch.float32)
+        gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+        fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
+        flat = [torch.from_numpy(x[k].ravel()).to(cuda) for k in range(ns)]
+        arrs = [f[1:1 + s_local * nb].view(s_local, nb) for f in flat]
+        assert all(a.is_contiguous() and a.data_ptr() % 16 for a in arrs)
+        got = rf.ring_fold_fused(arrs, fms)
+        want = rf.ring_fold_fused_plain(arrs, fms)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(_bits32(a), _bits32(b)), nb
+
+
 def test_card_add_returns_its_canonical_nan(cuda):
     """Why a folded sum that is NaN has other bits on the card than on the
     CPU: the card's float add returns 0x7FFFFFFF for a NaN operand and for
@@ -433,35 +456,12 @@ def test_card_add_returns_its_canonical_nan(cuda):
     assert (xc[1:2] + xc[2:3]).view(torch.int32).item() == 0x7FFFFFFF
 
 
-def test_ring_fold_fused_refuses_a_grid_that_cannot_be_co_resident(cuda):
-    """A ring whose blocks spin on each other must never launch with more
-    blocks than the card holds at once: the wrapper raises instead."""
-    rng = np.random.default_rng(0)
-    ns, g = 4, 9
-    x = _ring_input(rng, ns, 256, 2160, torch.float32)
-    gid = rng.integers(0, g, (ns, 256)).astype(np.int32)
-    arrs = [torch.from_numpy(np.ascontiguousarray(x[k])).to(cuda)
-            for k in range(ns)]
-    fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
-    props = torch.cuda.get_device_properties(cuda)
-    before = rf.ring_fold_fused.launches
-    with pytest.raises(RuntimeError, match="ring_fold_fused"):
-        rf.ring_fold_fused(arrs, fms, grid_x=64 * props.multi_processor_count)
-    assert rf.ring_fold_fused.launches == before
-    with pytest.raises(ValueError):                # shards on two devices
-        rf.ring_fold_fused([arrs[0], arrs[1].cpu()], fms[:2])
-    # the card is still usable: the next ring runs and is right
-    got = rf.ring_fold_fused(arrs, fms)
-    want = rf.ring_fold_fused_plain(arrs, fms)
-    torch.cuda.synchronize()
-    assert all(torch.equal(_bits32(a), _bits32(b)) for a, b in zip(got, want))
-
-
-def test_ring_fold_fused_reuses_its_flags_across_launches(cuda):
-    """The flags and double buffers outlive a launch and are never cleared
-    between launches: launch after launch, with the shard count, the
-    plane and the dtype changing, and across the epoch's wrap (flags
-    cleared once), every ring equals its plain version."""
+def test_ring_fold_fused_resets_its_arrival_counts(cuda):
+    """The scratch and the per-tile arrival counts outlive a launch and
+    are never cleared by the wrapper: back to back on one stream, with the
+    shard count, the plane and the dtype changing, every ring equals its
+    plain version (a count left above 0 would elect the wrong last block),
+    and the counts are all 0 after each launch."""
     rng = np.random.default_rng(9)
     cases = [(4, 512, 2160, 9, torch.float32), (2, 64, 37, 5, torch.int32),
              (8, 16, 300, 3, torch.float32), (4, 512, 2160, 9, torch.int32),
@@ -474,16 +474,43 @@ def test_ring_fold_fused_reuses_its_flags_across_launches(cuda):
                 for k in range(ns)]
         fms = [rf.fold_members(gid[k], g, 8 // ns, cuda) for k in range(ns)]
         inputs.append((arrs, fms, rf.ring_fold_fused_plain(arrs, fms)))
-    key = (inputs[0][0][0].device, torch.cuda.current_stream(cuda).cuda_stream)
-    for rnd in range(3):
-        if rnd == 2:
-            rf._scratch[key].epoch = rf._FUSED_MAX_EPOCH - 2
+    key = (inputs[0][0][0].device, build.stream(cuda.index or 0))
+    for _ in range(3):
         for arrs, fms, want in inputs * 2:
             got = rf.ring_fold_fused(arrs, fms)
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert torch.equal(_bits32(a), _bits32(b))
-    assert rf._scratch[key].epoch < 10
+            assert int(rf._scratch[key].count.abs().sum()) == 0
+    with pytest.raises(ValueError):                # shards on two devices
+        rf.ring_fold_fused([inputs[0][0][0], inputs[0][0][1].cpu()],
+                           inputs[0][1][:2])
+
+
+def test_ring_fold_fused_on_two_streams_at_once(cuda):
+    """Two streams fold at the same time, each with its own scratch and
+    counts: both equal the plain version, launch after launch."""
+    rng = np.random.default_rng(10)
+    ns, s_local, nb, g = 4, 1024, 2160, 9
+    x = _ring_input(rng, ns, s_local, nb, torch.float32)
+    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+    arrs = [torch.from_numpy(np.ascontiguousarray(x[k])).to(cuda)
+            for k in range(ns)]
+    fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
+    want = rf.ring_fold_fused_plain(arrs, fms)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = {0: [], 1: []}
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(rf.ring_fold_fused(arrs, fms))
+    torch.cuda.synchronize()
+    for i in outs:
+        for got in outs[i]:
+            for a, b in zip(got, want):
+                assert torch.equal(_bits32(a), _bits32(b))
+    assert len({k for k in rf._scratch if k[0] == arrs[0].device}) >= 2
 
 
 def test_sql_on_cuda_matches_cpu(cuda):
@@ -669,6 +696,93 @@ def test_merge_candidates_kernel_matches_plain(cuda, j, kk, kl, sort, ties):
         assert torch.equal(p, g) or torch.equal(_bits32(p), _bits32(g))
 
 
+def _edge_ring(rng, ns, j, kl, sort, ties):
+    return [_candidates(rng, j, kl, sort=sort, ties=ties) for _ in range(ns)]
+
+
+def _raw(t):
+    """A candidate plane's bits on the CPU (float32 as int32)."""
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("ns,j,k,kl,sort,ties", [
+    (4, 8, 100, 100, True, True),          # the PromQL path's shape
+    (4, 8, 100, 100, True, False), (4, 8, 100, 40, True, True),
+    (2, 3, 128, 128, True, True), (8, 5, 7, 7, False, True),
+    (8, 16, 13, 5, False, True), (1, 4, 9, 5, True, True),
+    (3, 1, 512, 512, True, True)])
+def test_ring_topk_merge_fused_kernel_matches_plain_and_hops(
+        cuda, ns, j, k, kl, sort, ties):
+    """One launch per ring: every slot of every plane bit for bit against
+    the plain version on the card and on the CPU, and against the hop
+    chain (ns - 1 merge launches), on the edge inputs of the merge's own
+    test (ties, -inf, -0.0, NaN payloads; unsorted too)."""
+    rng = np.random.default_rng(ns * 100 + j + k + kl + sort)
+    local = _edge_ring(rng, ns, j, kl, sort, ties)
+    want = tm.ring_topk_merge_fused(local, k)[0]          # the CPU plain
+    dev = [c.to(cuda) for c in local]
+    before = (tm.ring_topk_merge_fused.launches, tm.merge_candidates.launches)
+    got = tm.ring_topk_merge(dev, k)
+    torch.cuda.synchronize()
+    assert (tm.ring_topk_merge_fused.launches,
+            tm.merge_candidates.launches) == (before[0] + 1, before[1])
+    assert len(got) == ns and all(c is got[0] for c in got)
+    hops = tm.ring_topk_merge_hops(dev, k)[0]
+    plain = tm.ring_topk_merge_fused_plain(dev, k)[0]
+    assert tm.merge_candidates.launches == before[1] + ns - 1
+    for w, g, h, p in zip(want, got[0], hops, plain):
+        assert g.shape == (j, k)
+        assert torch.equal(_raw(g), _raw(w)), w.dtype
+        assert torch.equal(_raw(g), _raw(h))
+        assert torch.equal(_raw(g), _raw(p))
+
+
+def test_ring_topk_merge_fused_refuses_bad_launches(cuda):
+    rng = np.random.default_rng(1)
+    local = [c.to(cuda) for c in _edge_ring(rng, 4, 8, 100, True, True)]
+    before = tm.ring_topk_merge_fused.launches
+    with pytest.raises(ValueError):                   # kl > k
+        tm.ring_topk_merge_fused(local, 50)
+    with pytest.raises(ValueError):                   # past 1024 threads
+        big = [c.to(cuda) for c in _edge_ring(rng, 2, 2, 600, True, True)]
+        tm.ring_topk_merge_fused(big, 600)
+    with pytest.raises(ValueError):                   # a shard elsewhere
+        tm.ring_topk_merge_fused(local[:3] + [local[3].to("cpu")], 100)
+    with pytest.raises(ValueError):                   # nine shards
+        tm.ring_topk_merge_fused(local * 3, 100)
+    with pytest.raises(TypeError):
+        tm.ring_topk_merge_fused(
+            [local[0]._replace(idx=local[0].idx.long())] + local[1:], 100)
+    assert tm.ring_topk_merge_fused.launches == before
+
+
+def test_topk_launchers_run_on_the_callers_stream(cuda):
+    """The merge hop and the one-launch ring launch on the caller's current
+    stream: inside torch.cuda.stream(s) they queue behind a sleep and the
+    copy of their inputs on s."""
+    rng = np.random.default_rng(2)
+    host = _edge_ring(rng, 4, 8, 100, True, True)
+    want_hop = tm.merge_candidates(host[0], host[1])
+    want_ring = tm.ring_topk_merge_fused(host, 100)[0]
+    side = torch.cuda.Stream()
+    dst = [tm.Candidates(*(torch.zeros_like(p, device=cuda) for p in c))
+           for c in host]
+    pinned = [tm.Candidates(*(p.pin_memory() for p in c)) for c in host]
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for d, p in zip(dst, pinned):
+            for a, b in zip(d, p):
+                a.copy_(b, non_blocking=True)
+        hop = tm.merge_candidates(dst[0], dst[1])
+        ring = tm.ring_topk_merge_fused(dst, 100)[0]
+    side.synchronize()
+    for got, want in ((hop, want_hop), (ring, want_ring)):
+        for g, w in zip(got, want):
+            assert torch.equal(_raw(g), _raw(w))
+
+
 def test_merge_candidates_refuses_bad_launches(cuda):
     rng = np.random.default_rng(0)
     acc = _candidates(rng, 4, 8).to(cuda)
@@ -688,8 +802,8 @@ def test_promql_on_cuda_matches_cpu(cuda):
     """One device, four ring shards and four gather shards on the card
     against the port on the CPU: aggregates within float32 rounding of
     the CPU run (the card's matrix products add in another order), topk
-    winners and values bit-identical; the ring launches the merge kernel
-    three times per query."""
+    winners and values bit-identical; the ring on one card launches the
+    one-launch ring topk once per query and the merge hop never."""
     import types
 
     rng = np.random.default_rng(5)
@@ -724,11 +838,13 @@ def test_promql_on_cuda_matches_cpu(cuda):
               "sum by (dc) (rate(prom_bench[1m]))"):
         want, _ = cpu.query_range(q, *span)
         for name, eng in engines.items():
-            before = tm.merge_candidates.launches
+            before = (tm.ring_topk_merge_fused.launches,
+                      tm.merge_candidates.launches)
             got, _ = eng.query_range(q, *span)
-            launched = tm.merge_candidates.launches - before
+            launched = (tm.ring_topk_merge_fused.launches - before[0],
+                        tm.merge_candidates.launches - before[1])
             ring_topk = name == "ring" and q.startswith(("topk", "bottomk"))
-            assert launched == (3 if ring_topk else 0), (name, q)
+            assert launched == ((1 if ring_topk else 0), 0), (name, q)
             assert got.labels == want.labels, (name, q)
             assert np.array_equal(got.present, want.present)
             if q.startswith("sum"):

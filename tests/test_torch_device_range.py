@@ -1,9 +1,10 @@
 """The slice as a whole: TSBS-shaped ingest -> compaction -> RANGE queries,
 PyTorch port (device="cpu", plain kernel versions) against the JAX package.
 
-Data: 64 hosts in 4 regions, 6 h at 10 s, four usage_* fields, written as
-hourly runs plus one late re-delivery run (new values for some keys, some
-tombstones). The JAX side writes them to a Standalone table and runs its
+Data: 64 hosts in 4 regions, 6 h at 10 s, four usage_* fields in [0, 100)
+and a signed field g drawn from N(0, 1) with about half its cells null
+(its own seeded generator), written as hourly runs plus one late
+re-delivery run (new values for some keys, some tombstones). The JAX side writes them to a Standalone table and runs its
 QueryEngine(prefer_device=True); the port writes the same runs to its
 Table, compacts every hour window through merge_rows (fused, verify=True)
 and runs its QueryEngine(device="cpu") on plan_from_fields(jax_plan).
@@ -15,19 +16,29 @@ window combine).
 
 Exactness: counts, min/max, first/last, presence, timestamps and keys are
 exact. Q2's folded sums and means are exact too: K2 adds in XLA's
-segment_sum order and the window combine is elementwise. Two bounds:
+segment_sum order and the window combine is elementwise. Bounds
+(u = 2^-24):
 
-- Q1's sums reduce w = 360 cells per window in torch's order instead of
-  XLA's (_disjoint_reduce); each order's rounding error is at most
-  (w - 1) * 2^-24 * sum|x|, so two orders differ by at most twice that —
-  with usage values >= 0, a relative bound of 2 * (w - 1) * 2^-24 on sum
-  and mean.
-- stddev: XLA:CPU contracts var = s2/n - mean*mean into one fused
-  multiply-add; the port rounds mean*mean first. The two variances
-  differ by at most u * mean^2 + 2u * var before the n/(n-1) correction
-  (u = 2^-24), so with c = n/(n-1) the squared results differ by at most
-  4u * c * (mean^2 + var).
+- Disjoint windows (range == align: Q1, and the signed field's queries)
+  reduce w cells per window in torch's order instead of XLA's
+  (_disjoint_reduce); each order's rounding error is at most
+  (w - 1) u sum|x| over the window's rows, so two orders differ by at most
+  E1 = 2 (w - 1) u sum|x| per cell, and the means by E1 / n. sum|x| comes
+  from the written rows (the compacted scan). For values >= 0 this is the
+  relative bound 2 (w - 1) u on sum and mean; on signed data a sum may
+  cancel far below sum|x|, so a bound relative to the sum does not hold.
+- stddev, var: XLA:CPU contracts var = s2/n - mean*mean into one fused
+  multiply-add; the port rounds mean*mean first. With the same s1, s2 the
+  two variances differ by at most u * mean^2 + 2u * var before the
+  n/(n-1) correction, so with c = n/(n-1) the squared results differ by at
+  most 4u * c * (mean^2 + var). Over disjoint windows s1 = sum x and
+  s2 = sum x^2 also differ by the reduction orders, by at most E1 and
+  E2 = 2 (w - 1) u sum x^2, which moves var by at most
+  c * (E2 + 2 |mean| E1) / n (to first order). The two gaps add up:
+  |a^2 - b^2| <= 4u c (mean^2 + var) + c (E2 + 2 |mean| E1) / n.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -40,12 +51,14 @@ from greptimedb_tpu.sql.parser import parse_sql
 from greptimedb_tpu_torch.catalog.table import Table
 from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.parallel.kernels import merge_gather, ring_fold
+from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
 from greptimedb_tpu_torch.query import device_range as tdr
 from greptimedb_tpu_torch.query.executor import QueryEngine
 from greptimedb_tpu_torch.query.planner import plan_from_fields
 
 HOSTS, REGIONS, HOURS, STEP_MS = 64, 4, 6, 10_000
 FIELDS = ["usage_user", "usage_system", "usage_idle", "usage_nice"]
+SIGNED = "g"          # N(0, 1), about half its cells null
 TAGS = ["hostname", "region"]
 HOUR_MS = 3_600_000
 U = 2.0 ** -24
@@ -60,10 +73,18 @@ Q2 = ("SELECT ts, region, "
       + " FROM cpu ALIGN '1h' BY (region)")
 
 
+def _signed(rng, n):
+    """n values of the signed field and their validity (about half)."""
+    return {SIGNED: rng.standard_normal(n)}, {SIGNED: rng.random(n) < 0.5}
+
+
 def _runs(seed=0):
     """The write sequence: per hour one run, then one re-delivery run
-    (10% of the hour's keys, new values) and one tombstone run (1%)."""
+    (10% of the hour's keys, new values) and one tombstone run (1%). The
+    signed field draws from its own generator, so the usage fields keep
+    their values."""
     rng = np.random.default_rng(seed)
+    grng = np.random.default_rng(seed + 1000)
     hosts = np.array([f"host_{i}" for i in range(HOSTS)], object)
     region_of = np.array([f"region_{i}" for i in rng.integers(
         0, REGIONS, HOSTS)], object)
@@ -76,21 +97,24 @@ def _runs(seed=0):
         n = len(ts)
         fields = {f: (rng.random(n, dtype=np.float32) * 100.0).astype(
             np.float64) for f in FIELDS}
-        out.append(("put", hi, ts, fields))
+        g, valid = _signed(grng, n)
+        out.append(("put", hi, ts, {**fields, **g}, valid))
         re = rng.random(n) < 0.10
+        g, valid = _signed(grng, int(re.sum()))
         out.append(("put", hi[re], ts[re],
-                    {f: (rng.random(int(re.sum()), dtype=np.float32)
-                         * 100.0).astype(np.float64) for f in FIELDS}))
+                    {**{f: (rng.random(int(re.sum()), dtype=np.float32)
+                            * 100.0).astype(np.float64) for f in FIELDS},
+                     **g}, valid))
         dl = rng.random(n) < 0.01
-        out.append(("delete", hi[dl], ts[dl], None))
+        out.append(("delete", hi[dl], ts[dl], None, None))
     return hosts, region_of, out
 
 
 def _write(table, hosts, region_of, runs):
-    for kind, hi, ts, fields in runs:
+    for kind, hi, ts, fields, valid in runs:
         tags = {"hostname": hosts[hi], "region": region_of[hi]}
         if kind == "put":
-            table.write(tags, ts, fields)
+            table.write(tags, ts, fields, field_valid=valid)
         else:
             table.delete(tags, ts)
 
@@ -99,14 +123,14 @@ def _write(table, hosts, region_of, runs):
 def tables(tmp_path_factory):
     hosts, region_of, runs = _runs()
     inst = Standalone(str(tmp_path_factory.mktemp("jax_tsbs")))
-    cols = ", ".join(f"{f} double" for f in FIELDS)
+    cols = ", ".join(f"{f} double" for f in FIELDS + [SIGNED])
     inst.execute_sql(
         "create table cpu (ts timestamp time index, hostname string "
         f"primary key, region string primary key, {cols})"
     )
     jt = inst.catalog.table("public", "cpu")
     _write(jt, hosts, region_of, runs)
-    tt = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS)
+    tt = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS + [SIGNED])
     _write(tt, hosts, region_of, runs)
     merged = tt.compact(device="cpu", verify=True, kernels="on",
                         kernel_min_rows=1, device_min_rows=1)
@@ -125,10 +149,41 @@ def _op_of(name):
     return name.split("(")[0]
 
 
-def _compare(want, got, *, w, exact_sums):
-    """exact_sums: sums and means must be bit-equal too; else they are
-    held to the relative bound 2 * (w - 1) * 2^-24. stddev is held to the
-    FMA bound (module docstring)."""
+def _cell_stats(table, res, field, keys, range_ms):
+    """Per output row of `res`: (n, sum|x|, sum x^2) in float64 over the
+    valid `field` values of the written rows (the table's compacted scan)
+    in the row's window [ts, ts + range_ms) of the series whose `keys` tags
+    equal the row's (range == align, aligned to 0: disjoint windows)."""
+    rows = table.scan([field]).rows
+    ok = rows.field_valid[field] if rows.field_valid else np.ones(
+        len(rows.ts), bool)
+    x = rows.fields[field].astype(np.float64)[ok]
+    reg = table.region.series
+    row_key = np.full(int(ok.sum()), "", object)
+    res_key = np.full(res.num_rows, "", object)
+    for k in keys:
+        row_key = row_key + "\x00" + np.asarray(
+            reg.tag_values(k), object)[rows.sid[ok]]
+        res_key = res_key + "\x00" + np.asarray(res.column(k).values,
+                                                 object)
+    names, code = np.unique(np.concatenate([row_key, res_key]),
+                            return_inverse=True)
+    n_win = int(rows.ts.max()) // range_ms + 2
+    row_cell = code[:len(row_key)] * n_win + rows.ts[ok] // range_ms
+    res_cell = (code[len(row_key):] * n_win
+                + np.asarray(res.column("ts").values, np.int64) // range_ms)
+    size = len(names) * n_win
+    stats = [np.bincount(row_cell, weights=wt, minlength=size)[res_cell]
+             for wt in (np.ones_like(x), np.abs(x), x * x)]
+    return tuple(stats)
+
+
+def _compare(want, got, *, w, exact_sums, stats=None):
+    """exact_sums: sums and means must be bit-equal too (overlapping
+    windows); else (disjoint windows) they are held to E1 and E1 / n, and
+    stddev to the FMA gap plus the reorder gap, from stats[column] =
+    _cell_stats(...) (module docstring). With exact_sums stddev is held to
+    the FMA bound alone."""
     assert got.names == want.names
     assert got.num_rows == want.num_rows > 0
     by_op = {_op_of(n): i for i, n in enumerate(want.names)}
@@ -146,14 +201,30 @@ def _compare(want, got, *, w, exact_sums):
             mean = np.asarray(want.cols[by_op["avg"]].values)[m]
             c = n / np.maximum(n - 1, 1)
             bound = 4 * U * c * (mean * mean + av * av)
+            if not exact_sums:
+                _, abs1, sq = (v[m] for v in stats[name])
+                e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
+                bound = bound + c * (e2 + 2 * np.abs(mean) * e1) / n
             assert np.all(np.abs(bv * bv - av * av) <= bound), name
         elif name == "ts" or exact_sums or op in (
                 "count", "min", "max", "first_value", "last_value"):
             assert np.array_equal(av.astype(np.float64),
                                   bv.astype(np.float64)), name
         else:
-            bound = 2 * (w - 1) * U
-            assert np.all(np.abs(av - bv) <= bound * np.abs(av)), name
+            cnt, abs1, _ = (v[m] for v in stats[name])
+            bound = 2 * (w - 1) * U * abs1
+            if op == "avg":
+                bound = bound / cnt
+            assert np.all(np.abs(av - bv) <= bound), name
+
+
+def _stats(tt, res, keys, range_ms):
+    """_cell_stats for every sum/avg/stddev column of `res`, by the field
+    its name holds."""
+    return {name: _cell_stats(tt, res, re.search(r"\((\w+)\)", name)[1],
+                              keys, range_ms)
+            for name in res.names if _op_of(name) in (
+                "sum", "avg", "stddev_samp")}
 
 
 def test_compacted_scan_equals_jax_scan(tables):
@@ -176,11 +247,73 @@ def test_range_query_matches_jax_engine(tables, q, w, exact):
     want = JQueryEngine(prefer_device=True).execute(jplan, jt)
     eng = QueryEngine(device="cpu")
     got = eng.execute(plan_from_fields(jplan), tt)
-    _compare(want, got, w=w, exact_sums=exact)
+    stats = None if exact else _stats(tt, want, ["hostname"], HOUR_MS)
+    _compare(want, got, w=w, exact_sums=exact, stats=stats)
     # the second run reuses the cached grid
     again = eng.execute(plan_from_fields(jplan), tt)
-    _compare(want, again, w=w, exact_sums=exact)
+    _compare(want, again, w=w, exact_sums=exact, stats=stats)
     assert eng.range_cache.hits >= 1
+
+
+def _bits(v):
+    v = np.asarray(v)
+    return v.view(np.uint64) if v.dtype == np.float64 else v
+
+
+@pytest.mark.parametrize("rng_s,key", [("10m", "hostname"), ("1h", "hostname"),
+                                       ("10m", "region"), ("1h", "region")])
+def test_signed_field_with_nulls_holds_the_stated_bounds(tables, rng_s, key):
+    """sum, avg and stddev_samp of the signed, half-null field over
+    disjoint windows: one device, four ring shards and four gather shards
+    against the JAX engine, within the per-cell bounds of the module
+    docstring (sums cancel here, so a bound relative to the sum would
+    fail), and bit-identical to each other. The counts equal the valid
+    rows of each window, which checks the windows _cell_stats assumes."""
+    jt, tt = tables
+    range_ms = {"10m": 600_000, "1h": HOUR_MS}[rng_s]
+    q = (f"SELECT ts, {key}, " + ", ".join(
+        f"{op}({SIGNED}) RANGE '{rng_s}'"
+        for op in ("count", "sum", "avg", "stddev_samp"))
+        + f" FROM cpu ALIGN '{rng_s}' BY ({key})")
+    jplan = _plan(q)
+    want = JQueryEngine(prefer_device=True).execute(jplan, jt)
+    stats = _stats(tt, want, [key], range_ms)
+    cnt = next(c for c in want.names if c.startswith("count"))
+    m = want.column(cnt).valid_mask
+    assert np.array_equal(np.asarray(want.column(cnt).values)[m],
+                          stats[next(c for c in want.names
+                                     if c.startswith("sum"))][0][m])
+    low = {"shard_min_series": 1, "pallas_min_series": 1}
+    engines = {
+        "single": QueryEngine(device="cpu"),
+        "ring": QueryEngine(device="cpu", mesh=make_mesh(["cpu"] * 4),
+                            mesh_opts=MeshOptions(pallas_kernels="on",
+                                                  **low)),
+        "gather": QueryEngine(device="cpu", mesh=make_mesh(["cpu"] * 4),
+                              mesh_opts=MeshOptions(pallas_kernels="off",
+                                                    **low)),
+    }
+    w = range_ms // STEP_MS
+    got = {}
+    for name, eng in engines.items():
+        got[name] = eng.execute(plan_from_fields(jplan), tt)
+        _compare(want, got[name], w=w, exact_sums=False, stats=stats)
+    assert engines["ring"].last_range["program"] == "sharded_ring"
+    assert engines["gather"].last_range["program"] == "sharded_gather"
+    for name in ("ring", "gather"):
+        for a, b in zip(got["single"].cols, got[name].cols):
+            assert np.array_equal(a.valid_mask, b.valid_mask)
+            assert np.array_equal(_bits(a.values), _bits(b.values)), name
+    # the data is what the bounds are about: sums that cancel well below
+    # sum|x| (where the former bound, relative to the sum, breaks down)
+    s = next(c for c in want.names if c.startswith("sum"))
+    sm = want.column(s).valid_mask
+    ws = np.asarray(want.column(s).values)[sm]
+    assert (np.abs(ws) / stats[s][1][sm]).min() < 0.01
+    if (rng_s, key) == ("10m", "hostname"):
+        # the former bound 2 (w - 1) u |sum| fails on such cells
+        gs = np.asarray(got["single"].column(s).values)[sm]
+        assert (np.abs(gs - ws) > 2 * (w - 1) * U * np.abs(ws)).any()
 
 
 @pytest.mark.parametrize("q,w,exact", [(Q1, 360, False), (Q2, 720, True)],
@@ -202,7 +335,8 @@ def test_range_program_on_jax_grid_arrays(tables, q, w, exact):
     plan = plan_from_fields(jplan)
     got = tdr.execute_on_entry(eng, plan, tt, entry)
     want = JQueryEngine(prefer_device=True).execute(jplan, jt)
-    _compare(want, got, w=w, exact_sums=exact)
+    stats = None if exact else _stats(tt, want, ["hostname"], HOUR_MS)
+    _compare(want, got, w=w, exact_sums=exact, stats=stats)
 
 
 def test_q1_matches_numpy_hourly_means(tables):

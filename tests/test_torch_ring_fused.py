@@ -77,16 +77,13 @@ def _shards(x):
             for k in range(len(x))]
 
 
-@pytest.mark.parametrize("ns", SHARDS)
-def test_fused_plain_matches_jax_ring_hop_ring_and_gather(ns):
-    rng = np.random.default_rng(100 + ns)
-    s_local, nb, g = 16, 24, 3
+def _jax_ring_fold(xf, xi, gid, g):
+    """The JAX package's ring fold (interpret twin of the Pallas
+    _tpu_ring_fold_call) of (ns, s_local, nb) float32 and int32 states
+    over per-shard group ids, in one jitted shard_map: (ns, g, nb) each."""
+    ns, s_local, nb = xf.shape
     fb_local = JM.FOLD_BLOCKS // ns
     per = s_local // fb_local
-    xf = _fold_input(rng, ns, s_local, nb, "f32")
-    xi = _fold_input(rng, ns, s_local, nb, "i32")
-    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)  # g: off
-    gid[0, :per] = 0              # shard 0's first block seeds group 0
 
     def body(xf_, xi_, gl):
         ctx = JK.RingFoldCtx(ns, interpret=True)
@@ -108,9 +105,16 @@ def test_fused_plain_matches_jax_ring_hop_ring_and_gather(ns):
         mesh=mesh, in_specs=(spec,) * 3, out_specs=(spec,) * 2,
         check_rep=False,
     ))(*args)
-    fms = [trf.fold_members(gid[k], g, fb_local, "cpu") for k in range(ns)]
-    for x, want in ((xf, outs[0]), (xi, outs[1])):
-        want = np.asarray(want)
+    return [np.asarray(o) for o in outs]
+
+
+def _assert_every_form_matches(xs, gid, g, wants):
+    """The plain fused ring, the wrapper (plain on the CPU), the hop ring
+    and the gather twin against the JAX ring's outputs, bit for bit."""
+    ns, s_local = gid.shape
+    fms = [trf.fold_members(gid[k], g, JM.FOLD_BLOCKS // ns, "cpu")
+           for k in range(ns)]
+    for x, want in zip(xs, wants):
         got = trf.ring_fold_fused_plain(_shards(x), fms)
         assert len(got) == ns
         stack = np.stack([t.numpy() for t in got])
@@ -120,18 +124,60 @@ def test_fused_plain_matches_jax_ring_hop_ring_and_gather(ns):
                       ShardFoldCtx(ns).fold_sum(_shards(x), fms)):
             assert np.array_equal(
                 _bits(np.stack([t.numpy() for t in other])), _bits(want))
+
+
+@pytest.mark.parametrize("ns", SHARDS)
+def test_fused_plain_matches_jax_ring_hop_ring_and_gather(ns):
+    rng = np.random.default_rng(100 + ns)
+    s_local, nb, g = 16, 24, 3
+    per = s_local // (JM.FOLD_BLOCKS // ns)
+    xf = _fold_input(rng, ns, s_local, nb, "f32")
+    xi = _fold_input(rng, ns, s_local, nb, "i32")
+    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)  # g: off
+    gid[0, :per] = 0              # shard 0's first block seeds group 0
+    outs = _jax_ring_fold(xf, xi, gid, g)
+    _assert_every_form_matches((xf, xi), gid, g, outs)
     # the edges really are in the result: a cell of -0.0 only sums to +0.0
     # (every block partial starts at +0.0), ±inf, NaN payloads, and int32
     # sums that wrapped
-    f = np.asarray(outs[0])
+    f = outs[0]
     assert np.all(f[..., 1] == 0) and not np.signbit(f[..., 1]).any()
     assert np.isnan(f).any()
     assert np.isposinf(f).any() and np.isneginf(f).any()
     wide = np.stack([xi[gid == grp].astype(np.int64).sum(axis=0)
                      for grp in range(g)])
-    assert np.array_equal(np.asarray(outs[1])[0], wide.astype(np.int32))
+    assert np.array_equal(outs[1][0], wide.astype(np.int32))
     assert (wide != wide.astype(np.int32)).any()
     assert trf.ring_fold_fused.launches == 0       # the CPU never launches
+
+
+@pytest.mark.parametrize("ns,s_local,nb,g,groups", [
+    (4, 32, 300, 5, "empty"),     # a ragged tile (300 % 256) and groups
+                                  # with no member on some shards
+    (2, 64, 513, 3, "uneven"),    # 90 % of the series in one group
+    (8, 8, 257, 4, "uneven"),     # one cell past a whole tile
+], ids=["ragged_empty", "ragged_uneven", "one_cell_past_a_tile"])
+def test_fused_plain_on_ragged_tiles_and_uneven_groups(ns, s_local, nb, g,
+                                                      groups):
+    """Shapes where the kernel's (group, 256-cell chunk) tiles are ragged
+    (nb % 256 != 0) and where member lists are empty or very uneven: the
+    plain version, the hop ring and the gather twin still equal the JAX
+    ring bit for bit."""
+    rng = np.random.default_rng(nb + g)
+    xf = _fold_input(rng, ns, s_local, nb, "f32")
+    xi = _fold_input(rng, ns, s_local, nb, "i32")
+    if groups == "empty":
+        # groups 1 and 3 never occur; group 4 only on shard 0
+        gid = rng.choice(np.array([0, 2, 5], np.int32), (ns, s_local))
+        gid[0, -3:] = 4
+    else:
+        gid = np.where(rng.random((ns, s_local)) < 0.9, 1,
+                       rng.integers(0, g + 1, (ns, s_local))).astype(
+            np.int32)
+    outs = _jax_ring_fold(xf, xi, gid, g)
+    _assert_every_form_matches((xf, xi), gid, g, outs)
+    if groups == "empty":
+        assert np.all(outs[1][:, [1, 3]] == 0)
 
 
 def test_single_shard_is_the_seed():

@@ -13,17 +13,22 @@ through Instance.sql.
 The suite is bench.py's TSBS RANGE shapes (the headline double-groupby-all
 and the nine device shapes), cut to the table's 6 hours, plus Q2 written
 as SQL and RANGE variants (ALIGN TO, FILL, LIMIT/OFFSET, IN/NOT/LIKE
-matchers, output expressions, DISTINCT, HAVING).
+matchers, output expressions, DISTINCT, HAVING), and sum, avg and
+stddev_samp over disjoint windows of a signed field g (N(0, 1), about half
+its cells null, its own seeded generator).
 
-The contract is slice 1's: exact for counts, min/max, first/last, keys and
-timestamps; sums and means of disjoint windows (range == align) within the
-relative bound 2 (w - 1) 2^-24 of two reduction orders over w cells; the
-stated FMA bound for stddev (tests/test_torch_device_range.py). The
-sharded port (four shards on the CPU: the fused ring, the hop ring, the
-gather twin) must equal the one-device port bit for bit.
+The contract is slice 1's, as tests/test_torch_device_range.py states it:
+exact for counts, min/max, first/last, keys and timestamps; sums and
+means of disjoint windows (range == align) within E1 = 2 (w - 1) 2^-24
+sum|x| per cell (E1 / n for means; sum|x| from the written rows), the
+gap of two reduction orders over w cells; stddev within the FMA gap, plus
+the reorder gap over disjoint windows. The sharded port (four shards on
+the CPU: the fused ring, the hop ring, the gather twin) must equal the
+one-device port bit for bit.
 """
 
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -43,6 +48,7 @@ from greptimedb_tpu_torch.sql.parser import parse_sql
 
 HOSTS, REGIONS, HOURS, STEP_MS = 64, 4, 6, 10_000
 FIELDS = ["usage_user", "usage_system", "usage_idle", "usage_nice"]
+SIGNED = "g"          # N(0, 1), about half its cells null
 TAGS = ["hostname", "region"]
 HOUR_MS = 3_600_000
 END_MS = HOURS * HOUR_MS
@@ -107,12 +113,30 @@ VARIANTS = [
     ("distinct_count_star", "SELECT DISTINCT region, count(*) RANGE '1h' "
      "AS n FROM cpu ALIGN '1h' BY (region) ORDER BY region, n"),
 ]
+# the signed, half-null field over disjoint windows (ROADMAP C1)
+SIGNED_QUERIES = [
+    (f"signed_{rng}_by_{key}", f"SELECT ts, {key}, " + ", ".join(
+        f"{op}({SIGNED}) RANGE '{rng}'"
+        for op in ("count", "sum", "avg", "stddev_samp"))
+     + f" FROM cpu ALIGN '{rng}' BY ({key})")
+    for rng, key in (("10m", "hostname"), ("1h", "hostname"),
+                     ("10m", "region"), ("1h", "region"))
+]
+QUERIES = VARIANTS + SIGNED_QUERIES
+
+
+def _signed(rng, n):
+    """n values of the signed field and their validity (about half)."""
+    return {SIGNED: rng.standard_normal(n)}, {SIGNED: rng.random(n) < 0.5}
 
 
 def _runs(seed=0):
     """The write sequence: per hour one run, then one re-delivery run
-    (10% of the hour's keys, new values) and one tombstone run (1%)."""
+    (10% of the hour's keys, new values) and one tombstone run (1%). The
+    signed field draws from its own generator, so the usage fields keep
+    their values."""
     rng = np.random.default_rng(seed)
+    grng = np.random.default_rng(seed + 1000)
     hosts = np.array([f"host_{i}" for i in range(HOSTS)], object)
     region_of = np.array([f"region_{i}" for i in rng.integers(
         0, REGIONS, HOSTS)], object)
@@ -125,21 +149,24 @@ def _runs(seed=0):
         n = len(ts)
         fields = {f: (rng.random(n, dtype=np.float32) * 100.0).astype(
             np.float64) for f in FIELDS}
-        out.append(("put", hi, ts, fields))
+        g, valid = _signed(grng, n)
+        out.append(("put", hi, ts, {**fields, **g}, valid))
         re = rng.random(n) < 0.10
+        g, valid = _signed(grng, int(re.sum()))
         out.append(("put", hi[re], ts[re],
-                    {f: (rng.random(int(re.sum()), dtype=np.float32)
-                         * 100.0).astype(np.float64) for f in FIELDS}))
+                    {**{f: (rng.random(int(re.sum()), dtype=np.float32)
+                            * 100.0).astype(np.float64) for f in FIELDS},
+                     **g}, valid))
         dl = rng.random(n) < 0.01
-        out.append(("delete", hi[dl], ts[dl], None))
+        out.append(("delete", hi[dl], ts[dl], None, None))
     return hosts, region_of, out
 
 
 def _write(table, hosts, region_of, runs):
-    for kind, hi, ts, fields in runs:
+    for kind, hi, ts, fields, valid in runs:
         tags = {"hostname": hosts[hi], "region": region_of[hi]}
         if kind == "put":
-            table.write(tags, ts, fields)
+            table.write(tags, ts, fields, field_valid=valid)
         else:
             table.delete(tags, ts)
 
@@ -154,17 +181,17 @@ def setup(tmp_path_factory):
     hosts, region_of, runs = _runs()
     jinst = Standalone(str(tmp_path_factory.mktemp("jax_sql")),
                        prefer_device=True, warm_start=False)
-    cols = ", ".join(f"{f} double" for f in FIELDS)
+    cols = ", ".join(f"{f} double" for f in FIELDS + [SIGNED])
     jinst.execute_sql(
         "create table cpu (ts timestamp time index, hostname string "
         f"primary key, region string primary key, {cols})")
     _write(jinst.catalog.table("public", "cpu"), hosts, region_of, runs)
-    tt = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS)
+    tt = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS + [SIGNED])
     _write(tt, hosts, region_of, runs)
     inst = Instance(device="cpu")
     inst.catalog.register(tt)
     want, got = {}, {}
-    for name, sql, *_ in SUITE + VARIANTS:
+    for name, sql, *_ in SUITE + QUERIES:
         want[name] = jinst.sql(sql)
         assert jinst.query_engine.last_exec_path == "device", name
         got[name] = inst.sql(sql)
@@ -186,8 +213,49 @@ def _window_cells(sql):
     return max(r.range_ms for r in plan.range_items) // int(res)
 
 
-def _compare(want, got, w):
-    """Slice 1's contract (module docstring)."""
+def _cell_stats(table, res, field, keys, range_ms):
+    """Per output row of `res`: (n, sum|x|, sum x^2) in float64 over the
+    valid `field` values of the written rows (the table's scan) in the
+    row's window [ts, ts + range_ms) of the series whose `keys` tags equal
+    the row's (range == align, aligned to 0: disjoint windows)."""
+    rows = table.scan([field]).rows
+    ok = rows.field_valid[field] if rows.field_valid else np.ones(
+        len(rows.ts), bool)
+    x = rows.fields[field].astype(np.float64)[ok]
+    reg = table.region.series
+    row_key = np.full(int(ok.sum()), "", object)
+    res_key = np.full(res.num_rows, "", object)
+    for k in keys:
+        row_key = row_key + "\x00" + np.asarray(
+            reg.tag_values(k), object)[rows.sid[ok]]
+        res_key = res_key + "\x00" + np.asarray(res.column(k).values,
+                                                 object)
+    names, code = np.unique(np.concatenate([row_key, res_key]),
+                            return_inverse=True)
+    n_win = int(rows.ts.max()) // range_ms + 2
+    row_cell = code[:len(row_key)] * n_win + rows.ts[ok] // range_ms
+    res_cell = (code[len(row_key):] * n_win
+                + np.asarray(res.column("ts").values, np.int64) // range_ms)
+    size = len(names) * n_win
+    return tuple(np.bincount(row_cell, weights=wt, minlength=size)[res_cell]
+                 for wt in (np.ones_like(x), np.abs(x), x * x))
+
+
+def _stats_fn(table, sql, res):
+    """column name -> _cell_stats of its field, for a disjoint-window
+    query (range == align) grouped by the tags among its columns."""
+    plan = plan_select(parse_sql(sql)[0], ts_name="ts", tag_names=TAGS,
+                       all_columns=None)
+    assert all(r.range_ms == plan.align_ms for r in plan.range_items)
+    keys = [t for t in TAGS if t in res.names]
+    return lambda name: _cell_stats(
+        table, res, re.search(r"\((\w+)\)", name)[1], keys, plan.align_ms)
+
+
+def _compare(want, got, w, stats=None):
+    """Slice 1's contract (module docstring). `stats(column)` gives the
+    per-cell (n, sum|x|, sum x^2) of a disjoint-window query's column;
+    without it (overlapping windows) sums and means must be bit-equal."""
     assert got.names == want.names
     assert got.num_rows == want.num_rows
     names = [_op_of(n) for n in want.names]
@@ -207,11 +275,19 @@ def _compare(want, got, w):
             mean = np.asarray(want.cols[names.index("avg")].values)[m]
             c = n / np.maximum(n - 1, 1)
             bound = 4 * U * c * (mean * mean + av * av)
+            if stats is not None:
+                _, abs1, sq = (v[m] for v in stats(name))
+                e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
+                bound = bound + c * (e2 + 2 * np.abs(mean) * e1) / n
             assert np.all(np.abs(bv * bv - av * av) <= bound), name
         else:
-            assert op in ("avg", "sum"), f"{name} not bit-equal"
-            bound = 2 * (w - 1) * U
-            assert np.all(np.abs(av - bv) <= bound * np.abs(av)), name
+            assert op in ("avg", "sum") and stats is not None, (
+                f"{name} not bit-equal")
+            cnt, abs1, _ = (v[m] for v in stats(name))
+            bound = 2 * (w - 1) * U * abs1
+            if op == "avg":
+                bound = bound / cnt
+            assert np.all(np.abs(av - bv) <= bound), name
 
 
 def _bits(v):
@@ -232,24 +308,54 @@ def _assert_identical(a, b):
 
 
 @pytest.mark.parametrize("name,sql", [(n, s) for n, s, *_ in
-                                      SUITE + VARIANTS])
+                                      SUITE + QUERIES])
 def test_parse_and_plan_match_jax_field_by_field(name, sql):
     jstmt = jparse_sql(sql)
     stmt = parse_sql(sql)
     assert convert_expr(jstmt) == stmt
+    cols = ["ts", *TAGS, *FIELDS, SIGNED]
     jplan = jplan_select(jstmt[0], ts_name="ts", tag_names=TAGS,
-                         all_columns=["ts", *TAGS, *FIELDS])
+                         all_columns=cols)
     plan = plan_select(stmt[0], ts_name="ts", tag_names=TAGS,
-                       all_columns=["ts", *TAGS, *FIELDS])
+                       all_columns=cols)
     assert convert_expr(jplan) == plan
 
 
+# disjoint windows (range == align): sums and means within E1
+DISJOINT = {"double_groupby_all", "double_groupby_1", "double_groupby_5",
+            *(n for n, _ in SIGNED_QUERIES)}
+
+
 @pytest.mark.parametrize("name,sql", [(n, s) for n, s, *_ in
-                                      SUITE + VARIANTS])
+                                      SUITE + QUERIES])
 def test_instance_sql_matches_standalone(setup, name, sql):
-    _, _, want, got = setup
+    tt, _, want, got = setup
     assert want[name].num_rows > 0
-    _compare(want[name], got[name], _window_cells(sql))
+    stats = _stats_fn(tt, sql, want[name]) if name in DISJOINT else None
+    _compare(want[name], got[name], _window_cells(sql), stats)
+
+
+@pytest.mark.parametrize("name,sql", SIGNED_QUERIES,
+                         ids=[n for n, _ in SIGNED_QUERIES])
+def test_signed_field_windows_and_cancellation(setup, name, sql):
+    """The signed queries' counts equal the valid written rows of each
+    window (the windows _cell_stats sums |x| over), and their sums cancel
+    far below sum|x|: the data on which a bound relative to the sum fails.
+    Their bounds against Standalone.sql hold in
+    test_instance_sql_matches_standalone (one device), and the sharded
+    engines equal the one-device port bit for bit in
+    test_sharded_sql_engines_are_bit_identical."""
+    tt, _, want, _ = setup
+    res = want[name]
+    stats = _stats_fn(tt, sql, res)
+    cnt, s = (next(c for c in res.names if c.startswith(op))
+              for op in ("count", "sum"))
+    m = res.column(cnt).valid_mask
+    assert np.array_equal(np.asarray(res.column(cnt).values)[m],
+                          stats(cnt)[0][m])
+    sm = res.column(s).valid_mask
+    assert (np.abs(np.asarray(res.column(s).values)[sm])
+            / stats(s)[1][sm]).min() < 0.01
 
 
 def test_suite_row_counts_and_timestamp_type(setup):
@@ -291,7 +397,7 @@ def test_sharded_sql_engines_are_bit_identical(setup, monkeypatch):
             inst = Instance(device="cpu", mesh=make_mesh(["cpu"] * 4),
                             mesh_opts=opts)
             inst.catalog.register(tt)
-            for name, sql, *_ in SUITE + VARIANTS:
+            for name, sql, *_ in SUITE + QUERIES:
                 del calls[:]
                 res = inst.sql(sql)
                 info = inst.query_engine.last_range
@@ -359,7 +465,7 @@ def test_matcher_memo_keys_on_matchers_and_registry_version():
     """A grid entry memoizes a matcher query's device inputs per (matcher
     key, registry version), as the JAX package does."""
     inst = Instance(device="cpu")
-    t2 = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS)
+    t2 = Table("cpu", ts_name="ts", tag_names=TAGS, fields=FIELDS + [SIGNED])
     inst.catalog.register(t2)
     hosts, region_of, runs = _runs()
     _write(t2, hosts, region_of, runs[:3])

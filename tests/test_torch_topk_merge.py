@@ -12,8 +12,12 @@ One merge is exact on every slot (both compute the same int32 sums). The
 ring is exact on every finite-key slot — the real candidates: values,
 indices, presence, tie-breaks — as the JAX package's own test holds its
 ring to the all-gather reselect; the -inf fill slots are that test's
-documented exception.
+documented exception. The one-launch ring's plain version
+(ring_topk_merge_fused_plain, the chain of merges in shard order) is held
+to the JAX ring and to the hop ring on every slot, sorted inputs or not.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -40,16 +44,19 @@ def _nan_payloads(rng, shape):
     return bits.view(np.float32)
 
 
-def _planes(rng, lead, width, *, sort=True):
+def _planes(rng, lead, width, *, sort=True, nan_keys=False):
     """(key, val, idx, pres) numpy planes of shape lead + (width,): keys
     from a small value set (ties within and across lists), -inf fills,
-    both zeros; values with NaN payloads and -0.0."""
+    both zeros, NaN keys with nan_keys (after any sort: a NaN key has no
+    place in a descending list); values with NaN payloads and -0.0."""
     shape = lead + (width,)
     key = rng.choice(np.array([3.0, 1.5, 0.5, 0.0, -0.0, -2.0], np.float32),
                      shape)
     key[rng.random(shape) < 0.15] = -np.inf
     if sort:
         key = -np.sort(-key, axis=-1)
+    if nan_keys:
+        key[rng.random(shape) < 0.1] = np.nan
     val = rng.standard_normal(shape).astype(np.float32)
     r = rng.random(shape)
     val[r < 0.1] = -0.0
@@ -108,10 +115,9 @@ def _jax_ring(ns, k):
         spec = P(JM.AXIS_SHARD, None, None)
 
         def body(ks, vs, is_, ps):
-            ok, ov, oi, op_ = jtm.ring_topk_merge(
+            out = jtm.ring_topk_merge(
                 ks[0], vs[0], is_[0], ps[0], k=k, ns=ns, interpret=True)
-            return (ok[None], ov[None], oi[None],
-                    (op_ & jnp.isfinite(ok))[None])
+            return tuple(o[None] for o in out)
 
         prog = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec,) * 4,
                                  out_specs=(spec,) * 4, check_rep=False))
@@ -180,6 +186,89 @@ def test_wrapper_checks_and_counts():
         ttm.merge_candidates(acc, loc._replace(key=loc.key[:2]))
     with pytest.raises(ValueError):
         ttm.merge_candidates(acc._replace(val=acc.val.t()), loc)
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("ns", [2, 4, 8])
+@pytest.mark.parametrize("kl,k", [(5, 9), (6, 6)])
+def test_fused_ring_plain_matches_jax_ring_and_hop_ring(ns, kl, k, sort):
+    """The one-launch ring's plain version against the JAX ring_topk_merge
+    (interpret mode, jitted shard_map) and the port's hop ring, every slot
+    of every plane bit for bit: sorted inputs with cross-list ties, -inf
+    and -0.0 keys, or unsorted ones with NaN keys too; NaN payloads and
+    -0.0 in the values; kl < k (the padded seed) and kl == k."""
+    rng = np.random.default_rng(ns * 100 + kl * 10 + sort)
+    j = 6
+    planes = _planes(rng, (ns, j), kl, sort=sort, nan_keys=not sort)
+    want = [np.asarray(x) for x in _jax_ring(ns, k)(*planes)]
+    local = [_cands([p[s] for p in planes]) for s in range(ns)]
+    got = ttm.ring_topk_merge_fused_plain(local, k)
+    hops = ttm.ring_topk_merge_hops(local, k)
+    assert len(got) == ns and all(c is got[0] for c in got)
+    for s in range(ns):
+        for w, g, h in zip(want, got[s], hops[s]):
+            assert np.array_equal(_bits(w[s]), _bits(g.numpy()))
+            assert np.array_equal(_bits(g.numpy()), _bits(h.numpy()))
+    # the edges reach the winners: -0.0 and NaN payloads in the values
+    v = got[0].val.numpy()
+    assert np.isnan(v).any() and (np.signbit(v) & (v == 0)).any()
+
+
+def test_ring_routes_by_the_devices(monkeypatch):
+    """ring_topk_merge takes the one-launch ring exactly when every shard
+    lies on one device (base.ring_form, as RingFoldCtx.form), the hop ring
+    for shards on several devices."""
+    seen = []
+    monkeypatch.setattr(ttm, "ring_topk_merge_fused",
+                        lambda local, k: seen.append("fused") or local)
+    monkeypatch.setattr(ttm, "ring_topk_merge_hops",
+                        lambda local, k: seen.append("hops") or local)
+
+    def shards(*devs):
+        return [types.SimpleNamespace(device=torch.device(d)) for d in devs]
+
+    ttm.ring_topk_merge(shards("cpu", "cpu", "cpu"), 5)
+    ttm.ring_topk_merge(shards("cuda:0", "cuda:0"), 5)
+    ttm.ring_topk_merge(shards("cuda:0", "cuda:1"), 5)
+    ttm.ring_topk_merge(shards("cuda:1", "cuda:0", "cuda:1"), 5)
+    assert seen == ["fused", "fused", "hops", "hops"]
+
+
+def test_fused_ring_checks_and_counts():
+    rng = np.random.default_rng(4)
+    planes = _planes(rng, (4, 3), 5)
+    local = [_cands([p[s] for p in planes]) for s in range(4)]
+    before = (ttm.ring_topk_merge_fused.launches,
+              ttm.merge_candidates.launches)
+    out = ttm.ring_topk_merge(local, 8)
+    # a CPU tensor runs the plain version: no launch is counted
+    assert (ttm.ring_topk_merge_fused.launches,
+            ttm.merge_candidates.launches) == before
+    assert out[0].key.shape == (3, 8)
+    one = ttm.ring_topk_merge_fused(local[:1], 8)[0]   # one shard: the seed
+    assert torch.equal(one.idx[:, 5:], torch.full((3, 3), 2**31 - 1,
+                                                  dtype=torch.int32))
+    assert not one.pres[:, 5:].any() and torch.isneginf(one.key[:, 5:]).all()
+    with pytest.raises(TypeError):
+        ttm.ring_topk_merge_fused(
+            [local[0]._replace(idx=local[0].idx.long())] + local[1:], 8)
+    with pytest.raises(ValueError):                     # kl > k
+        ttm.ring_topk_merge_fused(local, 4)
+    with pytest.raises(ValueError):                     # past 1024 threads
+        ttm.ring_topk_merge_fused(local, 1020)
+    with pytest.raises(ValueError):                     # widths differ
+        ttm.ring_topk_merge_fused(local[:3] + [_cands(
+            [p[3][:, :4] for p in planes])], 8)
+    with pytest.raises(ValueError):                     # nine shards
+        ttm.ring_topk_merge_fused(local * 2 + local[:1], 8)
+    with pytest.raises(ValueError):
+        ttm.ring_topk_merge_fused([], 8)
+    with pytest.raises(ValueError):                     # not contiguous
+        ttm.ring_topk_merge_fused(
+            [local[0]._replace(val=local[0].val.t().contiguous().t())]
+            + local[1:], 8)
+    assert (ttm.ring_topk_merge_fused.launches,
+            ttm.merge_candidates.launches) == before
 
 
 @pytest.mark.parametrize("ns,j,k", [(1, 8, 100), (4, 8, 100), (8, 3, 5)])
