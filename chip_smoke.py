@@ -51,14 +51,16 @@ result line):
              and ring_psum_onehot_fused for each one-hot sum (12, 10 and 4
              per warm Q2), with no seed, continuation or hop combine; none
              of them may launch on the gather engine. Then each ring kernel
-             at the shapes the mesh path gave it (the fused ring also on
-             edge bits and on misaligned rows, and against the hop ring;
-             the hop combines on shards 0 and 1, their ring forms on all
-             four) is held against its plain version and
-             timed, with an empty kernel through the same launch path as
-             the floor of a launch; one warm sharded Q2 is profiled on
-             every engine and on the hop ring; and each step of the
-             kernels' host-side launch path is timed per call.
+             at the shapes the mesh path gave it (the fused ring, fold_cont
+             and block_partials also on edge bits and on misaligned rows,
+             the fused ring against the hop ring; the hop combines on
+             shards 0 and 1, their ring forms on all four) is held against
+             its plain version and timed, with an empty kernel through the
+             same launch path as the floor of a launch; one warm sharded Q2
+             is profiled on every engine and on the hop ring (which must
+             launch 12 seeds and 36 fold_cont per warm Q2, and the gather
+             engine 48 block_partials); and each step of the kernels'
+             host-side launch path is timed per call.
 7. promql  — the PromQL fast path at the JAX package's PromQL benchmark
              size: 1,000,000 series (host_i, dc = i % 32), 10 samples at
              30 s, seed 11 (10 M rows), written through the port's Table.
@@ -478,6 +480,10 @@ ONE_RING_KERNELS = ("ring_fold_fused", "ring_pext_fused",
 Q2_RINGS = {"ring_pext_fused": 10, "ring_psum_onehot_fused": 4,
             "ring_fold_fused": 12}
 Q2_HOPS = {"extreme": 30, "onehot_add": 12}
+# per warm mesh Q2 on four shards: the hop ring's 12 folds (a seed and
+# three fold_cont each), the gather twin's (block_partials on each shard)
+Q2_HOP_FOLDS = {"blocked_fold_sum": 12, "fold_cont": 36}
+Q2_GATHER_FOLDS = {"block_partials": 48}
 FOLD_KERNELS = ("blocked_fold_sum", "block_partials") + RING_KERNELS
 # the topk ring's kernels: the merge hop and the ring in one launch
 TOPK_KERNELS = ("merge_candidates", "ring_topk_merge_fused")
@@ -585,6 +591,8 @@ def mesh_kernel_rows(dev, entry, memo, launches):
                 "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
     src = "greptimedb_tpu_torch/parallel/kernels/csrc/ring_fold.cu"
+    walk_src = ("greptimedb_tpu_torch/parallel/kernels/csrc/"
+                "ring_fold_fused.cu")
     rows = []
     # ---- row 3: K2's continuation, shard 1 onto shard 0's seed ----------
     fm = fms[1]
@@ -595,6 +603,21 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         acc = rf.blocked_fold_sum(arr0, fms[0])
         err = max(err, exact("fold_cont", rf.fold_cont(acc, arr1, fm),
                              rf.fold_cont_plain(acc, arr1, fm)))
+    # the walk's two single-shard forms on edge bits, on rows one element
+    # past a 16-byte boundary (the 4-byte copies) and on an odd cell count
+    rng = np.random.default_rng(29)
+    s_local = st["s"][1].shape[0]
+    for width, off in ((nb, 0), (nb, 1), (nb + 1, 1)):
+        flat = torch.from_numpy(ring_edge_input(
+            rng, s_local + 1, width, "f32")).to(dev).reshape(-1)
+        x = flat[off:off + s_local * width].view(s_local, width)
+        a0 = torch.from_numpy(ring_edge_input(rng, g, width, "f32")).to(dev)
+        a0[:, ::7] = -0.0
+        what = f"({width} cells, {'misaligned' if off else 'aligned'})"
+        exact(f"fold_cont {what}", rf.fold_cont(a0, x, fm),
+              rf.fold_cont_plain(a0, x, fm))
+        exact(f"block_partials {what}", rf.block_partials(x, fm),
+              rf.block_partials_plain(x, fm))
     acc = rf.blocked_fold_sum(st["s"][0], fms[0])
     acc_i = rf.blocked_fold_sum(entry.nrow[0], fms[0])
     arr1 = st["s"][1]
@@ -604,19 +627,21 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         return torch.zeros((g + 1, nb), dtype=torch.float32,
                            device=dev).index_add_(0, gid64, arr1)
 
+    cont_bytes = 4 * m * nb + 2 * 4 * plane
     rows.append({
-        "name": "fold_cont", "route": "cuda", "source": src,
+        "name": "fold_cont", "route": "cuda", "source": walk_src,
         "replaces": "greptimedb_tpu/parallel/kernels/ring_fold.py:44 "
                     "(_fold_cont_kernel, through _call2:84)",
         "launches": launches["fold_cont"], "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.fold_cont(acc, arr1, fm)),
         "host_ms": host_ms(lambda: rf.fold_cont(acc, arr1, fm)),
         "plain_ms": cuda_ms(lambda: rf.fold_cont_plain(acc, arr1, fm)),
-        **bound(4 * m * nb + 2 * 4 * plane, m * nb + fm.fb * plane),
+        **bound(cont_bytes, m * nb + fm.fb * plane),
         "library_ms": cuda_ms(index_add),
         "ms_int32": cuda_ms(lambda: rf.fold_cont(acc_i, entry.nrow[1], fm)),
         "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
                   "fb_local": fm.fb, "members": m},
+        "bytes": cont_bytes, "design": walk_design(rf, "fold_cont"),
     })
     # ---- rows 4 and 5: the hop form on shards 0 and 1, the one-launch
     # ring form over all ns shards: the extreme, f32 (the m plane) and
@@ -747,8 +772,9 @@ def mesh_kernel_rows(dev, entry, memo, launches):
     per = fm.s // fm.fb
     bid = torch.arange(fm.s, device=dev) // per
     seg = torch.where(gids[1] < g, bid * g + gids[1], fm.fb * g).long()
+    partials_bytes = 4 * m * nb + 4 * fm.fb * plane
     rows.append({
-        "name": "block_partials", "route": "cuda", "source": src,
+        "name": "block_partials", "route": "cuda", "source": walk_src,
         "replaces": "greptimedb_tpu/query/device_range.py:1509 (blocked_sum"
                     "'s per-block segment_sum, which the gather program "
                     "concatenates across shards)",
@@ -756,11 +782,12 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "ms": cuda_ms(lambda: rf.block_partials(arr1, fm)),
         "host_ms": host_ms(lambda: rf.block_partials(arr1, fm)),
         "plain_ms": cuda_ms(lambda: rf.block_partials_plain(arr1, fm)),
-        **bound(4 * m * nb + 4 * fm.fb * plane, m * nb),
+        **bound(partials_bytes, m * nb),
         "library_ms": cuda_ms(lambda: torch.zeros(
             (fm.fb * g + 1, nb), device=dev).index_add_(0, seg, arr1)),
         "shape": {"s_local": arr1.shape[0], "nb": nb, "g": g,
                   "fb_local": fm.fb, "members": m},
+        "bytes": partials_bytes, "design": walk_design(rf, "block_partials"),
     })
     # ---- row 6: the fused ring over every shard, one launch a fold ------
     s_f, s_i = list(st["s"]), list(entry.nrow)
@@ -776,7 +803,6 @@ def mesh_kernel_rows(dev, entry, memo, launches):
     # ±inf, int32 sums that wrap (the card's add gives its canonical NaN
     # in kernel and plain version alike)
     rng = np.random.default_rng(23)
-    s_local = s_f[0].shape[0]
     for dtype in ("f32", "i32"):
         edge = [torch.from_numpy(ring_edge_input(rng, s_local, nb, dtype))
                 .to(dev) for _ in range(ns)]
@@ -787,6 +813,7 @@ def mesh_kernel_rows(dev, entry, memo, launches):
     # rows one element past a 16-byte boundary (views into a larger
     # tensor), at the path's cell count and at an odd one: the 4-byte
     # copies, on ragged tiles
+    s_local = s_f[0].shape[0]
     for width in (nb, nb + 1):
         flat = [torch.from_numpy(ring_edge_input(
             rng, s_local + 1, width, "f32")).to(dev).reshape(-1)
@@ -830,27 +857,30 @@ def mesh_kernel_rows(dev, entry, memo, launches):
         "shape": {"shards": ns, "s_local": s_local, "nb": nb, "g": g,
                   "fb_local": fms[0].fb, "members": m_all},
         "bytes": fused_bytes, "bytes_hops": hop_bytes,
-        "design": fused_design(rf),
+        "design": walk_design(rf, "ring_fold_fused"),
     })
     return rows
 
 
-def fused_design(rf):
+def walk_design(rf, row):
     """The constants that csrc/ring_fold_fused.cu was built with, as its
     library reports them: cells a tile, rows in a thread's ring of cp.async
-    slots, rows a wait, rows in flight, and the bytes of one copy on
-    aligned and on misaligned rows. The tile must be the wrapper's."""
+    slots, rows a wait, rows in flight, the bytes of one copy on aligned
+    and on misaligned rows, and 1 where this row's form runs full groups
+    of rows unrolled. The tile must be the one the wrappers size the
+    counts by."""
     from greptimedb_tpu_torch.parallel.kernels import build
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * (6 + len(WALK_FORMS)))()
     build.load("ring_fold_fused").gtt_ring_fold_fused_design(out)
     keys = ("tile_cells", "ring_slots", "rows_per_wait", "rows_in_flight",
             "copy_bytes", "misaligned_copy_bytes")
     design = dict(zip(keys, out))
+    design["unrolled_groups"] = out[6 + WALK_FORMS[row]]
     if design["tile_cells"] != rf._FUSED_CELLS:
         raise AssertionError(f"ring_fold_fused built with tiles of "
-                             f"{design['tile_cells']} cells, the wrapper "
-                             f"sizes them as {rf._FUSED_CELLS}")
+                             f"{design['tile_cells']} cells, the wrappers "
+                             f"size them as {rf._FUSED_CELLS}")
     return design
 
 
@@ -1003,7 +1033,18 @@ def mesh_phase(args, dev, P):
     # hop combines' device time, which the fused engine no longer launches
     with ring_form("hops"):
         ring.execute(q2, table)
+        before = counts(rf, mg)
         profs["hops"] = profiled(lambda: ring.execute(q2, table))
+        after = counts(rf, mg)
+    hops_q2 = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    gather_q2 = per_engine["gather"]["launches_per_warm_query"]["q2"]
+    for engine_name, warm, want in (("hop ring", hops_q2, Q2_HOP_FOLDS),
+                                    ("gather", gather_q2, Q2_GATHER_FOLDS)):
+        for k, n in want.items():
+            if warm.get(k, 0) != n:
+                raise AssertionError(f"{k}: {warm.get(k, 0)} launches per "
+                                     f"warm mesh Q2 on the {engine_name} "
+                                     f"engine, not {n}")
     # device time per launch on the warm Q2 (the events' times above
     # include the wrapper's host overhead when it outlasts the kernel)
     per_launch = {
@@ -1011,24 +1052,32 @@ def mesh_phase(args, dev, P):
             profs["hops"], lambda k: k.startswith("extreme_")),
         "onehot_add": device_ms_per_launch(
             profs["hops"], lambda k: k.startswith("onehot_add")),
-        "block_partials": device_ms_per_launch(profs["gather"], fold(2)),
+        "fold_cont": device_ms_per_launch(profs["hops"], walk("fold_cont")),
+        "block_partials": device_ms_per_launch(profs["gather"],
+                                               walk("block_partials")),
         "ring_fold_fused": device_ms_per_launch(profs["ring"],
-                                                is_fused_kernel),
+                                                walk("ring_fold_fused")),
         "ring_pext_fused": device_ms_per_launch(profs["ring"],
                                                 ring_combine(0, 1, 2, 3)),
         "ring_psum_onehot_fused": device_ms_per_launch(profs["ring"],
                                                        ring_combine(4)),
     }
+    # launches per warm Q2 on the engine that runs each row: the walk's
+    # single-shard forms on the hop ring and the gather twin, the rest on
+    # the ring engine
+    warm_by_row = {"fold_cont": hops_q2, "block_partials": gather_q2}
     for row in rows:
         if row["name"] in per_launch:
             row["device_ms_per_launch_q2"] = per_launch[row["name"]]
-        row["launches_per_warm_q2"] = warm_q2.get(row["name"], 0)
+        row["launches_per_warm_q2"] = warm_by_row.get(
+            row["name"], warm_q2).get(row["name"], 0)
     by_name = {row["name"]: row for row in rows}
-    fused_row = by_name["ring_fold_fused"]
-    dev_ms = fused_row.get("device_ms_per_launch_q2")
-    if dev_ms:
-        fused_row["share_of_bound"] = fused_row["bound_ms"] / dev_ms
-        fused_row["achieved_gb_s"] = fused_row["bytes"] / dev_ms / 1e6
+    for name in WALK_FORMS:
+        walk_row = by_name[name]
+        dev_ms = walk_row.get("device_ms_per_launch_q2")
+        if dev_ms:
+            walk_row["share_of_bound"] = walk_row["bound_ms"] / dev_ms
+            walk_row["achieved_gb_s"] = walk_row["bytes"] / dev_ms / 1e6
     for hop, one in (("extreme", "ring_pext_fused"),
                      ("onehot_add", "ring_psum_onehot_fused")):
         by_name[hop]["ring_device_ms_per_launch_q2"] = per_launch[one]
@@ -1041,6 +1090,7 @@ def mesh_phase(args, dev, P):
                    "device_bytes": entry.bytes()},
           "engines": per_engine, "checks": checks, "launches": launches,
           "q2_hop_bytes": ring_q2["comm_bytes"],
+          "hop_ring_launches_per_warm_q2": hops_q2,
           "q2_warm_profiles": profs, "kernel_seconds": kernel_seconds,
           "launch_path_ns": steps,
           "phase_seconds": time.perf_counter() - t_phase})
@@ -1112,15 +1162,23 @@ def launch_path_steps(a, b):
     return time_steps(steps)
 
 
-def fold(mode):
-    """Profiler-name matcher of K2's forms: fold_kernel<T, mode>, 0 seed,
-    1 continuation, 2 partials."""
-    return lambda k: k.startswith("fold_kernel<") and k.endswith(f", {mode}>")
+def is_seed_kernel(k):
+    """Profiler-name matcher of K2's seed, fold_kernel<T>."""
+    return k.startswith("fold_kernel<")
 
 
-def is_fused_kernel(k):
-    """Profiler-name matcher of the fused ring kernel."""
-    return k.startswith("ring_fold_fused_kernel<")
+# the forms of the pipelined member walk, ring_fold_fused_kernel<T,
+# aligned, form> (csrc/ring_fold_fused.cu kRing, kCont, kPartials)
+WALK_FORMS = {"ring_fold_fused": 0, "fold_cont": 1, "block_partials": 2}
+
+
+def walk(row):
+    """Profiler-name matcher of one row's form of the member walk: the
+    fused ring (row 6), fold_cont (row 3) or block_partials, each
+    matching its own launches only."""
+    form = str(WALK_FORMS[row])
+    return lambda k: (k.startswith("ring_fold_fused_kernel<")
+                      and k.rstrip(">").rsplit(",", 1)[-1].strip() == form)
 
 
 def ring_combine(*ops):
@@ -1811,11 +1869,12 @@ def sql_phase(args, dev, slice_out, mesh_out):
                 for form, w in walls.items()}
     per_launch = {
         "ring_fold_fused": device_ms_per_launch(
-            {"ours": stats["mesh_fused"][q2]["ours"]}, is_fused_kernel),
+            {"ours": stats["mesh_fused"][q2]["ours"]},
+            walk("ring_fold_fused")),
         "blocked_fold_sum": device_ms_per_launch(
-            {"ours": stats["mesh_hops"][q2]["ours"]}, fold(0)),
+            {"ours": stats["mesh_hops"][q2]["ours"]}, is_seed_kernel),
         "fold_cont": device_ms_per_launch(
-            {"ours": stats["mesh_hops"][q2]["ours"]}, fold(1)),
+            {"ours": stats["mesh_hops"][q2]["ours"]}, walk("fold_cont")),
         "extreme": device_ms_per_launch(
             {"ours": stats["mesh_hops"][q2]["ours"]},
             lambda k: k.startswith("extreme_")),
@@ -2006,8 +2065,6 @@ def run(args) -> int:
             row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
             row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
                 "blocked_fold_sum"]
-        elif name == "fold_cont":
-            row["device_ms_per_launch_q2"] = sql_per_launch["fold_cont"]
         elif name in sql_per_launch:
             row["device_ms_per_launch_sql_q2"] = sql_per_launch[name]
         if name in Q2_HOPS:

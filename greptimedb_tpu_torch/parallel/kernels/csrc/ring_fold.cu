@@ -1,37 +1,31 @@
-// The blocked group fold and the elementwise ring combines.
+// The blocked group fold's seed and the elementwise ring combines.
 //
-// K2 (blocked_fold_sum), with its continuation (fold_cont) and unfolded
-// (block_partials) forms:
+// K2 (blocked_fold_sum), the seed of the fold:
 //
 //   part[b][grp, c] = sum over member sids s of (b, grp), ascending: arr[s, c]
-//   seed:     out = part[0] + part[1] + ... + part[fb-1]
-//   cont:     out = acc + part[0] + ... + part[fb-1]
-//   partials: out[b] = part[b]
+//   out = part[0] + part[1] + ... + part[fb-1]
 //
 // Replaces device_range._fold_groups.blocked_sum of the JAX package
-// (jax.ops.segment_sum into fb series blocks) together with the bodies of
-// the Pallas kernels greptimedb_tpu/parallel/kernels/ring_fold.py
-// _fold_seed_kernel (seed: shard 0 of the ring, and the single-card fold)
-// and _fold_cont_kernel (cont: every later shard of the ring folds its own
-// blocks onto the accumulator that arrived). The partials form feeds the
-// gather twin (parallel/dist.ShardFoldCtx), which concatenates every
-// shard's block partials and left-folds them. The fixed order of float
-// additions is the contract: every block partial starts at 0 and adds its
-// members in ascending sid order (segment_sum's order as XLA's scatter
-// runs it), and the partials fold left to right — from block 0's partial
-// (seed, never 0 + partial) or from the accumulator (cont). CUDA's atomics
-// (index_add_, scatter_add_) add in no fixed order, so this sum needs its
-// own kernel; here each thread owns one (group, cell) and walks its
-// members sequentially, which fixes the order by construction.
+// (jax.ops.segment_sum into fb series blocks) together with the body of
+// the Pallas kernel greptimedb_tpu/parallel/kernels/ring_fold.py
+// _fold_seed_kernel (shard 0 of the ring, and the single-card fold). Its
+// continuation (fold_cont) and unfolded (block_partials) forms are forms of
+// the pipelined member walk in csrc/ring_fold_fused.cu. The fixed order of
+// float additions is the contract: every block partial starts at 0 and
+// adds its members in ascending sid order (segment_sum's order as XLA's
+// scatter runs it), and the partials fold left to right from block 0's
+// partial (never 0 + partial). CUDA's atomics (index_add_, scatter_add_)
+// add in no fixed order, so this sum needs its own kernel; here each
+// thread owns one (group, cell) and walks its members sequentially, which
+// fixes the order by construction.
 //
 // Bound on this card: bytes. Every input element is read once and every
 // output element written once: 4 * m * nb for the member rows, 4 * g * nb
-// for the output (twice for cont, which also reads acc; fb times for
-// partials). Design: one thread per (group, cell), cells fastest, so the
-// threads of a warp share a member list (broadcast loads of member[]) and
-// read 32 consecutive cells of one series row (coalesced). Groups with
-// many members serialise into a long dependent add chain per thread; that
-// is the price of the fixed order and is left for a later, faster kernel.
+// for the output. Design: one thread per (group, cell), cells fastest, so
+// the threads of a warp share a member list (broadcast loads of member[])
+// and read 32 consecutive cells of one series row (coalesced). At the
+// one-device Q2 shape it reaches more than half its bound on this card
+// (PERF.md), so it keeps its one dependent load per row.
 //
 // Members come as CSR over (block, group): member[ptr[b * g + grp] ..
 // ptr[b * g + grp + 1]) are the sids of group grp inside series block b,
@@ -83,20 +77,17 @@
 
 namespace {
 
-enum FoldMode { kSeed = 0, kCont = 1, kPartials = 2 };
-
-template <typename T, int kMode>
+template <typename T>
 __global__ void fold_kernel(const T* __restrict__ arr,
                             const int32_t* __restrict__ member,
                             const int32_t* __restrict__ ptr,
-                            const T* __restrict__ acc, T* __restrict__ out,
-                            int g, int fb, int nb) {
+                            T* __restrict__ out, int g, int fb, int nb) {
   long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long plane = static_cast<long long>(g) * nb;
   if (t >= plane) return;
   int grp = static_cast<int>(t / nb);
   int cell = static_cast<int>(t - static_cast<long long>(grp) * nb);
-  T total = kMode == kCont ? acc[t] : T(0);
+  T total = T(0);
   for (int b = 0; b < fb; ++b) {
     int k0 = ptr[b * g + grp];
     int k1 = ptr[b * g + grp + 1];
@@ -104,28 +95,22 @@ __global__ void fold_kernel(const T* __restrict__ arr,
     for (int k = k0; k < k1; ++k) {
       part = part + arr[static_cast<long long>(member[k]) * nb + cell];
     }
-    if (kMode == kPartials) {
-      out[b * plane + t] = part;
-    } else {
-      total = (kMode == kSeed && b == 0) ? part : total + part;
-    }
+    total = b == 0 ? part : total + part;
   }
-  if (kMode != kPartials) out[t] = total;
+  out[t] = total;
 }
 
-template <typename T, int kMode>
+template <typename T>
 int launch_fold(const void* arr, const void* member, const void* ptr,
-                const void* acc, void* out, int g, int fb, int nb,
-                void* stream) {
+                void* out, int g, int fb, int nb, void* stream) {
   long long plane = static_cast<long long>(g) * nb;
   if (plane <= 0) return 0;
   const int threads = 256;
   long long blocks = (plane + threads - 1) / threads;
-  fold_kernel<T, kMode><<<static_cast<unsigned int>(blocks), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  fold_kernel<T><<<static_cast<unsigned int>(blocks), threads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(arr), static_cast<const int32_t*>(member),
-      static_cast<const int32_t*>(ptr), static_cast<const T*>(acc),
-      static_cast<T*>(out), g, fb, nb);
+      static_cast<const int32_t*>(ptr), static_cast<T*>(out), g, fb, nb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -289,43 +274,13 @@ __global__ void noop_kernel() {}
 extern "C" int gtt_blocked_fold_sum_f32(const void* arr, const void* member,
                                         const void* ptr, void* out, int g,
                                         int fb, int nb, void* stream) {
-  return launch_fold<float, kSeed>(arr, member, ptr, nullptr, out, g, fb, nb,
-                                   stream);
+  return launch_fold<float>(arr, member, ptr, out, g, fb, nb, stream);
 }
 
 extern "C" int gtt_blocked_fold_sum_i32(const void* arr, const void* member,
                                         const void* ptr, void* out, int g,
                                         int fb, int nb, void* stream) {
-  return launch_fold<int32_t, kSeed>(arr, member, ptr, nullptr, out, g, fb,
-                                     nb, stream);
-}
-
-extern "C" int gtt_fold_cont_f32(const void* arr, const void* member,
-                                 const void* ptr, const void* acc, void* out,
-                                 int g, int fb, int nb, void* stream) {
-  return launch_fold<float, kCont>(arr, member, ptr, acc, out, g, fb, nb,
-                                   stream);
-}
-
-extern "C" int gtt_fold_cont_i32(const void* arr, const void* member,
-                                 const void* ptr, const void* acc, void* out,
-                                 int g, int fb, int nb, void* stream) {
-  return launch_fold<int32_t, kCont>(arr, member, ptr, acc, out, g, fb, nb,
-                                     stream);
-}
-
-extern "C" int gtt_block_partials_f32(const void* arr, const void* member,
-                                      const void* ptr, void* out, int g,
-                                      int fb, int nb, void* stream) {
-  return launch_fold<float, kPartials>(arr, member, ptr, nullptr, out, g, fb,
-                                       nb, stream);
-}
-
-extern "C" int gtt_block_partials_i32(const void* arr, const void* member,
-                                      const void* ptr, void* out, int g,
-                                      int fb, int nb, void* stream) {
-  return launch_fold<int32_t, kPartials>(arr, member, ptr, nullptr, out, g,
-                                         fb, nb, stream);
+  return launch_fold<int32_t>(arr, member, ptr, out, g, fb, nb, stream);
 }
 
 extern "C" int gtt_extreme_f32(const void* acc, const void* x, void* out,

@@ -1,4 +1,5 @@
-// The group fold's whole reduce-then-broadcast ring in one launch.
+// The group fold's whole reduce-then-broadcast ring in one launch, and
+// the same pipelined member walk for K2's continuation and partials forms.
 //
 // Replaces greptimedb_tpu/parallel/kernels/ring_fold.py
 // _tpu_ring_fold_call (its pallas_call at :217): the Pallas kernel seeds
@@ -61,13 +62,42 @@
 //    cooperative launch, no co-residency check, no double buffers, no
 //    epochs.
 //
+// 3. The walk has three forms (template argument kForm), one kernel:
+//    - kRing (row 6): everything above, the walk as a loop.
+//    - kCont (fold_cont, replacing the Pallas _fold_cont_kernel:44 of
+//      greptimedb_tpu/parallel/kernels/ring_fold.py through _call2:84):
+//      out = acc + part[0] + ... + part[fb-1] for one shard. Each block
+//      stores its partial to scratch and adds one arrival; the last block
+//      of a tile folds left to right starting FROM acc (so an acc of -0.0
+//      plus an empty partial comes out +0.0, as in the Pallas kernel),
+//      writes out and resets the count to 0. Row 6's fold starts from
+//      shard 0's first partial instead; the two loops differ on purpose.
+//    - kPartials (block_partials: the per-block segment sum of the JAX
+//      package's device_range.py:1509 blocked_sum, which the gather twin
+//      concatenates across shards): each block stores its partial
+//      straight to out[b]; no scratch, no arrival, no fold.
+//    Every form has row 6's 256-cell tiles and 32-slot ring; the
+//    single-shard forms take any fb (grid y) and run full groups of 8 rows
+//    as straight-line code (kUnroll). At one shard of the mesh
+//    Q2 shape the grid is only 81 tiles x fb 2 = 162 blocks of 2 warps,
+//    about one block an SM, so no other warp hides the latency of a row's
+//    dependent instructions in the loop (the shared memory load of its
+//    sid, the address, the copy; the stage load, the adds): that latency,
+//    not HBM, set the loop's pace. Unrolled, a group's 8 sids come in two
+//    16-byte loads and its 8 copies, then its 8 stage loads, issue back to
+//    back; the adds keep row order. Narrower tiles (more blocks) and
+//    deeper rings did not pay on the card. Row 6 keeps the loop it was
+//    measured with. Bound on this card at the mesh
+//    Q2 shape (one shard: 2048 member rows of 2160 cells, g = 9, fb = 2):
+//    17.9 MB, 0.00533 ms at 3.35 TB/s, for both forms.
+//
 // The kernel takes raw per-shard pointers (inputs, members, outputs), so
 // the cross-card form can pass peer pointers of other cards and keep the
 // scratch and the count in one card's memory, with the fence and the count
-// at system scope. The wrapper (greptimedb_tpu_torch/parallel/kernels/
-// ring_fold.py ring_fold_fused) keeps the scratch and the count per device
-// and stream, launches on the caller's stream and checks the status this
-// launcher returns; the kernel allocates nothing.
+// at system scope. The wrappers (greptimedb_tpu_torch/parallel/kernels/
+// ring_fold.py ring_fold_fused and fold_cont) keep the scratch and the
+// count per device and stream, launch on the caller's stream and check the
+// status these launchers return; the kernel allocates nothing.
 
 #include <cstdint>
 #include <type_traits>
@@ -77,7 +107,7 @@
 namespace {
 
 constexpr int kMaxShards = 8;   // FOLD_BLOCKS: every shard holds >= 1 block
-constexpr int kMaxBlocks = 8;   // fb_local <= FOLD_BLOCKS
+constexpr int kMaxBlocks = 8;   // ring form: fb_local <= FOLD_BLOCKS
 constexpr int kCells = 256;     // cells of one tile; ring_fold.py _FUSED_CELLS
 constexpr int kVec = 4;         // cells a thread owns: one 16-byte copy
 constexpr int kThreads = kCells / kVec;
@@ -85,13 +115,26 @@ constexpr int kGroupRows = 8;   // member rows per cp.async group
 constexpr int kGroups = 4;      // groups in a thread's ring of slots
 constexpr int kStages = kGroupRows * kGroups;   // rows in the ring
 constexpr int kMemberBatch = 1024;   // sids staged in shared memory at once
+constexpr int kMaxGridY = 65535;
+
+// the walk's forms
+constexpr int kRing = 0;       // row 6: every shard's partials, one fold
+constexpr int kCont = 1;       // fold_cont: acc + one shard's partials
+constexpr int kPartials = 2;   // block_partials: the partials themselves
+
+// a full group of rows as straight-line code: its 8 sids in two 16-byte
+// shared memory loads, its 8 copies, then its 8 stage loads ahead of the
+// adds (row 6 keeps the loop it was measured with)
+template <int kForm>
+constexpr bool kUnroll = kForm != kRing;
 
 template <typename T>
 struct FoldArgs {
   const T* arr[kMaxShards];           // (s_local, nb) per shard
   const int32_t* member[kMaxShards];  // CSR members over (block, group)
   const int32_t* ptr[kMaxShards];     // (fb * g + 1,)
-  T* out[kMaxShards];                 // (g, nb) per shard
+  T* out[kMaxShards];                 // (g, nb) per shard; partials (fb, g, nb)
+  const T* acc;                       // cont: (g, nb)
   T* part;                            // (ns, fb, g, nb) block partials
   unsigned int* count;                // (tiles,) arrivals; 0 between launches
   int ns, g, fb, nb, chunks;
@@ -134,11 +177,11 @@ __device__ __forceinline__ T bits(unsigned int u) {
   }
 }
 
-template <typename T, bool kAligned>
+template <typename T, bool kAligned, int kForm>
 __global__ void __launch_bounds__(kThreads)
     ring_fold_fused_kernel(FoldArgs<T> a) {
   __shared__ __align__(16) T stage[kStages][kCells];
-  __shared__ int32_t sids[kMemberBatch];
+  __shared__ __align__(16) int32_t sids[kMemberBatch];
   __shared__ bool last;
 
   const int tile = blockIdx.x;
@@ -160,22 +203,47 @@ __global__ void __launch_bounds__(kThreads)
   T acc[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) acc[v] = T(0);
+  // the copy of this thread's cells of row `sid` into ring slot `slot_i`
+  auto copy_row = [&](int sid, int slot_i) {
+    const T* src = arr + static_cast<long long>(sid) * nb;
+    T* dst = &stage[slot_i][lane * kVec];
+    if constexpr (kAligned) {
+      if (mine == kVec) cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kVec; ++v) {
+        if (v < mine) cp_async4(dst + v, src + v);
+      }
+    }
+  };
   // the copies of batch rows [i0, min(i0 + kGroupRows, n)) (their sids
   // staged in sids[]) into ring slots i % kStages, as one group
   auto issue = [&](int i0, int n) {
-    for (int i = i0; i < i0 + kGroupRows && i < n; ++i) {
-      const T* src = arr + static_cast<long long>(sids[i]) * nb;
-      T* dst = &stage[i % kStages][lane * kVec];
-      if constexpr (kAligned) {
-        if (mine == kVec) cp_async16(dst, src);
-      } else {
+    if (kUnroll<kForm> && i0 + kGroupRows <= n) {
+      // i0 and kStages are multiples of kGroupRows: 16-byte aligned sids,
+      // and the group's slots are consecutive
+      const int4 s0 = *reinterpret_cast<const int4*>(&sids[i0]);
+      const int4 s1 = *reinterpret_cast<const int4*>(&sids[i0 + 4]);
+      const int sv[kGroupRows] = {s0.x, s0.y, s0.z, s0.w,
+                                  s1.x, s1.y, s1.z, s1.w};
+      const int b0 = i0 % kStages;
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          if (v < mine) cp_async4(dst + v, src + v);
-        }
+      for (int j = 0; j < kGroupRows; ++j) copy_row(sv[j], b0 + j);
+    } else {
+      for (int i = i0; i < i0 + kGroupRows && i < n; ++i) {
+        copy_row(sids[i], i % kStages);
       }
     }
     cp_async_commit();
+  };
+  // row x4 of the stage (the thread's 4 cells) onto acc, in cell order
+  auto add_row = [&](uint4 x4) {
+    const T x[kVec] = {bits<T>(x4.x), bits<T>(x4.y), bits<T>(x4.z),
+                       bits<T>(x4.w)};
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (v < mine) acc[v] = acc[v] + x[v];
+    }
   };
 
   for (int base = 0; base < rows; base += kMemberBatch) {
@@ -189,21 +257,36 @@ __global__ void __launch_bounds__(kThreads)
     for (int i0 = 0; i0 < n; i0 += kGroupRows) {
       cp_async_wait_oldest();
       const int i1 = i0 + kGroupRows < n ? i0 + kGroupRows : n;
-      for (int i = i0; i < i1; ++i) {
-        // the thread's 4 cells of row i, one 16-byte shared memory load
-        const uint4 x4 =
-            *reinterpret_cast<const uint4*>(&stage[i % kStages][lane * kVec]);
-        const T x[kVec] = {bits<T>(x4.x), bits<T>(x4.y), bits<T>(x4.z),
-                           bits<T>(x4.w)};
+      if (kUnroll<kForm> && i1 - i0 == kGroupRows) {
+        // the group's 8 stage loads first, then its adds in row order
+        const int b0 = i0 % kStages;
+        uint4 x4[kGroupRows];
 #pragma unroll
-        for (int v = 0; v < kVec; ++v) {
-          if (v < mine) acc[v] = acc[v] + x[v];
+        for (int j = 0; j < kGroupRows; ++j) {
+          x4[j] = *reinterpret_cast<const uint4*>(&stage[b0 + j][lane * kVec]);
+        }
+#pragma unroll
+        for (int j = 0; j < kGroupRows; ++j) add_row(x4[j]);
+      } else {
+        for (int i = i0; i < i1; ++i) {
+          // the thread's 4 cells of row i, one 16-byte shared memory load
+          add_row(*reinterpret_cast<const uint4*>(
+              &stage[i % kStages][lane * kVec]));
         }
       }
       issue(i0 + (kGroups - 1) * kGroupRows, n);
     }
   }
   const long long e = static_cast<long long>(grp) * nb + cell;
+  if constexpr (kForm == kPartials) {
+    // one shard: sb is the series block, out[0] its (fb, g, nb) partials
+    T* out = a.out[0] + sb * plane + e;
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (v < mine) out[v] = acc[v];
+    }
+    return;
+  }
   T* part = a.part + sb * plane + e;
 #pragma unroll
   for (int v = 0; v < kVec; ++v) {
@@ -221,17 +304,56 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
   const T* p0 = a.part + e;
+  if constexpr (kForm == kCont) {
+    // from acc, never from the first partial: acc + part[0] + ...
 #pragma unroll
-  for (int v = 0; v < kVec; ++v) {
-    if (v < mine) {
-      T total = __ldcg(p0 + v);
-      for (int q = 1; q < parts; ++q) {
-        total = total + __ldcg(p0 + q * plane + v);
+    for (int v = 0; v < kVec; ++v) {
+      if (v < mine) {
+        T total = a.acc[e + v];
+        for (int q = 0; q < parts; ++q) {
+          total = total + __ldcg(p0 + q * plane + v);
+        }
+        a.out[0][e + v] = total;
       }
-      for (int t = 0; t < a.ns; ++t) a.out[t][e + v] = total;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) {
+      if (v < mine) {
+        T total = __ldcg(p0 + v);
+        for (int q = 1; q < parts; ++q) {
+          total = total + __ldcg(p0 + q * plane + v);
+        }
+        for (int t = 0; t < a.ns; ++t) a.out[t][e + v] = total;
+      }
     }
   }
   if (lane == 0) a.count[tile] = 0u;
+}
+
+// One launch of form kForm over a.ns * a.fb block partials: the grid is
+// (tiles, shards * blocks); `aligned` picks the 16-byte copies.
+template <typename T, int kForm>
+int launch_walk(FoldArgs<T>& a, bool aligned, void* stream) {
+  const long long plane = static_cast<long long>(a.g) * a.nb;
+  if (plane == 0) return 0;
+  const long long chunks = (a.nb + kCells - 1) / kCells;
+  const long long tiles = a.g * chunks;
+  if (tiles > 0x7fffffffLL ||
+      static_cast<long long>(a.ns) * a.fb > kMaxGridY) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.chunks = static_cast<int>(chunks);
+  a.plane = plane;
+  dim3 grid(static_cast<unsigned int>(tiles),
+            static_cast<unsigned int>(a.ns * a.fb));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (aligned) {
+    ring_fold_fused_kernel<T, true, kForm><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    ring_fold_fused_kernel<T, false, kForm><<<grid, kThreads, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -242,11 +364,6 @@ int launch_ring(const void* const* arrs, const void* const* members,
       nb < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long plane = static_cast<long long>(g) * nb;
-  if (plane == 0) return 0;
-  const long long chunks = (nb + kCells - 1) / kCells;
-  const long long tiles = g * chunks;
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   FoldArgs<T> a;
   bool aligned = nb % kVec == 0;
   for (int s = 0; s < kMaxShards; ++s) {
@@ -257,23 +374,39 @@ int launch_ring(const void* const* arrs, const void* const* members,
     a.out[s] = on ? static_cast<T*>(outs[s]) : nullptr;
     if (on) aligned = aligned && reinterpret_cast<uintptr_t>(arrs[s]) % 16 == 0;
   }
+  a.acc = nullptr;
   a.part = static_cast<T*>(part);
   a.count = static_cast<unsigned int*>(count);
   a.ns = ns;
   a.g = g;
   a.fb = fb;
   a.nb = nb;
-  a.chunks = static_cast<int>(chunks);
-  a.plane = plane;
-  dim3 grid(static_cast<unsigned int>(tiles),
-            static_cast<unsigned int>(ns * fb));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (aligned) {
-    ring_fold_fused_kernel<T, true><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    ring_fold_fused_kernel<T, false><<<grid, kThreads, 0, st>>>(a);
+  return launch_walk<T, kRing>(a, aligned, stream);
+}
+
+// the single-shard forms: acc, part and count only for kCont
+template <typename T, int kForm>
+int launch_one(const void* arr, const void* member, const void* ptr,
+               const void* acc, void* out, void* part, void* count, int g,
+               int fb, int nb, void* stream) {
+  if (fb < 1 || g < 0 || nb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  FoldArgs<T> a;
+  for (int s = 0; s < kMaxShards; ++s) {
+    a.arr[s] = s ? nullptr : static_cast<const T*>(arr);
+    a.member[s] = s ? nullptr : static_cast<const int32_t*>(member);
+    a.ptr[s] = s ? nullptr : static_cast<const int32_t*>(ptr);
+    a.out[s] = s ? nullptr : static_cast<T*>(out);
   }
-  return static_cast<int>(cudaGetLastError());
+  a.acc = static_cast<const T*>(acc);
+  a.part = static_cast<T*>(part);
+  a.count = static_cast<unsigned int*>(count);
+  a.ns = 1;
+  a.g = g;
+  a.fb = fb;
+  a.nb = nb;
+  const bool aligned =
+      nb % kVec == 0 && reinterpret_cast<uintptr_t>(arr) % 16 == 0;
+  return launch_walk<T, kForm>(a, aligned, stream);
 }
 
 }  // namespace
@@ -298,10 +431,41 @@ extern "C" int gtt_ring_fold_fused_i32(const void* const* arrs,
                               fb, nb, stream);
 }
 
+extern "C" int gtt_fold_cont_f32(const void* arr, const void* member,
+                                 const void* ptr, const void* acc, void* out,
+                                 void* part, void* count, int g, int fb,
+                                 int nb, void* stream) {
+  return launch_one<float, kCont>(arr, member, ptr, acc, out, part, count, g,
+                                  fb, nb, stream);
+}
+
+extern "C" int gtt_fold_cont_i32(const void* arr, const void* member,
+                                 const void* ptr, const void* acc, void* out,
+                                 void* part, void* count, int g, int fb,
+                                 int nb, void* stream) {
+  return launch_one<int32_t, kCont>(arr, member, ptr, acc, out, part, count,
+                                    g, fb, nb, stream);
+}
+
+extern "C" int gtt_block_partials_f32(const void* arr, const void* member,
+                                      const void* ptr, void* out, int g,
+                                      int fb, int nb, void* stream) {
+  return launch_one<float, kPartials>(arr, member, ptr, nullptr, out, nullptr,
+                                      nullptr, g, fb, nb, stream);
+}
+
+extern "C" int gtt_block_partials_i32(const void* arr, const void* member,
+                                      const void* ptr, void* out, int g,
+                                      int fb, int nb, void* stream) {
+  return launch_one<int32_t, kPartials>(arr, member, ptr, nullptr, out,
+                                        nullptr, nullptr, g, fb, nb, stream);
+}
+
 // The constants this library was built with, for a report of the design:
-// cells a tile (the wrapper sizes the arrival counts by it), rows in a
-// thread's ring of slots, rows a wait, rows in flight, and the bytes of one
-// copy on aligned and on misaligned rows.
+// cells a tile (the wrappers size the arrival counts by it), rows in a
+// thread's ring of slots, rows a wait, rows in flight, the bytes of one
+// copy on aligned and on misaligned rows, then for each form (kRing, kCont,
+// kPartials) 1 where its full groups run unrolled.
 extern "C" void gtt_ring_fold_fused_design(int* out) {
   out[0] = kCells;
   out[1] = kStages;
@@ -309,6 +473,9 @@ extern "C" void gtt_ring_fold_fused_design(int* out) {
   out[3] = (kGroups - 1) * kGroupRows;
   out[4] = kVec * static_cast<int>(sizeof(float));
   out[5] = static_cast<int>(sizeof(float));
+  out[6 + kRing] = kUnroll<kRing>;
+  out[6 + kCont] = kUnroll<kCont>;
+  out[6 + kPartials] = kUnroll<kPartials>;
 }
 
 extern "C" const char* gtt_error_string(int code) {

@@ -13,10 +13,12 @@ the fixed order that carries the JAX package's bit-identity contract:
    (`fold_cont`, the body of _fold_cont_kernel).
 
 On CUDA, index_add_/scatter_add_ add floats with atomics in no fixed
-order, so the fold needs its own kernel even on one card
-(csrc/ring_fold.cu). The plain versions below keep the same order: they
-step through member ranks, adding the k-th member of every (block, group)
-at step k.
+order, so the fold needs its own kernels even on one card: the seed in
+csrc/ring_fold.cu, the continuation (`fold_cont`) and the partials
+(`block_partials`) as forms of the fused ring's pipelined member walk in
+csrc/ring_fold_fused.cu. The plain versions below keep the same order:
+they step through member ranks, adding the k-th member of every (block,
+group) at step k.
 
 The hop ring's entry points (`ring_fold_blocks`, `ring_pext`,
 `ring_psum_onehot`) run over per-shard lists through
@@ -183,6 +185,44 @@ _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 
 
+_MAX_FB = 8
+_FUSED_CELLS = 256       # cells per tile of every walk form (ring_fold_fused.cu)
+
+
+class _FoldScratch:
+    """The walk's scratch on one (device, stream), kept from launch to
+    launch and shared by ring_fold_fused and fold_cont (in stream order,
+    under _scratch_lock): block partials and one arrival count per tile.
+    Both only grow; every launch leaves the counts at 0."""
+
+    def __init__(self, dev):
+        self.part = torch.empty(0, dtype=torch.int32, device=dev)
+        self.count = torch.empty(0, dtype=torch.int32, device=dev)
+
+    def take(self, part_elems: int, tiles: int) -> tuple:
+        if self.part.numel() < part_elems:
+            self.part = torch.empty(part_elems, dtype=torch.int32,
+                                    device=self.part.device)
+        if self.count.numel() < tiles:
+            self.count = torch.zeros(tiles, dtype=torch.int32,
+                                     device=self.count.device)
+        return self.part.data_ptr(), self.count.data_ptr()
+
+
+_scratch: dict = {}
+# one launch at a time takes the scratch and launches: a buffer that grows
+# is freed on its stream, so no launch may still hold its pointer
+_scratch_lock = threading.Lock()
+
+
+def _stream_scratch(dev, stream: int) -> _FoldScratch:
+    """The scratch of (dev, stream); the caller holds _scratch_lock."""
+    sc = _scratch.get((dev, stream))
+    if sc is None:
+        sc = _scratch[dev, stream] = _FoldScratch(dev)
+    return sc
+
+
 def _check_fold(what: str, arr: torch.Tensor, fm: FoldMembers) -> None:
     if arr.dtype not in _FOLD_TYPES:
         raise TypeError(f"{what} takes float32 or int32, not {arr.dtype}")
@@ -210,14 +250,12 @@ def _check_pair(what: str, acc: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{what} takes contiguous tensors")
 
 
-def _fold_launch(kind: str, arr, fm, out, acc=None) -> None:
-    ptrs = [arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr()]
-    if acc is not None:
-        ptrs.append(acc.data_ptr())
-    entry = build.entry("ring_fold", f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}",
-                        (_PTR,) * (len(ptrs) + 1) + (_INT,) * 3)
-    build.launch(entry, kind, arr.get_device(), *ptrs, out.data_ptr(), fm.g,
-                 fm.fb, arr.shape[1])
+def _fold_launch(source: str, kind: str, arr, fm, out) -> None:
+    entry = build.entry(source, f"gtt_{kind}_{_FOLD_TYPES[arr.dtype]}",
+                        (_PTR,) * 4 + (_INT,) * 3)
+    build.launch(entry, kind, arr.get_device(), arr.data_ptr(),
+                 fm.member.data_ptr(), fm.ptr.data_ptr(), out.data_ptr(),
+                 fm.g, fm.fb, arr.shape[1])
 
 
 def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
@@ -231,7 +269,7 @@ def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
                       device=arr.device)
     if out.numel() == 0:
         return out
-    _fold_launch("blocked_fold_sum", arr, fm, out)
+    _fold_launch("ring_fold", "blocked_fold_sum", arr, fm, out)
     blocked_fold_sum.launches += 1
     return out
 
@@ -239,7 +277,10 @@ def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
 def fold_cont(acc: torch.Tensor, arr: torch.Tensor,
               fm: FoldMembers) -> torch.Tensor:
     """acc (g, nb) + this shard's block partials of arr, in block order
-    (K2's continuation: every ring shard after the first)."""
+    (K2's continuation: every ring shard after the first), through the
+    pipelined member walk (csrc/ring_fold_fused.cu, form kCont): each
+    block partial goes to the per-(device, stream) scratch and the last
+    block of a tile folds them onto acc."""
     _check_fold("fold_cont", arr, fm)
     if acc.dtype != arr.dtype:
         raise TypeError(f"fold_cont: acc is {acc.dtype}, arr {arr.dtype}")
@@ -253,14 +294,28 @@ def fold_cont(acc: torch.Tensor, arr: torch.Tensor,
     out = torch.empty_like(acc)
     if out.numel() == 0:
         return out
-    _fold_launch("fold_cont", arr, fm, out, acc=acc)
+    g, fb, nb = fm.g, fm.fb, arr.shape[1]
+    index = arr.get_device()
+    lib, fn = build.entry("ring_fold_fused",
+                          f"gtt_fold_cont_{_FOLD_TYPES[arr.dtype]}",
+                          (_PTR,) * 7 + (_INT,) * 3)
+    with _scratch_lock:
+        stream = build.stream(index)
+        part, count = _stream_scratch(arr.device, stream).take(
+            fb * g * nb, g * -(-nb // _FUSED_CELLS))
+        rc = build.on_card(index, fn, arr.data_ptr(), fm.member.data_ptr(),
+                           fm.ptr.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                           part, count, g, fb, nb, stream)
+    if rc:
+        build.check_launch(lib, rc, "fold_cont")
     fold_cont.launches += 1
     return out
 
 
 def block_partials(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """(S, nb) per-series states -> the (fb, g, nb) unfolded block
-    partials (K2's partials form; the gather twin folds them)."""
+    partials (K2's partials form; the gather twin folds them), through the
+    pipelined member walk (csrc/ring_fold_fused.cu, form kPartials)."""
     _check_fold("block_partials", arr, fm)
     if arr.is_cpu:
         return block_partials_plain(arr, fm)
@@ -268,7 +323,7 @@ def block_partials(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
                       device=arr.device)
     if out.numel() == 0:
         return out
-    _fold_launch("block_partials", arr, fm, out)
+    _fold_launch("ring_fold_fused", "block_partials", arr, fm, out)
     block_partials.launches += 1
     return out
 
@@ -422,10 +477,6 @@ ring_psum_onehot_fused.launches = 0
 # the fused ring (row 6): one launch per fold across every shard
 # ----------------------------------------------------------------------
 
-_MAX_FB = 8
-_FUSED_CELLS = 256       # cells per tile (csrc/ring_fold_fused.cu kCells)
-
-
 def ring_fold_fused_plain(arrs: list, fms: list) -> list:
     """Plain PyTorch version of the fused ring, in the kernel's order:
     every shard's fb_local block partials (K2's member walk), then one left
@@ -462,31 +513,6 @@ def _check_fused(arrs: list, fms: list) -> None:
                              "cells or device")
 
 
-class _FoldScratch:
-    """The fused ring's scratch on one (device, stream), kept from launch
-    to launch: every shard's (fb, g, nb) block partials and one arrival
-    count per tile. Both only grow; every launch leaves the counts at 0."""
-
-    def __init__(self, dev):
-        self.part = torch.empty(0, dtype=torch.int32, device=dev)
-        self.count = torch.empty(0, dtype=torch.int32, device=dev)
-
-    def take(self, part_elems: int, tiles: int) -> tuple:
-        if self.part.numel() < part_elems:
-            self.part = torch.empty(part_elems, dtype=torch.int32,
-                                    device=self.part.device)
-        if self.count.numel() < tiles:
-            self.count = torch.zeros(tiles, dtype=torch.int32,
-                                     device=self.count.device)
-        return self.part.data_ptr(), self.count.data_ptr()
-
-
-_scratch: dict = {}
-# one launch at a time takes the scratch and launches: a buffer that grows
-# is freed on its stream, so no launch may still hold its pointer
-_scratch_lock = threading.Lock()
-
-
 def ring_fold_fused(arrs: list, fms: list) -> list:
     """Per-group sums of every shard's (s_local, nb) float32/int32 states,
     the total on every shard, in one launch of the fused ring kernel;
@@ -515,10 +541,8 @@ def ring_fold_fused(arrs: list, fms: list) -> list:
                           (_PTR,) * 6 + (_INT,) * 4)
     with _scratch_lock:
         stream = build.stream(index)
-        sc = _scratch.get((dev, stream))
-        if sc is None:
-            sc = _scratch[dev, stream] = _FoldScratch(dev)
-        part, count = sc.take(ns * fb * g * nb, g * -(-nb // _FUSED_CELLS))
+        part, count = _stream_scratch(dev, stream).take(
+            ns * fb * g * nb, g * -(-nb // _FUSED_CELLS))
         rc = build.on_card(index, fn, ptrs(arrs),
                            ptrs([fm.member for fm in fms]),
                            ptrs([fm.ptr for fm in fms]), ptrs(outs), part,

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from greptimedb_tpu_torch.catalog.table import Table
+from greptimedb_tpu_torch.parallel import dist
 from greptimedb_tpu_torch.parallel.kernels import build
 from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
@@ -83,23 +84,61 @@ def _bits32(t):
     return t.cpu().view(torch.int32)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_fold_cont_and_block_partials_kernels_match_plain(cuda, dtype):
-    rng = np.random.default_rng(11)
-    s, nb, g, fb = 2048, 2160, 9, 2
+def _walk_case(rng, s, nb, g, fb, offset, dtype, cuda):
+    """Inputs of fold_cont and block_partials on the card: (s, nb) states
+    with the fold's edge bits, cut `offset` elements into a larger buffer
+    (offset 1: rows 4 bytes past a 16-byte boundary, the 4-byte copies);
+    member lists where group 0 holds more than 1024 members of one block
+    whenever the shape allows (the walk stages 1024 sids at a time) and
+    group g - 1 holds none; an acc with -0.0 in every cell of that empty
+    group (acc + an empty partial must come out +0.0) and in a band of
+    cells elsewhere."""
+    x = _ring_input(rng, 1, s, nb, dtype)[0]
+    gid = rng.integers(0, g - 1, s).astype(np.int32)
+    gid[rng.random(s) < 0.1] = g                   # inactive: not listed
+    per = s // fb
+    if per > 1100:
+        gid[:1100] = 0                             # 1100+ members in block 0
     if dtype == torch.float32:
-        arr = (rng.standard_normal((s, nb))
-               * 10.0 ** rng.integers(-3, 4, (s, nb))).astype(np.float32)
-        arr[rng.random((s, nb)) < 0.05] = -0.0
-        acc = rng.standard_normal((g, nb)).astype(np.float32)
-        acc[:, :64] = -0.0
+        acc = (rng.standard_normal((g, nb))
+               * 10.0 ** rng.integers(-3, 4, (g, nb))).astype(np.float32)
+        acc[g - 1] = -0.0
+        acc[:, : max(nb // 4, 1)] = -0.0
     else:
-        arr = rng.integers(0, 5, (s, nb)).astype(np.int32)
-        acc = rng.integers(0, 1000, (g, nb)).astype(np.int32)
-    gid = rng.integers(0, g + 1, s).astype(np.int32)
-    fm = rf.fold_members(gid, g, fb, cuda)
-    x = torch.from_numpy(arr).to(cuda)
-    a = torch.from_numpy(acc).to(cuda)
+        acc = rng.integers(-2**31, 2**31, (g, nb), dtype=np.int64).astype(
+            np.int32)
+    flat = torch.empty(offset + s * nb, dtype=dtype, device=cuda)
+    arr = flat[offset:].view(s, nb)
+    arr.copy_(torch.from_numpy(x))
+    return (arr, torch.from_numpy(acc).to(cuda),
+            rf.fold_members(gid, g, fb, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("s,nb,g,fb,offset", [
+    (2048, 2160, 9, 2, 0),      # one shard of the mesh phase's Q2
+    (2048, 2160, 9, 1, 0),
+    (2048, 2160, 9, 8, 0),
+    (2048, 2160, 9, 2, 1),      # misaligned rows: the 4-byte copies
+    (1024, 257, 5, 2, 0),       # nb % 4 != 0, a ragged last tile
+    (1024, 257, 5, 8, 1),
+    (64, 6, 3, 8, 0),           # fewer cells than one thread's 4 x 2
+    (64, 6, 3, 1, 1),
+    (3000, 40, 3, 1, 0),        # 2000+ members a group: three batches
+])
+def test_fold_cont_and_block_partials_kernels_match_plain(cuda, s, nb, g, fb,
+                                                          offset, dtype):
+    """fold_cont and block_partials (the walk's kCont and kPartials forms)
+    bit for bit against their plain versions on the card, one launch
+    each, with NaN payloads, ±inf, -0.0 and int32 sums that wrap."""
+    rng = np.random.default_rng(s + nb + g + fb + offset)
+    x, a, fm = _walk_case(rng, s, nb, g, fb, offset, dtype, cuda)
+    if offset:
+        assert x.is_contiguous() and x.data_ptr() % 16
+    counts = fm.ptr.cpu().diff().view(fb, g)
+    assert (counts[:, g - 1] == 0).all()
+    if s // fb > 1100:
+        assert counts[0, 0] > 1024
     before = (rf.fold_cont.launches, rf.block_partials.launches)
     cont = rf.fold_cont(a, x, fm)
     parts = rf.block_partials(x, fm)
@@ -109,6 +148,89 @@ def test_fold_cont_and_block_partials_kernels_match_plain(cuda, dtype):
     assert torch.equal(_bits32(cont), _bits32(rf.fold_cont_plain(a, x, fm)))
     assert torch.equal(_bits32(parts),
                        _bits32(rf.block_partials_plain(x, fm)))
+    if dtype == torch.float32:
+        # -0.0 + the empty group's +0.0 partials is +0.0
+        assert (_bits32(cont)[g - 1] == 0).all()
+
+
+def test_fold_cont_back_to_back_resets_its_arrival_counts(cuda):
+    """fold_cont back to back on one stream, beside the fused ring that
+    shares its scratch, with the shape, fb and dtype changing: every call
+    equals its plain version and the arrival counts are all 0 after it."""
+    rng = np.random.default_rng(31)
+    cases = [(2048, 2160, 9, 2, 0, torch.float32),
+             (1024, 257, 5, 8, 1, torch.int32),
+             (64, 6, 3, 1, 0, torch.float32),
+             (3000, 40, 3, 1, 0, torch.int32),
+             (2048, 2160, 9, 2, 0, torch.int32)]
+    inputs = []
+    for s, nb, g, fb, offset, dtype in cases:
+        x, a, fm = _walk_case(rng, s, nb, g, fb, offset, dtype, cuda)
+        inputs.append((x, a, fm, rf.fold_cont_plain(a, x, fm)))
+    ring = _ring_input(rng, 4, 256, 300, torch.float32)
+    arrs = [torch.from_numpy(np.ascontiguousarray(r)).to(cuda) for r in ring]
+    gid = rng.integers(0, 4, (4, 256)).astype(np.int32)
+    fms = [rf.fold_members(gid[k], 3, 2, cuda) for k in range(4)]
+    ring_want = rf.ring_fold_fused_plain(arrs, fms)
+    stream = build.stream(torch.cuda.current_device())
+    for _ in range(3):
+        for x, a, fm, want in inputs * 2:
+            got = rf.fold_cont(a, x, fm)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits32(got), _bits32(want))
+            assert int(rf._scratch[x.device, stream].count.abs().sum()) == 0
+        for got, want in zip(rf.ring_fold_fused(arrs, fms), ring_want):
+            assert torch.equal(_bits32(got), _bits32(want))
+
+
+def test_fold_cont_on_two_streams_at_once(cuda):
+    """Two streams run fold_cont at the same time, each with its own
+    scratch and counts: both equal the plain version, launch after
+    launch."""
+    rng = np.random.default_rng(37)
+    x, a, fm = _walk_case(rng, 2048, 2160, 9, 2, 0, torch.float32, cuda)
+    want = rf.fold_cont_plain(a, x, fm)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = {0: [], 1: []}
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(rf.fold_cont(a, x, fm))
+    torch.cuda.synchronize()
+    for i in outs:
+        for got in outs[i]:
+            assert torch.equal(_bits32(got), _bits32(want))
+    assert len({k for k in rf._scratch if k[0] == x.device}) >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_hop_fused_and_gather_folds_agree_at_the_mesh_q2_shape(cuda, dtype):
+    """Four shards of 2048 series at the mesh phase's Q2 shape (nb = 2160,
+    g = 9, fb_local = 2), with edge bits: the fused ring (one launch), the
+    hop ring (K2's seed, then three fold_cont) and the gather twin
+    (block_partials on every shard, then the left fold) give the same
+    bits on every shard, and the plain version's."""
+    rng = np.random.default_rng(41)
+    ns, s_local, nb, g = 4, 2048, 2160, 9
+    x = _ring_input(rng, ns, s_local, nb, dtype)
+    gid = rng.integers(0, g + 1, (ns, s_local)).astype(np.int32)
+    arrs = [torch.from_numpy(np.ascontiguousarray(x[k])).to(cuda)
+            for k in range(ns)]
+    fms = [rf.fold_members(gid[k], g, 2, cuda) for k in range(ns)]
+    before = (rf.ring_fold_fused.launches, rf.fold_cont.launches,
+              rf.block_partials.launches)
+    fused = rf.RingFoldCtx(ns).fold_sum(arrs, fms)
+    hops = rf.RingFoldCtx(ns, fused=False).fold_sum(arrs, fms)
+    gather = dist.ShardFoldCtx(ns).fold_sum(arrs, fms)
+    torch.cuda.synchronize()
+    assert (rf.ring_fold_fused.launches, rf.fold_cont.launches,
+            rf.block_partials.launches) == (
+        before[0] + 1, before[1] + ns - 1, before[2] + ns)
+    want = rf.ring_fold_fused_plain(arrs, fms)
+    for k in range(ns):
+        for got in (fused, hops, gather):
+            assert torch.equal(_bits32(got[k]), _bits32(want[k])), k
 
 
 def _specials(rng, shape):

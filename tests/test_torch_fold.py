@@ -6,8 +6,14 @@ under LocalFoldCtx (segment_sum per series block + the left fold), and
 its left-fold stage bit-identical to the Pallas _fold_seed_kernel run in
 interpret mode — including a -0.0 first block, which a fold starting from
 0 would turn into +0.0. The port's whole _fold_groups (min/max and the
-first/last staged selection too) must match exactly.
+first/last staged selection too) must match exactly. fold_cont_plain and
+block_partials_plain, the contract the member walk's kCont and kPartials
+forms are held to on the card, must equal the Pallas _fold_cont_kernel
+(interpret mode) and a per-block jax.ops.segment_sum on edge shapes.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -166,3 +172,127 @@ def test_blocked_fold_sum_checks_inputs():
     out = trf.blocked_fold_sum(torch.ones((16, 4), dtype=torch.int32), fm)
     assert out.tolist() == [[16] * 4]
     assert trf.blocked_fold_sum.launches == 0   # the CPU never launches
+
+
+def _edge_rows(rng, s, nb, dtype, nan=True):
+    """(s, nb) states with edge bits: float32 with wide magnitudes, -0.0,
+    ±inf in two cells of three and (nan=True) one NaN payload in each
+    third cell (two payloads that meet in a sum keep the first operand's
+    on the CPU, and XLA's scatter and the port order that pair
+    differently, so a chain holds one); int32 with extremes whose sums
+    wrap."""
+    if dtype == "i32":
+        x = rng.integers(-1000, 1000, (s, nb)).astype(np.int32)
+        r = rng.random(x.shape)
+        x[r < 0.05] = 2**31 - 1
+        x[(r >= 0.05) & (r < 0.1)] = -(2**31)
+        return x
+    x = (rng.standard_normal((s, nb))
+         * 10.0 ** rng.integers(-4, 5, (s, nb))).astype(np.float32)
+    r = rng.random(x.shape)
+    x[r < 0.1] = -0.0
+    inf_cell = np.arange(nb) % 3 != 0
+    x[(r >= 0.1) & (r < 0.12) & inf_cell] = np.inf
+    x[(r >= 0.12) & (r < 0.14) & inf_cell] = -np.inf
+    for c in range(0, nb, 3) if nan else ():
+        bits = np.uint32(int(rng.integers(0, 2**22)) | 0x7FC00000)
+        x[rng.integers(s), c] = bits.view(np.float32)
+    return x
+
+
+WALK_CASES = {
+    # (S, nb, g, fb, offset): the card tests' edge shapes; offset 1 cuts
+    # the rows one element into a larger buffer
+    "q2_cells_fb2": (256, 2160, 9, 2, 0),
+    "q2_cells_fb1": (64, 2160, 9, 1, 0),
+    "q2_cells_fb8_misaligned": (256, 2160, 9, 8, 1),
+    "nb257_fb2": (256, 257, 5, 2, 0),
+    "nb257_fb8_misaligned": (256, 257, 5, 8, 1),
+    "nb6_fb8": (64, 6, 3, 8, 0),
+    "nb6_fb1_misaligned": (64, 6, 3, 1, 1),
+    "long_list_fb1": (3000, 40, 3, 1, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_walk_plain_versions_bit_identical_to_jax(case, dtype):
+    """block_partials_plain against a per-block jax.ops.segment_sum, and
+    fold_cont_plain against the Pallas _fold_cont_kernel (interpret mode)
+    over those partials, bit for bit: group 0 holds more than 1024
+    members of one block where the shape allows, group g - 1 none, and
+    acc is -0.0 over that empty group (acc + +0.0 partials is +0.0)."""
+    s, nb, g, fb, offset = WALK_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + len(dtype))
+    flat = _edge_rows(rng, s + 1, nb, dtype).ravel()
+    x = flat[offset:offset + s * nb].reshape(s, nb)
+    gid = rng.integers(0, g - 1, s).astype(np.int32)
+    gid[rng.random(s) < 0.1] = g
+    per = s // fb
+    if per > 1100:
+        gid[:1100] = 0
+        assert (gid[:per] == 0).sum() > 1024
+    acc = _edge_rows(rng, g, nb, dtype, nan=False)
+    if dtype == "f32":
+        acc[g - 1] = -0.0
+        acc[:, ::5] = -0.0
+    seg = np.where(gid < g, (np.arange(s) // per) * g + gid, fb * g)
+    want_parts = jax.ops.segment_sum(
+        jnp.asarray(x), jnp.asarray(seg, jnp.int32),
+        num_segments=fb * g + 1)[:-1].reshape(fb, g, nb)
+    want_cont = np.asarray(jrf._call2(jrf._fold_cont_kernel,
+                                      jnp.asarray(acc), want_parts,
+                                      interpret=True))
+    fm = trf.fold_members(gid, g, fb, "cpu")
+    xt = torch.from_numpy(flat)[offset:offset + s * nb].view(s, nb)
+    parts = trf.block_partials(xt, fm).numpy()
+    cont = trf.fold_cont(torch.from_numpy(acc), xt, fm).numpy()
+    assert np.array_equal(_bits(parts), _bits(np.asarray(want_parts)))
+    assert np.array_equal(_bits(cont), _bits(want_cont))
+    assert not parts[:, g - 1].any()
+    if dtype == "f32":
+        assert (_bits(cont[g - 1]) == 0).all()       # +0.0, not -0.0
+    assert trf.fold_cont.launches == trf.block_partials.launches == 0
+
+
+def _chip_smoke():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_matchers",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_profiler_matchers_catch_their_own_rows_only():
+    """chip_smoke.py reads each row's device time per launch from the
+    profiler's kernel names: the seed, the three forms of the member walk
+    (one kernel, the form its last template argument) and the ring
+    combines each match their own names and no other row's."""
+    cs = _chip_smoke()
+    matchers = {"blocked_fold_sum": cs.is_seed_kernel,
+                **{row: cs.walk(row) for row in cs.WALK_FORMS},
+                "ring_pext_fused": cs.ring_combine(0, 1, 2, 3),
+                "ring_psum_onehot_fused": cs.ring_combine(4)}
+    assert set(cs.WALK_FORMS) == {"ring_fold_fused", "fold_cont",
+                                  "block_partials"}
+    names = {
+        "fold_kernel<float>": "blocked_fold_sum",
+        "fold_kernel<int>": "blocked_fold_sum",
+        "ring_fold_fused_kernel<float, true, 0>": "ring_fold_fused",
+        "ring_fold_fused_kernel<int, false, 0>": "ring_fold_fused",
+        "ring_fold_fused_kernel<float, true, 1>": "fold_cont",
+        "ring_fold_fused_kernel<int, false, 1>": "fold_cont",
+        "ring_fold_fused_kernel<float, false, 2>": "block_partials",
+        "ring_fold_fused_kernel<int, true, 2>": "block_partials",
+        "ring_combine_kernel<float, 0, true>": "ring_pext_fused",
+        "ring_combine_kernel<int, 3, false>": "ring_pext_fused",
+        "ring_combine_kernel<float, 4, true>": "ring_psum_onehot_fused",
+        "extreme_f32_kernel<true>": None,
+        "onehot_add_kernel": None,
+        "gather_planes_kernel": None,
+        "merge_topk_kernel<false>": None,
+    }
+    for name, row in names.items():
+        hits = [r for r, match in matchers.items() if match(name)]
+        assert hits == ([row] if row else []), name
