@@ -106,6 +106,29 @@ result line):
              Kernel counts are zeroed before the phase and read after it.
              Then the warm SQL Q2 runs on the fused ring and the hop ring
              in turn, 30 times each, for their host walls.
+9. rows    — SQL beyond RANGE on the tables of phases 2 and 6: GROUP BY on
+             the card (bench.py's GROUP BY hostname probe, a nine-op GROUP
+             BY region and its twin without stddev_samp, which the mesh
+             shards) on one device per table, and on the 8192-host table
+             as the fused ring (the ring extremes and one-hot sums, 4r and
+             5r), the hop ring (4 and 5 hop by hop) and gather: cold, warm
+             (median of 3) and one profiled warm call each. Every GROUP BY
+             must take the device path and launch kernel G; the four mesh
+             engines must agree bit for bit; group counts must equal a
+             numpy bincount over the scan and avg the float64 mean (1e-5
+             relative); per warm sharded GROUP BY the ring must launch 8
+             ring extremes and 2 ring one-hot sums, the hop ring 24 and 6
+             hops, gather none. Then the host paths on the 4000-host table:
+             TSBS high-cpu-1 and high-cpu-all (twice: the second served by
+             the merged-scan cache) against a numpy filter of the scan, and
+             five RANGE shapes the device grid declines, cut to the first
+             3 hours, each on the host path (the OR shape also against its
+             IN twin on the grid, 1e-5 relative). Then G (both forms) and
+             Gt at the shapes the GROUP BYs gave them and on edge inputs
+             (NaN, +-0, +-inf, masked and empty groups, misaligned rows,
+             one group) against their plain versions, bit for bit, and
+             timed. Kernel counts are zeroed before the phase and read
+             after its main path.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -199,9 +222,10 @@ def host_ms(fn, reps=20, warm=3) -> float:
 
 
 def profiled(fn, top=4):
-    """One call of fn under torch.profiler: wall ms, summed device kernel
-    ms (None when the profiler saw no device activity), the device's idle
-    share of the wall time, and the top kernels by device time."""
+    """One call of fn under torch.profiler: wall ms, summed device ms of
+    kernels, copies and sets (None when the profiler saw no device
+    activity), the copies' and sets' share of it (`copy_ms`), the device's
+    idle share of the wall time, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -223,6 +247,7 @@ def profiled(fn, top=4):
             rows.append((us / 1e3, evt.key, evt.count))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows) if rows else None
+    copy_ms = sum(r[0] for r in rows if r[1].startswith(("Memcpy", "Memset")))
     # the port's own kernels (csrc/*.cu keep them in an anonymous
     # namespace; torch's there name at:: types), by name with template
     # arguments
@@ -233,7 +258,7 @@ def profiled(fn, top=4):
         if k.startswith("(anonymous namespace)::") and "at::" not in name:
             ours[name] = {"ms": ms, "calls": c}
     return {
-        "wall_ms": wall, "device_ms": dev_ms,
+        "wall_ms": wall, "device_ms": dev_ms, "copy_ms": copy_ms,
         "idle_share": None if dev_ms is None else 1.0 - dev_ms / wall,
         "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                 for ms, k, c in rows[:top]],
@@ -1902,6 +1927,489 @@ def sql_phase(args, dev, slice_out, mesh_out):
             {e: v["launches_per_warm"] for e, v in engine_q2.items()})
 
 
+
+# ---- phase 9: rows ----------------------------------------------------
+
+# the GROUP BYs of the rows phase: bench.py:411-412's probe, the nine-op
+# GROUP BY region (stddev_samp keeps it on one device: the row path's
+# var/stddev do not shard), and the same without stddev_samp, which the
+# mesh engines shard (the ring forms carry its extremes and winners)
+GROUPBY_OPS = ("count(*), sum(usage_user), avg(usage_user), "
+               "min(usage_user), max(usage_system), {}first_value("
+               "usage_idle), last_value(usage_idle)")
+GROUPBY_QUERIES = [
+    ("hostname_avg", "SELECT hostname, avg(usage_user) FROM cpu "
+     "GROUP BY hostname"),
+    ("region_all", "SELECT region, " + GROUPBY_OPS.format(
+        "stddev_samp(usage_user), ") + " FROM cpu GROUP BY region"),
+    ("region_ring", "SELECT region, " + GROUPBY_OPS.format("")
+     + " FROM cpu GROUP BY region"),
+]
+# per warm region_ring on four shards: 8 ring extremes (min, max, three
+# winner stages each of first and last) and 2 ring one-hot sums; on the
+# hop ring 3 hops each
+GROUPBY_RINGS = {"ring_pext_fused": 8, "ring_psum_onehot_fused": 2}
+GROUPBY_HOPS = {"extreme": 24, "onehot_add": 6}
+GROUPED_KERNELS = ("grouped_block_reduce", "column_tree_sum")
+HOST_CUT_MS = 3 * HOUR_MS     # the host RANGE shapes read the first 3 h
+
+
+def host_shapes():
+    """TSBS high-cpu-1 and high-cpu-all (bench.py:2202-2213) and the five
+    RANGE shapes the device grid declines (a residual OR, a residual
+    filter, an expression argument, a ts bound off a cell edge, NOT LIKE),
+    those five cut to the first 3 hours."""
+    cut = f"ts < {HOST_CUT_MS}"
+    q2 = ", ".join(f"{op}(usage_user) RANGE '1h'" for op in (
+        "count", "sum", "min", "max", "avg", "stddev_samp", "first_value",
+        "last_value"))
+    return [
+        ("high_cpu_1", "SELECT ts, usage_user, usage_system FROM cpu "
+         "WHERE usage_user > 90.0 AND hostname = 'host_17'"),
+        ("high_cpu_all", "SELECT * FROM cpu WHERE usage_user > 90.0"),
+        ("high_cpu_all_cached", "SELECT * FROM cpu WHERE usage_user > 90.0"),
+        ("or_hosts", "SELECT ts, hostname, avg(usage_user) RANGE '1h' FROM "
+         "cpu WHERE (hostname = 'host_3' OR hostname = 'host_4') AND "
+         f"{cut} ALIGN '1h' BY (hostname)"),
+        ("usage_filter", f"SELECT ts, region, {q2} FROM cpu WHERE "
+         f"usage_user > 50 AND {cut} ALIGN '1h' BY (region)"),
+        ("expression_arg", "SELECT ts, hostname, avg(usage_user + "
+         f"usage_system) RANGE '1h' FROM cpu WHERE {cut} ALIGN '1h' "
+         "BY (hostname)"),
+        ("ts_off_edge", "SELECT ts, region, max(usage_user) RANGE '1h' FROM "
+         f"cpu WHERE ts > 3600000 AND {cut} ALIGN '1h' BY (region)"),
+        ("not_like", "SELECT ts, region, avg(usage_idle) RANGE '1h' FROM "
+         f"cpu WHERE hostname NOT LIKE 'host_1%' AND {cut} ALIGN '1h' "
+         "BY (region)"),
+    ]
+
+
+@contextlib.contextmanager
+def capture_grouped(gr, store):
+    """Record the inputs of the first two calls of each form of G and of
+    Gt, and of the first member build of each group count, while this
+    block is open; the real wrappers run as they would. A wrapper counts
+    its launches on the module attribute of its name, so each recorder
+    carries the count while it stands in and hands it back after."""
+    real = (gr.grouped_block_reduce, gr.column_tree_sum, gr.group_members)
+
+    def keep(key, item):
+        calls = store.setdefault(key, [])
+        if len(calls) < 2:
+            calls.append(item)
+
+    def g(v, members, form):
+        keep(form, (v, members))
+        return real[0](v, members, form)
+
+    def t(x):
+        keep("tree", x)
+        return real[1](x)
+
+    def m(gid, mask, blocks, gb):
+        keep(("members", gb), (gid, mask, blocks, gb))
+        return real[2](gid, mask, blocks, gb)
+
+    g.launches, t.launches = real[0].launches, real[1].launches
+    gr.grouped_block_reduce, gr.column_tree_sum, gr.group_members = g, t, m
+    try:
+        yield
+    finally:
+        real[0].launches, real[1].launches = g.launches, t.launches
+        gr.grouped_block_reduce, gr.column_tree_sum, gr.group_members = real
+
+
+def groupby_reference(table, key):
+    """numpy over the scan: per key value (sorted) the row count and the
+    float64 mean of usage_user."""
+    rows = table.scan(["usage_user"]).rows
+    vals = np.asarray(table.region.series.tag_values(key))[rows.sid]
+    names, inv = np.unique(vals, return_inverse=True)
+    cnt = np.bincount(inv)
+    mean = np.bincount(inv, weights=rows.fields["usage_user"]) / cnt
+    return names, cnt, mean
+
+
+def check_groupby(name, res, ref):
+    names, cnt, mean = ref
+    key = np.asarray(res.cols[0].values, object)
+    order = np.argsort(key)
+    if res.num_rows != len(names) or not (key[order] == names).all():
+        raise AssertionError(f"{name}: groups {res.num_rows} vs {len(names)}")
+    avg = np.asarray(res.column("avg(usage_user)").values)[order]
+    worst = float(np.max(np.abs(avg - mean) / np.abs(mean)))
+    if worst > 1e-5:
+        raise AssertionError(f"{name}: avg off the numpy mean by {worst}")
+    if "count(*)" in res.names:
+        got = np.asarray(res.column("count(*)").values)[order]
+        if not np.array_equal(got, cnt):
+            raise AssertionError(f"{name}: count(*) differs from bincount")
+    return worst
+
+
+def edge_members(dev, gr, rng, n, blocks, gb):
+    """Edge inputs of G: NaNs of both signs, +-0.0, +-inf, an all-masked
+    group and groups with no rows, padding rows (mask False, gid 0)."""
+    v = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)).astype(
+        np.float32)
+    k = rng.choice(n, min(n, 64), replace=False)
+    v[k] = np.resize(np.array(
+        [0xFFC00001, 0x7FC00002, 0xFF800000, 0x7F800000, 0x80000000,
+         0x00000000, 0x7FC00000, 0x80000000], np.uint32), len(k)).view(
+        np.float32)
+    mask = rng.random(n) > 0.15
+    gid = rng.integers(0, max(gb - 2, 1), n).astype(np.int32)
+    if gb > 2:
+        mask[gid == 1] = False
+    gid[~mask] = 0
+    return (torch.from_numpy(v).to(dev),
+            gr.group_members(torch.from_numpy(gid).to(dev),
+                             torch.from_numpy(mask).to(dev), blocks, gb))
+
+
+def grouped_kernel_rows(dev, gr, store, launches, per_launch):
+    """G and Gt at the shapes the GROUP BYs gave them (the hostname probe's
+    sums, the region query's extremes, its var/stddev mean), held against
+    their plain versions on the card and on edge inputs, bit for bit, and
+    timed beside their bounds, plain versions and library calls."""
+    errs = {}
+
+    def exact(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{what} differs from its plain version")
+        diff = (got.double() - want.double()).abs()
+        errs[what] = float(torch.nan_to_num(diff, nan=0.0).max())
+
+    rng = np.random.default_rng(17)
+    for n, blocks, gb in ((100_003, 256, 64), (1 << 17, 65536, 16),
+                          (50_000, 8, 1), (4097, 4096, 4)):
+        v, members = edge_members(dev, gr, rng, n, blocks, gb)
+        for form in ("sum", "max", "min"):
+            exact(f"G {form} edge {n}x{blocks}x{gb}",
+                  gr.grouped_block_reduce(v, members, form),
+                  gr.grouped_block_reduce_plain(v, members, form))
+    # the main path's sections: the hostname probe's avg(usage_user) sums
+    # (its second sum section; the first is the count), the region query's
+    # min/max, and its stddev mean's column sum (the second tree: the
+    # first is the count's)
+    inputs = {"sum": store["sum"][1], "max": store["max"][0],
+              "min": store["min"][0]}
+    for form, (v, members) in inputs.items():
+        exact(f"G {form}", gr.grouped_block_reduce(v, members, form),
+              gr.grouped_block_reduce_plain(v, members, form))
+    # the int32 extremes of last_value's and first_value's first stage
+    for form in ("max", "min"):
+        keys, members = store[form][1]
+        if keys.dtype != torch.int32:
+            raise AssertionError(f"G {form}: no int32 winner stage captured")
+        exact(f"G {form} int32", gr.grouped_block_reduce(keys, members, form),
+              gr.grouped_block_reduce_plain(keys, members, form))
+    tree_x = store["tree"][1]
+    exact("Gt", gr.column_tree_sum(tree_x), gr.column_tree_sum_plain(tree_x))
+    x = (torch.randn(65536, 16, device=dev)
+         * 10.0 ** torch.randint(-3, 4, (65536, 16), device=dev))
+    exact("Gt edge", gr.column_tree_sum(x), gr.column_tree_sum_plain(x))
+
+    out = []
+    # ---- G: the sum form at the hostname probe's shape, the extremes at
+    # the region query's
+    v, members = inputs["sum"]
+    gid, mask, blocks, gb = store["members", members.gb][0]
+    n, nseg = v.numel(), members.gb * members.blocks
+    live = int(members.ptr[-1])
+    per = -(-n // blocks)
+    # the library calls over the live rows only (the padding would pile
+    # onto one trash slot)
+    live_rows = members.perm[:live].long()
+    seg = (gid.long() * blocks + torch.arange(n, device=dev) // per)[
+        live_rows]
+    v_live = v[live_rows]
+    sum_bytes = 8 * live + 4 * (nseg + 1) + 4 * nseg
+    vx, mx = inputs["max"]
+    gid_x, _, _, gb_x = store["members", mx.gb][0]
+    live_x = int(mx.ptr[-1])
+    live_x_rows = mx.perm[:live_x].long()
+    sg = gid_x.long()[live_x_rows]
+    vx_live = vx[live_x_rows]
+    ext_bytes = 8 * live_x + 4 * (mx.gb * mx.blocks + 1) + 4 * mx.gb
+    sum_ms = per_launch.get("sum")
+    ext_ms = per_launch.get("max")
+    out.append({
+        "name": "grouped_block_reduce", "route": "cuda",
+        "source": "greptimedb_tpu_torch/parallel/kernels/csrc/"
+                  "grouped_reduce.cu",
+        "replaces": "greptimedb_tpu/query/reduce.py:250 pseg2 / :278 "
+                    "segment_max (XLA, no Pallas kernel)",
+        "launches": launches["grouped_block_reduce"],
+        "max_abs_err": max(v for k, v in errs.items() if k.startswith("G ")),
+        "ms": cuda_ms(lambda: gr.grouped_block_reduce(v, members, "sum")),
+        "host_ms": host_ms(lambda: gr.grouped_block_reduce(v, members,
+                                                           "sum")),
+        "device_ms_per_launch": sum_ms,
+        "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
+            v, members, "sum"), reps=3, warm=1),
+        "bound_ms": sum_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            nseg, device=dev).index_add_(0, seg, v_live)),
+        "share_of_bound": (sum_bytes / HBM_BYTES_PER_S * 1e3 / sum_ms
+                           if sum_ms else None),
+        "shape": {"rows": n, "live_rows": live, "blocks": blocks, "gb": gb},
+        "bytes": sum_bytes,
+        "members_ms": cuda_ms(lambda: gr.group_members(gid, mask, blocks,
+                                                       gb), reps=5),
+        "max_form": {
+            "ms": cuda_ms(lambda: gr.grouped_block_reduce(vx, mx, "max")),
+            "device_ms_per_launch": ext_ms,
+            "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
+                vx, mx, "max"), reps=3, warm=1),
+            "bound_ms": ext_bytes / HBM_BYTES_PER_S * 1e3,
+            "library_ms": cuda_ms(lambda: torch.full(
+                (gb_x,), -torch.inf, device=dev).scatter_reduce_(
+                0, sg, vx_live, "amax")),
+            "shape": {"rows": vx.numel(), "live_rows": live_x,
+                      "blocks": mx.blocks, "gb": mx.gb},
+            "bytes": ext_bytes,
+            "int32_device_ms_per_launch": per_launch.get("int32")},
+        "design": "one thread a (block, group) segment walking its member "
+                  "rows in order; max/min fold the segments by block as an "
+                  "in-order tree; members by a stable torch.sort of the "
+                  "group ids",
+    })
+    # ---- Gt at the var/stddev mean's shape
+    rows_t, cols_t = tree_x.shape
+    tree_bytes = 4 * rows_t * cols_t + 4 * cols_t
+    tree_ms = per_launch.get("tree")
+    out.append({
+        "name": "column_tree_sum", "route": "cuda",
+        "source": "greptimedb_tpu_torch/parallel/kernels/csrc/"
+                  "grouped_reduce.cu",
+        "replaces": "greptimedb_tpu/query/reduce.py:274 jnp.sum(sp, axis=0)"
+                    " (XLA, no Pallas kernel)",
+        "launches": launches["column_tree_sum"],
+        "max_abs_err": max(errs["Gt"], errs["Gt edge"]),
+        "ms": cuda_ms(lambda: gr.column_tree_sum(tree_x)),
+        "host_ms": host_ms(lambda: gr.column_tree_sum(tree_x)),
+        "device_ms_per_launch": tree_ms,
+        "plain_ms": cuda_ms(lambda: gr.column_tree_sum_plain(tree_x)),
+        "bound_ms": max(tree_bytes / HBM_BYTES_PER_S,
+                        rows_t * cols_t / F32_OPS_PER_S) * 1e3,
+        "bound_by": ("bytes" if tree_bytes / HBM_BYTES_PER_S
+                     >= rows_t * cols_t / F32_OPS_PER_S else "operations"),
+        "library_ms": cuda_ms(lambda: tree_x.sum(dim=0)),
+        "shape": {"rows": rows_t, "cols": cols_t}, "bytes": tree_bytes,
+    })
+    return out
+
+
+def per_call(ours, match, calls):
+    """Profiler device ms of the kernels `match` selects over `calls`
+    wrapper calls (None when either is missing)."""
+    ms = sum(v["ms"] for k, v in ours.items() if match(k))
+    return ms / calls if calls and ms else None
+
+
+def rows_phase(args, dev, slice_out, mesh_out):
+    """Phase 9 (see the module docstring). Returns the rows of G and Gt
+    for the kernels line and every kernel's launches over the phase's main
+    path."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh([dev] * 4)
+    runs = {
+        ("slice", "single"): (slice_out, None, None, "fused"),
+        ("mesh", "single"): (mesh_out, None, None, "fused"),
+        ("mesh", "fused"): (mesh_out, mesh, None, "fused"),
+        ("mesh", "hops"): (mesh_out, mesh, None, "hops"),
+        ("mesh", "gather"): (mesh_out, mesh,
+                             MeshOptions(pallas_kernels="off"), "fused"),
+    }
+    zero_counts(rf, mg)
+    for k in GROUPED_KERNELS:
+        getattr(gr, k).launches = 0
+    store = {}
+    results, stats, by_engine = {}, {}, {}
+
+    def all_counts():
+        return {**counts(rf, mg),
+                **{k: getattr(gr, k).launches for k in GROUPED_KERNELS}}
+
+    for (tname, ename), (tab, m, opts, form) in runs.items():
+        inst = Instance(device=dev, mesh=m, mesh_opts=opts)
+        inst.catalog.register(tab["table"])
+        before_run = all_counts()
+        per_query = {}
+        capture = (capture_grouped(gr, store) if (tname, ename) == (
+            "slice", "single") else contextlib.nullcontext())
+        with ring_form(form), capture:
+            for qname, sql in GROUPBY_QUERIES:
+                if qname == "region_ring" and tname == "slice":
+                    continue
+                t = time.perf_counter()
+                res = inst.sql(sql)
+                torch.cuda.synchronize()
+                cold = time.perf_counter() - t
+                eng = inst.query_engine
+                if eng.last_exec_path != "device":
+                    raise AssertionError(f"{tname} {ename} {qname} ran "
+                                         f"{eng.last_exec_path}")
+                results[tname, ename, qname] = res
+                times = []
+                before = all_counts()
+                for _ in range(3):
+                    t = time.perf_counter()
+                    inst.sql(sql)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t)
+                after = all_counts()
+                prof = profiled(lambda: inst.sql(sql))
+                per_query[qname] = {
+                    "cold_s": cold, "warm_median_s": float(np.median(times)),
+                    "device_ms": prof["device_ms"],
+                    "copy_ms": prof["copy_ms"],
+                    "idle_share": prof["idle_share"],
+                    "launches_per_warm": {
+                        k: (after[k] - before[k]) / 3 for k in after
+                        if after[k] > before[k]},
+                    "program": dict(eng.last_reduce), "top": prof["top"],
+                    "ours": prof["ours"]}
+        stats[f"{tname}_{ename}"] = per_query
+        after_run = all_counts()
+        by_engine[f"{tname}_{ename}"] = {
+            k: after_run[k] - before_run[k] for k in after_run
+            if after_run[k] > before_run[k]}
+    launches = all_counts()
+
+    # ---- checks -------------------------------------------------------
+    checks = {}
+    for tname, tab in (("slice", slice_out), ("mesh", mesh_out)):
+        table = tab["table"]
+        for qname, key in (("hostname_avg", "hostname"),
+                           ("region_all", "region")):
+            checks[f"{tname}_{qname}_max_rel_vs_numpy"] = check_groupby(
+                f"{tname} {qname}", results[tname, "single", qname],
+                groupby_reference(table, key))
+    for qname, _ in GROUPBY_QUERIES:
+        ref = results["mesh", "single", qname]
+        for ename in ("fused", "hops", "gather"):
+            compare_engines(f"rows mesh {ename} {qname}", ref,
+                            results["mesh", ename, qname], 1)
+            prog = stats[f"mesh_{ename}"][qname]["program"]
+            want = ("single" if qname == "region_all" else
+                    "sharded_gather" if ename == "gather" else
+                    "sharded_ring")
+            if prog["program"] != want or (
+                    want == "sharded_ring" and prog["ring_form"] != ename):
+                raise AssertionError(f"rows mesh {ename} {qname} ran {prog}")
+    for eng_name, got in by_engine.items():
+        if not got.get("grouped_block_reduce"):
+            raise AssertionError(f"G never launched on {eng_name}")
+    for ename, want in (
+            ("fused", {**GROUPBY_RINGS, "extreme": 0, "onehot_add": 0}),
+            ("hops", {**GROUPBY_HOPS, **{k: 0 for k in GROUPBY_RINGS}}),
+            ("gather", {k: 0 for k in (*GROUPBY_RINGS, *GROUPBY_HOPS)})):
+        warm = stats[f"mesh_{ename}"]["region_ring"]["launches_per_warm"]
+        for k, n in want.items():
+            if warm.get(k, 0) != n:
+                raise AssertionError(f"{k}: {warm.get(k, 0)} launches per "
+                                     f"warm region_ring GROUP BY on the "
+                                     f"{ename} engine, not {n}")
+
+    # ---- the host paths on the slice table ----------------------------
+    table = slice_out["table"]
+    host_inst = Instance(device=dev)
+    host_inst.catalog.register(table)
+    host = {}
+    hits0 = table.region.scan_cache_hits
+    for name, sql in host_shapes():
+        hits = table.region.scan_cache_hits
+        t = time.perf_counter()
+        res = host_inst.sql(sql)
+        wall = time.perf_counter() - t
+        if host_inst.query_engine.last_exec_path != "host":
+            raise AssertionError(f"{name} ran "
+                                 f"{host_inst.query_engine.last_exec_path}")
+        if res.num_rows == 0:
+            raise AssertionError(f"{name} returned no rows")
+        host[name] = {"wall_s": wall, "rows": res.num_rows,
+                      "scan_cache_hit": table.region.scan_cache_hits > hits}
+        if name.startswith("high_cpu"):
+            host[name]["rows_vs_numpy"] = check_high_cpu(table, name, res)
+    if not host["high_cpu_all_cached"]["scan_cache_hit"]:
+        raise AssertionError("the second high-cpu-all missed the merged-"
+                             "scan cache")
+    # the OR of two hosts on the host path against the same hosts as a
+    # matcher on the device grid
+    dev_or = host_inst.sql(host_shapes()[3][1].replace(
+        "(hostname = 'host_3' OR hostname = 'host_4')",
+        "hostname IN ('host_3', 'host_4')"))
+    if host_inst.query_engine.last_exec_path != "device":
+        raise AssertionError("the IN twin of or_hosts left the device grid")
+    host_or = host_inst.sql(host_shapes()[3][1])
+    a = np.asarray(host_or.cols[2].values)
+    b = np.asarray(dev_or.cols[2].values)
+    if host_or.num_rows != dev_or.num_rows or not np.allclose(
+            a, b, rtol=1e-5, atol=0):
+        raise AssertionError("or_hosts on the host differs from the grid")
+    host["scan_cache_hits"] = table.region.scan_cache_hits - hits0
+
+    # ---- kernels G and Gt --------------------------------------------
+    # device time per wrapper call on the warm profiled GROUP BYs of the
+    # slice table: a max/min call is a segment walk and a group fold (the
+    # float32 extremes of min/max, the int32 ones of the winner stages),
+    # a Gt call one tree level per launch
+    slice_stats = stats["slice_single"]
+    region = slice_stats["region_all"]
+
+    def extreme_ms(t):
+        walks = tuple(f"segment_walk_kernel<{t}, {f}>" for f in (1, 2))
+        calls = sum(v["calls"] for k, v in region["ours"].items()
+                    if k.startswith(walks))
+        return per_call(region["ours"], lambda k: k.startswith(
+            (*walks, f"group_fold_kernel<{t}")), calls)
+
+    per_launch = {
+        "sum": device_ms_per_launch(
+            {"ours": slice_stats["hostname_avg"]["ours"]},
+            lambda k: k.startswith("segment_walk_kernel<float, 0>")),
+        "max": extreme_ms("float"), "int32": extreme_ms("int"),
+        "tree": per_call(region["ours"],
+                         lambda k: k.startswith("tree_level_kernel"),
+                         region["launches_per_warm"].get("column_tree_sum")),
+    }
+    t = time.perf_counter()
+    rows = grouped_kernel_rows(dev, gr, store, launches, per_launch)
+    emit({"phase": "rows", "engines": stats, "checks": checks,
+          "launches": launches, "launches_by_engine": by_engine,
+          "host": host, "host_cut_ms": HOST_CUT_MS,
+          "kernel_seconds": time.perf_counter() - t,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return rows, launches, {
+        e: stats[f"mesh_{e}"]["region_ring"]["launches_per_warm"]
+        for e in ("fused", "hops")}
+
+
+def check_high_cpu(table, name, res):
+    """A high-cpu result against a numpy mask over the table's scan."""
+    rows = table.scan(["usage_user", "usage_system"]).rows
+    sel = rows.fields["usage_user"] > 90.0
+    if name == "high_cpu_1":
+        host = np.asarray(table.region.series.tag_values("hostname"))
+        sel &= host[rows.sid] == "host_17"
+    if res.num_rows != int(sel.sum()) or not np.array_equal(
+            np.asarray(res.column("ts").values), rows.ts[sel]) or not (
+            np.array_equal(np.asarray(res.column("usage_system").values),
+                           rows.fields["usage_system"][sel])):
+        raise AssertionError(f"{name} differs from a numpy filter")
+    return int(sel.sum())
+
+
 def run(args) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2052,15 +2560,24 @@ def run(args) -> int:
                  "q1": r1, "q2": r2}
     sql_launches, hop_launches, sql_per_launch, q2_warm = sql_phase(
         args, dev, slice_out, mesh_out)
-    # every kernel's launches over the main-path runs of phases 2, 6, 7
-    # and 8; the hop ring's seed, continuation and combines ran in phase 8
-    # only
+    # ---- 9. rows -----------------------------------------------------
+    grouped_rows, rows_launches, rows_warm = rows_phase(args, dev,
+                                                        slice_out, mesh_out)
+    kernels += grouped_rows
+    # every kernel's launches over the main-path runs of phases 2, 6, 7,
+    # 8 and 9; the hop ring's seed, continuation and combines ran in
+    # phase 8 only, G and Gt in phase 9 only
     extreme_row = next(r for r in mesh_out["rows"] if r["name"] == "extreme")
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
     for row in kernels:
         name = row["name"]
         row["launches"] += sql_launches.get(name, 0)
+        if name not in GROUPED_KERNELS and rows_launches.get(name):
+            row["launches"] += rows_launches[name]
+            row["launches_groupby"] = rows_launches[name]
+            row["launches_per_warm_groupby"] = rows_warm[
+                "hops" if name in GROUPBY_HOPS else "fused"].get(name, 0)
         if name == "blocked_fold_sum":
             row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
             row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[

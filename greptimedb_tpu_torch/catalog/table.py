@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from greptimedb_tpu_torch.index import tag_index
 from greptimedb_tpu_torch.storage.memtable import (
     OP_DELETE,
     OP_PUT,
@@ -98,10 +99,21 @@ class Table:
         Region.compact for the options)."""
         return self.region.compact(**kwargs)
 
-    def scan(self, field_names: list[str] | None = None) -> TableScanData:
+    def scan(self, field_names: list[str] | None = None, *,
+             ts_min: int | None = None, ts_max: int | None = None,
+             matchers: list | None = None) -> TableScanData:
+        """Merged rows of `field_names` (default: every field) with ts in
+        [ts_min, ts_max], of the series every tag matcher (tag, op, value)
+        accepts; rows sorted by (sid, ts)."""
         names = field_names if field_names is not None else self.field_names
-        return TableScanData(self.region.scan(names), self.region.series,
-                             names)
+        region = self.region
+        sids = None
+        if matchers:
+            sids = tag_index.match_sids(region.series, matchers)
+            if len(sids) == 0:
+                return TableScanData(None, region.series, names)
+        rows = region.scan(names, ts_min=ts_min, ts_max=ts_max, sids=sids)
+        return TableScanData(rows, region.series, names)
 
     def data_version(self) -> tuple:
         """Logical-data version; device grid caches compare it to decide

@@ -1,4 +1,6 @@
-"""Tag dictionaries: string -> dense int32 code, one per tag column.
+"""Tag dictionaries: string -> dense int32 code, one per tag column, and
+the row-axis shape buckets of the device GROUP BY (`bucket_size`,
+`pad_to`, copied from the JAX package's datatypes/batch.py).
 
 The device never sees strings: tag values are interned here at ingest and
 group-by and series identification run over the codes. Codes are handed
@@ -60,3 +62,25 @@ class Dictionary:
     @property
     def values(self) -> list[str]:
         return self._values
+
+
+def bucket_size(n: int, *, minimum: int = 1024) -> int:
+    """Round ``n`` up to a power-of-two shape bucket (at least
+    ``minimum``)."""
+    if n <= 0:
+        return minimum
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_to(values: np.ndarray, n: int, fill=0) -> np.ndarray:
+    """Pad a 1-D array up to length ``n`` with ``fill``."""
+    if len(values) == n:
+        return values
+    if len(values) > n:
+        raise ValueError(f"cannot pad {len(values)} values to {n}")
+    out = np.full(n, fill, dtype=values.dtype)
+    out[: len(values)] = values
+    return out

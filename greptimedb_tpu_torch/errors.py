@@ -25,6 +25,11 @@ class ExecutionError(GreptimeError):
     """A planned query that fails while it runs."""
 
 
+class ArithmeticOverflowError(ExecutionError):
+    """An exact integer aggregate (SUM over BIGINT/UINT64) exceeds the
+    int64 result range; raised instead of silently wrapping."""
+
+
 class TableNotFoundError(GreptimeError):
     """A table or field that does not exist."""
 

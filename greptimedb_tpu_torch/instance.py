@@ -4,14 +4,16 @@ Standalone.sql, for SELECT statements).
 An Instance holds a `catalog` (catalog/manager.CatalogManager; tables go in
 with `catalog.register(table)`) and a `query_engine`
 (query/executor.QueryEngine on `device`, default CUDA, with an optional
-mesh). `sql` parses the text (sql/parser.parse_sql), plans each SELECT
-against its table (query/planner.plan_select) and executes it on the
-device grid (query/device_range). Every other statement, a SELECT without
-a plain table (joins, subqueries, CTEs, information_schema), and the plain
-and aggregate plans of the host paths raise UnsupportedError naming the
-shape: DDL, INSERT over SQL, HTTP and the rest of the JAX instance are
-later slices. `promql/engine.PromEngine(instance)` reads the same catalog
-and engine.
+mesh and the JAX engine's `prefer_device`). `sql` parses the text
+(sql/parser.parse_sql), plans each SELECT against its table
+(query/planner.plan_select), or against no table for a SELECT without
+FROM, and executes it: RANGE plans on the device grid or the host RANGE
+path, GROUP BY through the grouped reduce (on the card or the host), row
+filters and projections on the host. Every other statement, joins,
+subqueries, CTEs, information_schema and window functions raise
+UnsupportedError naming the shape: DDL, INSERT over SQL, HTTP and the
+rest of the JAX instance are later slices.
+`promql/engine.PromEngine(instance)` reads the same catalog and engine.
 """
 
 from __future__ import annotations
@@ -27,10 +29,12 @@ DEFAULT_DATABASE = "public"
 
 
 class Instance:
-    def __init__(self, device=None, mesh=None, mesh_opts=None):
+    def __init__(self, device=None, mesh=None, mesh_opts=None,
+                 prefer_device: bool | None = True):
         self.catalog = CatalogManager()
         self.query_engine = QueryEngine(device=device, mesh=mesh,
-                                        mesh_opts=mesh_opts)
+                                        mesh_opts=mesh_opts,
+                                        prefer_device=prefer_device)
 
     def sql(self, sql: str) -> QueryResult:
         """Run every statement of `sql`; returns the last one's result.
@@ -52,7 +56,9 @@ class Instance:
             raise UnsupportedError(
                 "CTEs, joins and subqueries in FROM are not ported yet")
         if not stmt.from_table:
-            raise UnsupportedError("SELECT without a table is not ported yet")
+            plan = plan_select(stmt, ts_name=None, tag_names=[],
+                               all_columns=None)
+            return self.query_engine.execute(plan, None)
         plan, table = self.plan(stmt)
         return self.query_engine.execute(plan, table)
 

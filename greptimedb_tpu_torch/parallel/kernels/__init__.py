@@ -6,4 +6,7 @@
   ring_fold_fused, ring_pext_fused and ring_psum_onehot_fused.
 - topk_merge.merge_candidates: the topk ring's candidate merge, and
   topk_merge.ring_topk_merge_fused: the whole topk ring in one launch.
+- grouped_reduce.grouped_block_reduce (G): the GROUP BY's fixed-order
+  per-(block, group) sums and per-group extremes, and
+  grouped_reduce.column_tree_sum (Gt): XLA:CPU's order of a column sum.
 """

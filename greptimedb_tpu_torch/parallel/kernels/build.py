@@ -30,7 +30,8 @@ import torch
 
 from greptimedb_tpu_torch.device import native_available
 
-SOURCES = ("merge_gather", "ring_fold", "ring_fold_fused", "topk_merge")
+SOURCES = ("merge_gather", "ring_fold", "ring_fold_fused", "topk_merge",
+           "grouped_reduce")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -30,14 +30,16 @@ FOLD_BLOCKS = 8
 
 @dataclass(frozen=True)
 class MeshOptions:
-    """The `[mesh]` knobs the range path reads (the JAX package's
-    MeshOptions fields of the same names)."""
+    """The `[mesh]` knobs the range and GROUP BY paths read (the JAX
+    package's MeshOptions fields of the same names)."""
 
     shard_min_series: int = 4096    # grids below this replicate
+    shard_min_rows: int = 262144    # row paths: rows below this replicate
     # ring-fold kernels: auto = CUDA tensors only; on = everywhere (the
     # plain versions stand in on the CPU); off = never (gather twin)
     pallas_kernels: str = "auto"
     pallas_min_series: int = 4096   # kernel grid paths below this gather
+    pallas_min_rows: int = 262144   # kernel row paths below this gather
     pallas_max_k: int = 128         # the topk merge kernel is O(k^2) a hop
 
 

@@ -26,11 +26,13 @@ device-resident (series x time-cell) partial-state grids:
 States are float32/int32 as in the JAX package's device path; indices are
 int64 only where torch indexing requires it. Tag matchers of the WHERE
 clause become a host sid mask (index/tag_index.match_sids) that the
-prelude and every shard's program apply. Shapes the port does not run
-yet (residual filters, expression arguments, unaligned time bounds,
-oversized grids, a sharded fold past the blocked-fold cap) raise
-UnsupportedError naming the shape: there is no host path to fall back to
-in this slice.
+prelude and every shard's program apply. Where the JAX package declines
+a shape (residual filters, expression arguments, non-tag keys, unaligned
+time bounds, oversized grids, `prefer_device` off or a small table), the
+entry points return None and the engine answers on the host path
+(query/executor). One shape raises UnsupportedError: a sharded fold past
+the blocked-fold cap, which the JAX package hands to XLA's auto-SPMD
+program.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
 from greptimedb_tpu_torch.query import readback
 from greptimedb_tpu_torch.query.planner import Column, decide_mesh_execution
+from greptimedb_tpu_torch.query.reduce import DEVICE_THRESHOLD
 
 _CELL_CAP = 256 * 1024 * 1024    # max S*NB cells per cached array (1GB f32)
 _MAX_ENTRIES = 8                 # LRU entry-count cap across all tables
@@ -218,33 +221,32 @@ class DeviceRangeCache:
 # eligibility
 # ----------------------------------------------------------------------
 
-def plan_lowering(plan, table) -> list[tuple[str, str]]:
+def plan_lowering(plan, table) -> list[tuple[str, str]] | None:
     """(field, op) per range item when `plan` lowers onto cell partials;
-    raises UnsupportedError naming the first shape that does not."""
+    None sends it to the host path. Checks everything except the cell
+    alignment of time bounds (that needs the entry's resolution)."""
     if plan.kind != "range":
-        raise UnsupportedError(f"plan kind {plan.kind!r}: only RANGE "
-                               f"plans run in this slice")
+        return None
     if plan.scan.residual is not None:
-        raise UnsupportedError(f"residual row filter {plan.scan.residual}")
+        return None
     items = []
     for it in plan.range_items:
         if it.op not in _DEVICE_RANGE_OPS:
-            raise UnsupportedError(f"RANGE aggregate {it.op!r}")
+            return None
         if it.arg is None:
             if it.op != "count":
-                raise UnsupportedError(f"{it.op}(*)")
+                return None
             items.append(("__rows__", it.op))
             continue
         if not isinstance(it.arg, Column):
-            raise UnsupportedError(f"expression argument {it.arg}")
+            return None
         dt = table.schema.field_dtypes.get(it.arg.name)
         if dt is None or dt.kind not in "biuf":
-            raise UnsupportedError(
-                f"argument {it.arg.name!r} is not a numeric field")
+            return None
         items.append((it.arg.name, it.op))
     for k in plan.keys:
         if not (isinstance(k.expr, Column) and k.expr.name in table.tag_names):
-            raise UnsupportedError(f"BY key {k.expr} is not a tag column")
+            return None
     return items
 
 
@@ -304,13 +306,15 @@ def _put(devices):
 
 def build_entry(plan, table, items, *, device, mesh=None, mesh_opts=None,
                 byte_budget: int = _BYTE_BUDGET,
-                keep_host: bool = False) -> _Entry:
+                keep_host: bool = False) -> _Entry | None:
     """Scan the table once and build the device cell-state grids.
 
     With a mesh, the replicate-vs-shard planner decides placement from the
     series count: large grids are cut along the series axis over the
     mesh's devices, small ones stay on `device`. keep_host=True also keeps
-    the host-side grid arrays on entry.host_snap."""
+    the host-side grid arrays on entry.host_snap. None (the host path
+    answers) for an empty table and a grid past the cell cap or the byte
+    budget."""
     needed: dict[str, set] = {}
     for fname, op in items:
         if fname != "__rows__":
@@ -341,17 +345,19 @@ def build_entry(plan, table, items, *, device, mesh=None, mesh_opts=None,
     S = _series_pad(S, mesh)
     res = _pick_res(plan, ts, S)
     if res is None or res >= _I32_MAX:
-        raise UnsupportedError("grid resolution past the cell cap")
+        # res >= 2^31 ms would overflow the exact int32 intra-cell offsets
+        return None
     phase = plan.align_to % res
     data_min = int(ts.min())
     data_max = int(ts.max())
     t0c = phase + ((data_min - phase) // res) * res
     nb = (data_max - t0c) // res + 1
     if S * nb > _CELL_CAP:
-        raise UnsupportedError(f"grid of {S} x {nb} cells past the cap")
+        return None
+    # projected device bytes for the full entry must fit the cache budget
     n_arr = 3 + sum(len(k) for k in needed.values())
     if S * nb * 4 * n_arr > byte_budget:
-        raise UnsupportedError("grid past the cache byte budget")
+        return None
 
     cell = (ts - t0c) // res
     seg = sid.astype(np.int64) * nb + cell
@@ -1072,11 +1078,19 @@ def _group_ids_from_sids(plan, registry, active: np.ndarray):
 
 
 def execute_range_device(engine, plan, table):
-    """Run a RANGE plan on the device grid cache; returns a QueryResult."""
+    """Run a RANGE plan on the device grid cache: a QueryResult, or None
+    where the JAX package declines the shape (the host path answers)."""
     items = plan_lowering(plan, table)
+    if items is None:
+        return None
+    prefer = engine.prefer_device
+    if prefer is False:
+        return None
+    if prefer is None and table.row_count() < DEVICE_THRESHOLD:
+        return None
     align = plan.align_ms
     if align is None or align <= 0:
-        raise UnsupportedError("RANGE without a positive ALIGN")
+        return None
     r0 = align
     for it in plan.range_items:
         r0 = math.gcd(r0, it.range_ms)
@@ -1084,32 +1098,33 @@ def execute_range_device(engine, plan, table):
     cache: DeviceRangeCache = engine.range_cache
     tkey = (table.database, table.name, id(table))
     entry = cache.lookup_compatible(tkey, version, r0, plan.align_to)
-    if entry is not None and not ensure_states(entry, table, items, cache):
-        entry = None
     if entry is None:
         entry = build_entry(plan, table, items, device=engine.device,
                             mesh=engine.mesh, mesh_opts=engine.mesh_opts,
                             byte_budget=cache.byte_budget)
         if entry is None:
-            return engine._empty_result([nm for _, nm in plan.post_items])
+            return None
         cache.insert((tkey, entry.res, entry.phase), entry)
+    elif not ensure_states(entry, table, items, cache):
+        return None
     return execute_on_entry(engine, plan, table, entry, items)
 
 
 def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
-    """The query half of execute_range_device over a given grid entry."""
+    """The query half of execute_range_device over a given grid entry (None:
+    the host path answers)."""
     if items is None:
         items = plan_lowering(plan, table)
+        if items is None:
+            return None
     s = plan.scan
-    if plan.grid_ts_min is not None or plan.grid_ts_max is not None:
-        raise UnsupportedError("distributed fill-grid override")
     align = plan.align_ms
     res = entry.res
     # WHERE ts bounds must land on cell edges or partials can't honor them
     if s.ts_min is not None and (s.ts_min - entry.t0c) % res != 0:
-        raise UnsupportedError("ts lower bound not on a cell edge")
+        return None
     if s.ts_max is not None and (s.ts_max + 1 - entry.t0c) % res != 0:
-        raise UnsupportedError("ts upper bound not on a cell edge")
+        return None
     lo = ((s.ts_min - entry.t0c) // res if s.ts_min is not None
           else -(2**31) + 1)
     hi = ((s.ts_max + 1 - entry.t0c) // res if s.ts_max is not None
@@ -1132,6 +1147,10 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     active, ts_min_f, ts_max_f = run_prelude(entry, sid_mask, lo, hi)
     if ts_min_f is None:
         return empty
+    if plan.grid_ts_min is not None:
+        # distributed fill-grid override: the negotiated global extent
+        ts_min_f = plan.grid_ts_min
+        ts_max_f = plan.grid_ts_max
 
     # window math — identical to the host path (python ints: // floors)
     align_to = plan.align_to % align if plan.align_to else 0
@@ -1145,7 +1164,7 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     t0q = align_to + j_first * align
     delta = (t0q - entry.t0c) // res
     if not (-(2**31) < delta < 2**31):
-        raise UnsupportedError("query window far outside the data grid")
+        return None  # query window absurdly far from the data grid
     lo_c = _clamp_i32(lo)
     hi_c = _clamp_i32(hi)
 
@@ -1193,7 +1212,7 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         w_i = item.range_ms // res
         nb_i = (n_steps - 1) * (align // res) + w_i
         if g * nb_i > 256_000_000:
-            raise UnsupportedError("result grid past the cell cap")
+            return None
     step_ts = (align_to + (j_first + np.arange(n_steps)) * align).astype(
         np.int64
     )

@@ -1,28 +1,53 @@
-"""Query engine: RANGE plans over a table, executed on the card.
+"""Query engine: single-table SELECT plans over a table (the JAX
+package's query/executor.py).
 
-`QueryEngine(device=..., mesh=..., mesh_opts=...)` is the seam the JAX
-package's engine exposes as `QueryEngine(...).execute(plan, table)`. The
-port executes RANGE plans through query/device_range; result assembly
-(fill, group order, HAVING, output expressions through eval_expr,
-DISTINCT, ORDER BY, LIMIT/OFFSET) is copied from the JAX package's
-executor. Plain and aggregate plans are later slices and raise
-UnsupportedError.
+`QueryEngine(device=..., mesh=..., mesh_opts=..., prefer_device=...)` is
+the seam the JAX package's engine exposes as
+`QueryEngine(...).execute(plan, table)`:
+
+- RANGE plans run on the device grid (query/device_range) where it takes
+  the shape; where it declines, the scan and the host RANGE path answer
+  (per-(group, bucket) partial states combined over windows by stride
+  doubling, copied);
+- aggregate plans (GROUP BY) group on the host and reduce through
+  query/reduce.grouped_reduce: on the card (the fused program with kernel
+  G, sharded over a mesh when the planner says so) or on the host;
+- plain plans (row filters, projections, ORDER BY/LIMIT) and SELECT
+  without a table run on the host. Window functions (OVER) are not
+  ported yet (ROADMAP A6) and raise UnsupportedError.
+
+`prefer_device` has the JAX package's meaning: None decides by the row
+count (reduce.DEVICE_THRESHOLD), False keeps everything on the host, True
+takes the device path wherever the shape is eligible (the port's
+default). `last_exec_path` is "device" or "host" after each query.
+Result assembly (fill, group order, HAVING, output expressions, DISTINCT,
+ORDER BY, LIMIT/OFFSET) is copied from the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from greptimedb_tpu_torch.datatypes.types import ConcreteDataType
+from greptimedb_tpu_torch.datatypes.types import ConcreteDataType, TypeId
 from greptimedb_tpu_torch.device import resolve_device
 from greptimedb_tpu_torch.errors import (
     ColumnNotFoundError,
     ExecutionError,
+    PlanError,
     UnsupportedError,
 )
 from greptimedb_tpu_torch.query import device_range
-from greptimedb_tpu_torch.query.expr import Col, ColumnSource, eval_expr
+from greptimedb_tpu_torch.query.expr import (
+    Col,
+    ColumnSource,
+    EmptySource,
+    collect_columns,
+    eval_expr,
+)
+from greptimedb_tpu_torch.query.planner import _has_window_call
+from greptimedb_tpu_torch.query.reduce import grouped_reduce
 from greptimedb_tpu_torch.sql import ast as A
+from greptimedb_tpu_torch.storage.memtable import _slice_rows
 
 __all__ = ["Col", "QueryResult", "QueryEngine"]
 
@@ -41,9 +66,52 @@ class QueryResult:
         return self.cols[self.names.index(name)]
 
 
+class RowsSource(ColumnSource):
+    """Column resolution over a table scan: fields and ts direct, tags
+    decoded lazily through the series registry (strings never go to the
+    device)."""
+
+    def __init__(self, rows, registry, tag_names: list[str], ts_name: str):
+        self.rows = rows
+        self.registry = registry
+        self.tag_names = tag_names
+        self.ts_name = ts_name
+        self.num_rows = 0 if rows is None else len(rows)
+        self._tag_cache: dict[str, np.ndarray] = {}
+
+    def col(self, name: str) -> Col:
+        rows = self.rows
+        if rows is None:
+            raise ExecutionError("empty scan")
+        if name == self.ts_name:
+            return Col(rows.ts)
+        if name in rows.fields:
+            validity = None
+            if rows.field_valid is not None and name in rows.field_valid:
+                v = rows.field_valid[name]
+                validity = None if v.all() else v
+            return Col(rows.fields[name], validity)
+        if name in self.tag_names:
+            if name not in self._tag_cache:
+                per_sid = self.registry.tag_values(name)
+                self._tag_cache[name] = per_sid[rows.sid]
+            return Col(self._tag_cache[name])
+        raise ColumnNotFoundError(f"column not found: {name}")
+
+    def tag_codes_per_row(self, name: str) -> tuple[np.ndarray, np.ndarray]:
+        """(per-row int32 code, per-code string values) of a tag column:
+        the group-by path that never builds strings per row."""
+        per_sid = self.registry.tag_codes(name)
+        codes = per_sid[self.rows.sid]
+        values = np.asarray(self.registry.dicts[
+            self.registry.tag_names.index(name)
+        ].values, dtype=object)
+        return codes, values
+
+
 class DictSource(ColumnSource):
     """Column source over a plain name -> Col mapping (the assembled
-    RANGE cells, the output columns)."""
+    RANGE cells, the aggregate columns, the output columns)."""
 
     def __init__(self, cols: dict[str, Col], num_rows: int):
         self.cols = cols
@@ -133,8 +201,20 @@ def _group_order(key_cols: dict, keys: list[str], g: int) -> np.ndarray:
     return np.lexsort(rank_keys)
 
 
-def _apply_fill(vals, present, fill):
-    """FILL NULL|PREV|LINEAR|<const> along the step axis per group."""
+def _column_type(table, name: str) -> ConcreteDataType | None:
+    """The declared type of a table column (None if it has none)."""
+    schema = table.schema
+    if name == schema.ts_name:
+        return ConcreteDataType.timestamp_millisecond()
+    if name in schema.tag_names:
+        return ConcreteDataType.string()
+    dt = schema.field_dtypes.get(name)
+    return None if dt is None else ConcreteDataType(TypeId(dt.name))
+
+
+def _apply_fill(vals, present, fill, step_ts):
+    """FILL NULL|PREV|LINEAR|<const> along the step axis per group
+    (`step_ts`, the step timestamps, as in the JAX package's signature)."""
     if fill is None or fill == "null":
         return vals, present
     if fill == "prev":
@@ -157,44 +237,253 @@ def _apply_fill(vals, present, fill):
     try:
         const = float(fill)
     except ValueError:
-        raise UnsupportedError(f"unknown FILL: {fill}") from None
+        raise PlanError(f"unknown FILL: {fill}") from None
     return np.where(present, vals, const), np.ones_like(present, dtype=bool)
 
 
 class QueryEngine:
-    """Executes RANGE plans against a table on `device` (default CUDA).
+    """Executes SELECT plans against a table on `device` (default CUDA).
 
     `mesh` (parallel/mesh.make_mesh) lets the planner shard large grids
-    over the series axis; `mesh_opts` (parallel/mesh.MeshOptions) holds
-    its thresholds and the ring-kernel knob."""
+    over the series axis and large GROUP BYs over the row axis;
+    `mesh_opts` (parallel/mesh.MeshOptions) holds its thresholds and the
+    ring-kernel knob."""
 
     def __init__(self, device=None, mesh=None, mesh_opts=None,
-                 prefer_device: bool = True,
+                 prefer_device: bool | None = True,
                  byte_budget: int = device_range._BYTE_BUDGET):
         self.device = resolve_device(device)
-        if not prefer_device:
-            raise UnsupportedError("the host RANGE path is not ported yet")
+        self.prefer_device = prefer_device
         self.mesh = mesh
         self.mesh_opts = mesh_opts
         self.range_cache = device_range.DeviceRangeCache(byte_budget)
-        # the last RANGE execution: program variant, shard count, mesh
-        # decision and declared ring bytes (the JAX package's EXPLAIN
-        # ANALYZE notes)
+        # the last RANGE execution on the device grid: program variant,
+        # shard count, mesh decision and declared ring bytes (the JAX
+        # package's EXPLAIN ANALYZE notes); None after any other query
         self.last_range = None
-        # "device" after a query ran on the device grid (the JAX engine's
-        # observability field; the port has no host RANGE path)
-        self.last_exec_path = None
+        # the last GROUP BY's device program (query/reduce), or None
+        self.last_reduce = None
+        self.last_exec_path = "host"  # observability: host | device
 
     def execute(self, plan, table) -> QueryResult:
-        self.last_exec_path = None
-        if plan.kind != "range":
-            raise UnsupportedError(f"{plan.kind} plans are not ported yet")
-        res = device_range.execute_range_device(self, plan, table)
-        self.last_exec_path = "device"
-        return res
+        if table is None:
+            return self._execute_tableless(plan)
+        self.last_exec_path = "host"
+        self.last_range = self.last_reduce = None
+        if plan.kind == "range":
+            res = device_range.execute_range_device(self, plan, table)
+            if res is not None:
+                self.last_exec_path = "device"
+                return res
+        src = self._scan(plan, table)
+        if plan.kind == "plain":
+            return self._execute_plain(plan, src, table)
+        if plan.kind == "aggregate":
+            return self._execute_aggregate(plan, src, table)
+        if plan.kind == "range":
+            return self._execute_range(plan, src, table)
+        raise PlanError(f"unknown plan kind: {plan.kind}")
 
     def _empty_result(self, names: list[str]) -> QueryResult:
         return QueryResult(names, [Col(np.zeros(0)) for _ in names])
+
+    # ------------------------------------------------------------------
+    def _scan(self, plan, table) -> RowsSource:
+        """The rows a plan reads: its columns, its ts bounds and tag
+        matchers at the scan, then its residual row filter."""
+        needed = set()
+        for e, _ in plan.items:
+            collect_columns(e, needed)
+        for k in plan.keys:
+            collect_columns(k.expr, needed)
+        for a in plan.aggs:
+            if a.arg is not None:
+                collect_columns(a.arg, needed)
+        for r in plan.range_items:
+            if r.arg is not None:
+                collect_columns(r.arg, needed)
+        if plan.scan.residual is not None:
+            collect_columns(plan.scan.residual, needed)
+        for o in plan.order_by:
+            collect_columns(o.expr, needed)
+        if plan.having is not None:
+            collect_columns(plan.having, needed)
+        field_names = [f for f in table.field_names if f in needed]
+        data = table.scan(field_names, ts_min=plan.scan.ts_min,
+                          ts_max=plan.scan.ts_max,
+                          matchers=plan.scan.matchers or None)
+        src = RowsSource(data.rows, data.registry, table.tag_names,
+                         table.ts_name)
+        if plan.scan.residual is not None and src.num_rows:
+            cond = eval_expr(plan.scan.residual, src)
+            mask = cond.values.astype(bool) & cond.valid_mask
+            if not mask.all():
+                # one flatnonzero + integer takes beats re-scanning the
+                # boolean mask once per column at low selectivity
+                idx = np.flatnonzero(mask)
+                src = RowsSource(_slice_rows(src.rows, idx), data.registry,
+                                 table.tag_names, table.ts_name)
+        return src
+
+    # ------------------------------------------------------------------
+    def _execute_tableless(self, plan) -> QueryResult:
+        if plan.kind != "plain":
+            raise PlanError("aggregates need a FROM table")
+        src = EmptySource()
+        names = [n for _, n in plan.items]
+        cols = [eval_expr(e, src) for e, _ in plan.items]
+        return QueryResult(names, cols)
+
+    # ------------------------------------------------------------------
+    def _execute_plain(self, plan, src: RowsSource, table) -> QueryResult:
+        names = [n for _, n in plan.items]
+        if src.num_rows == 0:
+            cols = [Col(np.zeros(0)) for _ in plan.items]
+            return QueryResult(names, cols, self._types_hint(plan, table))
+        if any(_has_window_call(e) for e, _ in plan.items) or any(
+                _has_window_call(o.expr) for o in plan.order_by):
+            raise UnsupportedError(
+                "window functions (OVER) are not ported yet (ROADMAP A6)")
+        cols = [eval_expr(e, src) for e, _ in plan.items]
+        if plan.distinct:
+            idx = _distinct_indices(cols)
+            cols = _slice_result(cols, idx)
+        cols = self._order_limit(plan, cols, names, extra_src=src)
+        return QueryResult(names, cols, self._types_hint(plan, table))
+
+    def _types_hint(self, plan, table) -> dict:
+        hints = {}
+        for e, n in (plan.items or plan.post_items):
+            if isinstance(e, A.Column) and table is not None:
+                dt = _column_type(table, e.name)
+                if dt is not None:
+                    hints[n] = dt
+        return hints
+
+    # ------------------------------------------------------------------
+    def _group_ids(self, plan, src: RowsSource):
+        """Per-row group ids + per-group key output columns. Bare tag
+        columns group through per-sid codes (no strings per row). Returns
+        (gid, g, {key: Col})."""
+        n = src.num_rows
+        if not plan.keys:
+            return np.zeros(n, dtype=np.int64), 1, {}
+        code_cols = []
+        decoders = []  # (vocab array, null_code | None)
+        for k in plan.keys:
+            e = k.expr
+            if isinstance(e, A.Column) and e.name in src.tag_names:
+                codes, vocab = src.tag_codes_per_row(e.name)
+                code_cols.append(codes.astype(np.int64))
+                decoders.append((vocab, None))
+                continue
+            c = eval_expr(e, src)
+            v = c.values
+            if v.dtype == object or v.dtype.kind in ("U", "S"):
+                uniq, inv = np.unique(v.astype(str), return_inverse=True)
+                codes = np.ravel(inv).astype(np.int64)
+                vocab = uniq.astype(object)
+                null_fill = ""
+            else:
+                uniq, inv = np.unique(v, return_inverse=True)
+                codes = np.ravel(inv).astype(np.int64)
+                vocab = uniq
+                null_fill = uniq[0] if len(uniq) else 0
+            null_code = None
+            if c.validity is not None and not c.validity.all():
+                # NULL is its own group, distinct from every value
+                null_code = len(vocab)
+                codes = np.where(c.validity, codes, null_code)
+                vocab = np.append(vocab, null_fill)
+            code_cols.append(codes)
+            decoders.append((vocab, null_code))
+        combined = code_cols[0]
+        cards = [int(cc.max()) + 1 if len(cc) else 1 for cc in code_cols]
+        for cc, card in zip(code_cols[1:], cards[1:]):
+            combined = combined * card + cc
+        uniq_comb, gid = np.unique(combined, return_inverse=True)
+        g = len(uniq_comb)
+        # decode group keys from the combined code
+        key_cols = {}
+        rem = uniq_comb
+        for i in range(len(code_cols) - 1, -1, -1):
+            card = cards[i]
+            code_i = rem % card
+            rem = rem // card
+            vocab, null_code = decoders[i]
+            validity = None
+            if null_code is not None:
+                validity = code_i != null_code
+                if validity.all():
+                    validity = None
+            key_cols[plan.keys[i].key] = Col(np.asarray(vocab[code_i]),
+                                             validity)
+        return np.ravel(gid).astype(np.int64), g, key_cols
+
+    def _execute_aggregate(self, plan, src: RowsSource, table) -> QueryResult:
+        n = src.num_rows
+        if n == 0 and plan.keys:
+            names = [nm for _, nm in plan.post_items]
+            return self._empty_result(names)
+        if n == 0:
+            # global aggregate over empty input: one row
+            agg_cols = {}
+            for a in plan.aggs:
+                if a.op in ("count", "count_distinct"):
+                    agg_cols[a.key] = Col(np.zeros(1, np.int64))
+                else:
+                    agg_cols[a.key] = Col(np.zeros(1), np.zeros(1, bool))
+            return self._post_project(plan, agg_cols, 1)
+
+        gid, g, key_cols = self._group_ids(plan, src)
+        values = {}
+        valid_map = {}
+        specs = []
+        for a in plan.aggs:
+            vk = None
+            if a.arg is not None:
+                vk = f"v{len(values)}"
+                c = eval_expr(a.arg, src)
+                values[vk] = c.values
+                if c.validity is not None:
+                    valid_map[vk] = c.validity
+            if a.distinct and a.op not in ("count_distinct",):
+                raise UnsupportedError(f"DISTINCT {a.op} is not supported")
+            specs.append((a.key, a.op, vk, a.q))
+        ts = src.rows.ts if src.rows is not None else None
+        results, path, self.last_reduce = grouped_reduce(
+            specs, values, gid, valid_map, g, ts=ts,
+            prefer_device=self.prefer_device, device=self.device,
+            mesh=self.mesh, mesh_opts=self.mesh_opts,
+        )
+        self.last_exec_path = "device" if path == "device" else "host"
+        agg_cols = dict(key_cols)
+        for name, (vals, valid) in results.items():
+            agg_cols[name] = Col(
+                vals, None if valid is None or valid.all() else valid
+            )
+        return self._post_project(plan, agg_cols, g)
+
+    def _post_project(self, plan, agg_cols: dict, g: int) -> QueryResult:
+        gsrc = DictSource(agg_cols, g)
+        if plan.having is not None:
+            cond = eval_expr(plan.having, gsrc)
+            mask = cond.values.astype(bool) & cond.valid_mask
+            agg_cols = {
+                k: Col(c.values[mask],
+                       None if c.validity is None else c.validity[mask])
+                for k, c in agg_cols.items()
+            }
+            g = int(mask.sum())
+            gsrc = DictSource(agg_cols, g)
+        names = [nm for _, nm in plan.post_items]
+        cols = [eval_expr(e, gsrc) for e, _ in plan.post_items]
+        if plan.distinct:
+            idx = _distinct_indices(cols)
+            cols = _slice_result(cols, idx)
+            gsrc = None
+        cols = self._order_limit(plan, cols, names, extra_src=gsrc)
+        return QueryResult(names, cols)
 
     def _order_limit(self, plan, cols: list[Col], names: list[str],
                      *, extra_src: ColumnSource | None) -> list[Col]:
@@ -225,17 +514,107 @@ class QueryEngine:
             cols = _slice_result(cols, slice(off, end))
         return cols
 
+    # ------------------------------------------------------------------
+    # RANGE select on the host
+    # ------------------------------------------------------------------
+    def _execute_range(self, plan, src: RowsSource, table) -> QueryResult:
+        names = [nm for _, nm in plan.post_items]
+        if src.num_rows == 0:
+            return self._empty_result(names)
+        rows = src.rows
+        align = plan.align_ms
+        if align is None or align <= 0:
+            raise PlanError("ALIGN interval must be positive")
+        align_to = plan.align_to % align if plan.align_to else 0
+
+        gid, g, key_cols = self._group_ids(plan, src)
+
+        ts = rows.ts
+        # distributed fill-grid override: the negotiated global extent
+        ts_min = (plan.grid_ts_min if plan.grid_ts_min is not None
+                  else int(ts.min()))
+        ts_max = (plan.grid_ts_max if plan.grid_ts_max is not None
+                  else int(ts.max()))
+        max_range = max(r.range_ms for r in plan.range_items)
+        # steps t with (t, t+range) ∩ data ≠ ∅:  t > ts_min - range,
+        # t <= ts_max
+        j_first = -((-(ts_min - max_range + 1 - align_to)) // align)
+        j_last = (ts_max - align_to) // align
+        n_steps = int(j_last - j_first + 1)
+        if n_steps <= 0:
+            return self._empty_result(names)
+        for item in plan.range_items:
+            # the real allocation is g * nb buckets at res = gcd(align,
+            # range): guard that, not just g * n_steps
+            res_i = int(np.gcd(align, item.range_ms))
+            nb_i = (n_steps - 1) * (align // res_i) + item.range_ms // res_i
+            if g * nb_i > 64_000_000:
+                raise ExecutionError(
+                    f"RANGE query too large: {g} groups x {nb_i} buckets "
+                    f"(align={align}ms range={item.range_ms}ms gcd={res_i}ms)"
+                )
+        step_ts = (align_to + (j_first + np.arange(n_steps)) * align).astype(
+            np.int64
+        )
+
+        item_vals = {}
+        item_present = {}
+        for item in plan.range_items:
+            vals, present = self._range_item(
+                item, src, gid, g, ts, align, align_to, j_first, n_steps,
+            )
+            item_vals[item.key] = vals
+            item_present[item.key] = present
+        return self._assemble_range_result(
+            plan, table, item_vals, item_present, key_cols, step_ts,
+            g, n_steps,
+        )
+
+    def _range_item(self, item, src, gid, g, ts, align, align_to,
+                    j_first, n_steps):
+        """One `agg(x) RANGE 'r'` item -> (vals, present) shaped
+        (g, n_steps). Partial per-bucket states at res = gcd(align,
+        range), then the sparse-table window combine."""
+        res = int(np.gcd(align, item.range_ms))
+        w = item.range_ms // res          # window width in buckets
+        stride = align // res             # step stride in buckets
+        t0 = align_to + j_first * align   # first window start
+        nb = (n_steps - 1) * stride + w   # buckets covering all windows
+        bucket = (ts - t0) // res
+        in_range = (bucket >= 0) & (bucket < nb)
+
+        if item.arg is not None:
+            c = eval_expr(item.arg, src)
+            vals = c.values.astype(np.float64, copy=False)
+            valid = c.valid_mask & in_range
+        else:
+            vals = None
+            valid = in_range.copy()
+
+        seg = gid * nb + np.clip(bucket, 0, nb - 1)
+        nseg = g * nb
+        sid = src.rows.sid if src.rows is not None else None
+        state = _bucket_partials(item.op, vals, valid, seg, nseg, ts, item.q,
+                                 sid=sid)
+        state = {k: v.reshape(g, nb) for k, v in state.items()}
+        combined = _window_combine(item.op, state, w)
+        # sample window starts at stride offsets
+        starts = (np.arange(n_steps) * stride).astype(np.int64)
+        sampled = {k: v[:, starts] for k, v in combined.items()}
+        return _finalize_window(item.op, sampled, item.q)
+
     def _assemble_range_result(self, plan, table, item_vals, item_present,
                                key_cols, step_ts, g, n_steps) -> QueryResult:
-        """Fill + output assembly over (g, n_steps) per-item grids (the
-        JAX package's, without its `since` delta cursor)."""
+        """Fill + output assembly over (g, n_steps) per-item grids, shared
+        by the host path and the device grid path (the JAX package's,
+        without its `since` delta cursor)."""
         ts_type = ConcreteDataType.timestamp_millisecond()
         names = [nm for _, nm in plan.post_items]
         any_present = np.zeros((g, n_steps), dtype=bool)
         for item in plan.range_items:
             fill = item.fill if item.fill is not None else plan.fill
             vals, present = _apply_fill(
-                item_vals[item.key], item_present[item.key], fill
+                item_vals[item.key], item_present[item.key], fill, step_ts
             )
             item_vals[item.key] = vals
             item_present[item.key] = present
@@ -307,3 +686,160 @@ class QueryEngine:
                 if isinstance(e, A.Column) and e.name == "__ts":
                     types[nm] = ts_type
         return QueryResult(names, cols, types)
+
+
+# ----------------------------------------------------------------------
+# host RANGE window machinery (copied from the JAX package)
+# ----------------------------------------------------------------------
+
+def _bucket_partials(op, vals, valid, seg, nseg, ts, q, *, sid=None):
+    """Associative partial state per (group, bucket)."""
+    cnt = np.bincount(seg[valid], minlength=nseg).astype(np.float64)
+    if op in ("count",):
+        return {"n": cnt}
+    if vals is None:
+        raise PlanError(f"{op} needs an argument")
+    vm = np.where(valid, vals, 0.0)
+    if op in ("sum", "mean"):
+        s = np.bincount(seg, weights=vm, minlength=nseg)
+        return {"s": s, "n": cnt}
+    if op in ("min", "max"):
+        fill = np.inf if op == "min" else -np.inf
+        m = np.full(nseg, fill)
+        (np.minimum if op == "min" else np.maximum).at(m, seg[valid],
+                                                       vals[valid])
+        return {"m": m, "n": cnt}
+    if op in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
+        s = np.bincount(seg, weights=vm, minlength=nseg)
+        s2 = np.bincount(seg, weights=vm * vm, minlength=nseg)
+        return {"s": s, "s2": s2, "n": cnt}
+    if op in ("first_value", "last_value"):
+        # deterministic tie-break: (ts, sid) lexicographic — last = max ts
+        # then max sid, first = min ts then min sid; identical on the
+        # device grid path, independent of scan order
+        idx = np.arange(len(seg))
+        tiebreak = sid if sid is not None else idx
+        order = np.lexsort((tiebreak, ts))
+        order = order[valid[order]]
+        v_last = np.zeros(nseg)
+        t_last = np.full(nseg, -(2**62), np.int64)
+        v_last[seg[order]] = vals[order]
+        t_last[seg[order]] = ts[order]
+        v_first = np.zeros(nseg)
+        t_first = np.full(nseg, 2**62, np.int64)
+        ro = order[::-1]
+        v_first[seg[ro]] = vals[ro]
+        t_first[seg[ro]] = ts[ro]
+        return {"vl": v_last, "tl": t_last.astype(np.float64),
+                "vf": v_first, "tf": t_first.astype(np.float64), "n": cnt}
+    raise UnsupportedError(f"RANGE aggregate: {op}")
+
+
+def _combine_states(op, a: dict, b: dict) -> dict:
+    """b is the later window half."""
+    if op == "count":
+        return {"n": a["n"] + b["n"]}
+    if op in ("sum", "mean"):
+        return {"s": a["s"] + b["s"], "n": a["n"] + b["n"]}
+    if op in ("min", "max"):
+        f = np.minimum if op == "min" else np.maximum
+        return {"m": f(a["m"], b["m"]), "n": a["n"] + b["n"]}
+    if op in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
+        return {"s": a["s"] + b["s"], "s2": a["s2"] + b["s2"],
+                "n": a["n"] + b["n"]}
+    if op in ("first_value", "last_value"):
+        pick_b_last = b["tl"] > a["tl"]
+        pick_a_first = a["tf"] <= b["tf"]
+        return {
+            "vl": np.where(pick_b_last, b["vl"], a["vl"]),
+            "tl": np.maximum(a["tl"], b["tl"]),
+            "vf": np.where(pick_a_first, a["vf"], b["vf"]),
+            "tf": np.minimum(a["tf"], b["tf"]),
+            "n": a["n"] + b["n"],
+        }
+    raise UnsupportedError(op)
+
+
+def _shift_left(state: dict, k: int, op) -> dict:
+    """State array shifted left by k buckets (identity-padded)."""
+    out = {}
+    for key, v in state.items():
+        pad_shape = list(v.shape)
+        pad_shape[1] = k
+        if key == "m":
+            fill = np.inf if op == "min" else -np.inf
+        elif key == "tl":
+            fill = -(2.0**62)
+        elif key == "tf":
+            fill = 2.0**62
+        else:
+            fill = 0.0
+        pad = np.full(pad_shape, fill)
+        out[key] = np.concatenate([v[:, k:], pad], axis=1)
+    return out
+
+
+def _window_combine(op, state: dict, w: int) -> dict:
+    """Sliding combine over w consecutive buckets via stride doubling:
+    result[:, i] = combine(buckets i .. i+w-1)."""
+    if w == 1:
+        return state
+    # sparse table: level sizes are powers of two
+    levels = []
+    size = 1
+    cur = state
+    while size < w:
+        nxt = _combine_states(op, cur, _shift_left(cur, size, op))
+        levels.append((size * 2, nxt))
+        cur = nxt
+        size *= 2
+    # decompose w into binary, combining from offset 0
+    result = None
+    offset = 0
+    remaining = w
+    tables = {1: state}
+    for sz, st in levels:
+        tables[sz] = st
+    bit = 1
+    parts = []
+    while remaining:
+        if remaining & bit:
+            parts.append((offset, bit))
+            offset += bit
+            remaining &= ~bit
+        bit <<= 1
+    for off, sz in parts:
+        st = tables[sz]
+        piece = _shift_left(st, off, op) if off else st
+        result = piece if result is None else _combine_states(op, result,
+                                                              piece)
+    return result
+
+
+def _finalize_window(op, state: dict, q):
+    n = state["n"]
+    present = n > 0
+    if op == "count":
+        return n, present
+    if op == "sum":
+        return np.where(present, state["s"], 0.0), present
+    if op == "mean":
+        return state["s"] / np.maximum(n, 1), present
+    if op in ("min", "max"):
+        return np.where(present, state["m"], 0.0), present
+    if op in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
+        ddof = 1 if op.endswith("_samp") else 0
+        mean = state["s"] / np.maximum(n, 1)
+        var = state["s2"] / np.maximum(n, 1) - mean * mean
+        var = np.maximum(var, 0.0)
+        if ddof:
+            var = var * n / np.maximum(n - 1, 1)
+            present = n > 1
+        if op.startswith("stddev"):
+            return np.sqrt(var), present
+        return var, present
+    if op == "last_value":
+        return np.where(present, state["vl"], 0.0), present
+    if op == "first_value":
+        return np.where(present, state["vf"], 0.0), present
+    raise UnsupportedError(op)

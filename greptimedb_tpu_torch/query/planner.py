@@ -8,8 +8,7 @@ query/planner.py), and the replicate-vs-shard mesh planner.
   [t, t + range) window semantics; output expressions are rewritten over
   internal column refs (`__ts`, `__key_i`, `__r_i`) and evaluated on the
   host after the device program;
-- aggregate and plain plans are built as in the JAX package (the executor
-  runs RANGE plans only in this slice).
+- aggregate and plain plans are built as in the JAX package.
 
 Plans carry the port's own AST (sql/ast.py). `plan_from_fields` copies any
 object shaped like a JAX SelectPlan, converting its AST nodes class by
@@ -39,7 +38,8 @@ from greptimedb_tpu_torch.sql.ast import Column
 
 __all__ = [
     "Column", "ScanSpec", "AggSpec", "KeySpec", "RangeItemSpec",
-    "SelectPlan", "MeshDecision", "decide_mesh_execution", "decide_kernel",
+    "SelectPlan", "MeshDecision", "SHARDABLE_ROW_OPS",
+    "decide_mesh_execution", "decide_kernel",
     "analyze_where", "plan_select", "plan_from_fields", "convert_expr",
 ]
 
@@ -103,7 +103,7 @@ class SelectPlan:
     fill: str | None = None
     ts_out_name: str | None = None
     # explicit RANGE grid extent override (the JAX package's distributed
-    # planner sets it; the port raises UnsupportedError on it)
+    # planner sets it; both RANGE paths honour it)
     grid_ts_min: int | None = None
     grid_ts_max: int | None = None
 
@@ -138,44 +138,66 @@ class MeshDecision:
         return f"{self.kernel}({self.kernel_reason})"
 
 
-def decide_mesh_execution(mesh, *, kind: str = "range", series: int,
-                          opts=None) -> MeshDecision:
-    """Choose replicate vs shard for one grid of `series` rows (the JAX
-    package's gate for the grid kinds: "range" for the RANGE grid,
-    "promql" for the PromQL selector grid). Every op the port lowers to a
-    grid folds exactly across shards (device_range._DEVICE_RANGE_OPS and
-    ops/promql's aggregations), so the JAX gate's non-decomposable-op
-    branch has no counterpart here."""
+# aggregate shapes whose sharded row fold is exact (blocked partials and
+# the ring extremes/one-hot sums reproduce the one-device result bit for
+# bit); var/stddev take their deviations against a per-query f32 mean of
+# every block, so the row path keeps them on one device. (Every op the
+# port lowers to a grid folds exactly across shards, so the grid kinds
+# have no op gate.)
+SHARDABLE_ROW_OPS = frozenset({
+    "count", "sum", "mean", "min", "max", "first_value", "last_value",
+})
+
+
+def decide_mesh_execution(mesh, *, kind: str = "range",
+                          series: int | None = None, rows: int | None = None,
+                          ops=(), opts=None) -> MeshDecision:
+    """Choose replicate vs shard for one query execution site (the JAX
+    package's gate): "range" and "promql" are grid kinds and gate on
+    `series` (shard_min_series), "aggregate" is the row kind and gates on
+    `rows` (shard_min_rows). `ops` are the row kind's normalized
+    aggregate op names; one op that does not fold exactly across shards
+    keeps the whole query on one device."""
     from greptimedb_tpu_torch.parallel.mesh import (
         FOLD_BLOCKS, MeshOptions, shard_count,
     )
 
-    if kind not in ("range", "promql"):
-        raise ValueError(f"unknown grid kind: {kind}")
+    if kind not in ("range", "promql", "aggregate"):
+        raise ValueError(f"unknown execution kind: {kind}")
+    grid = kind in ("range", "promql")
     n_dev = shard_count(mesh)
     if mesh is None or n_dev <= 1:
         return MeshDecision("replicate", "no_mesh")
     opts = opts or MeshOptions()
+    bad = [op for op in ops if not grid and op not in SHARDABLE_ROW_OPS]
+    if bad:
+        return MeshDecision("replicate", f"non_decomposable:{bad[0]}",
+                            devices=n_dev)
     if FOLD_BLOCKS % n_dev != 0:
         # blocked exact folds need the shard count to divide the fixed
         # block count; other geometries run replicated (still correct)
         return MeshDecision("replicate", "mesh_indivisible", devices=n_dev)
-    if series < max(opts.shard_min_series, 1):
-        return MeshDecision("replicate", "small_grid", devices=n_dev)
-    kernel, kreason = decide_kernel(kind, series=series, opts=opts,
-                                    device=mesh.devices[0])
-    return MeshDecision("shard", "large_grid", devices=n_dev,
-                        kernel=kernel, kernel_reason=kreason)
+    if grid:
+        if series is not None and series < max(opts.shard_min_series, 1):
+            return MeshDecision("replicate", "small_grid", devices=n_dev)
+    elif rows is not None and rows < max(opts.shard_min_rows, 1):
+        return MeshDecision("replicate", "small_rowset", devices=n_dev)
+    kernel, kreason = decide_kernel(kind, series=series, rows=rows,
+                                    opts=opts, device=mesh.devices[0])
+    return MeshDecision("shard", "large_grid" if grid else "large_rowset",
+                        devices=n_dev, kernel=kernel, kernel_reason=kreason)
 
 
-def decide_kernel(kind: str = "range", *, series: int, k: int | None = None,
+def decide_kernel(kind: str = "range", *, series: int | None = None,
+                  rows: int | None = None, k: int | None = None,
                   opts=None, device=None) -> tuple[str, str]:
-    """Choose the program variant of one sharded grid: "ring" runs the
-    ring kernels (ring_fold's for "range"/"promql", topk_merge's for
-    "topk"), "gather" the gather twin. "auto" means kernels for CUDA
-    tensors (device.kernels_enabled), where the JAX package's means the
-    native TPU backend. `k` caps the topk merge kernel (O(k^2) rank
-    comparisons per hop)."""
+    """Choose the program variant of one sharded execution: "ring" runs
+    the ring kernels (ring_fold's for "range"/"promql"/"aggregate",
+    topk_merge's for "topk"), "gather" the gather twin. "auto" means
+    kernels for CUDA tensors (device.kernels_enabled), where the JAX
+    package's means the native TPU backend. `k` caps the topk merge kernel
+    (O(k^2) rank comparisons per hop); grid kinds gate on `series`
+    (pallas_min_series), the row kind on `rows` (pallas_min_rows)."""
     from greptimedb_tpu_torch.device import kernel_mode, kernels_enabled
     from greptimedb_tpu_torch.parallel.mesh import MeshOptions
 
@@ -187,10 +209,14 @@ def decide_kernel(kind: str = "range", *, series: int, k: int | None = None,
         return "gather", "no_cuda"
     if k is not None and k > max(opts.pallas_max_k, 1):
         return "gather", "k_too_large"
-    if series < max(opts.pallas_min_series, 1):
-        return "gather", "small_grid"
-    return "ring", ("ring_topk" if kind == "topk" or k is not None
-                    else "ring_fold")
+    if kind in ("range", "promql", "topk"):
+        if series is not None and series < max(opts.pallas_min_series, 1):
+            return "gather", "small_grid"
+        return "ring", ("ring_topk" if kind == "topk" or k is not None
+                        else "ring_fold")
+    if rows is not None and rows < max(opts.pallas_min_rows, 1):
+        return "gather", "small_rowset"
+    return "ring", "ring_fold"
 
 
 # ----------------------------------------------------------------------

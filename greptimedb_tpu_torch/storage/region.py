@@ -1,5 +1,5 @@
 """A minimal in-memory region: appended runs, per-window compaction on the
-card, and a merged scan.
+card, and a merged scan with the merged-scan cache.
 
 Each write appends one run with rising sequence numbers. `compact` merges,
 per time window, every pending run of that window together with the
@@ -9,6 +9,14 @@ There is no WAL, no SST and no manifest in this slice: compacted windows
 stay in host memory.
 
 `dedup_rows` is the host reference merge (copied from the JAX package).
+
+The merged-scan cache (the JAX package's `_ScanCachePool`): an unbounded
+scan of at least `_SCAN_CACHE_MIN_ROWS` rows keeps its merged, deduped
+row set on the region, keyed by the region's data version, its
+compaction count and its field names, so a repeated full-table scan (the
+TSBS high-cpu row filters) pays only its own filter and projection. A
+write, a delete or a compaction changes the key; `invalidate_scan_cache`
+drops the entry explicitly.
 """
 
 from __future__ import annotations
@@ -28,6 +36,93 @@ from greptimedb_tpu_torch.storage.memtable import (
 from greptimedb_tpu_torch.storage.series import SeriesRegistry
 
 DEFAULT_WINDOW_MS = 3_600_000
+
+_SCAN_CACHE_MIN_ROWS = 1_000_000         # below this a cold scan is cheap
+_SCAN_CACHE_TOTAL_BYTES = 6 * 1024**3    # global LRU budget
+
+
+class _ScanCachePool:
+    """Tracks cached-scan bytes across regions; LRU-evicts over budget."""
+
+    def __init__(self, budget: int):
+        self.budget = budget
+        self._lock = threading.Lock()
+        self._entries: dict[int, tuple] = {}  # id(region) -> (region, bytes)
+        self._order: list[int] = []
+
+    def store(self, region, entry: tuple, nbytes: int):
+        """Install `entry` as region._scan_cache and account it (the
+        attribute is only set or cleared under this lock)."""
+        with self._lock:
+            k = id(region)
+            if k in self._entries:
+                self._order.remove(k)
+            region._scan_cache = entry
+            self._entries[k] = (region, nbytes)
+            self._order.append(k)
+            total = sum(b for _, b in self._entries.values())
+            while total > self.budget and len(self._order) > 1:
+                ev = self._order.pop(0)
+                reg, b = self._entries.pop(ev)
+                reg._scan_cache = None
+                total -= b
+
+    def touch(self, region):
+        with self._lock:
+            k = id(region)
+            if k in self._order:
+                self._order.remove(k)
+                self._order.append(k)
+
+    def drop(self, region):
+        with self._lock:
+            region._scan_cache = None
+            self._entries.pop(id(region), None)
+            k = id(region)
+            if k in self._order:
+                self._order.remove(k)
+
+
+_scan_pool = _ScanCachePool(_SCAN_CACHE_TOTAL_BYTES)
+
+
+def _shallow_rows(rows: ColumnarRows, names) -> ColumnarRows:
+    """New container sharing the cached arrays: callers replace attributes
+    but never mutate the arrays in place."""
+    return ColumnarRows(
+        sid=rows.sid, ts=rows.ts, seq=rows.seq, op=rows.op,
+        fields={n: rows.fields[n] for n in names},
+        field_valid=(
+            {n: rows.field_valid[n] for n in names if n in rows.field_valid}
+            if rows.field_valid else None
+        ),
+    )
+
+
+def _rows_nbytes(rows: ColumnarRows) -> int:
+    n = rows.sid.nbytes + rows.ts.nbytes + rows.seq.nbytes + rows.op.nbytes
+    for a in rows.fields.values():
+        n += a.nbytes
+    if rows.field_valid:
+        for a in rows.field_valid.values():
+            n += a.nbytes
+    return n
+
+
+def _select_rows(rows: ColumnarRows, ts_min, ts_max, sids) -> ColumnarRows:
+    """Rows with ts in [ts_min, ts_max] (None: unbounded) of the series in
+    `sids` (None: all)."""
+    sel = None
+    if sids is not None:
+        sel = np.isin(rows.sid, sids)
+    if ts_min is not None or ts_max is not None:
+        lo = ts_min if ts_min is not None else -(2**63)
+        hi = ts_max if ts_max is not None else 2**63 - 1
+        in_ts = (rows.ts >= lo) & (rows.ts <= hi)
+        sel = in_ts if sel is None else sel & in_ts
+    if sel is None or sel.all():
+        return rows
+    return _slice_rows(rows, sel)
 
 
 def dedup_rows(rows: ColumnarRows, *, merge_mode: str = "last_row",
@@ -81,6 +176,9 @@ class Region:
         self._pending: list[ColumnarRows] = []
         self._compacted: dict[int, ColumnarRows] = {}
         self._seq = 0
+        self._compactions = 0
+        self._scan_cache: tuple | None = None  # (scan key, ColumnarRows)
+        self.scan_cache_hits = 0
         self._lock = threading.Lock()
         self.merge_paths: list[str] = []
 
@@ -166,22 +264,109 @@ class Region:
             self._compacted[w] = out
             self.merge_paths.append(path)
             merged += 1
+        with self._lock:
+            self._compactions += 1
         return merged
 
-    def scan(self, field_names: list[str] | None = None) -> ColumnarRows | None:
-        """Merged + deduped rows sorted by (sid, ts), tombstones applied."""
+    def _scan_key(self) -> tuple:
+        """What a merged-scan cache entry is valid for: the logical data
+        (every write bumps the sequence), the compactions and the
+        fields."""
+        return (self._seq, self._compactions, tuple(self.field_names))
+
+    def scan(self, field_names: list[str] | None = None, *,
+             ts_min: int | None = None, ts_max: int | None = None,
+             sids: np.ndarray | None = None) -> ColumnarRows | None:
+        """Merged + deduped rows sorted by (sid, ts), tombstones applied,
+        cut to ts in [ts_min, ts_max] and the series in `sids` (None:
+        unbounded)."""
         names = field_names if field_names is not None else self.field_names
+        hit = self._scan_cached(names, ts_min, ts_max, sids)
+        if hit is not None:
+            return hit
         with self._lock:
             pending = list(self._pending)
             windows = [self._compacted[w] for w in sorted(self._compacted)]
+            # key captured with the snapshot: a write landing during the
+            # merge below is never stamped as included in the cache
+            snap_key = self._scan_key()
+            scan_names = names
+            if sids is None and ts_min is None and ts_max is None:
+                approx = (sum(len(r) for r in pending)
+                          + sum(len(r) for r in windows))
+                if (approx >= _SCAN_CACHE_MIN_ROWS
+                        and set(names) != set(self.field_names)):
+                    # cache-build candidate: read every field once so
+                    # alternating projections all hit the same entry
+                    scan_names = list(self.field_names)
         chunks = [c for c in windows + pending if len(c)]
         if not chunks:
             return None
-        rows = _concat_rows(chunks, names)
+        rows = _select_rows(_concat_rows(chunks, scan_names), ts_min, ts_max,
+                            sids)
         if pending:
-            return dedup_rows(rows)
-        # compacted windows are deduped, tombstone-free, (sid, ts)-sorted
-        # within the window, and concatenated in time order: a stable sort
-        # by sid alone yields (sid, ts) order, as dedup_rows would
-        order = np.argsort(rows.sid, kind="stable")
-        return _slice_rows(rows, order)
+            rows = dedup_rows(rows)
+        else:
+            # compacted windows are deduped, tombstone-free, (sid, ts)-
+            # sorted within the window, and concatenated in time order: a
+            # stable sort by sid alone yields (sid, ts) order, as
+            # dedup_rows would
+            rows = _slice_rows(rows, np.argsort(rows.sid, kind="stable"))
+        if self._maybe_cache_scan(snap_key, rows, ts_min, ts_max, sids):
+            # the cached container never escapes
+            rows = _shallow_rows(rows, names)
+        elif scan_names is not names:
+            rows = _shallow_rows(rows, names)
+        return rows if len(rows) else None
+
+    def _scan_cached(self, names, ts_min, ts_max,
+                     sids=None) -> ColumnarRows | None:
+        cached = self._scan_cache
+        if cached is None:
+            return None
+        if cached[0] != self._scan_key():
+            # a stale entry can never be served again: release its arrays
+            _scan_pool.drop(self)
+            return None
+        rows: ColumnarRows = cached[1]
+        if any(n not in rows.fields for n in names):
+            return None
+        _scan_pool.touch(self)
+        self.scan_cache_hits += 1
+        out = _shallow_rows(rows, names)
+        if sids is not None:
+            # cached rows are (sid, ts)-sorted: each matched series is
+            # one contiguous run; runs expand vectorized
+            lo_idx = np.searchsorted(out.sid, sids, side="left")
+            hi_idx = np.searchsorted(out.sid, sids, side="right")
+            lens = hi_idx - lo_idx
+            nz = lens > 0
+            starts = lo_idx[nz].astype(np.int64)
+            lens = lens[nz].astype(np.int64)
+            total = int(lens.sum())
+            if total:
+                run_base = np.concatenate(([0], np.cumsum(lens)[:-1]))
+                idx = (np.repeat(starts - run_base, lens)
+                       + np.arange(total, dtype=np.int64))
+            else:
+                idx = np.zeros(0, np.int64)
+            out = _slice_rows(out, idx)
+        out = _select_rows(out, ts_min, ts_max, None)
+        return out if len(out) else None
+
+    def _maybe_cache_scan(self, snap_key, rows, ts_min, ts_max,
+                          sids) -> bool:
+        """Cache an unbounded scan; hits serve any field subset of it."""
+        if (sids is not None or ts_min is not None or ts_max is not None
+                or len(rows) < _SCAN_CACHE_MIN_ROWS):
+            return False
+        nbytes = _rows_nbytes(rows)
+        if nbytes > _scan_pool.budget:
+            return False
+        _scan_pool.store(self, (snap_key, rows), nbytes)
+        return True
+
+    def invalidate_scan_cache(self):
+        """Drop the merged-scan cache entry (for a change the key does not
+        see)."""
+        _scan_pool.drop(self)

@@ -974,3 +974,153 @@ def test_promql_on_cuda_matches_cpu(cuda):
                                            rtol=1e-5)
             else:
                 assert np.array_equal(got.values, want.values), (name, q)
+
+
+# ----------------------------------------------------------------------
+# G and Gt: the GROUP BY's grouped reduce and its column tree sum
+# ----------------------------------------------------------------------
+
+def _same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal, except that a NaN may be the card's canonical NaN on one
+    side (ROADMAP C2): NaN positions must agree."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    return torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _groupby_input(rng, n, gb, edge):
+    v = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)).astype(
+        np.float32)
+    mask = rng.random(n) > 0.15
+    gid = rng.integers(0, max(gb - 2, 1), n).astype(np.int32)  # empty groups
+    if edge and gb > 2:
+        k = rng.choice(n, 64, replace=False)
+        v[k] = np.array([0xFFC00001, 0x7FC00002, 0xFF800000, 0x7F800000,
+                         0x80000000, 0x00000000, 0x7FC00000, 0x80000000]
+                        * 8, np.uint32).view(np.float32)
+        mask[gid == 1] = False             # an all-masked group
+    gid[~mask] = 0                         # padding: never group 0
+    return v, mask, gid
+
+
+@pytest.mark.parametrize("n,blocks,gb,edge", [
+    (1 << 17, 8, 16, True), (1 << 17, 256, 4096, True),
+    (1 << 17, 65536, 16, True), (100_003, 256, 64, True),
+    (50_000, 8, 1, False), (1 << 20, 256, 9, False)])
+def test_grouped_block_reduce_kernel_matches_plain(cuda, n, blocks, gb, edge):
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(n + blocks + gb)
+    v, mask, gid = _groupby_input(rng, n, gb, edge)
+    members = gr.group_members(torch.from_numpy(gid).to(cuda),
+                               torch.from_numpy(mask).to(cuda), blocks, gb)
+    cpu_members = gr.group_members(torch.from_numpy(gid),
+                                   torch.from_numpy(mask), blocks, gb)
+    assert torch.equal(members.ptr.cpu(), cpu_members.ptr)
+    assert torch.equal(members.perm.cpu()[:int(mask.sum())],
+                       cpu_members.perm[:int(mask.sum())])
+    x = torch.from_numpy(v).to(cuda)
+    for form in ("sum", "max", "min"):
+        before = gr.grouped_block_reduce.launches
+        got = gr.grouped_block_reduce(x, members, form)
+        torch.cuda.synchronize()
+        assert gr.grouped_block_reduce.launches == before + 1
+        plain = gr.grouped_block_reduce_plain(x, members, form)
+        assert torch.equal(got.view(torch.int32),
+                           plain.view(torch.int32)), form
+        want = gr.grouped_block_reduce(torch.from_numpy(v), cpu_members, form)
+        if form == "sum":
+            assert _same_or_both_nan(got, want), form
+        else:   # selections: every bit survives
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), form
+    # the int32 extremes of the winner stages
+    keys = rng.integers(-1, 2**31 - 1, n).astype(np.int32)
+    for form in ("max", "min"):
+        got = gr.grouped_block_reduce(torch.from_numpy(keys).to(cuda),
+                                      members, form)
+        want = gr.grouped_block_reduce(torch.from_numpy(keys), cpu_members,
+                                       form)
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want), form
+
+
+@pytest.mark.parametrize("rows,cols", [(65536, 16), (256, 4096), (8, 3),
+                                       (1, 5), (4096, 1)])
+def test_column_tree_sum_kernel_matches_plain(cuda, rows, cols):
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(rows + cols)
+    x = (rng.standard_normal((rows, cols))
+         * 10.0 ** rng.integers(-3, 4, (rows, cols))).astype(np.float32)
+    before = gr.column_tree_sum.launches
+    got = gr.column_tree_sum(torch.from_numpy(x).to(cuda))
+    torch.cuda.synchronize()
+    assert gr.column_tree_sum.launches == before + 1
+    want = gr.column_tree_sum(torch.from_numpy(x))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_groupby_on_cuda_matches_cpu(cuda):
+    """GROUP BY through Instance.sql on the card (one device; four shards
+    on the ring and on the gather twin) against Instance(device="cpu").sql:
+    bit for bit (a NaN may be the card's canonical NaN); kernel G launches
+    on every engine, the ring forms only on the ring."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(8)
+    t = Table("cpu", ts_name="ts", tag_names=["hostname", "region"],
+              fields=["u", "v"])
+    hosts = np.array([f"host_{i}" for i in range(300)])
+    regions = np.array(["a", "b", "c"])[rng.integers(0, 3, 300)]
+    ts = np.tile(np.arange(720) * 10_000, 300)
+    hi = np.repeat(np.arange(300), 720)
+    u = rng.random(len(ts)) * 100
+    u[rng.choice(len(u), 5, replace=False)] = np.nan
+    t.write({"hostname": hosts[hi], "region": regions[hi]}, ts,
+            {"u": u, "v": rng.standard_normal(len(ts))},
+            field_valid={"v": rng.random(len(ts)) > 0.1})
+    queries = [
+        "SELECT hostname, avg(u) FROM cpu GROUP BY hostname",
+        "SELECT region, count(*), sum(u), avg(u), min(u), max(v), "
+        "first_value(v), last_value(v) FROM cpu GROUP BY region",
+        "SELECT region, count(*), stddev_samp(v), var_pop(u) FROM cpu "
+        "GROUP BY region",
+        "SELECT min(v), max(v), last_value(u) FROM cpu",
+    ]
+    cpu_inst = Instance(device="cpu")
+    cpu_inst.catalog.register(t)
+    want = [cpu_inst.sql(q) for q in queries]
+    low = {"shard_min_rows": 1, "pallas_min_rows": 1}
+    mesh = make_mesh([cuda] * 4)
+    engines = {"single": (None, None),
+               "ring": (mesh, MeshOptions(**low)),
+               "gather": (mesh, MeshOptions(pallas_kernels="off", **low))}
+    for name, (m, opts) in engines.items():
+        inst = Instance(device=cuda, mesh=m, mesh_opts=opts)
+        inst.catalog.register(t)
+        for q, w in zip(queries, want):
+            before = (gr.grouped_block_reduce.launches,
+                      rf.ring_pext_fused.launches)
+            got = inst.sql(q)
+            torch.cuda.synchronize()
+            assert inst.query_engine.last_exec_path == "device"
+            note = inst.query_engine.last_reduce
+            assert gr.grouped_block_reduce.launches > before[0], (name, q)
+            ring_launched = rf.ring_pext_fused.launches > before[1]
+            assert ring_launched == (note["program"] == "sharded_ring"
+                                     and ("min(" in q or "first" in q
+                                          or "last" in q)), (name, q)
+            assert got.names == w.names and got.num_rows == w.num_rows > 0
+            for a, b in zip(got.cols, w.cols):
+                assert np.array_equal(a.valid_mask, b.valid_mask), (name, q)
+                va, vb = np.asarray(a.values), np.asarray(b.values)
+                if va.dtype == object:
+                    assert (va == vb).all(), (name, q)
+                    continue
+                assert _same_or_both_nan(
+                    torch.from_numpy(va.astype(np.float64)),
+                    torch.from_numpy(vb.astype(np.float64))), (name, q)

@@ -307,3 +307,40 @@ def test_auto_means_kernels_for_cuda_tensors():
                                   device="cpu") == ("gather", "no_cuda")
     assert tplanner.decide_kernel(series=64, opts=opts,
                                   device=cuda) == ("gather", "small_grid")
+
+
+@pytest.mark.parametrize("mode", ["on", "off", "auto"])
+def test_row_planner_decisions_match_jax(mode):
+    """The port's GROUP BY gate (kind="aggregate") against the JAX
+    package's over shard counts, rows around the thresholds, thresholds
+    and op sets (one that keeps var/stddev on one device); every reason
+    label comes up."""
+    meshes = {None: (None, None)}
+    for ns in (2, 3, 4, 8):
+        meshes[ns] = (JM.make_mesh(jax.devices()[:ns]),
+                      TM.make_mesh(["cpu"] * ns))
+    op_sets = (("count", "mean", "min", "first_value"),
+               ("sum", "stddev_samp"))
+    seen = set()
+    for ns, rows, smin, pmin, ops in itertools.product(
+            meshes, [1000, 262143, 262144, 1 << 20], [1, 262144],
+            [1, 262144], op_sets):
+        jmesh, tmesh = meshes[ns]
+        jopts = JM.MeshOptions(shard_min_rows=smin, pallas_kernels=mode,
+                               pallas_min_rows=pmin)
+        topts = TM.MeshOptions(shard_min_rows=smin, pallas_kernels=mode,
+                               pallas_min_rows=pmin)
+        want = jplanner.decide_mesh_execution(
+            jmesh, kind="aggregate", rows=rows, ops=ops, opts=jopts)
+        got = tplanner.decide_mesh_execution(
+            tmesh, kind="aggregate", rows=rows, ops=ops, opts=topts)
+        case = (ns, rows, smin, pmin, ops)
+        assert (got.mode, got.reason, got.devices) == (
+            want.mode, want.reason, want.devices), case
+        assert (got.kernel, got.kernel_reason) == _as_port(
+            want.kernel, want.kernel_reason), case
+        seen |= {got.reason, got.kernel_reason}
+    assert {"no_mesh", "mesh_indivisible", "small_rowset", "large_rowset",
+            "non_decomposable:stddev_samp"} <= seen
+    assert {"on": {"ring_fold", "small_rowset"}, "off": {"kernels_off"},
+            "auto": {"no_cuda"}}[mode] <= seen
