@@ -124,11 +124,15 @@ result line):
              five RANGE shapes the device grid declines, cut to the first
              3 hours, each on the host path (the OR shape also against its
              IN twin on the grid, 1e-5 relative). Then G (both forms) and
-             Gt at the shapes the GROUP BYs gave them and on edge inputs
-             (NaN, +-0, +-inf, masked and empty groups, misaligned rows,
-             one group) against their plain versions, bit for bit, and
-             timed. Kernel counts are zeroed before the phase and read
-             after its main path.
+             Gt at the shapes the GROUP BYs gave them, G's sum form also
+             on 2^25 rows with uniform random group ids (4096 groups x
+             256 blocks), and both on edge inputs (NaN, +-0, +-inf,
+             masked and empty groups, misaligned rows, one group; ids
+             uniform or in series order) against their plain versions,
+             bit for bit, and timed, with each timed shape's segment
+             statistics; Gt must make one kernel launch a call. Kernel
+             counts are zeroed before the phase and read after its main
+             path.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -2047,9 +2051,12 @@ def check_groupby(name, res, ref):
     return worst
 
 
-def edge_members(dev, gr, rng, n, blocks, gb):
+def edge_members(dev, gr, rng, n, blocks, gb, layout="random"):
     """Edge inputs of G: NaNs of both signs, +-0.0, +-inf, an all-masked
-    group and groups with no rows, padding rows (mask False, gid 0)."""
+    group and groups with no rows, padding rows (mask False, gid 0). Group
+    ids are uniform ("random") or in series order ("runs": contiguous runs
+    of 1, 31, 32, 33, 64, 65 and 4096+ rows, the padding after the live
+    rows)."""
     v = (rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)).astype(
         np.float32)
     k = rng.choice(n, min(n, 64), replace=False)
@@ -2059,6 +2066,14 @@ def edge_members(dev, gr, rng, n, blocks, gb):
         np.float32)
     mask = rng.random(n) > 0.15
     gid = rng.integers(0, max(gb - 2, 1), n).astype(np.int32)
+    if layout == "runs":
+        live = n - n // 7
+        lens = rng.choice([1, 31, 32, 33, 64, 65, 4096], n)
+        lens[lens == 4096] += rng.integers(0, 500, int((lens == 4096).sum()))
+        runs = int(np.searchsorted(np.cumsum(lens), live)) + 1
+        run_of = np.repeat(np.arange(runs), lens[:runs])[:live]
+        gid[:live] = (run_of % max(gb - 2, 1)).astype(np.int32)
+        mask[live:] = False
     if gb > 2:
         mask[gid == 1] = False
     gid[~mask] = 0
@@ -2067,9 +2082,49 @@ def edge_members(dev, gr, rng, n, blocks, gb):
                              torch.from_numpy(mask).to(dev), blocks, gb))
 
 
+def segment_stats(members):
+    """Non-empty segments of a member order, their mean and largest row
+    count: the regime the walk runs in."""
+    lens = (members.ptr[1:] - members.ptr[:-1]).long()
+    busy = lens[lens > 0]
+    return {"segments": lens.numel(), "nonempty": busy.numel(),
+            "mean_rows": float(busy.double().mean()) if busy.numel() else 0.0,
+            "max_rows": int(busy.max()) if busy.numel() else 0}
+
+
+def burst_ms(fn, reps=50) -> float:
+    """Device time per call of a kernel that runs longer than its launch:
+    CUDA events around `reps` back-to-back calls after a warm one."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def scattered_members(dev, gr, seed):
+    """G's sum form where one thread a segment is at home: 2^25 live rows
+    with uniform random ids over 4096 groups, 256 row blocks (~32 rows a
+    segment), values and ids made on the card from `seed`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, gb, blocks = 1 << 25, 4096, 256
+    v = (torch.randn(n, device=dev, generator=g)
+         * 10.0 ** torch.randint(-3, 4, (n,), device=dev, generator=g))
+    gid = torch.randint(0, gb, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    return v, gid, gr.group_members(gid, mask, blocks, gb)
+
+
 def grouped_kernel_rows(dev, gr, store, launches, per_launch):
     """G and Gt at the shapes the GROUP BYs gave them (the hostname probe's
-    sums, the region query's extremes, its var/stddev mean), held against
+    sums, the region query's extremes and int32 winner stages, its
+    var/stddev mean) and G's sum form on scattered rows, held against
     their plain versions on the card and on edge inputs, bit for bit, and
     timed beside their bounds, plain versions and library calls."""
     errs = {}
@@ -2082,13 +2137,15 @@ def grouped_kernel_rows(dev, gr, store, launches, per_launch):
         errs[what] = float(torch.nan_to_num(diff, nan=0.0).max())
 
     rng = np.random.default_rng(17)
-    for n, blocks, gb in ((100_003, 256, 64), (1 << 17, 65536, 16),
-                          (50_000, 8, 1), (4097, 4096, 4)):
-        v, members = edge_members(dev, gr, rng, n, blocks, gb)
-        for form in ("sum", "max", "min"):
-            exact(f"G {form} edge {n}x{blocks}x{gb}",
-                  gr.grouped_block_reduce(v, members, form),
-                  gr.grouped_block_reduce_plain(v, members, form))
+    for layout in ("random", "runs"):
+        for n, blocks, gb in ((100_003, 256, 64), (1 << 17, 65536, 16),
+                              (50_000, 8, 1), (4097, 4096, 4),
+                              (1 << 20, 256, 16)):
+            v, members = edge_members(dev, gr, rng, n, blocks, gb, layout)
+            for form in ("sum", "max", "min"):
+                exact(f"G {form} edge {layout} {n}x{blocks}x{gb}",
+                      gr.grouped_block_reduce(v, members, form),
+                      gr.grouped_block_reduce_plain(v, members, form))
     # the main path's sections: the hostname probe's avg(usage_user) sums
     # (its second sum section; the first is the count), the region query's
     # min/max, and its stddev mean's column sum (the second tree: the
@@ -2105,36 +2162,53 @@ def grouped_kernel_rows(dev, gr, store, launches, per_launch):
             raise AssertionError(f"G {form}: no int32 winner stage captured")
         exact(f"G {form} int32", gr.grouped_block_reduce(keys, members, form),
               gr.grouped_block_reduce_plain(keys, members, form))
+    sv, sgid, sm = scattered_members(dev, gr, 23)
+    exact("G sum scattered", gr.grouped_block_reduce(sv, sm, "sum"),
+          gr.grouped_block_reduce_plain(sv, sm, "sum"))
     tree_x = store["tree"][1]
     exact("Gt", gr.column_tree_sum(tree_x), gr.column_tree_sum_plain(tree_x))
     x = (torch.randn(65536, 16, device=dev)
          * 10.0 ** torch.randint(-3, 4, (65536, 16), device=dev))
     exact("Gt edge", gr.column_tree_sum(x), gr.column_tree_sum_plain(x))
 
+    def sum_bytes(members):
+        nseg = members.gb * members.blocks
+        return 8 * int(members.ptr[-1]) + 4 * (nseg + 1) + 4 * nseg
+
+    def ext_bytes(members):
+        return (8 * int(members.ptr[-1])
+                + 4 * (members.gb * members.blocks + 1) + 4 * members.gb)
+
+    def live_rows(members):
+        # the library calls run over the live rows only (the padding
+        # would pile onto one trash slot)
+        return members.perm[:int(members.ptr[-1])].long()
+
     out = []
-    # ---- G: the sum form at the hostname probe's shape, the extremes at
-    # the region query's
+    # ---- G: the sum form at the hostname probe's shape and on scattered
+    # rows, the extremes at the region query's
     v, members = inputs["sum"]
     gid, mask, blocks, gb = store["members", members.gb][0]
     n, nseg = v.numel(), members.gb * members.blocks
-    live = int(members.ptr[-1])
     per = -(-n // blocks)
-    # the library calls over the live rows only (the padding would pile
-    # onto one trash slot)
-    live_rows = members.perm[:live].long()
+    rows_live = live_rows(members)
     seg = (gid.long() * blocks + torch.arange(n, device=dev) // per)[
-        live_rows]
-    v_live = v[live_rows]
-    sum_bytes = 8 * live + 4 * (nseg + 1) + 4 * nseg
-    vx, mx = inputs["max"]
-    gid_x, _, _, gb_x = store["members", mx.gb][0]
-    live_x = int(mx.ptr[-1])
-    live_x_rows = mx.perm[:live_x].long()
-    sg = gid_x.long()[live_x_rows]
-    vx_live = vx[live_x_rows]
-    ext_bytes = 8 * live_x + 4 * (mx.gb * mx.blocks + 1) + 4 * mx.gb
+        rows_live]
+    v_live = v[rows_live]
     sum_ms = per_launch.get("sum")
-    ext_ms = per_launch.get("max")
+    bound = sum_bytes(members) / HBM_BYTES_PER_S * 1e3
+    s_live = live_rows(sm)
+    s_seg = (sgid.long() * sm.blocks + torch.arange(sm.n, device=dev)
+             // -(-sm.n // sm.blocks))[s_live]
+    s_bound = sum_bytes(sm) / HBM_BYTES_PER_S * 1e3
+    key32 = gid.masked_fill(~mask, gb)
+    key16 = key32.to(torch.int16)
+    vx, mx = inputs["max"]
+    gid_x = store["members", mx.gb][0][0]
+    rx = live_rows(mx)
+    keys, mk = store["max"][1]
+    gid_k = store["members", mk.gb][0][0]
+    rk = live_rows(mk)
     out.append({
         "name": "grouped_block_reduce", "route": "cuda",
         "source": "greptimedb_tpu_torch/parallel/kernels/csrc/"
@@ -2147,40 +2221,77 @@ def grouped_kernel_rows(dev, gr, store, launches, per_launch):
         "host_ms": host_ms(lambda: gr.grouped_block_reduce(v, members,
                                                            "sum")),
         "device_ms_per_launch": sum_ms,
+        "burst_ms": burst_ms(lambda: gr.grouped_block_reduce(v, members,
+                                                             "sum")),
         "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
             v, members, "sum"), reps=3, warm=1),
-        "bound_ms": sum_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": bound,
         "bound_by": "bytes",
         "library_ms": cuda_ms(lambda: torch.zeros(
             nseg, device=dev).index_add_(0, seg, v_live)),
-        "share_of_bound": (sum_bytes / HBM_BYTES_PER_S * 1e3 / sum_ms
-                           if sum_ms else None),
-        "shape": {"rows": n, "live_rows": live, "blocks": blocks, "gb": gb},
-        "bytes": sum_bytes,
+        "share_of_bound": bound / sum_ms if sum_ms else None,
+        "shape": {"rows": n, "live_rows": int(members.ptr[-1]),
+                  "blocks": blocks, "gb": gb, **segment_stats(members)},
+        "bytes": sum_bytes(members),
         "members_ms": cuda_ms(lambda: gr.group_members(gid, mask, blocks,
                                                        gb), reps=5),
+        "members_sort_ms": {
+            "int16": cuda_ms(lambda: torch.sort(key16, stable=True), reps=5),
+            "int32": cuda_ms(lambda: torch.sort(key32, stable=True),
+                             reps=5)},
+        "scattered": {
+            "burst_ms": burst_ms(lambda: gr.grouped_block_reduce(sv, sm,
+                                                                 "sum")),
+            "bound_ms": s_bound,
+            "library_ms": cuda_ms(lambda: torch.zeros(
+                sm.gb * sm.blocks, device=dev).index_add_(0, s_seg,
+                                                         sv[s_live])),
+            "shape": {"rows": sm.n, "live_rows": int(sm.ptr[-1]),
+                      "blocks": sm.blocks, "gb": sm.gb,
+                      **segment_stats(sm)},
+            "bytes": sum_bytes(sm)},
         "max_form": {
             "ms": cuda_ms(lambda: gr.grouped_block_reduce(vx, mx, "max")),
-            "device_ms_per_launch": ext_ms,
+            "device_ms_per_launch": per_launch.get("max"),
+            "walk_ms_per_call": per_launch.get("max_walk"),
+            "fold_ms_per_call": per_launch.get("max_fold"),
             "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
                 vx, mx, "max"), reps=3, warm=1),
-            "bound_ms": ext_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": ext_bytes(mx) / HBM_BYTES_PER_S * 1e3,
             "library_ms": cuda_ms(lambda: torch.full(
-                (gb_x,), -torch.inf, device=dev).scatter_reduce_(
-                0, sg, vx_live, "amax")),
-            "shape": {"rows": vx.numel(), "live_rows": live_x,
-                      "blocks": mx.blocks, "gb": mx.gb},
-            "bytes": ext_bytes,
-            "int32_device_ms_per_launch": per_launch.get("int32")},
-        "design": "one thread a (block, group) segment walking its member "
-                  "rows in order; max/min fold the segments by block as an "
-                  "in-order tree; members by a stable torch.sort of the "
-                  "group ids",
+                (mx.gb,), -torch.inf, device=dev).scatter_reduce_(
+                0, gid_x.long()[rx], vx[rx], "amax")),
+            "shape": {"rows": vx.numel(), "live_rows": int(mx.ptr[-1]),
+                      "blocks": mx.blocks, "gb": mx.gb,
+                      **segment_stats(mx)},
+            "bytes": ext_bytes(mx)},
+        "int32_form": {
+            "ms": cuda_ms(lambda: gr.grouped_block_reduce(keys, mk, "max")),
+            "device_ms_per_launch": per_launch.get("int32"),
+            "walk_ms_per_call": per_launch.get("int32_walk"),
+            "fold_ms_per_call": per_launch.get("int32_fold"),
+            "bound_ms": ext_bytes(mk) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": cuda_ms(lambda: torch.full(
+                (mk.gb,), torch.iinfo(torch.int32).min, dtype=torch.int32,
+                device=dev).scatter_reduce_(0, gid_k.long()[rk], keys[rk],
+                                            "amax")),
+            "shape": {"rows": keys.numel(), "live_rows": int(mk.ptr[-1]),
+                      "blocks": mk.blocks, "gb": mk.gb},
+            "bytes": ext_bytes(mk)},
+        "design": "a warp a 32-segment chunk of one group, chunk-major, "
+                  "one launch of a warp a chunk: a chunk holding a segment "
+                  f"of >= {gr._WARP_ROWS} rows streams as one coalesced "
+                  "range through a shared-memory stage (12 batches of 32 "
+                  "rows, the next chunk's loads in flight while this one "
+                  "folds in order), any other walks a lane a segment with "
+                  "16 rows of loads in flight; max/min fold a chunk's "
+                  "segments in a warp, then a group's chunks in a second "
+                  "kernel; members by a stable torch.sort of int16 group "
+                  "ids",
     })
     # ---- Gt at the var/stddev mean's shape
     rows_t, cols_t = tree_x.shape
     tree_bytes = 4 * rows_t * cols_t + 4 * cols_t
-    tree_ms = per_launch.get("tree")
     out.append({
         "name": "column_tree_sum", "route": "cuda",
         "source": "greptimedb_tpu_torch/parallel/kernels/csrc/"
@@ -2191,7 +2302,8 @@ def grouped_kernel_rows(dev, gr, store, launches, per_launch):
         "max_abs_err": max(errs["Gt"], errs["Gt edge"]),
         "ms": cuda_ms(lambda: gr.column_tree_sum(tree_x)),
         "host_ms": host_ms(lambda: gr.column_tree_sum(tree_x)),
-        "device_ms_per_launch": tree_ms,
+        "device_ms_per_launch": per_launch.get("tree"),
+        "kernel_launches_per_call": per_launch.get("tree_launches"),
         "plain_ms": cuda_ms(lambda: gr.column_tree_sum_plain(tree_x)),
         "bound_ms": max(tree_bytes / HBM_BYTES_PER_S,
                         rows_t * cols_t / F32_OPS_PER_S) * 1e3,
@@ -2199,6 +2311,10 @@ def grouped_kernel_rows(dev, gr, store, launches, per_launch):
                      >= rows_t * cols_t / F32_OPS_PER_S else "operations"),
         "library_ms": cuda_ms(lambda: tree_x.sum(dim=0)),
         "shape": {"rows": rows_t, "cols": cols_t}, "bytes": tree_bytes,
+        "design": "every level in one launch: a block a slab of 1024 rows "
+                  "of a column tile (two levels in shared memory), the last "
+                  "block of a tile to arrive runs the rest over the slab "
+                  "sums",
     })
     return out
 
@@ -2363,26 +2479,35 @@ def rows_phase(args, dev, slice_out, mesh_out):
     # device time per wrapper call on the warm profiled GROUP BYs of the
     # slice table: a max/min call is a segment walk and a group fold (the
     # float32 extremes of min/max, the int32 ones of the winner stages),
-    # a Gt call one tree level per launch
+    # each also apart; a Gt call is one launch
     slice_stats = stats["slice_single"]
     region = slice_stats["region_all"]
-
-    def extreme_ms(t):
+    ours = region["ours"]
+    per_launch = {"sum": device_ms_per_launch(
+        {"ours": slice_stats["hostname_avg"]["ours"]},
+        lambda k: k.startswith("segment_walk_kernel<float, 0>"))}
+    for t, key in (("float", "max"), ("int", "int32")):
         walks = tuple(f"segment_walk_kernel<{t}, {f}>" for f in (1, 2))
-        calls = sum(v["calls"] for k, v in region["ours"].items()
+        fold = f"group_fold_kernel<{t}"
+        calls = sum(v["calls"] for k, v in ours.items()
                     if k.startswith(walks))
-        return per_call(region["ours"], lambda k: k.startswith(
-            (*walks, f"group_fold_kernel<{t}")), calls)
-
-    per_launch = {
-        "sum": device_ms_per_launch(
-            {"ours": slice_stats["hostname_avg"]["ours"]},
-            lambda k: k.startswith("segment_walk_kernel<float, 0>")),
-        "max": extreme_ms("float"), "int32": extreme_ms("int"),
-        "tree": per_call(region["ours"],
-                         lambda k: k.startswith("tree_level_kernel"),
-                         region["launches_per_warm"].get("column_tree_sum")),
-    }
+        per_launch[key] = per_call(
+            ours, lambda k: k.startswith((*walks, fold)), calls)
+        per_launch[f"{key}_walk"] = per_call(
+            ours, lambda k: k.startswith(walks), calls)
+        per_launch[f"{key}_fold"] = per_call(
+            ours, lambda k: k.startswith(fold), calls)
+    tree_calls = region["launches_per_warm"].get("column_tree_sum")
+    tree_kernels = sum(v["calls"] for k, v in ours.items()
+                       if k.startswith("column_tree_kernel"))
+    per_launch["tree"] = per_call(
+        ours, lambda k: k.startswith("column_tree_kernel"), tree_calls)
+    # the region query's var/stddev mean makes Gt calls: none counted, or
+    # none profiled, is a failed measurement
+    if not tree_calls or tree_kernels != tree_calls:
+        raise AssertionError(f"Gt: {tree_kernels} kernels profiled over "
+                             f"{tree_calls} calls, not one a call")
+    per_launch["tree_launches"] = tree_kernels / tree_calls
     t = time.perf_counter()
     rows = grouped_kernel_rows(dev, gr, store, launches, per_launch)
     emit({"phase": "rows", "engines": stats, "checks": checks,

@@ -161,6 +161,45 @@ def on_card(index: int, fn, *args) -> int:
         return fn(*args)
 
 
+class StreamScratch:
+    """Device scratch of one (device, stream), kept from launch to launch
+    and shared in stream order by the kernels that need one (ring_fold's
+    walk forms, grouped_reduce's column tree sum): untyped bytes for
+    partials and int32 arrival counts, one per tile. Both only grow; every
+    launch leaves the counts at 0."""
+
+    def __init__(self, dev):
+        self.part = torch.empty(0, dtype=torch.uint8, device=dev)
+        self.count = torch.empty(0, dtype=torch.int32, device=dev)
+
+    def take(self, part_bytes: int, counts: int) -> tuple:
+        """(partials, counts) pointers of at least `part_bytes` bytes and
+        `counts` zeroed counts."""
+        if self.part.numel() < part_bytes:
+            self.part = torch.empty(part_bytes, dtype=torch.uint8,
+                                    device=self.part.device)
+        if self.count.numel() < counts:
+            self.count = torch.zeros(counts, dtype=torch.int32,
+                                     device=self.count.device)
+        return self.part.data_ptr(), self.count.data_ptr()
+
+
+# {(device, stream): StreamScratch}
+scratches: dict = {}
+# one launch at a time takes a scratch and launches: a buffer that grows
+# is freed on its stream, so no launch may still hold its pointer
+scratch_lock = threading.Lock()
+
+
+def stream_scratch(dev, stream_handle: int) -> StreamScratch:
+    """The scratch of (dev, stream_handle); the caller holds scratch_lock
+    until its launch is issued."""
+    sc = scratches.get((dev, stream_handle))
+    if sc is None:
+        sc = scratches[dev, stream_handle] = StreamScratch(dev)
+    return sc
+
+
 def launch(bound, what: str, index: int, *args) -> None:
     """Launch a bound launcher (`entry`) on the current stream of card
     `index` and raise if the launch was refused."""

@@ -21,13 +21,19 @@ hand kernels on the card (csrc/grouped_reduce.cu):
   it folds each segment and then the segments in block order as a tree;
 - `column_tree_sum(x)`: (cols,) float32, XLA:CPU's order for a float32
   sum over axis 0: chunks of 32 rows summed in order from 0, then the
-  chunk sums the same way until one chunk is left.
+  chunk sums the same way until one chunk is left; every level in one
+  launch.
+
+The walk gives a warp 32 consecutive segments of one group; a warp with a
+segment of at least `_WARP_ROWS` rows (series-ordered rows: a group's rows
+are long runs) streams all 32 as one coalesced range, any other lets each
+lane walk its own (csrc/grouped_reduce.cu says why).
 
 `group_members` builds the member order of one validity mask once (a
-stable device sort of the int32 group ids: an index permutation, no float
-arithmetic), and every section on that mask shares it. The plain versions
-follow the kernels' order and run for CPU tensors; on a CUDA tensor a
-wrapper launches its kernel or raises.
+stable device sort of the group ids, as int16 keys when they fit: an index
+permutation, no float arithmetic), and every section on that mask shares
+it. The plain versions follow the kernels' order and run for CPU tensors;
+on a CUDA tensor a wrapper launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -46,6 +52,10 @@ _LL = ctypes.c_longlong
 _FORMS = ("sum", "max", "min")
 _EXT_TYPES = {torch.float32: "f32", torch.int32: "i32"}
 _TREE = 32          # rows a chunk of XLA:CPU's tree reduction
+_SLAB = _TREE * _TREE   # rows a block of the tree kernel reduces alone
+_WARP = 32          # segments a warp of the walk owns
+_WARP_ROWS = 32     # a segment this long makes its warp stream (kWarpRows)
+_INT16_KEYS = 32767     # the largest gb whose masked key (gb) fits int16
 
 
 @dataclass
@@ -71,6 +81,10 @@ def group_members(gid: torch.Tensor, mask: torch.Tensor, blocks: int,
     if blocks < 1 or gb < 1:
         raise ValueError(f"blocks {blocks} and gb {gb} must be positive")
     key = gid.masked_fill(~mask, gb)
+    if gb <= _INT16_KEYS:
+        # half the key bytes; a stable sort of the same key order gives
+        # the same permutation
+        key = key.to(torch.int16)
     key_sorted, perm = torch.sort(key, stable=True)
     per = -(-n // blocks)
     block = perm // per
@@ -194,7 +208,9 @@ def grouped_block_reduce(v: torch.Tensor, members: GroupMembers,
                      members.perm.data_ptr(), members.ptr.data_ptr(),
                      out.data_ptr(), gb, blocks)
     else:
-        part = torch.empty(gb * blocks, dtype=v.dtype, device=v.device)
+        # one partial per (group, 32-block chunk)
+        part = torch.empty(gb * -(-blocks // _WARP), dtype=v.dtype,
+                           device=v.device)
         out = torch.empty(gb, dtype=v.dtype, device=v.device)
         build.launch(build.entry("grouped_reduce",
                                  f"gtt_grouped_extreme_{_EXT_TYPES[v.dtype]}",
@@ -209,7 +225,9 @@ def grouped_block_reduce(v: torch.Tensor, members: GroupMembers,
 
 def column_tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Gt: the (cols,) float32 sum over axis 0 of a (rows, cols) float32
-    tensor in XLA:CPU's order, one launch per level of the tree."""
+    tensor in XLA:CPU's order, every level of the tree in one launch (the
+    slab sums and the arrival counts in build's per-(device, stream)
+    scratch)."""
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] < 1:
         raise TypeError(f"column_tree_sum takes a non-empty 2-D float32 "
                         f"tensor, not {x.dtype} {tuple(x.shape)}")
@@ -217,20 +235,23 @@ def column_tree_sum(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("column_tree_sum takes a contiguous tensor")
     if x.is_cpu:
         return column_tree_sum_plain(x)
-    entry = build.entry("grouped_reduce", "gtt_column_tree_level",
-                        (_PTR, _PTR, _LL, _INT))
+    rows, cols = x.shape
+    out = torch.empty(cols, dtype=torch.float32, device=x.device)
+    slabs = -(-rows // _SLAB)
+    lib, fn = build.entry("grouped_reduce", "gtt_column_tree_sum",
+                          (_PTR,) * 4 + (_LL, _INT))
     index = x.get_device()
-    while True:
-        rows, cols = x.shape
-        y = torch.empty((-(-rows // _TREE), cols), dtype=torch.float32,
-                        device=x.device)
-        build.launch(entry, "column_tree_sum", index, x.data_ptr(),
-                     y.data_ptr(), rows, cols)
-        x = y
-        if rows <= _TREE:
-            break
+    with build.scratch_lock:
+        stream = build.stream(index)
+        part, count = build.stream_scratch(x.device, stream).take(
+            4 * (slabs + -(-slabs // _TREE)) * cols if slabs > 1 else 0,
+            cols)
+        rc = build.on_card(index, fn, x.data_ptr(), out.data_ptr(), part,
+                           count, rows, cols, stream)
+    if rc:
+        build.check_launch(lib, rc, "column_tree_sum")
     column_tree_sum.launches += 1
-    return x[0]
+    return out
 
 
 grouped_block_reduce.launches = 0

@@ -43,7 +43,6 @@ and called on the caller's current stream of the tensors' card
 from __future__ import annotations
 
 import ctypes
-import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -189,40 +188,6 @@ _MAX_FB = 8
 _FUSED_CELLS = 256       # cells per tile of every walk form (ring_fold_fused.cu)
 
 
-class _FoldScratch:
-    """The walk's scratch on one (device, stream), kept from launch to
-    launch and shared by ring_fold_fused and fold_cont (in stream order,
-    under _scratch_lock): block partials and one arrival count per tile.
-    Both only grow; every launch leaves the counts at 0."""
-
-    def __init__(self, dev):
-        self.part = torch.empty(0, dtype=torch.int32, device=dev)
-        self.count = torch.empty(0, dtype=torch.int32, device=dev)
-
-    def take(self, part_elems: int, tiles: int) -> tuple:
-        if self.part.numel() < part_elems:
-            self.part = torch.empty(part_elems, dtype=torch.int32,
-                                    device=self.part.device)
-        if self.count.numel() < tiles:
-            self.count = torch.zeros(tiles, dtype=torch.int32,
-                                     device=self.count.device)
-        return self.part.data_ptr(), self.count.data_ptr()
-
-
-_scratch: dict = {}
-# one launch at a time takes the scratch and launches: a buffer that grows
-# is freed on its stream, so no launch may still hold its pointer
-_scratch_lock = threading.Lock()
-
-
-def _stream_scratch(dev, stream: int) -> _FoldScratch:
-    """The scratch of (dev, stream); the caller holds _scratch_lock."""
-    sc = _scratch.get((dev, stream))
-    if sc is None:
-        sc = _scratch[dev, stream] = _FoldScratch(dev)
-    return sc
-
-
 def _check_fold(what: str, arr: torch.Tensor, fm: FoldMembers) -> None:
     if arr.dtype not in _FOLD_TYPES:
         raise TypeError(f"{what} takes float32 or int32, not {arr.dtype}")
@@ -299,10 +264,10 @@ def fold_cont(acc: torch.Tensor, arr: torch.Tensor,
     lib, fn = build.entry("ring_fold_fused",
                           f"gtt_fold_cont_{_FOLD_TYPES[arr.dtype]}",
                           (_PTR,) * 7 + (_INT,) * 3)
-    with _scratch_lock:
+    with build.scratch_lock:
         stream = build.stream(index)
-        part, count = _stream_scratch(arr.device, stream).take(
-            fb * g * nb, g * -(-nb // _FUSED_CELLS))
+        part, count = build.stream_scratch(arr.device, stream).take(
+            4 * fb * g * nb, g * -(-nb // _FUSED_CELLS))
         rc = build.on_card(index, fn, arr.data_ptr(), fm.member.data_ptr(),
                            fm.ptr.data_ptr(), acc.data_ptr(), out.data_ptr(),
                            part, count, g, fb, nb, stream)
@@ -539,10 +504,10 @@ def ring_fold_fused(arrs: list, fms: list) -> list:
     lib, fn = build.entry("ring_fold_fused",
                           f"gtt_ring_fold_fused_{_FOLD_TYPES[arrs[0].dtype]}",
                           (_PTR,) * 6 + (_INT,) * 4)
-    with _scratch_lock:
+    with build.scratch_lock:
         stream = build.stream(index)
-        part, count = _stream_scratch(dev, stream).take(
-            ns * fb * g * nb, g * -(-nb // _FUSED_CELLS))
+        part, count = build.stream_scratch(dev, stream).take(
+            4 * ns * fb * g * nb, g * -(-nb // _FUSED_CELLS))
         rc = build.on_card(index, fn, ptrs(arrs),
                            ptrs([fm.member for fm in fms]),
                            ptrs([fm.ptr for fm in fms]), ptrs(outs), part,

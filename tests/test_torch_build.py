@@ -1,10 +1,13 @@
-"""The port's launch path binding (greptimedb_tpu_torch/parallel/kernels/
-build.py) on the CPU, with stand-in libraries: nothing is compiled."""
+"""The port's launch path binding and per-stream scratch
+(greptimedb_tpu_torch/parallel/kernels/build.py) on the CPU, with stand-in
+libraries: nothing is compiled."""
 
 from __future__ import annotations
 
 import ctypes
 import types
+
+import torch
 
 from greptimedb_tpu_torch.parallel.kernels import build
 
@@ -29,3 +32,21 @@ def test_entry_binds_each_library_s_symbol_apart(monkeypatch):
     assert loads == ["ring_fold", "topk_merge"]
     assert a[1].argtypes == [ctypes.c_int, ctypes.c_void_p]
     assert a[1].restype is ctypes.c_int
+
+
+def test_stream_scratch_is_kept_per_stream_and_only_grows(monkeypatch):
+    """One scratch per (device, stream), shared by every kernel that takes
+    one: untyped partial bytes and zeroed int32 counts, grown on demand and
+    never shrunk, so a smaller request reuses the same buffers."""
+    monkeypatch.setattr(build, "scratches", {})
+    dev = torch.device("cpu")
+    sc = build.stream_scratch(dev, 7)
+    assert build.stream_scratch(dev, 7) is sc
+    assert build.stream_scratch(dev, 8) is not sc
+    part, count = sc.take(40, 3)
+    assert sc.part.dtype == torch.uint8 and sc.part.numel() == 40
+    assert sc.count.dtype == torch.int32 and not sc.count.any()
+    assert (part, count) == (sc.part.data_ptr(), sc.count.data_ptr())
+    assert sc.take(8, 1) == (part, count)
+    sc.take(100, 5)
+    assert sc.part.numel() == 100 and sc.count.numel() == 5

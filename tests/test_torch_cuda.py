@@ -178,7 +178,8 @@ def test_fold_cont_back_to_back_resets_its_arrival_counts(cuda):
             got = rf.fold_cont(a, x, fm)
             torch.cuda.synchronize()
             assert torch.equal(_bits32(got), _bits32(want))
-            assert int(rf._scratch[x.device, stream].count.abs().sum()) == 0
+            counts = build.scratches[x.device, stream].count
+            assert int(counts.abs().sum()) == 0
         for got, want in zip(rf.ring_fold_fused(arrs, fms), ring_want):
             assert torch.equal(_bits32(got), _bits32(want))
 
@@ -201,7 +202,7 @@ def test_fold_cont_on_two_streams_at_once(cuda):
     for i in outs:
         for got in outs[i]:
             assert torch.equal(_bits32(got), _bits32(want))
-    assert len({k for k in rf._scratch if k[0] == x.device}) >= 2
+    assert len({k for k in build.scratches if k[0] == x.device}) >= 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
@@ -603,7 +604,7 @@ def test_ring_fold_fused_resets_its_arrival_counts(cuda):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert torch.equal(_bits32(a), _bits32(b))
-            assert int(rf._scratch[key].count.abs().sum()) == 0
+            assert int(build.scratches[key].count.abs().sum()) == 0
     with pytest.raises(ValueError):                # shards on two devices
         rf.ring_fold_fused([inputs[0][0][0], inputs[0][0][1].cpu()],
                            inputs[0][1][:2])
@@ -632,7 +633,7 @@ def test_ring_fold_fused_on_two_streams_at_once(cuda):
         for got in outs[i]:
             for a, b in zip(got, want):
                 assert torch.equal(_bits32(a), _bits32(b))
-    assert len({k for k in rf._scratch if k[0] == arrs[0].device}) >= 2
+    assert len({k for k in build.scratches if k[0] == arrs[0].device}) >= 2
 
 
 def test_sql_on_cuda_matches_cpu(cuda):
@@ -1005,15 +1006,88 @@ def _groupby_input(rng, n, gb, edge):
     return v, mask, gid
 
 
-@pytest.mark.parametrize("n,blocks,gb,edge", [
-    (1 << 17, 8, 16, True), (1 << 17, 256, 4096, True),
-    (1 << 17, 65536, 16, True), (100_003, 256, 64, True),
-    (50_000, 8, 1, False), (1 << 20, 256, 9, False)])
-def test_grouped_block_reduce_kernel_matches_plain(cuda, n, blocks, gb, edge):
+# run lengths of the series-ordered layout: around a warp's 32 rows, and
+# runs of one series (a TSBS host holds ~4,300 rows)
+_RUNS = (1, 31, 32, 33, 64, 65, 4096)
+
+
+def _runs_gid(rng, live, ids):
+    """Group ids of `live` rows in series order: contiguous runs of the
+    lengths in _RUNS (4096 and up to 500 more), in random order, each run
+    the next id of `ids` (runs cross row-block boundaries as they fall)."""
+    out, filled, k = [], 0, 0
+    while filled < live:
+        ln = int(rng.choice(_RUNS))
+        ln += int(rng.integers(0, 500)) if ln == 4096 else 0
+        ln = min(ln, live - filled)
+        out.append(np.full(ln, ids[k % len(ids)], np.int32))
+        filled += ln
+        k += 1
+    return np.concatenate(out)
+
+
+def _plant_mixed(rng, gid, mask, n, blocks):
+    """Segments of chosen lengths in the first rows of chosen row blocks
+    (warp = 32 consecutive blocks of one group): group 2's first warp holds
+    a long segment (300 rows) beside short ones (5 and 40), group 3's first
+    several long ones (600 rows in each of blocks 4-6), group 4's first one
+    of exactly the walk's threshold (gr._WARP_ROWS rows, block 7) and its
+    second warp one just below it (block 40), among the random ids' short
+    segments (~15 rows). The planted groups take no other row."""
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    per = -(-n // blocks)
+    if blocks < 41 or per < 600:
+        raise ValueError("the mixed layout needs 41 blocks of 600 rows")
+    free = ~np.isin(gid, (2, 3, 4))
+    gid[~free] = rng.choice(np.array([0, 5]), int((~free).sum()))
+    for g, b, ln in ((2, 0, 300), (2, 1, 5), (2, 2, 40), (3, 4, 600),
+                     (3, 5, 600), (3, 6, 600), (4, 7, gr._WARP_ROWS),
+                     (4, 40, gr._WARP_ROWS - 1)):
+        gid[b * per:b * per + ln] = g
+        mask[b * per:b * per + ln] = True
+
+
+def _layout_input(rng, n, blocks, gb, layout, edge=True):
+    """v, mask, gid of n rows: "random" draws each row's group uniformly
+    (segments of a few rows), "runs" puts the rows in series order (group
+    ids in contiguous runs, _runs_gid) with the padding rows (mask False,
+    gid 0) after the live ones, so the last row blocks are empty, and
+    "mixed" plants chosen segment lengths among random ids
+    (_plant_mixed). The last two groups stay empty; with `edge`, values
+    carry NaN of both signs, +-0 and +-inf, and group 1 is all masked."""
+    v, mask, gid = _groupby_input(rng, n, gb, edge)
+    ids = np.arange(max(gb - 2, 1), dtype=np.int32)
+    if layout == "runs":
+        live = n - n // 7
+        gid = np.zeros(n, np.int32)
+        gid[:live] = _runs_gid(rng, live, ids)
+        mask[live:] = False
+    elif layout == "mixed":
+        _plant_mixed(rng, gid, mask, n, blocks)
+    elif layout != "random":
+        raise ValueError(layout)
+    if edge and gb > 2:
+        mask[gid == 1] = False
+    gid[~mask] = 0
+    return v, mask, gid
+
+
+_G_SHAPES = [(1 << 17, 8, 16, True), (1 << 17, 256, 4096, True),
+             (1 << 17, 65536, 16, True), (100_003, 256, 64, True),
+             (50_000, 8, 1, False), (1 << 20, 256, 9, False),
+             (1 << 17, 8, 32768, True)]   # int32 member keys past int16
+
+
+@pytest.mark.parametrize("layout,n,blocks,gb,edge", [
+    (layout, *shape) for layout in ("random", "runs") for shape in _G_SHAPES
+] + [("mixed", 1 << 18, 256, 64, True), ("mixed", 1 << 20, 1024, 64, True)])
+def test_grouped_block_reduce_kernel_matches_plain(cuda, layout, n, blocks,
+                                                   gb, edge):
     from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
 
     rng = np.random.default_rng(n + blocks + gb)
-    v, mask, gid = _groupby_input(rng, n, gb, edge)
+    v, mask, gid = _layout_input(rng, n, blocks, gb, layout, edge)
     members = gr.group_members(torch.from_numpy(gid).to(cuda),
                                torch.from_numpy(mask).to(cuda), blocks, gb)
     cpu_members = gr.group_members(torch.from_numpy(gid),
@@ -1021,6 +1095,11 @@ def test_grouped_block_reduce_kernel_matches_plain(cuda, n, blocks, gb, edge):
     assert torch.equal(members.ptr.cpu(), cpu_members.ptr)
     assert torch.equal(members.perm.cpu()[:int(mask.sum())],
                        cpu_members.perm[:int(mask.sum())])
+    # either sort's key type (int16 up to gb 32767, then int32) gives the
+    # stable order of the int32 keys
+    live = int(mask.sum())
+    perm = np.argsort(np.where(mask, gid, gb), kind="stable")
+    assert np.array_equal(members.perm.cpu().numpy()[:live], perm[:live])
     x = torch.from_numpy(v).to(cuda)
     for form in ("sum", "max", "min"):
         before = gr.grouped_block_reduce.launches
@@ -1047,8 +1126,10 @@ def test_grouped_block_reduce_kernel_matches_plain(cuda, n, blocks, gb, edge):
         assert torch.equal(got.cpu(), want), form
 
 
-@pytest.mark.parametrize("rows,cols", [(65536, 16), (256, 4096), (8, 3),
-                                       (1, 5), (4096, 1)])
+@pytest.mark.parametrize("rows,cols", [
+    (65536, 16), (256, 4096), (8, 3), (1, 5), (4096, 1)] + [
+    (rows, cols) for rows in (31, 32, 33, 1025, 32769, 1 << 20)
+    for cols in (3, 16)])
 def test_column_tree_sum_kernel_matches_plain(cuda, rows, cols):
     from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
 

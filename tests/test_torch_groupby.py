@@ -371,10 +371,14 @@ def test_grouped_block_reduce_forms_against_jax_segment_ops():
 
 @pytest.mark.parametrize("rows,cols", [(1, 3), (8, 16), (32, 5), (64, 16),
                                        (256, 4096), (4096, 16), (65536, 16),
-                                       (2048, 1)])
+                                       (2048, 1), (31, 3), (31, 16), (32, 3),
+                                       (32, 16), (1 << 20, 3), (1 << 20, 16)])
 def test_column_tree_sum_plain_matches_xla_sum(rows, cols):
     """Gt's order is XLA:CPU's jnp.sum(x, axis=0) over float32 (the mean
-    of the var/stddev deviations), at the shapes _pick_blocks makes."""
+    of the var/stddev deviations), at the shapes _pick_blocks makes (a
+    power-of-two row count) and up to 32 rows. Above 32 rows and off a
+    multiple of 32, XLA:CPU orders the sum otherwise (33, 1025 and 32769
+    rows differ); no GROUP BY gives it such a shape."""
     rng = np.random.default_rng(rows * 7 + cols)
     x = (rng.standard_normal((rows, cols))
          * 10.0 ** rng.integers(-3, 4, (rows, cols))).astype(np.float32)
