@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
-                          [--prom-series 1000000]
+                          [--prom-series 1000000] [--hist-pods 12500]
+                          [--rest-warm 5]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -133,6 +134,43 @@ result line):
              statistics; Gt must make one kernel launch a call. Kernel
              counts are zeroed before the phase and read after its main
              path.
+10. promql_rest — the rest of PromQL on phase 7's prom_bench table (no new
+             ingest) and bench.py's hist_bucket (bench.py:2575-2616:
+             12,500 pods x 8 le buckets = 100,000 series over 50 services,
+             10 samples at 30 s, seed 13), 8 steps as bench.py runs them:
+             a. sum by (dc) (rate / last_over_time) — bench's vector_div,
+                the fast binary, matmul branch;
+             b. sum by (dc) (quantile_over_time(0.9, ...[2m])) — bench's
+                metric, the blocked fast path;
+             c. max by (dc) (deriv(...[2m])) — the linear fit, its extreme
+                through ring_pext_fused (4r) on the ring engine;
+             d. sum by (dc) (holt_winters(...[2m], 0.5, 0.5));
+             e. histogram_quantile(0.9, sum by (le, svc) (rate(hist_bucket
+                [1m]))) — bench's histogram, matmul branch;
+             f. the same by (le, pod): 100,000 aggregated series put G S
+                past 2^28, so the scatter branch sums through kernel G;
+             g. the generic engine on hist_bucket: query_instant of e at
+                the last step (off the grid) and query_range of
+                rate(hist_bucket[1m]) > 1;
+             h. query_instant of f: the generic engine's float64 vectors
+                through the scatter branch, G's float64 sum form.
+             Each query runs on one device, the card named four times with
+             default options (ring) and with kernels off (gather): cold,
+             warm (median of --rest-warm) and one profiled warm call. The
+             engines must agree bit for bit; one device must equal the
+             port on the CPU bit for bit (c, f, g's range query, h) or
+             within the matrix-product bound (a, b, d, which also stay
+             within MATMUL_READ_K sqrt(n) u sum|x|, a limit set from
+             readings; e and g's instant query through the bound of their
+             bucket sums); per warm query G must launch once a step on f
+             and h on every engine and never on the others,
+             ring_pext_fused once on c on the ring engine and nowhere else
+             (counts zeroed before each query). A probe at a's product
+             shape shows whether the check can tell full float32 from
+             TF32: exactly summable data must come out exact, and TF32
+             must not. Then G at f's shape (float32) and at h's (float64)
+             against its plain version (bit for bit), timed beside
+             index_add_ and its bound.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -168,9 +206,10 @@ HOUR_MS = 3_600_000
 Q2_OPS = ["count", "sum", "min", "max", "mean", "stddev_samp",
           "first_value", "last_value"]
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
-# operations/s outside the tensor cores
+# and float64 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12   # float64 outside the tensor cores
 U = 2.0 ** -24
 # warm SQL Q2 runs per ring form in the sql phase's interleaved timing
 Q2_WALL_REPS = 30
@@ -1268,12 +1307,9 @@ def topk_kernel_rows(dev, ring_entry, launches, per_launch):
     ns = ring_entry.shards
     s_loc = ring_entry.s_pad // ns
     cands = []
-    for s in range(ns):
-        out, pres = TF._eval_side(
-            ring_entry.vals[s], ring_entry.has[s], ring_entry.tsg[s],
-            smask[s], win.lo[s], win.hi[s], win.t_end[s], fname="rate",
-            range_ticks=win.range_ticks, l_cells=win.l_cells,
-            tps=ring_entry.spec.tps, lookback_ticks=300_000)
+    outs, press = TF._eval_shards(ring_entry, smask, win, fname="rate",
+                                  fargs=(), lookback_ticks=300_000)
+    for s, (out, pres) in enumerate(zip(outs, press)):
         cands.append(TF._local_candidates(
             out, pres, TF._topk_key(out, pres, True), 100, s * s_loc))
     acc, loc = cands[:2]
@@ -1667,8 +1703,8 @@ def promql_phase(args, dev):
         st["launches_cold"][k] + 5 * st["launches_per_warm"][k]
         for e in ("ring", "hops") for st in per_engine[e].values()))
         for k in TOPK_KERNELS}
-    for k, n in launches.items():
-        if n == 0:
+    for k, count in launches.items():
+        if count == 0:
             raise AssertionError(f"{k} never launched in phase promql")
     rows = topk_kernel_rows(dev, ring_entry, launches, per_launch)
     emit({"phase": "promql", "seconds": seconds, "rows_written": written,
@@ -1681,7 +1717,459 @@ def promql_phase(args, dev):
                      "agg_groups": agg.num_series},
           "ring_comm_bytes": notes["ring", topk_qs[1]]["comm_bytes"],
           "phase_seconds": time.perf_counter() - t_phase})
-    return rows
+    return rows, {"catalog": catalog, "series": n}
+
+
+# ---- phase 10: promql_rest -------------------------------------------
+
+HIST_LES = ("0.05", "0.1", "0.25", "0.5", "1", "2.5", "5", "+Inf")
+HIST_SERVICES = 50
+# bench.py's histogram span: t0 + 60 s to t0 + 270 s at 30 s (8 steps)
+HIST_SPAN = (PROM_T0 + 60_000, PROM_T0 + 270_000, 30_000)
+REST_E = "histogram_quantile(0.9, sum by (le, svc) (rate(hist_bucket[1m])))"
+# name -> (query, span, branch of its aggregation): "matmul" results are
+# held to the CPU run within their bound, the others bit for bit
+REST_QUERIES = {
+    "a": ("sum by (dc) (rate(prom_bench[1m]) / "
+          "last_over_time(prom_bench[1m]))", PROM_SPAN, "matmul"),
+    "b": ("sum by (dc) (quantile_over_time(0.9, prom_bench[2m]))",
+          PROM_SPAN, "matmul"),
+    "c": ("max by (dc) (deriv(prom_bench[2m]))", PROM_SPAN, "extreme"),
+    "d": ("sum by (dc) (holt_winters(prom_bench[2m], 0.5, 0.5))",
+          PROM_SPAN, "matmul"),
+    "e": (REST_E, HIST_SPAN, "matmul"),
+    "f": ("histogram_quantile(0.9, sum by (le, pod) "
+          "(rate(hist_bucket[1m])))", HIST_SPAN, "scatter"),
+    "g_instant": (REST_E, None, "matmul"),
+    "g_range": ("rate(hist_bucket[1m]) > 1", HIST_SPAN, "none"),
+    # the per-pod panel as an instant query: the generic engine's float64
+    # vectors through the scatter branch, G's float64 sum form
+    "h": ("histogram_quantile(0.9, sum by (le, pod) "
+          "(rate(hist_bucket[1m])))", None, "scatter"),
+}
+# the card's matrix products on a, b and d are also held to a limit set
+# from readings: MATMUL_READ_K sqrt(n) u sum|x| (PERF.md section 6)
+MATMUL_READ_K = 8
+# the inner sums behind the histogram quantiles, and the per-group
+# member magnitudes behind the sums' bounds (one device, untimed)
+REST_AUX = {
+    "a": "{op} by (dc) (rate(prom_bench[1m]) / "
+         "last_over_time(prom_bench[1m]))",
+    "b": "{op} by (dc) (quantile_over_time(0.9, prom_bench[2m]))",
+    "d": "{op} by (dc) (holt_winters(prom_bench[2m], 0.5, 0.5))",
+}
+
+
+def hist_ingest(table, pods):
+    """bench.py's hist_bucket (bench.py:2575-2616): `pods` pods x 8 le
+    buckets, pod i in svc_(i % 50), 10 samples at 30 s from seed 13,
+    cumulative over time and over buckets. Returns rows written."""
+    n_series = pods * len(HIST_LES)
+    pod_col = np.repeat(np.asarray([f"pod_{i}" for i in range(pods)],
+                                   object), len(HIST_LES))
+    svc_col = np.repeat(np.asarray([f"svc_{i % HIST_SERVICES}"
+                                    for i in range(pods)], object),
+                        len(HIST_LES))
+    le_col = np.tile(np.asarray(HIST_LES, object), pods)
+    rng = np.random.default_rng(13)
+    per_bucket = rng.random((n_series,)) * 5.0
+    base = np.cumsum(per_bucket.reshape(pods, len(HIST_LES)), axis=1).ravel()
+    written = 0
+    for s in range(10):
+        ts = np.full(n_series, PROM_T0 + s * 30_000, np.int64)
+        written += table.write({"pod": pod_col, "svc": svc_col,
+                                "le": le_col}, ts,
+                               {"greptime_value": base * (s + 1)})
+    return written
+
+
+def run_rest_query(eng, name):
+    query, span, _ = REST_QUERIES[name]
+    if span is None:     # an instant query at the last step, steps 1 s
+        return eng.query_instant(query, HIST_SPAN[1])[0]
+    return eng.query_range(query, *span)[0]
+
+
+def quantile_gap_bound(sums, le, q, bound):
+    """The largest change of histogram_quantile(q) over buckets whose
+    cumulative sums move by at most `bound` each (same bucket located):
+    out = lb + (ub - lb) (rank - lo) / (hi - lo) with rank = q total, so
+    |d out| <= (ub - lb) (q + 1 + 2 frac) bound / width. sums: (B, J)
+    of one group in le order."""
+    b = np.maximum.accumulate(np.where(np.isnan(sums), 0, sums), axis=0)
+    total = b[-1]
+    rank = q * total
+    idx = np.clip((b < rank[None, :]).sum(axis=0), 0, len(le) - 1)
+    lo = np.where(idx > 0, b[np.maximum(idx - 1, 0), np.arange(b.shape[1])],
+                  0)
+    hi = b[idx, np.arange(b.shape[1])]
+    width = np.where(hi - lo == 0, 1, hi - lo)
+    ub = le[idx]
+    lb = np.where(idx > 0, le[np.maximum(idx - 1, 0)], 0)
+    span = np.where(np.isfinite(ub), ub - lb, 0)
+    frac = np.clip((rank - lo) / width, 0, 1)
+    return span * (q + 1 + 2 * frac) * bound / width
+
+
+def promql_rest_phase(args, dev, prom):
+    """Phase 10 (see the module docstring). Returns every kernel's
+    launches over the phase's main path and G's numbers at query f's
+    shape."""
+    import types
+
+    from greptimedb_tpu_torch.catalog.table import Table
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+    from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
+    from greptimedb_tpu_torch.promql.engine import PromEngine
+    from greptimedb_tpu_torch.query.executor import QueryEngine
+
+    t_phase = time.perf_counter()
+    catalog = prom["catalog"]
+    hist = Table("hist_bucket", ts_name="ts", tag_names=["pod", "svc", "le"],
+                 fields=["greptime_value"])
+    t = time.perf_counter()
+    written = hist_ingest(hist, args.hist_pods)
+    seconds = {"hist_ingest": time.perf_counter() - t}
+    catalog.register(hist)
+
+    def engine(device, mesh=None, opts=None):
+        return PromEngine(types.SimpleNamespace(
+            catalog=catalog, query_engine=QueryEngine(
+                device=device, mesh=mesh, mesh_opts=opts)))
+
+    mesh = make_mesh([dev] * 4)
+    engines = {"single": engine(dev), "ring": engine(dev, mesh),
+               "gather": engine(dev, mesh,
+                                MeshOptions(pallas_kernels="off"))}
+
+    def all_counts():
+        return {**counts(rf, mg),
+                **{k: getattr(gr, k).launches for k in GROUPED_KERNELS},
+                **{k: getattr(tm, k).launches for k in TOPK_KERNELS}}
+
+    def zero_all():
+        zero_counts(rf, mg)
+        for k in GROUPED_KERNELS:
+            getattr(gr, k).launches = 0
+        for k in TOPK_KERNELS:
+            getattr(tm, k).launches = 0
+
+    results, stats, notes = {}, {}, {}
+    launches = {}
+    store = {}
+    for ename, eng in engines.items():
+        per_q = {}
+        for name in REST_QUERIES:
+            run = (lambda eng=eng, name=name: run_rest_query(eng, name))
+            zero_all()
+            eng.last_fast = None
+            t = time.perf_counter()
+            with capture_grouped(gr, store):
+                results[ename, name] = run()
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t
+            cold_launches = all_counts()
+            zero_all()
+            times = []
+            for _ in range(args.rest_warm):
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+            warm_launches = all_counts()
+            prof = profiled(run, top=5)
+            notes[ename, name] = eng.last_fast
+            for k in set(cold_launches) | set(warm_launches):
+                launches[k] = (launches.get(k, 0) + cold_launches.get(k, 0)
+                               + warm_launches.get(k, 0))
+            per_q[name] = {
+                "cold_s": cold, "warm_median_s": float(np.median(times)),
+                "launches_cold": {k: v for k, v in cold_launches.items()
+                                  if v},
+                "launches_per_warm": {k: v / args.rest_warm
+                                      for k, v in warm_launches.items()
+                                      if v},
+                "device_ms": prof["device_ms"],
+                "idle_share": prof["idle_share"], "top": prof["top"],
+                "ours": prof["ours"], "note": notes[ename, name],
+                "series": results[ename, name].num_series}
+        stats[ename] = per_q
+
+    # ---- checks -------------------------------------------------------
+    for name, (query, span, branch) in REST_QUERIES.items():
+        ref = results["single", name]
+        for ename in ("ring", "gather"):
+            if not same_vector(ref, results[ename, name]):
+                raise AssertionError(f"promql_rest {ename} differs from one "
+                                     f"device on {name}: {query}")
+        if ref.num_series == 0 or not ref.present.any():
+            raise AssertionError(f"promql_rest {name} answered nothing")
+        for ename in engines:
+            got = stats[ename][name]["launches_per_warm"]
+            g_launch = got.get("grouped_block_reduce", 0)
+            # one G launch a step column of f's and h's sums, none
+            # elsewhere
+            want_g = len(results[ename, name].present[0]) \
+                if branch == "scatter" else 0
+            if g_launch != want_g:
+                raise AssertionError(f"G launched {g_launch} times per warm "
+                                     f"{name} on {ename}, not {want_g}")
+            p_launch = got.get("ring_pext_fused", 0)
+            want_p = 1 if (name == "c" and ename == "ring") else 0
+            if p_launch != want_p:
+                raise AssertionError(f"4r launched {p_launch} times per warm "
+                                     f"{name} on {ename}, not {want_p}")
+    for name in ("a", "b", "c", "d"):
+        if results["single", name].num_series != 32:
+            raise AssertionError(f"{name}: not 32 dc groups")
+    if results["single", "e"].num_series != HIST_SERVICES:
+        raise AssertionError("e: not one quantile per service")
+    for name in ("f", "h"):
+        if results["single", name].num_series != args.hist_pods:
+            raise AssertionError(f"{name}: not one quantile per pod")
+    for name in REST_QUERIES:
+        v = results["single", name]
+        if not np.isfinite(v.values[v.present]).all():
+            raise AssertionError(f"{name}: non-finite values")
+
+    # the port on the CPU: bit for bit where no matrix product adds, else
+    # within 2 gamma_n sum|x| over a group's members (n: the product's
+    # length: S_pad, or per fold block S_pad / 8 + 8 on the blocked path)
+    t = time.perf_counter()
+    cpu = engine("cpu")
+    cpu_res = {name: run_rest_query(cpu, name) for name in REST_QUERIES}
+    seconds["cpu_reference"] = time.perf_counter() - t
+    rel, read = {}, {}
+    s_pad = 1 << max(3, (prom["series"] - 1).bit_length())
+    for name, (query, span, branch) in REST_QUERIES.items():
+        a, c = results["single", name], cpu_res[name]
+        if branch != "matmul":
+            if not same_vector(a, c):
+                raise AssertionError(f"promql_rest one device differs from "
+                                     f"the CPU on {name}: {query}")
+            continue
+        if a.labels != c.labels or not np.array_equal(a.present, c.present):
+            raise AssertionError(f"{name}: groups differ from the CPU run")
+        diff = np.abs(a.values - c.values)[a.present]
+        rel[name] = float(np.max(diff / np.maximum(np.abs(c.values[
+            c.present]), 1e-30)))
+        if name in REST_AUX:
+            n = s_pad if name == "a" else s_pad // 8 + 8
+            gamma = n * U / (1 - n * U)
+            eng1 = engines["single"]
+            mx = eng1.query_range(REST_AUX[name].format(op="max"),
+                                  *span)[0]
+            mn = eng1.query_range(REST_AUX[name].format(op="min"),
+                                  *span)[0]
+            cnt = eng1.query_range(REST_AUX[name].format(op="count"),
+                                   *span)[0]
+            mag = np.maximum(np.abs(mx.values), np.abs(mn.values))
+            bound = 2 * gamma * cnt.values * mag
+            if not np.all(np.abs(a.values - c.values) <= bound):
+                raise AssertionError(f"{name} past the matrix-product bound")
+            # the limit from readings: sum|x| is the sum itself where no
+            # member is negative, else at most count * max|x|
+            abs_sum = np.where(mn.values >= 0, np.abs(c.values),
+                               cnt.values * mag)
+            limit = MATMUL_READ_K * np.sqrt(n) * U * abs_sum
+            gap = np.abs(a.values - c.values)
+            read[name] = float(np.max(np.where(c.present, gap / np.maximum(
+                limit, 1e-300), 0)))
+            if not np.all(gap <= limit):
+                raise AssertionError(f"{name} past the read limit "
+                                     f"{MATMUL_READ_K} sqrt(n) u sum|x|")
+            continue
+        # e and g_instant: quantiles of matrix-product bucket sums. The
+        # sums on the card stay within their bound of the CPU's (checked
+        # here on the inner sum), and the quantile moves at most as far as
+        # those sums can move it (quantile_gap_bound)
+        inner = "sum by (le, svc) (rate(hist_bucket[1m]))"
+        if span is None:
+            card = engines["single"].query_instant(inner, HIST_SPAN[1])[0]
+            ref_in = cpu.query_instant(inner, HIST_SPAN[1])[0]
+            n = args.hist_pods * len(HIST_LES)   # the generic engine's S
+            mags = engines["single"].query_instant(
+                "max by (le, svc) (rate(hist_bucket[1m]))", HIST_SPAN[1])[0]
+            cnts = engines["single"].query_instant(
+                "count by (le, svc) (rate(hist_bucket[1m]))", HIST_SPAN[1])[0]
+            u = 2.0 ** -53      # float64 vectors in the generic engine
+        else:
+            card = engines["single"].query_range(inner, *span)[0]
+            ref_in = cpu.query_range(inner, *span)[0]
+            n = 1 << max(3, (args.hist_pods * len(HIST_LES) - 1).bit_length())
+            mags = engines["single"].query_range(
+                "max by (le, svc) (rate(hist_bucket[1m]))", *span)[0]
+            cnts = engines["single"].query_range(
+                "count by (le, svc) (rate(hist_bucket[1m]))", *span)[0]
+            u = U
+        gamma = n * u / (1 - n * u)
+
+        def by_label(v):
+            return {(lab["svc"], lab["le"]): (v.values[i], v.present[i])
+                    for i, lab in enumerate(v.labels)}
+
+        card, ref_in = by_label(card), by_label(ref_in)
+        mags, cnts = by_label(mags), by_label(cnts)
+        sum_bound = {k: 2 * gamma * cnts[k][0] * np.abs(mags[k][0])
+                     for k in ref_in}
+        for k, (want, _) in ref_in.items():
+            if not np.all(np.abs(card[k][0] - want) <= sum_bound[k]):
+                raise AssertionError(f"{name}: bucket sums past the "
+                                     "matrix-product bound")
+        le_vals = np.asarray([float(x.replace("+Inf", "inf"))
+                              for x in HIST_LES])
+        for gi, lab in enumerate(c.labels):
+            keys = [(lab["svc"], le) for le in HIST_LES]
+            gap = quantile_gap_bound(
+                np.stack([ref_in[k][0] for k in keys]), le_vals, 0.9,
+                np.stack([sum_bound[k] for k in keys]).max(axis=0))
+            d = np.abs(a.values[gi] - c.values[gi])
+            if not np.all(d <= gap + 4 * np.spacing(
+                    np.abs(c.values[gi]).astype(np.float32))):
+                raise AssertionError(f"{name}: quantile past its bound")
+
+    # ---- G at query f's shape ------------------------------------------
+    v, members = store["sum"][0]
+    exact = gr.grouped_block_reduce(v, members, "sum")
+    plain = gr.grouped_block_reduce_plain(v, members, "sum")
+    torch.cuda.synchronize()
+    if not torch.equal(exact.view(torch.int32), plain.view(torch.int32)):
+        raise AssertionError("G at f's shape differs from its plain version")
+    f_launch = stats["single"]["f"]["launches_per_warm"][
+        "grouped_block_reduce"]
+    dev_ms = device_ms_per_launch(
+        {"ours": stats["single"]["f"]["ours"]},
+        lambda k: k.startswith("segment_walk_kernel<float, 0>"))
+    live = members.perm[:int(members.ptr[-1])].long()
+    nseg = members.gb * members.blocks
+    seg = (torch.repeat_interleave(
+        torch.arange(nseg, device=dev),
+        (members.ptr[1:] - members.ptr[:-1]).long()))
+    nbytes = 8 * int(members.ptr[-1]) + 4 * (nseg + 1) + 4 * nseg
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    g_row = {
+        "f64_at_h": g_f64_row(dev, gr, store, stats),
+        "ms": cuda_ms(lambda: gr.grouped_block_reduce(v, members, "sum")),
+        "burst_ms": burst_ms(lambda: gr.grouped_block_reduce(v, members,
+                                                             "sum")),
+        "device_ms_per_launch": dev_ms,
+        "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
+            v, members, "sum"), reps=3, warm=1),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            nseg, device=dev).index_add_(0, seg, v[live])),
+        "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+        "share_of_bound": bound / dev_ms if dev_ms else None,
+        "launches_per_warm_f": f_launch,
+        "max_abs_err": float(torch.nan_to_num(
+            (exact.double() - plain.double()).abs(), nan=0.0).max()),
+        "shape": {"rows": v.numel(), "blocks": members.blocks,
+                  "gb": members.gb, **segment_stats(members)},
+    }
+    emit({"phase": "promql_rest", "seconds": seconds,
+          "rows_written": written, "hist_series": args.hist_pods * len(
+              HIST_LES),
+          "engines": stats, "launches": launches,
+          "checks": {"engines_identical": True, "exact_equal_cpu": True,
+                     "matmul_max_rel_diff_vs_cpu": rel,
+                     "matmul_gap_over_read_limit": read,
+                     "tf32_probe": tf32_probe(dev, s_pad)},
+          "g_at_f": g_row,
+          "phase_seconds": time.perf_counter() - t_phase})
+    for k in ("grouped_block_reduce", "ring_pext_fused"):
+        if not launches.get(k):
+            raise AssertionError(f"{k} never launched in phase promql_rest")
+    return launches, g_row
+
+
+def g_f64_row(dev, gr, store, stats):
+    """G's float64 sum form at query h's shape (the generic engine's
+    instant sum by (le, pod)): kernel against its plain version bit for
+    bit, timed beside index_add_ and its bound."""
+    v, members = store[("sum", "float64")][0]
+    exact = gr.grouped_block_reduce(v, members, "sum")
+    plain = gr.grouped_block_reduce_plain(v, members, "sum")
+    torch.cuda.synchronize()
+    if not torch.equal(exact.view(torch.int64), plain.view(torch.int64)):
+        raise AssertionError("G float64 at h's shape differs from its plain "
+                             "version")
+    live = members.perm[:int(members.ptr[-1])].long()
+    nseg = members.gb * members.blocks
+    seg = torch.repeat_interleave(
+        torch.arange(nseg, device=dev),
+        (members.ptr[1:] - members.ptr[:-1]).long())
+    # 8 bytes a value and 4 a member index read, the pointers read, 8
+    # bytes a segment written; one float64 add a live row
+    nbytes = 12 * int(members.ptr[-1]) + 4 * (nseg + 1) + 8 * nseg
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = int(members.ptr[-1]) / F64_OPS_PER_S * 1e3
+    dev_ms = device_ms_per_launch(
+        {"ours": stats["single"]["h"]["ours"]},
+        lambda k: k.startswith("segment_walk_kernel<double, 0>"))
+    return {
+        "ms": cuda_ms(lambda: gr.grouped_block_reduce(v, members, "sum")),
+        "device_ms_per_launch": dev_ms,
+        "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
+            v, members, "sum"), reps=3, warm=1),
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            nseg, dtype=torch.float64, device=dev).index_add_(
+                0, seg, v[live])),
+        "bound_ms": max(b_ms, o_ms),
+        "bound_by": "bytes" if b_ms >= o_ms else "operations",
+        "bytes": nbytes,
+        "launches_per_warm_h": stats["single"]["h"]["launches_per_warm"][
+            "grouped_block_reduce"],
+        "max_abs_err": float(torch.nan_to_num(
+            (exact - plain).abs(), nan=0.0).max()),
+        "shape": {"rows": v.numel(), "blocks": members.blocks,
+                  "gb": members.gb, **segment_stats(members)}}
+
+
+def tf32_probe(dev, s_pad):
+    """Whether the main path's group product can tell full float32 from
+    TF32, at query a's shape (32 groups over s_pad series, eight step
+    columns). Column "exact": 1000 members a group hold 1 + 2^-13 and the
+    rest 0, so every partial sum is a float32 and any full-float32 order
+    gives the exact sum; TF32 keeps 10 bits of each input and drops the
+    2^-13. Column "uniform": values in [0.5, 1.5), as a rate over a last
+    value. Returns each product's largest gap to the float64 sum, relative
+    to the sum, and the read limit's relative size there."""
+    from greptimedb_tpu_torch.ops.promql import _group_matmul
+
+    g, j = 32, 8
+    gid = torch.arange(s_pad, device=dev) % g
+    onehot_t = (gid[None, :] == torch.arange(g, device=dev)[:, None]).float()
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.zeros((s_pad, j), device=dev)
+    x[:g * 1000, :j // 2] = 1 + 2.0 ** -13
+    x[:, j // 2:] = 0.5 + torch.rand((s_pad, j // 2), device=dev,
+                                     generator=gen)
+    want = onehot_t.double() @ x.double()
+    full = _group_matmul(x, onehot_t)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = torch.matmul(onehot_t, x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def gap(got, cols):
+        return float(((got.double() - want).abs() / want.abs())[:, cols]
+                     .max())
+
+    exact, uniform = slice(0, j // 2), slice(j // 2, j)
+    out = {"full_f32": {"exact": gap(full, exact),
+                        "uniform": gap(full, uniform)},
+           "tf32": {"exact": gap(tf32, exact), "uniform": gap(tf32, uniform)},
+           "read_limit_rel": MATMUL_READ_K * float(np.sqrt(s_pad)) * U}
+    if out["full_f32"]["exact"] != 0.0:
+        raise AssertionError("the full-float32 group product is not exact "
+                             "on exactly summable data")
+    if out["tf32"]["exact"] == 0.0:
+        raise AssertionError("the TF32 probe did not round")
+    return out
 
 
 SQL_Q2_OPS = ["count", "sum", "min", "max", "avg", "stddev_samp",
@@ -2003,7 +2491,8 @@ def capture_grouped(gr, store):
             calls.append(item)
 
     def g(v, members, form):
-        keep(form, (v, members))
+        keep(form if v.dtype != torch.float64 else (form, "float64"),
+             (v, members))
         return real[0](v, members, form)
 
     def t(x):
@@ -2678,7 +3167,8 @@ def run(args) -> int:
     mesh_out = mesh_phase(args, dev, P)
     kernels += mesh_out["rows"]
     # ---- 7. promql ---------------------------------------------------
-    kernels += promql_phase(args, dev)
+    prom_rows, prom_out = promql_phase(args, dev)
+    kernels += prom_rows
     # ---- 8. sql ------------------------------------------------------
     slice_out = {"table": table, "engine": eng, "hosts": args.hosts,
                  "hours": args.hours, "regions": len(set(region_of)),
@@ -2689,15 +3179,22 @@ def run(args) -> int:
     grouped_rows, rows_launches, rows_warm = rows_phase(args, dev,
                                                         slice_out, mesh_out)
     kernels += grouped_rows
-    # every kernel's launches over the main-path runs of phases 2, 6, 7,
-    # 8 and 9; the hop ring's seed, continuation and combines ran in
-    # phase 8 only, G and Gt in phase 9 only
+    # ---- 10. promql_rest ----------------------------------------------
+    rest_launches, g_at_f = promql_rest_phase(args, dev, prom_out)
+    # every kernel's launches over the main-path runs of phases 2 and 6
+    # to 10; the hop ring's seed, continuation and combines ran in phase 8
+    # only, Gt in phase 9 only, G in phases 9 and 10
     extreme_row = next(r for r in mesh_out["rows"] if r["name"] == "extreme")
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
     for row in kernels:
         name = row["name"]
         row["launches"] += sql_launches.get(name, 0)
+        if rest_launches.get(name):
+            row["launches"] += rest_launches[name]
+            row["launches_promql_rest"] = rest_launches[name]
+        if name == "grouped_block_reduce":
+            row["promql_f"] = g_at_f
         if name not in GROUPED_KERNELS and rows_launches.get(name):
             row["launches"] += rows_launches[name]
             row["launches_groupby"] = rows_launches[name]
@@ -2734,6 +3231,9 @@ def main() -> int:
     ap.add_argument("--mesh-hosts", type=int, default=8192)
     ap.add_argument("--mesh-hours", type=int, default=6)
     ap.add_argument("--prom-series", type=int, default=1_000_000)
+    ap.add_argument("--hist-pods", type=int, default=12_500)
+    ap.add_argument("--rest-warm", type=int, default=5,
+                    help="warm runs of each phase-10 query (median)")
     args = ap.parse_args()
     try:
         return run(args)

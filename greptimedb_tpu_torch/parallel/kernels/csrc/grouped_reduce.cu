@@ -7,6 +7,10 @@
 //   sum form  (pseg2:250, jax.ops.segment_sum into gb * blocks segments)
 //     out[b, g] = 0 + v[i0] + v[i1] + ...   over the live rows i of block b
 //                                            with gid[i] == g, ascending i
+//     in float32, and in float64 for the PromQL generic engine's vectors
+//     (greptimedb_tpu/ops/promql.py aggregate_across_series:283, whose
+//     scatter branch is jax.ops.segment_sum over the series axis, one
+//     block; the JAX package's tests run it with x64 on)
 //   max / min form  (:278, jax.ops.segment_max / segment_min; also the
 //   int32 extremes of the first/last winner stages, :296)
 //     out[g] = fold of XLA's max / min from -inf / +inf (int32: its least
@@ -20,8 +24,8 @@
 // XLA:CPU's scatter adds each segment's rows one after the other in row
 // order, and the bit contract rests on that order. CUDA's atomics
 // (index_add_, scatter_add_, scatter_reduce) add in no fixed order, so
-// these sums need their own kernel even on one card. Adds are __fadd_rn,
-// never contracted.
+// these sums need their own kernel even on one card. Adds are __fadd_rn
+// (float64: __dadd_rn), never contracted.
 //
 // The extreme is XLA's maximum/minimum as XLA:CPU lowers it (NaN
 // propagates, -0.0 orders below +0.0, which NaN survives follows the sign
@@ -43,7 +47,8 @@
 // row's member index and value once (8 bytes a row), the pointers once
 // (4 * gb * blocks) and write 4 * gb * blocks (sum) or 4 * gb (max/min):
 // at the GROUP BY hostname shape (17.1 M rows, 4096 x 256 segments) about
-// 145 MB, 0.043 ms at 3.35 TB/s.
+// 145 MB, 0.043 ms at 3.35 TB/s. The float64 sum reads 12 bytes a row and
+// writes 8 a segment.
 //
 // Design of the segment walk. Rows come in series order (Region.scan
 // returns them by (sid, ts)), so a group's rows are long contiguous runs:
@@ -167,7 +172,9 @@ __device__ __forceinline__ T start() {
 
 template <typename T, int kForm>
 __device__ __forceinline__ T step(T acc, T x) {
-  if constexpr (kForm == kSum) {
+  if constexpr (kForm == kSum && std::is_same_v<T, double>) {
+    return __dadd_rn(acc, x);
+  } else if constexpr (kForm == kSum) {
     return __fadd_rn(acc, x);
   } else {
     return ext<kForm == kMaxForm>(acc, x);
@@ -237,6 +244,14 @@ __device__ __forceinline__ float fold_piece_sum(float acc,
     acc = __fadd_rn(acc, f.w);
   }
   for (; i < e; ++i) acc = __fadd_rn(acc, st[i]);
+  return acc;
+}
+
+// the same in float64: a stage row of doubles, read one at a time
+__device__ __forceinline__ double fold_piece_sum(double acc,
+                                                 const double* __restrict__ st,
+                                                 int i, int e) {
+  for (; i < e; ++i) acc = __dadd_rn(acc, st[i]);
   return acc;
 }
 
@@ -538,6 +553,14 @@ extern "C" int gtt_grouped_block_sum(const void* v, const void* perm,
   if (gb <= 0 || blocks <= 0) return 0;
   return launch_walk<float, kSum>(v, perm, ptr, out, gb, blocks,
                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gtt_grouped_block_sum_f64(const void* v, const void* perm,
+                                         const void* ptr, void* out, int gb,
+                                         int blocks, void* stream) {
+  if (gb <= 0 || blocks <= 0) return 0;
+  return launch_walk<double, kSum>(v, perm, ptr, out, gb, blocks,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // part: gb * ceil(blocks / 32) values of the input's type

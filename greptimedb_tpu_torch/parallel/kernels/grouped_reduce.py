@@ -10,9 +10,10 @@ rests on that order; CUDA's index_add_, scatter_add_ and scatter_reduce
 add floats with atomics in no fixed order. So these reductions run through
 hand kernels on the card (csrc/grouped_reduce.cu):
 
-- `grouped_block_reduce(v, members, "sum")`: (blocks, gb) float32,
-  out[b, g] = 0 + v[i0] + v[i1] + ... over the member rows of group g in
-  row block b, ascending (pseg2);
+- `grouped_block_reduce(v, members, "sum")`: (blocks, gb) float32 or
+  float64, out[b, g] = 0 + v[i0] + v[i1] + ... over the member rows of
+  group g in row block b, ascending (pseg2; float64: the PromQL generic
+  engine's vectors through aggregate_across_series' scatter branch);
 - `grouped_block_reduce(v, members, "max" | "min")`: (gb,) float32 or
   int32, the fold of XLA's maximum/minimum from -inf/+inf (int32: from
   its least/greatest value) over the member rows of group g, ascending
@@ -51,6 +52,8 @@ _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 _FORMS = ("sum", "max", "min")
 _EXT_TYPES = {torch.float32: "f32", torch.int32: "i32"}
+_SUM_ENTRIES = {torch.float32: "gtt_grouped_block_sum",
+                torch.float64: "gtt_grouped_block_sum_f64"}
 _TREE = 32          # rows a chunk of XLA:CPU's tree reduction
 _SLAB = _TREE * _TREE   # rows a block of the tree kernel reduces alone
 _WARP = 32          # segments a warp of the walk owns
@@ -178,7 +181,7 @@ def _check(v: torch.Tensor, members: GroupMembers, form: str) -> None:
     if form not in _FORMS:
         raise ValueError(f"grouped_block_reduce form {form!r} is not one of "
                          f"{_FORMS}")
-    dtypes = (torch.float32,) if form == "sum" else tuple(_EXT_TYPES)
+    dtypes = tuple(_SUM_ENTRIES if form == "sum" else _EXT_TYPES)
     if v.dtype not in dtypes or v.dim() != 1 or v.numel() != members.n:
         raise TypeError(f"grouped_block_reduce {form} takes {members.n} "
                         f"values of {dtypes}, not {v.dtype} "
@@ -193,16 +196,16 @@ def _check(v: torch.Tensor, members: GroupMembers, form: str) -> None:
 def grouped_block_reduce(v: torch.Tensor, members: GroupMembers,
                          form: str) -> torch.Tensor:
     """G over the rows of `members`: form "sum" gives the (blocks, gb)
-    float32 per-(block, group) sums, "max"/"min" the (gb,) per-group
-    extremes of float32 or int32 values."""
+    per-(block, group) sums of float32 or float64 values, "max"/"min" the
+    (gb,) per-group extremes of float32 or int32 values."""
     _check(v, members, form)
     if v.is_cpu:
         return grouped_block_reduce_plain(v, members, form)
     gb, blocks = members.gb, members.blocks
     index = v.get_device()
     if form == "sum":
-        out = torch.empty((blocks, gb), dtype=torch.float32, device=v.device)
-        build.launch(build.entry("grouped_reduce", "gtt_grouped_block_sum",
+        out = torch.empty((blocks, gb), dtype=v.dtype, device=v.device)
+        build.launch(build.entry("grouped_reduce", _SUM_ENTRIES[v.dtype],
                                  (_PTR,) * 4 + (_INT,) * 2),
                      "grouped_block_reduce", index, v.data_ptr(),
                      members.perm.data_ptr(), members.ptr.data_ptr(),

@@ -1,5 +1,5 @@
 """Cached device fast path for hot PromQL shapes (the JAX package's
-promql/fast.py, for the shapes this slice ports).
+promql/fast.py).
 
 - a **selector grid cache**: per (table, field), the full (series x cell)
   vals/has/tsg grids of every series live on the card, version-stamped by
@@ -11,23 +11,30 @@ promql/fast.py, for the shapes this slice ports).
   match_mask); group keys come from the codes matrix through one
   np.unique — no per-series Python;
 - **one device program per query**: range function (ops/window.py) and
-  cross-series aggregation (ops/promql.aggregate_across_series_blocked) or
-  per-step top-k, so a query moves J * 12 bytes of window indices to the
-  card and a packed (2G, J) or (3J, k) result back.
+  cross-series aggregation or per-step top-k, so a query moves J * 12
+  bytes of window indices to the card and a packed result back.
 
-Shapes served: `agg [by|without (...)] (range_fn(sel[d]))` and
-`agg [by|without (...)] (sel)` with agg in sum/avg/min/max/count/group/
-stddev/stdvar, and global `topk|bottomk(k, range_fn(sel[d]) | sel)`. Every
-other shape, and a query whose step/range/start does not land on the
-cached grid's cells, returns None; the engine then raises
-UnsupportedError (the generic engine is not ported yet).
+Shapes served: `agg [by|without (...)] (range_fn(sel[d]) | sel)` with agg
+in sum/avg/min/max/count/group/stddev/stdvar and every range function
+but absent_over_time (scalar-literal arguments in their generic-path
+positions), global `topk|bottomk(k, ...)` of the same, `vecL <op> vecR`
+(one-to-one default matching over one table, with an optional
+aggregation around it), and `histogram_quantile(phi, range_fn(sel) | sel
+| sum by (le, ...) (range_fn(sel)))`. Every other shape, and a query whose
+step/range/start does not land on the cached grid's cells, returns None;
+the generic engine (promql/engine.py) answers it.
 
 The sharded aggregate uses the gather twin (parallel/dist.ShardFoldCtx),
-as the JAX package does. The sharded topk takes a local per-step top-k on
-every shard and either reselects over the shard-order concatenation (the
-gather twin) or merges the candidates around the ring with the topk merge
-kernel (parallel/kernels/topk_merge.py), as planner.decide_kernel("topk")
-says. Both select bit-identically to the one-device program.
+as the JAX package does, or with the ring kernels on (planner.
+decide_kernel("promql")) parallel/kernels/ring_fold.RingFoldCtx: the same
+additions in the same order. The sharded topk takes a local per-step top-k
+on every shard and either reselects over the shard-order concatenation
+(the gather twin) or merges the candidates around the ring with the topk
+merge kernel (parallel/kernels/topk_merge.py), as planner.decide_kernel(
+"topk") says. The binary and histogram programs, which the JAX package
+runs as single-device code under auto-SPMD, evaluate each shard's series
+on its device and aggregate on the first shard's (`_on_first`). Every
+variant answers bit-identically to the one-device program.
 
 The cache key carries the query engine's device, mesh and mesh options
 (the JAX package's is (table, field), where a change of mesh options needs
@@ -47,12 +54,31 @@ import torch
 from greptimedb_tpu_torch.ops import promql as K
 from greptimedb_tpu_torch.ops import window as W
 from greptimedb_tpu_torch.promql.parser import (
+    _CMP_OPS,
     Agg,
+    Binary,
     Call,
     NumberLit,
     VectorSelector,
 )
 
+# the range functions the fast path evaluates per series (prefix sums or
+# gathered windows of L cells): every range function but absent_over_time
+_PREFIX_FNS = frozenset({
+    "rate", "increase", "delta", "idelta", "irate",
+    "sum_over_time", "count_over_time", "avg_over_time",
+    "last_over_time", "first_over_time", "present_over_time",
+    "changes", "resets",
+    "min_over_time", "max_over_time", "stddev_over_time",
+    "stdvar_over_time", "mad_over_time", "deriv",
+    "quantile_over_time", "predict_linear", "holt_winters",
+})
+# leading scalar-literal argument count per arg-taking range function
+_FN_LEAD_ARGS = {
+    "quantile_over_time": 1, "predict_linear": 0, "holt_winters": 0,
+}
+# trailing scalar args (after the selector)
+_FN_TRAIL_ARGS = {"predict_linear": 1, "holt_winters": 2}
 _SIMPLE_AGGS = frozenset(
     {"sum", "avg", "min", "max", "count", "group", "stddev", "stdvar"}
 )
@@ -261,14 +287,31 @@ class _Windows:
 
 
 def _eval_side(vals, has, tsg, smask, lo, hi, t_end, *, fname, range_ticks,
-               l_cells, tps, lookback_ticks):
+               l_cells, tps, fargs, lookback_ticks):
     """Instant lookback or range function over one shard's masked grid —
     the front half of every fused query."""
     has = has & smask[:, None]
     if fname == "__instant__":
         return W.instant_lookback(vals, has, tsg, hi, t_end, lookback_ticks)
     win = _WinShim(lo, hi, t_end, range_ticks, l_cells)
-    return K.eval_range_function(fname, vals, has, tsg, win, tps)
+    return K.eval_range_function(fname, vals, has, tsg, win, tps,
+                                 args=fargs)
+
+
+def _eval_shards(entry: _Entry, smask: list, win: _Windows, *, fname: str,
+                 fargs: tuple, lookback_ticks: int):
+    """_eval_side on every shard: per-shard lists of (S_local, J) outputs
+    and presence, shard order."""
+    outs, press = [], []
+    for k in range(entry.shards):
+        out, pres = _eval_side(
+            entry.vals[k], entry.has[k], entry.tsg[k], smask[k], win.lo[k],
+            win.hi[k], win.t_end[k], fname=fname,
+            range_ticks=win.range_ticks, l_cells=win.l_cells,
+            tps=entry.spec.tps, fargs=fargs, lookback_ticks=lookback_ticks)
+        outs.append(out)
+        press.append(pres)
+    return outs, press
 
 
 def _plan_windows(entry: _Entry, ev, range_ms: int, offset_ms: int, *,
@@ -336,6 +379,29 @@ class _Grouping:
     gid_host: np.ndarray        # (S_pad,) int32; padded series -> G
     g: int
     fold_members: list | None = None   # per shard, built on first use
+    # the whole (S_pad,) gid and G's member order over g + 1 groups on one
+    # device (the unblocked aggregation), per device, built on first use
+    gid_full: dict = field(default_factory=dict)
+    members: dict = field(default_factory=dict)
+    hist_slots: object = None   # _hist_slots_from_labels(labels), cached
+
+    def full(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self.gid_full:
+            self.gid_full[key] = torch.from_numpy(self.gid_host).to(device)
+        return self.gid_full[key]
+
+    def group_members(self, device):
+        """G's member order of the whole gid on `device` (the scatter
+        branch of aggregate_across_series), one per device. The padded
+        series (group g, dropped after the aggregation) are left out, so
+        no segment walks them."""
+        key = str(device)
+        if key not in self.members:
+            gid = self.full(device)
+            self.members[key] = K.group_members(gid, self.g + 1,
+                                                live=gid < self.g)
+        return self.members[key]
 
 
 def _grouping_dev(entry: _Entry, table, grouping, without: bool
@@ -395,29 +461,28 @@ def _fold_members(entry: _Entry, grp: _Grouping) -> list:
 
 
 def _fused_query(entry: _Entry, smask: list, grp: _Grouping, win: _Windows,
-                 *, fname: str, op: str, lookback_ticks: int):
+                 *, fname: str, fargs: tuple, op: str, lookback_ticks: int,
+                 ring: bool = False):
     """The whole query over every shard: matcher mask, range function or
     instant lookback, cross-series aggregation (the JAX package's
     _fused_query and its shard_map twin _make_sharded_fused_query: one
-    shard runs LocalFoldCtx, several the gather twin ShardFoldCtx). Returns
+    shard runs LocalFoldCtx, several the gather twin ShardFoldCtx or, with
+    `ring`, the ring kernels' RingFoldCtx, bit-identical to it). Returns
     the packed (2G, J) float32 result on the first shard's device."""
     from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
+    from greptimedb_tpu_torch.parallel.kernels.ring_fold import RingFoldCtx
 
     ns = entry.shards
     g = grp.g
-    outs, press = [], []
-    for k in range(ns):
-        out, pres = _eval_side(
-            entry.vals[k], entry.has[k], entry.tsg[k], smask[k], win.lo[k],
-            win.hi[k], win.t_end[k], fname=fname,
-            range_ticks=win.range_ticks, l_cells=win.l_cells,
-            tps=entry.spec.tps, lookback_ticks=lookback_ticks)
-        outs.append(out)
-        press.append(pres)
+    outs, press = _eval_shards(entry, smask, win, fname=fname, fargs=fargs,
+                               lookback_ticks=lookback_ticks)
     fms = None
     if not K.uses_matmul(op, g + 1, entry.s_pad):
         fms = _fold_members(entry, grp)
-    ctx = LocalFoldCtx() if ns == 1 else ShardFoldCtx(ns)
+    if ns == 1:
+        ctx = LocalFoldCtx()
+    else:
+        ctx = RingFoldCtx(ns) if ring else ShardFoldCtx(ns)
     vals_g, pres_g = K.aggregate_across_series_blocked(
         outs, press, grp.gid, g + 1, op, total_series=entry.s_pad, ctx=ctx,
         fms=fms)
@@ -428,12 +493,24 @@ def _fused_query(entry: _Entry, smask: list, grp: _Grouping, win: _Windows,
 def _resolve_fast_selector(engine, inner, ev):
     """Match `range_fn(sel)` / a bare instant selector, resolve the table
     and its grid entry, plan the windows. Returns (entry, table,
-    raw_matchers, fname, win), "empty" for a selector with no series, or
-    None for a shape the fast path does not serve."""
-    if isinstance(inner, Call) and inner.name in K.RANGE_FUNCTIONS:
-        if len(inner.args) != 1:
+    raw_matchers, fname, fargs, win), "empty" for a selector with no
+    series, or None for a shape the fast path does not serve (the generic
+    engine answers it)."""
+    fargs: tuple = ()
+    if isinstance(inner, Call) and inner.name in _PREFIX_FNS:
+        # scalar-literal args ride as fargs (phi, horizon, sf/tf) in their
+        # exact generic-path positions: a misplaced scalar returns None,
+        # and the generic engine rejects it
+        lead = _FN_LEAD_ARGS.get(inner.name, 0)
+        trail = _FN_TRAIL_ARGS.get(inner.name, 0)
+        args = inner.args
+        if len(args) != lead + 1 + trail:
             return None
-        sel = inner.args[0]
+        if not all(isinstance(a, NumberLit)
+                   for a in args[:lead] + args[lead + 1:]):
+            return None
+        fargs = tuple(float(a.value) for a in args[:lead] + args[lead + 1:])
+        sel = args[lead]
         if not isinstance(sel, VectorSelector) or sel.range_ms is None:
             return None
         fname = inner.name
@@ -448,8 +525,11 @@ def _resolve_fast_selector(engine, inner, ev):
         return None
     table, field_sel, raw_matchers = engine._resolve_table(sel)
     if table is None:
-        return "empty"  # an unknown metric selects no series
-    fieldname = engine._value_field(table, field_sel)
+        return None
+    try:
+        fieldname = engine._value_field(table, field_sel)
+    except Exception:  # noqa: BLE001 - resolution failure: generic path
+        return None
     qe = engine.instance.query_engine
     entry = _CACHE.get_entry(table, fieldname, device=qe.device,
                              mesh=qe.mesh, mesh_opts=qe.mesh_opts)
@@ -461,7 +541,7 @@ def _resolve_fast_selector(engine, inner, ev):
                         align_range=fname != "__instant__")
     if win is None:
         return None
-    return entry, table, raw_matchers, fname, win
+    return entry, table, raw_matchers, fname, fargs, win
 
 
 def _note(engine, entry: _Entry, kind: str, kernel=None, comm_bytes=0):
@@ -478,7 +558,7 @@ def _note(engine, entry: _Entry, kind: str, kernel=None, comm_bytes=0):
 def try_fast(engine, e, ev):
     """Serve `agg(range_fn(selector))` / `agg(selector)` from the grid
     cache. Returns a VectorValue, or None for a shape it does not serve."""
-    from greptimedb_tpu_torch.promql.engine import VectorValue, _empty_vector
+    from greptimedb_tpu_torch.promql.engine import _empty_vector
     from greptimedb_tpu_torch.query import readback
 
     if not isinstance(e, Agg) or e.op not in _SIMPLE_AGGS:
@@ -488,26 +568,28 @@ def try_fast(engine, e, ev):
         return None
     if resolved == "empty":
         return _empty_vector(ev)
-    entry, table, raw_matchers, fname, win = resolved
+    entry, table, raw_matchers, fname, fargs, win = resolved
     matchers = engine._to_registry_matchers(raw_matchers, table)
     smask, any_match = _matcher_mask_dev(entry, matchers)
     if not any_match:
         return _empty_vector(ev)
     grp = _grouping_dev(entry, table, e.grouping, e.without)
     lookback_ticks = max(int(ev.lookback_ms // entry.spec.unit), 1)
-    packed = _fused_query(entry, smask, grp, win, fname=fname, op=e.op,
-                          lookback_ticks=lookback_ticks)
-    _note(engine, entry, "promql")
-    packed_np = readback.read_full(packed, np.float64)
-    g = grp.g
-    vals_np = packed_np[:g]
-    pres_np = packed_np[g:] != 0.0
-    keep = pres_np.any(axis=1)
-    if not keep.all():
-        idx = np.nonzero(keep)[0]
-        return VectorValue([grp.labels[i] for i in idx], vals_np[idx],
-                           pres_np[idx])
-    return VectorValue(list(grp.labels), vals_np, pres_np)
+    ring, kernel_label = False, None
+    if entry.shards > 1:
+        from greptimedb_tpu_torch.query import planner
+
+        kdec, kreason = planner.decide_kernel(
+            "promql", series=entry.num_series,
+            opts=engine.instance.query_engine.mesh_opts,
+            device=entry.devices[0])
+        ring = kdec == "ring"
+        kernel_label = f"{kdec}({kreason})"
+    packed = _fused_query(entry, smask, grp, win, fname=fname, fargs=fargs,
+                          op=e.op, lookback_ticks=lookback_ticks, ring=ring)
+    _note(engine, entry, "promql", kernel_label)
+    return _vector_from_packed(readback.read_full(packed, np.float64),
+                               grp.labels, grp.g)
 
 
 # ----------------------------------------------------------------------
@@ -573,7 +655,7 @@ def _local_candidates(out, pres, key, kl: int, base: int):
 
 
 def _fused_topk(entry: _Entry, smask: list, win: _Windows, *, fname: str,
-                k: int, largest: bool, lookback_ticks: int,
+                fargs: tuple, k: int, largest: bool, lookback_ticks: int,
                 kernel: bool = False):
     """Range function or selector, then per-step top-k, over every shard.
     One shard: one stable select (the JAX package's _fused_topk). Several:
@@ -593,12 +675,9 @@ def _fused_topk(entry: _Entry, smask: list, win: _Windows, *, fname: str,
     ns = entry.shards
     s_loc = entry.s_pad // ns
     cands = []
-    for s in range(ns):
-        out, pres = _eval_side(
-            entry.vals[s], entry.has[s], entry.tsg[s], smask[s], win.lo[s],
-            win.hi[s], win.t_end[s], fname=fname,
-            range_ticks=win.range_ticks, l_cells=win.l_cells,
-            tps=entry.spec.tps, lookback_ticks=lookback_ticks)
+    outs, press = _eval_shards(entry, smask, win, fname=fname, fargs=fargs,
+                               lookback_ticks=lookback_ticks)
+    for s, (out, pres) in enumerate(zip(outs, press)):
         cands.append(_local_candidates(out, pres, _topk_key(out, pres,
                                                             largest),
                                        min(k, s_loc), s * s_loc))
@@ -638,7 +717,7 @@ def try_fast_topk(engine, e, ev):
         return None
     if resolved == "empty":
         return _empty_vector(ev)
-    entry, table, raw_matchers, fname, win = resolved
+    entry, table, raw_matchers, fname, fargs, win = resolved
     matchers = engine._to_registry_matchers(raw_matchers, table)
     smask, any_match = _matcher_mask_dev(entry, matchers)
     if not any_match:
@@ -664,8 +743,8 @@ def try_fast_topk(engine, e, ev):
         kernel_label = f"{kdec}({kreason})"
         if use_kernel:
             comm_bytes = topk_comm_bytes(entry.shards, win.num_steps, kk)
-    packed_dev = _fused_topk(entry, smask, win, fname=fname, k=kk,
-                             largest=e.op == "topk",
+    packed_dev = _fused_topk(entry, smask, win, fname=fname, fargs=fargs,
+                             k=kk, largest=e.op == "topk",
                              lookback_ticks=lookback_ticks,
                              kernel=use_kernel)
     _note(engine, entry, "topk", kernel_label, comm_bytes)
@@ -690,6 +769,412 @@ def try_fast_topk(engine, e, ev):
         for lab in labels:
             lab["__name__"] = table.name
     return VectorValue(labels, vals_out, pres_out)
+
+
+# ----------------------------------------------------------------------
+# the one-device tail of the binary and histogram programs
+# ----------------------------------------------------------------------
+
+def _on_first(entry: _Entry, parts: list) -> torch.Tensor:
+    """Per-shard (S_local, ...) tensors in shard order on the first
+    shard's device as one (S_pad, ...) tensor. The JAX package runs the
+    binary and histogram programs as single-device code under auto-SPMD
+    (XLA picks the combine order there); the port moves every shard's
+    per-series outputs to shard 0 and runs the one-device tail there, so a
+    mesh engine's result is bit-identical to one device's."""
+    from greptimedb_tpu_torch.parallel.dist import gather_blocks
+
+    return parts[0] if len(parts) == 1 else gather_blocks(parts)
+
+
+def _series_labels(entry: _Entry, table) -> list[dict]:
+    """Per-sid tag dicts (no __name__), aligned with the entry's sid
+    space; built once per entry (cached on it, like group_cache)."""
+    hit = entry.group_cache.get("__series_labels__")
+    if hit is not None:
+        return hit
+    reg = entry.registry
+    visible = set(table.tag_names)
+    tag_names = [t for t in reg.tag_names
+                 if t in visible and not t.startswith("__")]
+    cols = {t: reg.tag_values(t) for t in tag_names}
+    labels = [{t: str(cols[t][s]) for t in tag_names if cols[t][s] != ""}
+              for s in range(entry.num_series)]
+    entry.group_cache["__series_labels__"] = labels
+    return labels
+
+
+def _vector_from_packed(packed_np: np.ndarray, labels: list, rows: int):
+    """VectorValue of a packed [values; presence] (2 rows, J) readback,
+    keeping the rows with any present step."""
+    from greptimedb_tpu_torch.promql.engine import VectorValue
+
+    n = len(packed_np) // 2
+    vals_np = packed_np[:n][:rows]
+    pres_np = packed_np[n:][:rows] != 0.0
+    keep = pres_np.any(axis=1)
+    if not keep.all():
+        idx = np.nonzero(keep)[0]
+        return VectorValue([labels[int(i)] for i in idx], vals_np[idx],
+                           pres_np[idx])
+    return VectorValue(list(labels), vals_np, pres_np)
+
+
+# ----------------------------------------------------------------------
+# vector <op> vector over the grid cache: label matching on sid codes
+# ----------------------------------------------------------------------
+
+_BINARY_FAST_OPS = frozenset({
+    "+", "-", "*", "/", "%", "^",
+    ">", "<", ">=", "<=", "==", "!=",
+})
+
+
+def _apply_op_dev(op: str, a: torch.Tensor, b: torch.Tensor):
+    """jnp's elementwise binary operators: fmod is exact on every device;
+    pow is the platform's powf (not always correctly rounded: C2)."""
+    if op == "+":
+        return a + b
+    if op == "-":
+        return a - b
+    if op == "*":
+        return a * b
+    if op == "/":
+        return a / b
+    if op == "%":
+        return torch.fmod(a, b)
+    if op == "^":
+        return torch.pow(a, b)
+    return {
+        ">": a > b, "<": a < b, ">=": a >= b, "<=": a <= b,
+        "==": a == b, "!=": a != b,
+    }[op]
+
+
+def _fused_binary(entry_l: _Entry, side_l: tuple, entry_r: _Entry,
+                  side_r: tuple, *, op: str, bool_mod: bool, agg_op: str,
+                  grp: _Grouping | None, lookback_ticks: int):
+    """vector <op> vector (one-to-one, default matching): both sides share
+    the table's sid space, so label matching is sid alignment. Each side
+    is evaluated per shard and moved to the first shard's device
+    (_on_first), then the operator and the optional aggregation
+    (aggregate_across_series) run there. Returns the packed [values;
+    presence] float32 result, (2G, J) with an aggregation, else
+    (2 S_pad, J)."""
+    outs = []
+    for entry, (smask, fname, fargs, win) in ((entry_l, side_l),
+                                               (entry_r, side_r)):
+        o, p = _eval_shards(entry, smask, win, fname=fname, fargs=fargs,
+                            lookback_ticks=lookback_ticks)
+        outs.append((_on_first(entry, o), _on_first(entry, p)))
+    (out_l, pres_l), (out_r, pres_r) = outs
+    out_r, pres_r = out_r.to(out_l.device), pres_r.to(out_l.device)
+    pres = pres_l & pres_r
+    res = _apply_op_dev(op, out_l, out_r)
+    if op in _CMP_OPS:
+        if bool_mod:
+            out = res.to(out_l.dtype)
+        else:
+            # a filtering comparison keeps the LEFT operand's sample
+            pres = pres & res
+            out = out_l
+    else:
+        out = res.to(out_l.dtype)
+    if agg_op:
+        dev = out.device
+        vals_g, pres_g = K.aggregate_across_series(
+            out, pres, grp.full(dev), grp.g + 1, agg_op,
+            members=(None if K.uses_matmul(agg_op, grp.g + 1, out.shape[0])
+                     else grp.group_members(dev)))
+        return torch.cat([vals_g[:grp.g], pres_g[:grp.g].to(vals_g.dtype)])
+    return torch.cat([out, pres.to(out.dtype)])
+
+
+def _operand_shape_fast(expr) -> bool:
+    """Static AST pre-check, before any entry resolution: a grid build can
+    scan the whole table, so reject shapes the fast path cannot take."""
+    if isinstance(expr, VectorSelector):
+        return expr.range_ms is None
+    return isinstance(expr, Call) and expr.name in _PREFIX_FNS
+
+
+def _resolve_binary(engine, e, ev):
+    """Both operands fast-resolve over the same series registry ->
+    (left, right, table), "empty", or None."""
+    if not isinstance(e, Binary) or e.op not in _BINARY_FAST_OPS:
+        return None
+    m = e.matching
+    if m.explicit or m.labels or m.group or m.include:
+        return None  # only default one-to-one matching rides sid codes
+    if not (_operand_shape_fast(e.lhs) and _operand_shape_fast(e.rhs)):
+        return None
+    left = _resolve_fast_selector(engine, e.lhs, ev)
+    if left is None:
+        return None
+    right = _resolve_fast_selector(engine, e.rhs, ev)
+    if right is None:
+        return None
+    if left == "empty" or right == "empty":
+        return "empty"
+    if left[0].registry is not right[0].registry:
+        return None  # different sid spaces: generic label matching
+    return left, right, left[1]
+
+
+def try_fast_binary(engine, e, ev, *, agg=None):
+    """Serve `vecL <op> vecR` (and `agg(...)` around it) when both sides
+    live on the same table's grid cache. Returns a VectorValue or None."""
+    from greptimedb_tpu_torch.promql.engine import _empty_vector
+    from greptimedb_tpu_torch.query import readback
+
+    if agg is not None and agg.op not in _SIMPLE_AGGS:
+        return None
+    resolved = _resolve_binary(engine, e, ev)
+    if resolved is None:
+        return None
+    if resolved == "empty":
+        return _empty_vector(ev)
+    left, right, table = resolved
+    entry_l, _tl, raw_m_l, fname_l, fargs_l, win_l = left
+    entry_r, _tr, raw_m_r, fname_r, fargs_r, win_r = right
+    grp = None
+    if agg is not None:
+        grp = _grouping_dev(entry_l, table, agg.grouping, agg.without)
+    smask_l, any_l = _matcher_mask_dev(
+        entry_l, engine._to_registry_matchers(raw_m_l, table))
+    smask_r, any_r = _matcher_mask_dev(
+        entry_r, engine._to_registry_matchers(raw_m_r, table))
+    if not (any_l and any_r):
+        return _empty_vector(ev)
+    lookback_ticks = max(int(ev.lookback_ms // entry_l.spec.unit), 1)
+    packed = _fused_binary(
+        entry_l, (smask_l, fname_l, fargs_l, win_l),
+        entry_r, (smask_r, fname_r, fargs_r, win_r), op=e.op,
+        bool_mod=bool(e.bool_mod), agg_op="" if agg is None else agg.op,
+        grp=grp, lookback_ticks=lookback_ticks)
+    _note(engine, entry_l, "binary")
+    packed_np = readback.read_full(packed, np.float64)
+    if agg is not None:
+        return _vector_from_packed(packed_np, grp.labels, grp.g)
+    return _vector_from_packed(packed_np, _series_labels(entry_l, table),
+                               entry_l.num_series)
+
+
+# ----------------------------------------------------------------------
+# histogram_quantile over the grid cache
+# ----------------------------------------------------------------------
+
+def _fused_hist_query(entry: _Entry, smask: list, win: _Windows, *,
+                      fname: str, fargs: tuple, agg_grp: _Grouping | None,
+                      slot: torch.Tensor, le: torch.Tensor, g: int, b: int,
+                      phi: float, lookback_ticks: int):
+    """histogram_quantile(phi, [sum by (le, ...)] (range_fn(sel))): the
+    per-series range function on every shard, then on the first shard's
+    device (_on_first) the optional cross-series sum, the scatter into
+    (group, bucket) slots and the quantile fold. Returns the packed
+    (2G, J) float32 result."""
+    outs, press = _eval_shards(entry, smask, win, fname=fname, fargs=fargs,
+                               lookback_ticks=lookback_ticks)
+    out, pres = _on_first(entry, outs), _on_first(entry, press)
+    sel_mask = _on_first(entry, smask)
+    dev = out.device
+    if agg_grp is not None:
+        # inner `sum by (le, ...)`: (S_pad, J) -> (G_agg, J); slot then maps
+        # the aggregated series into histogram cells. An aggregated series
+        # exists iff any member survived the matcher (the generic engine's
+        # vector membership): an int count, exact in any order.
+        g_agg = agg_grp.g
+        gid = agg_grp.full(dev)
+        exists = torch.zeros(g_agg + 1, dtype=torch.int32, device=dev)
+        exists.index_add_(0, gid.to(torch.int64), sel_mask.to(torch.int32))
+        out, pres = K.aggregate_across_series(
+            out, pres, gid, g_agg + 1, "sum",
+            members=(None if K.uses_matmul("sum", g_agg + 1, out.shape[0])
+                     else agg_grp.group_members(dev)))
+        out, pres = out[:g_agg], pres[:g_agg]
+        sel_mask = exists[:g_agg] > 0
+    j = out.shape[1]
+    # -> (G, B, J) over unique (group, bucket) slots. Each slot holds at
+    # most one series (_hist_grouping and _hist_slots_from_labels refuse
+    # duplicates), so a slot's sum is 0 + x: index_add_ onto zeros gives
+    # segment_sum's bits in any order (a -0.0 comes out +0.0 either way),
+    # the one float scatter of the port that may use atomics.
+    seg = torch.where(sel_mask & (slot >= 0), slot, g * b).to(torch.int64)
+    bsum = torch.zeros((g * b + 1, j), dtype=torch.float32, device=dev)
+    bsum.index_add_(0, seg, torch.where(pres, out, 0.0).to(torch.float32))
+    bsum = bsum[:-1].reshape(g, b, j)
+    bcnt = torch.zeros((g * b + 1, j), dtype=torch.int32, device=dev)
+    bcnt.index_add_(0, seg, pres.to(torch.int32))
+    bpres = bcnt[:-1].reshape(g, b, j) > 0
+    # a histogram without a +Inf bucket is undefined: a group qualifies
+    # only if a matcher-surviving series fills its +Inf cell (rank b - 1)
+    inf_seg = torch.where(sel_mask & (slot >= 0) & (slot % b == b - 1),
+                          slot // b, g).to(torch.int64)
+    has_inf = torch.zeros(g + 1, dtype=torch.int32, device=dev)
+    has_inf.index_add_(0, inf_seg, torch.ones_like(inf_seg,
+                                                   dtype=torch.int32))
+    q_out, q_ok = K.histogram_quantile(le, bsum.transpose(1, 2),
+                                       bpres.transpose(1, 2), phi)
+    q_ok = q_ok & (has_inf[:g] > 0)[:, None]
+    return torch.cat([q_out, q_ok.to(q_out.dtype)])
+
+
+def _hist_grouping(entry: _Entry, table):
+    """(labels, slot (S_pad,) int32 on the first shard's device, le (B,)
+    float64, G, B):
+    groups are the label sets minus `le`; a series' bucket is the rank of
+    its le bound. None when the layout cannot take the fast path (no le
+    tag, unparsable bounds, duplicate (group, le) series, or no +Inf
+    bucket); that verdict is cached too."""
+    key = ("__hist__",)
+    hit = entry.group_cache.get(key)
+    if hit is not None:
+        return None if hit == "unservable" else hit
+
+    def reject():
+        # an unservable layout must not re-pay the O(series) le parsing
+        # on every query before it falls back
+        entry.group_cache[key] = "unservable"
+        return None
+
+    reg = entry.registry
+    if "le" not in reg.tag_names:
+        return reject()
+    s = entry.num_series
+    codes = reg.codes_matrix()[:s]
+    le_raw = reg.tag_values("le")[:s]
+    le_vals = np.full(s, np.nan)
+    for i, t in enumerate(le_raw):
+        if t == "":
+            continue
+        try:
+            le_vals[i] = float(t.replace("+Inf", "inf"))
+        except ValueError:
+            pass
+    valid = np.isfinite(le_vals) | np.isposinf(le_vals)
+    if not valid.any():
+        return reject()
+    visible = set(table.tag_names)
+    gcols = [i for i, nm in enumerate(reg.tag_names)
+             if nm != "le" and nm in visible and not nm.startswith("__")]
+    uniq_le = np.unique(le_vals[valid])
+    if not np.isposinf(uniq_le[-1]):
+        return reject()  # no +Inf bucket: undefined histogram
+    b = len(uniq_le)
+    bidx = np.searchsorted(uniq_le, le_vals[valid])
+    if gcols:
+        sub = codes[valid][:, gcols]
+        uniq_g, ginv = np.unique(sub, axis=0, return_inverse=True)
+        ginv = np.ravel(ginv)
+        g = len(uniq_g)
+    else:
+        uniq_g = np.zeros((1, 0), codes.dtype)
+        ginv = np.zeros(int(valid.sum()), np.int64)
+        g = 1
+    slots = ginv * b + bidx
+    if len(np.unique(slots)) != len(slots):
+        return reject()  # duplicate (group, le): conflicting buckets
+    slot_full = np.full(entry.s_pad, -1, np.int32)
+    slot_full[np.nonzero(valid)[0]] = slots.astype(np.int32)
+    labels = []
+    for row in uniq_g:
+        lab = {}
+        for ci, code in zip(gcols, row):
+            v = reg.dicts[ci].decode(int(code))
+            if v != "" and reg.tag_names[ci] != "__name__":
+                lab[reg.tag_names[ci]] = v
+        labels.append(lab)
+    out = (labels, torch.from_numpy(slot_full).to(entry.devices[0]), uniq_le,
+           g, b)
+    if len(entry.group_cache) >= 128:
+        entry.group_cache.pop(next(iter(entry.group_cache)))
+    entry.group_cache[key] = out
+    return out
+
+
+def _hist_slots_from_labels(labels):
+    """Histogram cells over aggregated series labels: (out_labels, slot
+    array, le array, G, B) or None."""
+    keys, le_vals = [], []
+    for lab in labels:
+        le = lab.get("le")
+        v = None
+        if le is not None:
+            try:
+                v = float(str(le).replace("+Inf", "inf"))
+            except ValueError:
+                pass
+        le_vals.append(v)
+        keys.append(tuple(sorted((k, val) for k, val in lab.items()
+                                 if k not in ("le", "__name__"))))
+    valid = [i for i, v in enumerate(le_vals) if v is not None]
+    if not valid:
+        return None
+    uniq_le = np.unique(np.asarray([le_vals[i] for i in valid]))
+    if not np.isposinf(uniq_le[-1]):
+        return None
+    b = len(uniq_le)
+    uniq_keys = sorted({keys[i] for i in valid})
+    kidx = {k: i for i, k in enumerate(uniq_keys)}
+    g = len(uniq_keys)
+    slot = np.full(len(labels), -1, np.int32)
+    seen = set()
+    for i in valid:
+        s = kidx[keys[i]] * b + int(np.searchsorted(uniq_le, le_vals[i]))
+        if s in seen:
+            return None  # duplicate (group, le)
+        seen.add(s)
+        slot[i] = s
+    return [dict(k) for k in uniq_keys], slot, uniq_le, g, b
+
+
+def try_fast_histogram(engine, phi: float, inner, ev):
+    """Serve `histogram_quantile(phi, range_fn(sel))`,
+    `histogram_quantile(phi, sel)` and
+    `histogram_quantile(phi, sum by (le, ...)(range_fn(sel)))` from the
+    grid cache. Returns a VectorValue, or None for the generic engine."""
+    from greptimedb_tpu_torch.promql.engine import _empty_vector
+    from greptimedb_tpu_torch.query import readback
+
+    agg = None
+    if (isinstance(inner, Agg) and inner.op == "sum" and not inner.without
+            and inner.grouping and "le" in inner.grouping):
+        agg = inner
+        inner = inner.expr
+    resolved = _resolve_fast_selector(engine, inner, ev)
+    if resolved is None:
+        return None
+    if resolved == "empty":
+        return _empty_vector(ev)
+    entry, table, raw_matchers, fname, fargs, win = resolved
+    agg_grp = None
+    if agg is not None:
+        agg_grp = _grouping_dev(entry, table, agg.grouping, agg.without)
+        if agg_grp.hist_slots is None:
+            cells = _hist_slots_from_labels(agg_grp.labels)
+            agg_grp.hist_slots = "unservable" if cells is None else (
+                *cells[:1], torch.from_numpy(cells[1]).to(entry.devices[0]),
+                *cells[2:])
+        if agg_grp.hist_slots == "unservable":
+            return None
+        labels, slot, uniq_le, g, b = agg_grp.hist_slots
+    else:
+        grouping = _hist_grouping(entry, table)
+        if grouping is None:
+            return None
+        labels, slot, uniq_le, g, b = grouping
+    matchers = engine._to_registry_matchers(raw_matchers, table)
+    smask, any_match = _matcher_mask_dev(entry, matchers)
+    if not any_match:
+        return _empty_vector(ev)
+    lookback_ticks = max(int(ev.lookback_ms // entry.spec.unit), 1)
+    le = torch.from_numpy(np.asarray(uniq_le, np.float32)).to(slot.device)
+    packed = _fused_hist_query(
+        entry, smask, win, fname=fname, fargs=fargs, agg_grp=agg_grp,
+        slot=slot, le=le, g=g, b=b, phi=phi, lookback_ticks=lookback_ticks)
+    _note(engine, entry, "histogram")
+    return _vector_from_packed(readback.read_full(packed, np.float64),
+                               labels, g)
 
 
 def invalidate_cache():

@@ -1126,6 +1126,37 @@ def test_grouped_block_reduce_kernel_matches_plain(cuda, layout, n, blocks,
         assert torch.equal(got.cpu(), want), form
 
 
+@pytest.mark.parametrize("layout,n,blocks,gb,edge", [
+    (layout, *shape) for layout in ("random", "runs")
+    for shape in _G_SHAPES[:6]] + [("mixed", 1 << 18, 256, 64, True)])
+def test_grouped_block_reduce_float64_sum_matches_plain(cuda, layout, n,
+                                                        blocks, gb, edge):
+    """G's float64 sum form (the PromQL generic engine's vectors) against
+    its plain version and the CPU run, on the same layouts as the float32
+    form; the values carry bits below float32's. Bit for bit except NaN
+    payloads: where two NaNs meet in a float64 add, the kernel's add and
+    torch's keep different payloads (ROADMAP C2); NaN positions agree."""
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(n + blocks + gb + 64)
+    v, mask, gid = _layout_input(rng, n, blocks, gb, layout, edge)
+    v = v.astype(np.float64) * (1 + rng.random(n) * 2.0 ** -30)
+    members = gr.group_members(torch.from_numpy(gid).to(cuda),
+                               torch.from_numpy(mask).to(cuda), blocks, gb)
+    cpu_members = gr.group_members(torch.from_numpy(gid),
+                                   torch.from_numpy(mask), blocks, gb)
+    x = torch.from_numpy(v).to(cuda)
+    before = gr.grouped_block_reduce.launches
+    got = gr.grouped_block_reduce(x, members, "sum")
+    torch.cuda.synchronize()
+    assert gr.grouped_block_reduce.launches == before + 1
+    assert got.dtype == torch.float64 and got.shape == (blocks, gb)
+    plain = gr.grouped_block_reduce_plain(x, members, "sum")
+    assert _same_or_both_nan(got, plain)
+    want = gr.grouped_block_reduce(torch.from_numpy(v), cpu_members, "sum")
+    assert _same_or_both_nan(got, want)
+
+
 @pytest.mark.parametrize("rows,cols", [
     (65536, 16), (256, 4096), (8, 3), (1, 5), (4096, 1)] + [
     (rows, cols) for rows in (31, 32, 33, 1025, 32769, 1 << 20)
@@ -1205,3 +1236,188 @@ def test_groupby_on_cuda_matches_cpu(cuda):
                 assert _same_or_both_nan(
                     torch.from_numpy(va.astype(np.float64)),
                     torch.from_numpy(vb.astype(np.float64))), (name, q)
+
+
+# ----------------------------------------------------------------------
+# the rest of PromQL: G in the unblocked aggregation's scatter branch
+# ----------------------------------------------------------------------
+
+def test_grouped_block_reduce_at_the_histogram_pod_shape(cuda):
+    """G's sum form at the shape of histogram_quantile(0.9, sum by (le,
+    pod) (rate(hist_bucket[1m]))) over bench.py's 100,000 bucket series:
+    one row block, 100,000 groups of one series, the 31,072 padded series
+    left out (the fast path drops their group); kernel and plain version
+    bit for bit (also with the padding in, one segment of 31,072 rows),
+    and the whole aggregation on the card equal to the CPU's, one G launch
+    a step."""
+    from greptimedb_tpu_torch.ops import promql as K
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(13)
+    s, s_pad, j = 100_000, 1 << 17, 8
+    gid = np.full(s_pad, s, np.int32)
+    gid[:s] = rng.permutation(s).astype(np.int32)
+    vals = (rng.random((s_pad, j)) * 40).astype(np.float32)
+    vals[rng.random((s_pad, j)) < 0.01] = -0.0
+    pres = rng.random((s_pad, j)) < 0.97
+    pres[s:] = False
+    gid_t = torch.from_numpy(gid).to(cuda)
+    members = K.group_members(gid_t, s + 1, live=gid_t < s)
+    col = torch.from_numpy(np.where(pres, vals, 0)[:, 3].copy()).to(cuda)
+    for m in (members, K.group_members(gid_t, s + 1)):
+        before = gr.grouped_block_reduce.launches
+        got = gr.grouped_block_reduce(col, m, "sum")
+        torch.cuda.synchronize()
+        assert gr.grouped_block_reduce.launches == before + 1
+        assert torch.equal(got.view(torch.int32),
+                           gr.grouped_block_reduce_plain(
+                               col, m, "sum").view(torch.int32))
+    before = gr.grouped_block_reduce.launches
+    out, ok = K.aggregate_across_series(
+        *(torch.from_numpy(a).to(cuda) for a in (vals, pres, gid)), s + 1,
+        "sum", members=members)
+    torch.cuda.synchronize()
+    assert gr.grouped_block_reduce.launches == before + j
+    want, want_ok = K.aggregate_across_series(
+        *(torch.from_numpy(a) for a in (vals, pres, gid)), s + 1, "sum")
+    assert torch.equal(ok.cpu(), want_ok)
+    assert torch.equal(out.cpu()[:s].view(torch.int32),
+                       want[:s].view(torch.int32))
+
+
+def test_generic_engine_pod_sums_run_g_in_float64(cuda):
+    """The generic engine's instant sum by (le, pod) over 100,000 series of
+    one sample each (query h of chip_smoke's phase 10): float64 vectors,
+    the scatter branch, one G launch, the same bits as the CPU."""
+    from greptimedb_tpu_torch.ops import promql as K
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(14)
+    s = 100_000
+    gid = rng.permutation(s).astype(np.int32)
+    vals = rng.random((s, 1)) * 40
+    vals[rng.random((s, 1)) < 0.01] = -0.0
+    pres = rng.random((s, 1)) < 0.97
+    assert not K.uses_matmul("sum", s, s)
+    before = gr.grouped_block_reduce.launches
+    out, ok = K.aggregate_across_series(
+        *(torch.from_numpy(a).to(cuda) for a in (vals, pres, gid)), s, "sum")
+    torch.cuda.synchronize()
+    assert gr.grouped_block_reduce.launches == before + 1
+    assert out.dtype == torch.float64
+    want, want_ok = K.aggregate_across_series(
+        *(torch.from_numpy(a) for a in (vals, pres, gid)), s, "sum")
+    assert torch.equal(ok.cpu(), want_ok)
+    assert torch.equal(out.cpu().view(torch.int64), want.view(torch.int64))
+
+
+def test_promql_rest_on_cuda_matches_cpu(cuda):
+    """The quantile, linear-fit and Holt-Winters windows, the fast binary
+    (every operator; `^` within the card's powf error: CUDA documents
+    2 ulp, torch's CPU powf is within 0.57, so 3 ulp), histogram_quantile
+    (sum by (le, ...) of 2000 series: the scatter branch through G) and
+    the generic engine
+    (instant queries off the grid) on one device, four ring shards and
+    four gather shards on the card, against the port on the CPU: bit for
+    bit where no matrix product adds; max/min by (dc) launch the one-launch
+    ring extreme on the ring engine only."""
+    import types
+
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(6)
+    t0 = 1_700_000_000_000
+    n_s = 5000
+    prom = Table("prom_bench", ts_name="ts", tag_names=["host", "dc"],
+                 fields=["greptime_value"])
+    tags = {"host": np.array([f"host_{i}" for i in range(n_s)], object),
+            "dc": np.array([f"dc{i % 32}" for i in range(n_s)], object)}
+    for k in range(10):
+        prom.write(tags, np.full(n_s, t0 + k * 30_000, np.int64),
+                   {"greptime_value": np.cumsum(rng.random(n_s)) + k * 50.0})
+    # 2000 bucket series: under 4096 the aggregations take the scatter
+    # branch, G's
+    pods, les = 400, ["0.05", "0.5", "1", "5", "+Inf"]
+    hist = Table("hist_bucket", ts_name="ts", tag_names=["pod", "svc", "le"],
+                 fields=["greptime_value"])
+    base = np.cumsum(rng.random((pods, len(les))) * 5, axis=1).ravel()
+    hcols = {"pod": np.repeat(np.array([f"pod_{i}" for i in range(pods)],
+                                       object), len(les)),
+             "svc": np.repeat(np.array([f"svc_{i % 7}" for i in range(pods)],
+                                       object), len(les)),
+             "le": np.tile(np.array(les, object), pods)}
+    for k in range(10):
+        hist.write(hcols, np.full(len(base), t0 + k * 30_000, np.int64),
+                   {"greptime_value": base * (k + 1)})
+    catalog = CatalogManager()
+    catalog.register(prom)
+    catalog.register(hist)
+    low = {"shard_min_series": 1, "pallas_min_series": 1}
+
+    def engine(device, mesh=None, opts=None):
+        return PromEngine(types.SimpleNamespace(
+            catalog=catalog, query_engine=QueryEngine(
+                device=device, mesh=mesh, mesh_opts=opts)))
+
+    engines = {
+        "cuda": engine(cuda),
+        "ring": engine(cuda, make_mesh([cuda] * 4), MeshOptions(**low)),
+        "gather": engine(cuda, make_mesh([cuda] * 4),
+                         MeshOptions(pallas_kernels="off", **low)),
+    }
+    cpu = engine("cpu")
+    span = (t0 + 60_000, t0 + 270_000, 30_000)
+    exact = [
+        "max by (dc) (deriv(prom_bench[2m]))",
+        "min by (dc) (quantile_over_time(0.9, prom_bench[2m]))",
+        "topk(5, holt_winters(prom_bench[2m], 0.5, 0.5))",
+        "bottomk(5, predict_linear(prom_bench[2m], 600))",
+        "topk(5, mad_over_time(prom_bench[2m]))",
+        "histogram_quantile(0.9, sum by (le, pod) (rate(hist_bucket[1m])))",
+        "histogram_quantile(0.9, sum by (le, svc) (rate(hist_bucket[1m])))",
+        "histogram_quantile(0.5, rate(hist_bucket[1m]))",
+        "rate(hist_bucket[1m]) > 1",
+    ] + [f"last_over_time(prom_bench[1m]) {op} rate(prom_bench[1m])"
+         for op in ("+", "-", "*", "/", "%")] + [
+        f"rate(prom_bench[1m]) {op} rate(prom_bench[2m])"
+        for op in (">", "<", ">=", "<=", "!=", "> bool")] + [
+        # the two rates are never equal: == compares a counter's last
+        # sample with its window maximum, equal on every series
+        "last_over_time(prom_bench[1m]) == max_over_time(prom_bench[1m])"]
+    bounded = ["sum by (dc) (rate(prom_bench[1m]) / "
+               "last_over_time(prom_bench[1m]))"]
+    power = "rate(prom_bench[1m]) ^ rate(prom_bench[2m])"
+    for q in exact + bounded + [power]:
+        want, _ = cpu.query_range(q, *span)
+        assert want.num_series > 0, q
+        for name, eng in engines.items():
+            before = (rf.ring_pext_fused.launches,
+                      gr.grouped_block_reduce.launches)
+            got, _ = eng.query_range(q, *span)
+            torch.cuda.synchronize()
+            assert (rf.ring_pext_fused.launches > before[0]) == (
+                name == "ring" and q.startswith(("max by", "min by"))), (
+                name, q)
+            assert (gr.grouped_block_reduce.launches > before[1]) == (
+                "sum by (le" in q), (name, q)
+            assert got.labels == want.labels, (name, q)
+            assert np.array_equal(got.present, want.present), (name, q)
+            a = got.values[got.present].astype(np.float32)
+            b = want.values[want.present].astype(np.float32)
+            if q in exact:
+                assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), (
+                    name, q)
+            elif q == power:
+                assert np.all(np.abs(a.astype(np.float64) - b)
+                              <= 3 * np.spacing(np.abs(b))), (name, q)
+            else:
+                np.testing.assert_allclose(a, b, rtol=1e-5)
+    # the generic engine: an instant query steps 1 s, off the grid
+    for q in ("sum by (dc) (rate(prom_bench[1m]))",
+              "histogram_quantile(0.9, rate(hist_bucket[1m]))",
+              "quantile_over_time(0.5, prom_bench[2m])"):
+        want, _ = cpu.query_instant(q, t0 + 270_000)
+        got, _ = engines["cuda"].query_instant(q, t0 + 270_000)
+        assert got.labels == want.labels and np.array_equal(
+            got.present, want.present), q
+        np.testing.assert_allclose(got.values, want.values, rtol=1e-12)

@@ -409,9 +409,13 @@ def test_group_members_and_wrappers_refuse_bad_inputs():
                                torch.ones(10, dtype=torch.bool), 2, 1)
     with pytest.raises(ValueError):
         gr.grouped_block_reduce(torch.zeros(10), members, "mean")
+    for dtype in (torch.float16, torch.int32):   # the sum form: f32, f64
+        with pytest.raises(TypeError):
+            gr.grouped_block_reduce(torch.zeros(10, dtype=dtype), members,
+                                    "sum")
     with pytest.raises(TypeError):
         gr.grouped_block_reduce(torch.zeros(10, dtype=torch.float64),
-                                members, "sum")
+                                members, "max")
     with pytest.raises(TypeError):
         gr.grouped_block_reduce(torch.zeros(9), members, "sum")
     with pytest.raises(TypeError):

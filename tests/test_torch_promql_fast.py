@@ -27,7 +27,8 @@ orders). The port sharded stays bit-identical to the port on one device.
 
 (d) The numeric rules: the -0.0 of the one-hot cell take, segment
 extremes with NaN and signed zeros, the blocked cumsum, and the shapes
-the port refuses with UnsupportedError.
+earlier slices refused, which the port now answers as the JAX package
+does.
 """
 
 import types
@@ -45,7 +46,6 @@ from greptimedb_tpu.promql.engine import PromEngine as JPromEngine
 from greptimedb_tpu.query.executor import QueryEngine as JQueryEngine
 from greptimedb_tpu_torch.catalog.manager import CatalogManager
 from greptimedb_tpu_torch.catalog.table import Table
-from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.ops import promql as TK
 from greptimedb_tpu_torch.ops import window as TW
 from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
@@ -266,14 +266,17 @@ def test_topk_keeps_infinite_samples(small):
 
 def test_query_instant_and_unknown_metric(small):
     eng = PromEngine(_port_instance(small["catalog"]))
-    # an instant query steps 1 s, off the 15 s grid: the JAX package
-    # serves it from the generic engine, which is not ported yet
-    with pytest.raises(UnsupportedError):
-        eng.query_instant("sum by (dc) (rate(req_total[1m]))", T0 + 300_000)
+    jeng = JPromEngine(small["inst"])
+    # an instant query steps 1 s, off the 15 s grid: both packages answer
+    # it from the generic engine
+    q = "sum by (dc) (rate(req_total[1m]))"
+    v, _ = eng.query_instant(q, T0 + 300_000)
+    jv, _ = jeng.query_instant(q, T0 + 300_000)
+    assert jv.num_series == 2
+    _assert_same(jv, v, q)
     # an unknown metric selects no series, as the JAX engine answers
     v, _ = eng.query_range("sum(rate(nope[1m]))", *RANGE)
-    jv, _ = JPromEngine(small["inst"]).query_range("sum(rate(nope[1m]))",
-                                                    *RANGE)
+    jv, _ = jeng.query_range("sum(rate(nope[1m]))", *RANGE)
     assert v.num_series == jv.num_series == 0
     assert eng.query_range("3", *RANGE)[0].values.tolist() == [3.0] * 13
 
@@ -290,9 +293,17 @@ def test_query_instant_and_unknown_metric(small):
     ("sum(rate(req_total[70s]))", T0 + 120_000, 30_000),  # range off-grid
 ])
 def test_unported_shapes_raise(small, promql, start, step):
+    """The shapes earlier slices refused with UnsupportedError (grouped
+    topk, the quantile and linear-fit families, binaries, bare range
+    functions and selectors, and queries off the grid's cells): every one
+    is answered now, as the JAX package answers it (the fast path or the
+    generic engine), with the same labels, presence and bits."""
     eng = PromEngine(_port_instance(small["catalog"]))
-    with pytest.raises(UnsupportedError):
-        eng.query_range(promql, start, T0 + 480_000, step)
+    got, _ = eng.query_range(promql, start, T0 + 480_000, step)
+    want, _ = JPromEngine(small["inst"]).query_range(promql, start,
+                                                      T0 + 480_000, step)
+    assert want.num_series > 0
+    _assert_same(want, got, promql)
 
 
 # ----------------------------------------------------------------------
