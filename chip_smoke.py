@@ -154,6 +154,10 @@ result line):
                 rate(hist_bucket[1m]) > 1;
              h. query_instant of f: the generic engine's float64 vectors
                 through the scatter branch, G's float64 sum form.
+             The phase runs in the JAX package's x64 mode
+             (QueryEngine(x64=True)); h runs once more without it: float32
+             vectors through G's float32 sum form, one G launch a warm
+             query, exact against the port on the CPU in the same mode.
              Each query runs on one device, the card named four times with
              default options (ring) and with kernels off (gather): cold,
              warm (median of --rest-warm) and one profiled warm call. The
@@ -171,6 +175,29 @@ result line):
              must not. Then G at f's shape (float32) and at h's (float64)
              against its plain version (bit for bit), timed beside
              index_add_ and its bound.
+11. durable — durable storage: phase 2's writes (same seed, same rows in
+             the same order, so the same sequences) through a table that
+             a storage engine opened in a temporary data root, WAL on and
+             wal_sync at its default (an acknowledged write survives a
+             process crash, not a power loss): each hour's four runs as
+             one batch (bench.py:2103-2120's hourly WAL batches), then its
+             re-delivery and tombstone runs, a flush after each write.
+             Compaction merges each hour's three SSTs on the card (K1 at
+             262,144 rows and above, verified against the host merge).
+             Hard checks: the full scan equals phase 2's in-memory region
+             bit for bit after compaction and after a reopen; K1 launches
+             once or more a merge of 262,144 rows or more; Q1 and Q2 on
+             the recovered table equal phase 2's answers bit for bit (Q2
+             through K2); after persist_entry a fresh engine's snapshot
+             answers Q1/Q2 bit for bit without a rebuild; a child process
+             writes one more 15-minute run and dies with os._exit before
+             any flush, and the reopen reads back every acknowledged row;
+             a second reopen after the recovery flush replays 0 WAL
+             entries. Printed: rows/s with the WAL, flush and compaction
+             seconds, K1 launches a merge, manifest load, WAL replay, SST
+             restore (serial and pipelined) and open ms, snapshot cold
+             time beside the rebuild's. K1 and K2 counts are zeroed before
+             the phase and read after it. The data root is removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -342,13 +369,15 @@ def make_plans(P):
     return q1, q2
 
 
-def ingest(table, rng, hosts, region_of, hours):
-    """Write the TSBS runs; returns rows written."""
+def tsbs_hours(rng, hosts, region_of, hours):
+    """The TSBS runs, hour by hour: per hour the four 15-minute runs, then
+    a late re-delivery of 10% of the hour's keys, then 1% tombstones, as
+    ("put" | "delete", tags, ts, fields) in write order."""
     per_hour = HOUR_MS // STEP_MS
     per_run = per_hour // 4
     n_hosts = len(hosts)
-    written = 0
     for h in range(hours):
+        runs = []
         for r in range(4):
             t0 = h * per_hour + r * per_run
             ts = np.tile(np.arange(t0, t0 + per_run, dtype=np.int64)
@@ -356,22 +385,36 @@ def ingest(table, rng, hosts, region_of, hours):
             hi = np.repeat(np.arange(n_hosts), per_run)
             fields = {f: (rng.random(len(ts), dtype=np.float32)
                           * 100.0).astype(np.float64) for f in FIELDS}
-            written += table.write(
-                {"hostname": hosts[hi], "region": region_of[hi]}, ts, fields)
-        # late re-delivery of 10% of the hour's keys, then 1% tombstones
+            runs.append(("put", {"hostname": hosts[hi],
+                                 "region": region_of[hi]}, ts, fields))
         ts_h = np.tile(np.arange(h * per_hour, (h + 1) * per_hour,
                                  dtype=np.int64) * STEP_MS, n_hosts)
         hi_h = np.repeat(np.arange(n_hosts), per_hour)
         re = rng.random(len(ts_h)) < 0.10
-        written += table.write(
-            {"hostname": hosts[hi_h[re]], "region": region_of[hi_h[re]]},
-            ts_h[re],
-            {f: (rng.random(int(re.sum()), dtype=np.float32)
-                 * 100.0).astype(np.float64) for f in FIELDS})
+        runs.append(("put", {"hostname": hosts[hi_h[re]],
+                             "region": region_of[hi_h[re]]}, ts_h[re],
+                     {f: (rng.random(int(re.sum()), dtype=np.float32)
+                          * 100.0).astype(np.float64) for f in FIELDS}))
         dl = rng.random(len(ts_h)) < 0.01
-        written += table.delete(
-            {"hostname": hosts[hi_h[dl]], "region": region_of[hi_h[dl]]},
-            ts_h[dl])
+        runs.append(("delete", {"hostname": hosts[hi_h[dl]],
+                                "region": region_of[hi_h[dl]]}, ts_h[dl],
+                     None))
+        yield runs
+
+
+def write_run(table, run):
+    kind, tags, ts, fields = run
+    if kind == "delete":
+        return table.delete(tags, ts)
+    return table.write(tags, ts, fields)
+
+
+def ingest(table, rng, hosts, region_of, hours):
+    """Write the TSBS runs; returns rows written."""
+    written = 0
+    for runs in tsbs_hours(rng, hosts, region_of, hours):
+        for run in runs:
+            written += write_run(table, run)
     return written
 
 
@@ -426,13 +469,11 @@ def check_q1_against_numpy(table, res, hosts):
 
 
 def window_rows(table, window):
-    """The pending runs of one compaction window, concatenated."""
-    from greptimedb_tpu_torch.storage.memtable import _concat_rows, _slice_rows
+    """The memtable runs of one compaction window, concatenated."""
+    from greptimedb_tpu_torch.storage.memtable import _concat_rows
 
-    chunks = [c for c in table.region._pending
-              if (c.ts // HOUR_MS == window).any()]
-    rows = _concat_rows(chunks, table.field_names)
-    return _slice_rows(rows, rows.ts // HOUR_MS == window)
+    return _concat_rows(table.region.memtable.partitions()[window],
+                        table.field_names)
 
 
 def k1_inputs(rows0, dev):
@@ -1570,10 +1611,12 @@ def promql_phase(args, dev):
     catalog = CatalogManager()
     catalog.register(table)
 
-    def engine(device, mesh=None, opts=None):
+    # the phase runs in the JAX package's x64 mode (h takes G's float64
+    # sum form); h runs once more without it below
+    def engine(device, mesh=None, opts=None, x64=True):
         return PromEngine(types.SimpleNamespace(
             catalog=catalog, query_engine=QueryEngine(
-                device=device, mesh=mesh, mesh_opts=opts)))
+                device=device, mesh=mesh, mesh_opts=opts, x64=x64)))
 
     mesh = make_mesh([dev] * 4)
     engines = {"single": engine(dev), "ring": engine(dev, mesh),
@@ -1835,10 +1878,12 @@ def promql_rest_phase(args, dev, prom):
     seconds = {"hist_ingest": time.perf_counter() - t}
     catalog.register(hist)
 
-    def engine(device, mesh=None, opts=None):
+    # the phase runs in the JAX package's x64 mode (h takes G's float64
+    # sum form); h runs once more without it below
+    def engine(device, mesh=None, opts=None, x64=True):
         return PromEngine(types.SimpleNamespace(
             catalog=catalog, query_engine=QueryEngine(
-                device=device, mesh=mesh, mesh_opts=opts)))
+                device=device, mesh=mesh, mesh_opts=opts, x64=x64)))
 
     mesh = make_mesh([dev] * 4)
     engines = {"single": engine(dev), "ring": engine(dev, mesh),
@@ -1934,6 +1979,30 @@ def promql_rest_phase(args, dev, prom):
         v = results["single", name]
         if not np.isfinite(v.values[v.present]).all():
             raise AssertionError(f"{name}: non-finite values")
+
+    # h without x64 (the JAX package's default): float32 vectors through
+    # G's float32 sum form, one launch a warm query, exact against the
+    # port on the CPU in the same mode
+    h32 = engine(dev, x64=False)
+    zero_all()
+    got32 = run_rest_query(h32, "h")
+    torch.cuda.synchronize()
+    h32_cold = all_counts()
+    zero_all()
+    run_rest_query(h32, "h")
+    torch.cuda.synchronize()
+    h32_warm = all_counts()
+    for k in set(h32_cold) | set(h32_warm):
+        launches[k] = (launches.get(k, 0) + h32_cold.get(k, 0)
+                       + h32_warm.get(k, 0))
+    if h32_warm.get("grouped_block_reduce") != 1:
+        raise AssertionError(f"h without x64 launched G "
+                             f"{h32_warm.get('grouped_block_reduce')} times "
+                             f"a warm query, not 1")
+    if not same_vector(got32, run_rest_query(engine("cpu", x64=False), "h")):
+        raise AssertionError("h without x64 differs from the CPU")
+    h32_note = {"launches_per_warm": h32_warm["grouped_block_reduce"],
+                "exact_equal_cpu": True}
 
     # the port on the CPU: bit for bit where no matrix product adds, else
     # within 2 gamma_n sum|x| over a group's members (n: the product's
@@ -2075,7 +2144,8 @@ def promql_rest_phase(args, dev, prom):
           "checks": {"engines_identical": True, "exact_equal_cpu": True,
                      "matmul_max_rel_diff_vs_cpu": rel,
                      "matmul_gap_over_read_limit": read,
-                     "tf32_probe": tf32_probe(dev, s_pad)},
+                     "tf32_probe": tf32_probe(dev, s_pad),
+                     "h_without_x64": h32_note},
           "g_at_f": g_row,
           "phase_seconds": time.perf_counter() - t_phase})
     for k in ("grouped_block_reduce", "ring_pext_fused"):
@@ -3009,6 +3079,289 @@ def rows_phase(args, dev, slice_out, mesh_out):
         for e in ("fused", "hops")}
 
 
+# ---- phase 11: durable ------------------------------------------------
+
+# the child of the crash check: reopen the durable catalog, write one more
+# 15-minute run past the data, acknowledge it, and die before any flush
+CRASH_CHILD = r"""
+import os, sys
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import durable_catalog, crash_batch
+eng, cat = durable_catalog(sys.argv[2], sys.argv[3])
+table = cat.table("public", "cpu")
+tags, ts, fields = crash_batch(int(sys.argv[4]), int(sys.argv[5]),
+                               int(sys.argv[6]))
+table.write(tags, ts, fields)
+print("ACK", len(ts), flush=True)
+os._exit(0)
+"""
+
+
+def durable_catalog(root, device):
+    """A storage engine over `root` (WAL on, wal_sync at its default, merges
+    verified against the host merge) and the catalog on it."""
+    from greptimedb_tpu_torch.catalog.manager import CatalogManager
+    from greptimedb_tpu_torch.storage.compaction import CompactionOptions
+    from greptimedb_tpu_torch.storage.engine import EngineConfig, TsdbEngine
+
+    eng = TsdbEngine(EngineConfig(
+        data_root=root, enable_background=False,
+        compaction=CompactionOptions(verify_device_merge=True)),
+        device=device)
+    return eng, CatalogManager(eng)
+
+
+def crash_batch(seed, hosts, hours):
+    """The crash child's write: a 15-minute run of every host right after
+    the data's last hour, values from `seed`."""
+    rng = np.random.default_rng(seed + 1)
+    per_run = HOUR_MS // STEP_MS // 4
+    t0 = hours * (HOUR_MS // STEP_MS)
+    names = np.array([f"host_{i}" for i in range(hosts)], object)
+    ts = np.tile(np.arange(t0, t0 + per_run, dtype=np.int64) * STEP_MS,
+                 hosts)
+    hi = np.repeat(np.arange(hosts), per_run)
+    fields = {f: rng.random(len(ts)) for f in FIELDS}
+    return {"hostname": names[hi], "region": np.full(len(ts), "crash",
+                                                     object)}, ts, fields
+
+
+def same_scan(name, want, got):
+    """Two full scans bit for bit: sids, timestamps, sequences, ops, every
+    field's bits and validity (a validity of None reads as all valid)."""
+    if len(want) != len(got):
+        raise AssertionError(f"{name}: {len(got)} rows, not {len(want)}")
+    for k in ("sid", "ts", "seq", "op"):
+        if not np.array_equal(getattr(want, k), getattr(got, k)):
+            raise AssertionError(f"{name}: column {k} differs")
+    for f in FIELDS:
+        if not np.array_equal(want.fields[f].view(np.uint64),
+                              got.fields[f].view(np.uint64)):
+            raise AssertionError(f"{name}: field {f} differs")
+        va = (want.field_valid or {}).get(f)
+        vb = (got.field_valid or {}).get(f)
+        va = np.ones(len(want), bool) if va is None else va
+        vb = np.ones(len(got), bool) if vb is None else vb
+        if not np.array_equal(va, vb):
+            raise AssertionError(f"{name}: validity of {f} differs")
+
+
+def durable_phase(args, dev, slice_out, P):
+    """Phase 11 (see the module docstring). Returns K1's and K2's launches
+    over the phase's main path."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.query import device_range as DR
+    from greptimedb_tpu_torch.query.executor import QueryEngine
+    from greptimedb_tpu_torch.storage import recovery as R
+    from greptimedb_tpu_torch.storage.device_merge import (
+        DEFAULT_KERNEL_MIN_ROWS,
+    )
+    from greptimedb_tpu_torch.storage.page_cache import global_page_cache
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    out = {"guarantee": "wal_sync=False: an acknowledged write survives a "
+                        "process crash (the WAL is written and flushed to "
+                        "the OS before the write returns), not a power "
+                        "loss (no fsync)"}
+    q1, q2 = make_plans(P)
+    mg.gather_planes.launches = 0
+    rf.blocked_fold_sum.launches = 0
+    try:
+        eng, cat = durable_catalog(root, dev)
+        table = cat.create_table(
+            "public", "cpu", ts_name="ts", tag_names=["hostname", "region"],
+            fields=FIELDS, options={"compaction_trigger_files": 2,
+                                    "compaction_window_ms": HOUR_MS,
+                                    "memtable_window_ms": HOUR_MS})
+        # ---- ingest: phase 2's writes, each hour's four runs as one
+        # batch (bench.py's hourly WAL batches), then its re-delivery
+        # and tombstone runs; a flush after each write
+        rng = np.random.default_rng(args.seed)
+        hosts = np.array([f"host_{i}" for i in range(args.hosts)])
+        region_of = np.array(AWS_REGIONS)[rng.integers(
+            0, len(AWS_REGIONS), args.hosts)]
+        written, write_s, flush_s, flushes = 0, 0.0, 0.0, 0
+        for runs in tsbs_hours(rng, hosts, region_of, args.hours):
+            puts = runs[:4]
+            hourly = ("put",
+                      {k: np.concatenate([r[1][k] for r in puts])
+                       for k in puts[0][1]},
+                      np.concatenate([r[2] for r in puts]),
+                      {f: np.concatenate([r[3][f] for r in puts])
+                       for f in FIELDS})
+            for run in (hourly, runs[4], runs[5]):
+                t = time.perf_counter()
+                written += write_run(table, run)
+                write_s += time.perf_counter() - t
+                t = time.perf_counter()
+                table.flush()
+                flush_s += time.perf_counter() - t
+                flushes += 1
+        out["ingest"] = {"rows": written, "write_s": write_s,
+                         "rows_per_s_wal": written / write_s,
+                         "flushes": flushes, "flush_s": flush_s,
+                         "flush_s_each": flush_s / flushes}
+        # ---- compaction: every window's three files merge on the card
+        region = table.region
+        k1 = mg.gather_planes.launches
+        t = time.perf_counter()
+        if not table.compact():
+            raise AssertionError("durable compaction merged nothing")
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t
+        k1 = mg.gather_planes.launches - k1
+        big = [p for p, n in zip(region.merge_paths, region.merge_rows_in)
+               if n >= DEFAULT_KERNEL_MIN_ROWS]
+        if not big or set(big) != {"fused"} or k1 < len(big):
+            raise AssertionError(f"durable merges {region.merge_paths} "
+                                 f"{region.merge_rows_in}: K1 launched {k1}"
+                                 f" times for {len(big)} merges of "
+                                 f">= {DEFAULT_KERNEL_MIN_ROWS} rows")
+        out["compaction"] = {
+            "seconds": compact_s, "merges": len(region.merge_paths),
+            "seconds_per_merge": compact_s / len(region.merge_paths),
+            "rows_in": region.merge_rows_in, "paths": region.merge_paths,
+            "k1_launches": k1, "k1_launches_per_merge": k1 / len(big),
+            "ssts_after": len(region.manifest.state.ssts)}
+        want = slice_out["table"].scan(FIELDS).rows
+        t = time.perf_counter()
+        same_scan("after compaction", want, table.scan(FIELDS).rows)
+        out["scan_after_compaction_s"] = time.perf_counter() - t
+        eng.close()
+
+        # ---- reopen: manifest load, WAL replay, SST restore
+        global_page_cache.clear()
+        t = time.perf_counter()
+        eng, cat = durable_catalog(root, dev)
+        open_ms = (time.perf_counter() - t) * 1e3
+        table = cat.table("public", "cpu")
+        region = table.region
+        restore = {}
+        for depth in (0, 4):
+            global_page_cache.clear()
+            st = R.restore_region_ssts(region, prefetch_depth=depth)
+            restore["serial_ms" if depth == 0 else "pipelined_ms"] = st["ms"]
+            restore["files"], restore["bytes"] = st["files"], st["bytes"]
+        stats = region.recovery_stats
+        out["reopen"] = {
+            "open_ms": open_ms,
+            "manifest_load_ms": stats["manifest_load_ms"],
+            "wal_replay_ms": stats["wal_replay_ms"],
+            "replayed_entries": stats["replayed_entries"],
+            "region_open_total_ms": stats["total_ms"],
+            "sst_restore": restore}
+        same_scan("after reopen", want, table.scan(FIELDS).rows)
+
+        # ---- Q1/Q2 on the recovered table: phase 2's answers bit for bit
+        qe = QueryEngine(device=dev)
+        k2 = rf.blocked_fold_sum.launches
+        t = time.perf_counter()
+        r1 = qe.execute(q1, table)
+        torch.cuda.synchronize()
+        q1_build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        r2 = qe.execute(q2, table)
+        torch.cuda.synchronize()
+        q2_cold_s = time.perf_counter() - t
+        if rf.blocked_fold_sum.launches == k2:
+            raise AssertionError("Q2 on the recovered table did not run K2")
+        compare_engines("durable Q1", slice_out["q1"], r1, 1)
+        compare_engines("durable Q2", slice_out["q2"], r2, 1)
+        # ---- the grid's restart snapshot: persist the grown entry, then
+        # a fresh engine loads it and answers without a rebuild
+        entry = next(iter(qe.range_cache._entries.values()))
+        if entry.persist_thread is not None:
+            entry.persist_thread.join()
+        t = time.perf_counter()
+        if not DR.persist_entry(entry, table):
+            raise AssertionError("the grid snapshot was not written")
+        persist_s = time.perf_counter() - t
+        eng.close()
+        eng, cat = durable_catalog(root, dev)
+        table = cat.table("public", "cpu")
+        qe = QueryEngine(device=dev)
+        t = time.perf_counter()
+        s1 = qe.execute(q1, table)
+        torch.cuda.synchronize()
+        q1_snap_s = time.perf_counter() - t
+        restored = qe.last_grid
+        entry = next(iter(qe.range_cache._entries.values()))
+        nbytes = entry.nbytes
+        t = time.perf_counter()
+        s2 = qe.execute(q2, table)
+        torch.cuda.synchronize()
+        q2_snap_s = time.perf_counter() - t
+        if restored != "restored" or qe.last_grid != "hit" \
+                or entry.nbytes != nbytes:
+            raise AssertionError(f"the snapshot did not answer alone: "
+                                 f"{restored}, {qe.last_grid}")
+        compare_engines("snapshot Q1", slice_out["q1"], s1, 1)
+        compare_engines("snapshot Q2", slice_out["q2"], s2, 1)
+        out["snapshot"] = {
+            "persist_s": persist_s, "grid_bytes": nbytes,
+            "q1_cold_rebuild_s": q1_build_s, "q2_after_rebuild_s": q2_cold_s,
+            "q1_cold_from_snapshot_s": q1_snap_s,
+            "q2_after_snapshot_s": q2_snap_s}
+        eng.close()
+
+        # ---- a crash before flush: the child's acknowledged rows come
+        # back, and the second reopen replays nothing
+        child = subprocess.run(
+            [sys.executable, "-c", CRASH_CHILD, here, root, str(dev),
+             str(args.seed), str(args.hosts), str(args.hours)],
+            capture_output=True, text=True, timeout=300, cwd=here)
+        if child.returncode != 0 or "ACK" not in child.stdout:
+            raise AssertionError(f"crash child failed: {child.stderr}")
+        t = time.perf_counter()
+        eng, cat = durable_catalog(root, dev)
+        crash_open_ms = (time.perf_counter() - t) * 1e3
+        table = cat.table("public", "cpu")
+        replayed = table.region.recovery_stats["replayed_entries"]
+        tags, ts, fields = crash_batch(args.seed, args.hosts, args.hours)
+        got = table.scan(FIELDS, ts_min=int(ts.min())).rows
+        order = np.lexsort((ts, np.repeat(np.arange(args.hosts),
+                                          len(ts) // args.hosts)))
+        if (replayed < 1 or got is None or len(got) != len(ts)
+                or not np.array_equal(got.ts, ts[order])
+                or any(not np.array_equal(got.fields[f], fields[f][order])
+                       for f in FIELDS)):
+            raise AssertionError("acknowledged rows lost in the crash")
+        eng.close()
+        eng, cat = durable_catalog(root, dev)
+        second = cat.table("public", "cpu").region.recovery_stats[
+            "replayed_entries"]
+        eng.close()
+        if second != 0:
+            raise AssertionError(f"second reopen replayed {second} entries")
+        out["crash"] = {"acked_rows": len(ts), "replayed_entries": replayed,
+                        "reopen_ms": crash_open_ms,
+                        "recovery_flush_ms": table.region.recovery_stats.get(
+                            "recovery_flush_ms"),
+                        "second_reopen_replayed": second}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"gather_planes": mg.gather_planes.launches,
+                "blocked_fold_sum": rf.blocked_fold_sum.launches}
+    emit({"phase": "durable", **out, "launches": launches,
+          "checks": {"scan_identical_after_compaction": True,
+                     "scan_identical_after_reopen": True,
+                     "q1_q2_identical": True, "snapshot_identical": True,
+                     "crash_rows_read_back": True,
+                     "second_reopen_replays_nothing": True},
+          "phase_seconds": time.perf_counter() - t_phase})
+    for k, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{k} never launched in phase durable")
+    return launches
+
+
 def check_high_cpu(table, name, res):
     """A high-cpu result against a numpy mask over the table's scan."""
     rows = table.scan(["usage_user", "usage_system"]).rows
@@ -3181,6 +3534,8 @@ def run(args) -> int:
     kernels += grouped_rows
     # ---- 10. promql_rest ----------------------------------------------
     rest_launches, g_at_f = promql_rest_phase(args, dev, prom_out)
+    # ---- 11. durable ---------------------------------------------------
+    durable_launches = durable_phase(args, dev, slice_out, P)
     # every kernel's launches over the main-path runs of phases 2 and 6
     # to 10; the hop ring's seed, continuation and combines ran in phase 8
     # only, Gt in phase 9 only, G in phases 9 and 10
@@ -3213,6 +3568,9 @@ def run(args) -> int:
             row["launches_per_warm_sql_q2"] = q2_warm["fused"].get(name, 0)
         elif name in TOPK_KERNELS:
             row.update(floor)
+        if durable_launches.get(name):
+            row["launches"] += durable_launches[name]
+            row["launches_durable"] = durable_launches[name]
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched")
     print(smi, flush=True)

@@ -1,9 +1,11 @@
-"""A minimal single-region table: schema, writes, compaction and scans.
+"""A single-region table: schema, writes, compaction and scans.
 
 `write` keeps the JAX package's signature (tag columns by name, int64 ms
-timestamps, fields by name). Everything lives in one in-memory Region
-(storage/region.py); multi-region routing, SSTs and the WAL are later
-slices.
+timestamps, fields by name). A Table built with `region=` (an engine-opened
+storage/region.Region: WAL, SSTs, manifest; catalog/manager.py builds
+those) is durable; a Table built without one keeps its rows in an
+in-memory region (Region.in_memory). Multi-region routing waits for the
+distributed roles.
 """
 
 from __future__ import annotations
@@ -52,8 +54,10 @@ class TableScanData:
 class Table:
     def __init__(self, name: str, *, ts_name: str, tag_names: list[str],
                  fields, window_ms: int = DEFAULT_WINDOW_MS,
-                 database: str = "public"):
-        """`fields`: field names (float64) or {name: numpy dtype}."""
+                 database: str = "public", region: Region | None = None):
+        """`fields`: field names (float64) or {name: numpy dtype};
+        `region`: an engine-opened region (default: in memory, its
+        compaction window `window_ms`)."""
         if not isinstance(fields, dict):
             fields = {f: np.float64 for f in fields}
         self.name = name
@@ -62,8 +66,9 @@ class Table:
             ts_name, list(tag_names),
             {k: np.dtype(v) for k, v in fields.items()},
         )
-        self.region = Region(self.schema.tag_names, self.schema.field_names,
-                             window_ms=window_ms)
+        self.region = region if region is not None else Region.in_memory(
+            self.schema.tag_names, self.schema.field_names,
+            window_ms=window_ms, table=name)
 
     @property
     def tag_names(self) -> list[str]:
@@ -94,10 +99,15 @@ class Table:
     def delete(self, tag_columns: dict[str, np.ndarray], ts: np.ndarray) -> int:
         return self.write(tag_columns, ts, {}, op=OP_DELETE)
 
-    def compact(self, **kwargs) -> int:
-        """Compact every window with pending runs on the card (see
-        Region.compact for the options)."""
+    def compact(self, **kwargs):
+        """Compact on the card (see Region.compact for the options and the
+        result of each path)."""
         return self.region.compact(**kwargs)
+
+    def flush(self):
+        """Persist the memtable as an SST (a durable table; no-op in
+        memory)."""
+        return self.region.flush()
 
     def scan(self, field_names: list[str] | None = None, *,
              ts_min: int | None = None, ts_max: int | None = None,

@@ -29,9 +29,10 @@ def _encode_first_occurrence(values: np.ndarray):
 class Dictionary:
     """Incremental string -> int32 code dictionary."""
 
-    def __init__(self):
-        self._values: list[str] = []
-        self._codes: dict[str, int] = {}
+    def __init__(self, values: list[str] | None = None):
+        self._values: list[str] = list(values or [])
+        self._codes: dict[str, int] = {v: i for i, v in
+                                       enumerate(self._values)}
 
     def __len__(self) -> int:
         return len(self._values)

@@ -36,3 +36,20 @@ class TableNotFoundError(GreptimeError):
 
 class ColumnNotFoundError(GreptimeError):
     """A column an expression names that its source does not hold."""
+
+
+class SstRestoreError(GreptimeError):
+    """An SST object named by the manifest is missing, torn or corrupt
+    when a region restores it."""
+
+
+class RegionReadonlyError(GreptimeError):
+    """A write to a region that is not writable."""
+
+
+class RegionNotFoundError(GreptimeError):
+    """A region id the engine has not opened."""
+
+
+class TableAlreadyExistsError(GreptimeError):
+    """CREATE of a table name that is taken."""

@@ -4,7 +4,10 @@ Standalone.sql, for SELECT statements).
 An Instance holds a `catalog` (catalog/manager.CatalogManager; tables go in
 with `catalog.register(table)`) and a `query_engine`
 (query/executor.QueryEngine on `device`, default CUDA, with an optional
-mesh and the JAX engine's `prefer_device`). `sql` parses the text
+mesh, the JAX engine's `prefer_device` and the JAX package's x64 mode,
+`x64`, off by default). `catalog=` takes a CatalogManager over a storage
+engine (durable tables, catalog/manager.py); the default keeps tables in
+memory. `sql` parses the text
 (sql/parser.parse_sql), plans each SELECT against its table
 (query/planner.plan_select), or against no table for a SELECT without
 FROM, and executes it: RANGE plans on the device grid or the host RANGE
@@ -30,11 +33,12 @@ DEFAULT_DATABASE = "public"
 
 class Instance:
     def __init__(self, device=None, mesh=None, mesh_opts=None,
-                 prefer_device: bool | None = True):
-        self.catalog = CatalogManager()
+                 prefer_device: bool | None = True, x64: bool = False,
+                 catalog: CatalogManager | None = None):
+        self.catalog = catalog if catalog is not None else CatalogManager()
         self.query_engine = QueryEngine(device=device, mesh=mesh,
                                         mesh_opts=mesh_opts,
-                                        prefer_device=prefer_device)
+                                        prefer_device=prefer_device, x64=x64)
 
     def sql(self, sql: str) -> QueryResult:
         """Run every statement of `sql`; returns the last one's result.

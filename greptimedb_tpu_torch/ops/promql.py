@@ -28,7 +28,8 @@ RANGE_FUNCTIONS = frozenset({
 
 
 def eval_range_function(name: str, vals, has, tsg, win, tps: float, *,
-                        args: tuple = (), fused: bool = True):
+                        args: tuple = (), fused: bool = True,
+                        x64: bool = False):
     """Evaluate one range function over all windows of `win` (lo, hi,
     t_end tensors on vals' device; range_ticks and l_cells ints). Returns
     (out, present) shaped (S, J). `args` carries the scalar parameters
@@ -36,13 +37,16 @@ def eval_range_function(name: str, vals, has, tsg, win, tps: float, *,
     and tf). `fused`: the call is part of one fused program whose scalars
     are constants (the fast path); else the generic engine's call, where
     the JAX package jits each window function alone with its scalars as
-    arguments and runs the glue below as separate operations."""
+    arguments and runs the glue below as separate operations. `x64`: the
+    JAX package's jax_enable_x64 mode, which the fused rate depends on
+    (window.extrapolated_rate)."""
     lo, hi, t_end = win.lo, win.hi, win.t_end
     l_cells = win.l_cells
     if name in ("rate", "increase", "delta"):
         return W.extrapolated_rate(
             vals, has, tsg, lo, hi, t_end, win.range_ticks, tps,
             is_counter=name != "delta", is_rate=name == "rate", fused=fused,
+            x64=x64,
         )
     if name == "idelta":
         return W.instant_delta(vals, has, tsg, lo, hi, tps, is_rate=False)

@@ -372,14 +372,25 @@ def _pair_indicator(vals, has):
 
 
 def extrapolated_rate(vals, has, tsg, lo, hi, t_end, range_ticks, tps, *,
-                      is_counter: bool, is_rate: bool, fused: bool = True):
+                      is_counter: bool, is_rate: bool, fused: bool = True,
+                      x64: bool = False):
     """Prometheus rate/increase/delta with the extrapolation rules of
     functions.go. Returns (value, present) shaped (S, J).
 
     `fused`: range_ticks and tps are constants of one fused program (the
     fast path); else arguments of the separately jitted call the generic
     engine makes, where XLA keeps the divisions by tps and divides the
-    rate by float32(range_ticks) / float32(tps)."""
+    rate by float32(range_ticks) / float32(tps) in either mode.
+
+    `x64`: the JAX package's jax_enable_x64 mode. It changes the fused
+    program only, where range_ticks and tps reach XLA as float64 constants
+    with x64 and as float32 constants without. With x64, XLA rewrites
+    (x / tps) / m into x / (tps * m) before it folds the constants, and
+    the rate divisor is float32(range_ticks / tps); without x64 the
+    divisions by tps turn into products by float32(1 / tps) first, so the
+    mean spacing is ((t_last - t_first) * (1 / tps)) / m, and the divisor
+    is float32(range_ticks) * float32(1 / tps), folded in float32. Both
+    divisors then become a product by their float32 reciprocal."""
     dt = vals.dtype
     li = _gather_steps(_last_present_idx(has), hi)          # (S, J)
     fi = _gather_steps(_first_present_idx(has), lo + 1)     # (S, J)
@@ -406,11 +417,15 @@ def extrapolated_rate(vals, has, tsg, lo, hi, t_end, range_ticks, tps, *,
     dur_start = _div_scalar(t_first - (t_end_f - rt), tps, fused)
     dur_end = _div_scalar(t_end_f - t_last, tps, fused)
     sampled = _div_scalar(t_last - t_first, tps, fused)
-    # XLA rewrites (x / tps) / m into x / (tps * m) before it turns a
-    # constant tps into a reciprocal, in both contexts
-    avg_dur = (t_last - t_first) / (
-        torch.tensor(tps, dtype=dt, device=vals.device)
-        * (cnt - 1).clamp(min=1))
+    if fused and not x64:
+        avg_dur = sampled / (cnt - 1).clamp(min=1)
+    else:
+        # XLA rewrites (x / tps) / m into x / (tps * m) before it turns a
+        # float64-born constant tps into a reciprocal, and always when
+        # tps is an argument
+        avg_dur = (t_last - t_first) / (
+            torch.tensor(tps, dtype=dt, device=vals.device)
+            * (cnt - 1).clamp(min=1))
 
     if is_counter:
         # avoid extrapolating a counter below zero
@@ -429,12 +444,14 @@ def extrapolated_rate(vals, has, tsg, lo, hi, t_end, range_ticks, tps, *,
     out = delta * factor
     if is_rate:
         # the JAX program computes range_ticks / tps on traced scalars:
-        # in float64 under jax_enable_x64 (as the JAX package's tests run
-        # it), so the divisor is float32(range_ticks / tps). Without x64
-        # XLA folds float32(range_ticks) * (1 / tps) instead, which can
-        # move the divisor, and the rate, by one ulp (ROADMAP C).
-        if fused:
+        # in float64 under jax_enable_x64, in float32 without
+        if fused and x64:
             out = _div_const(out, range_ticks / tps)
+        elif fused:
+            one = torch.tensor(1.0, dtype=dt)
+            out = _div_const(out, (torch.tensor(float(range_ticks), dtype=dt)
+                                   * (one / torch.tensor(tps, dtype=dt))
+                                   ).item())
         else:
             out = out / (torch.tensor(float(range_ticks), dtype=dt)
                          / torch.tensor(tps, dtype=dt)).to(vals.device)

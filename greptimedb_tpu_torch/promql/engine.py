@@ -20,13 +20,8 @@ query/executor.QueryEngine supplies them).
   range or start does not land on a cached grid's cells (instant queries
   step 1 s).
 
-The engine's precision is the JAX package's under jax_enable_x64, which
-its tests run with (ROADMAP C2): numbers crossing from the host keep
-their numpy dtype on the device (`_up`), so the generic aggregation (G's
-float64 sum form on its scatter branch) and histogram_quantile fold
-float64 vectors. The generic engine's range functions run with
-`fused=False`: the JAX package jits each window function alone with its
-scalars as arguments.
+The generic engine's range functions run with `fused=False`: the JAX
+package jits each window function alone with its scalars as arguments.
 """
 
 from __future__ import annotations
@@ -137,6 +132,25 @@ def _series_bucket(s: int) -> int:
 
 
 class PromEngine:
+    """PromQL over `instance.catalog` on `instance.query_engine`.
+
+    Precision follows the JAX package's jax_enable_x64 mode, which the
+    query engine's `x64` names (default False, as JAX's; the JAX package's
+    tests run with it on). Three places depend on it:
+
+    - the generic aggregation's values and histogram_quantile's le bounds
+      and bucket counts go to the device as float32 without x64 and as
+      float64 with it (`_up_float`): the sums of the scatter branch take
+      kernel G's float32 or float64 sum form, histogram_quantile's fused
+      multiply-adds run in float32 or in float64 (ops/window._fma_f64);
+    - the fast path's rate and increase (ops/window.extrapolated_rate,
+      `fused=True`): XLA folds range_ticks and tps as float32 constants
+      without x64 and as float64 ones with it, which changes the mean
+      sample spacing and the rate divisor;
+    - the generic engine's rate divisor is float32(range_ticks) /
+      float32(tps) in both modes, as XLA compiles it.
+    """
+
     def __init__(self, instance, ctx=None):
         self.instance = instance
         self.ctx = ctx
@@ -291,6 +305,17 @@ class PromEngine:
     def _up(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the query engine's device, dtype kept."""
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    @property
+    def x64(self) -> bool:
+        return bool(getattr(self.instance.query_engine, "x64", False))
+
+    def _up_float(self, arr: np.ndarray) -> torch.Tensor:
+        """Host float64 values on the device as jnp.asarray puts them:
+        float64 in x64 mode, float32 without."""
+        if not self.x64:
+            arr = np.asarray(arr, np.float32)
+        return self._up(arr)
 
     def _win(self, windows) -> _Win:
         return _Win(self._up(windows.lo), self._up(windows.hi),
@@ -458,7 +483,7 @@ class PromEngine:
             return _absent_vector(vec_arg, ev, ~had)
         out, present = K.eval_range_function(
             name, mat.vals, mat.has, mat.tsg, win, mat.spec.tps, args=args,
-            fused=False)
+            fused=False, x64=self.x64)
         return VectorValue([_drop_name(lab) for lab in mat.labels],
                            readback.read_full(out[:s], np.float64),
                            readback.read_full(present[:s]))
@@ -489,7 +514,7 @@ class PromEngine:
             )
 
             vals, pres = aggregate_across_series(
-                self._up(v.values), self._up(v.present),
+                self._up_float(v.values), self._up(v.present),
                 self._up(gid.astype(np.int32)), g, e.op)
             return VectorValue(out_labels,
                                readback.read_full(vals, np.float64),
@@ -692,7 +717,8 @@ class PromEngine:
             mask_stack = np.stack([
                 np.stack([v.present[i] for _, i in groups[key]], axis=-1)
                 for key in keys])
-            out, ok = histogram_quantile(self._up(le), self._up(bucket_stack),
+            out, ok = histogram_quantile(self._up_float(le),
+                                         self._up_float(bucket_stack),
                                          self._up(mask_stack), phi)
             out = readback.read_full(out, np.float64)
             ok = readback.read_full(ok)

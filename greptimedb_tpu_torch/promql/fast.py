@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -280,6 +280,9 @@ class _Windows:
     t_end: list
     range_ticks: int
     l_cells: int
+    # the query engine's x64 mode (a per-query copy; cached windows keep
+    # the default)
+    x64: bool = False
 
     @property
     def num_steps(self) -> int:
@@ -287,7 +290,7 @@ class _Windows:
 
 
 def _eval_side(vals, has, tsg, smask, lo, hi, t_end, *, fname, range_ticks,
-               l_cells, tps, fargs, lookback_ticks):
+               l_cells, tps, fargs, lookback_ticks, x64=False):
     """Instant lookback or range function over one shard's masked grid —
     the front half of every fused query."""
     has = has & smask[:, None]
@@ -295,7 +298,7 @@ def _eval_side(vals, has, tsg, smask, lo, hi, t_end, *, fname, range_ticks,
         return W.instant_lookback(vals, has, tsg, hi, t_end, lookback_ticks)
     win = _WinShim(lo, hi, t_end, range_ticks, l_cells)
     return K.eval_range_function(fname, vals, has, tsg, win, tps,
-                                 args=fargs)
+                                 args=fargs, x64=x64)
 
 
 def _eval_shards(entry: _Entry, smask: list, win: _Windows, *, fname: str,
@@ -308,7 +311,8 @@ def _eval_shards(entry: _Entry, smask: list, win: _Windows, *, fname: str,
             entry.vals[k], entry.has[k], entry.tsg[k], smask[k], win.lo[k],
             win.hi[k], win.t_end[k], fname=fname,
             range_ticks=win.range_ticks, l_cells=win.l_cells,
-            tps=entry.spec.tps, fargs=fargs, lookback_ticks=lookback_ticks)
+            tps=entry.spec.tps, fargs=fargs, lookback_ticks=lookback_ticks,
+            x64=win.x64)
         outs.append(out)
         press.append(pres)
     return outs, press
@@ -541,6 +545,8 @@ def _resolve_fast_selector(engine, inner, ev):
                         align_range=fname != "__instant__")
     if win is None:
         return None
+    if qe.x64:
+        win = replace(win, x64=True)
     return entry, table, raw_matchers, fname, fargs, win
 
 

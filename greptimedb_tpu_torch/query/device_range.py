@@ -30,9 +30,18 @@ prelude and every shard's program apply. Where the JAX package declines
 a shape (residual filters, expression arguments, non-tag keys, unaligned
 time bounds, oversized grids, `prefer_device` off or a small table), the
 entry points return None and the engine answers on the host path
-(query/executor). One shape raises UnsupportedError: a sharded fold past
-the blocked-fold cap, which the JAX package hands to XLA's auto-SPMD
-program.
+(query/executor). A sharded fold without the blocked form (past the
+blocked-fold cap, or a series count that is no multiple of FOLD_BLOCKS)
+gathers every shard's grids to the first shard's device and runs the
+one-device program there ("single_gathered").
+
+A durable table's entries persist as restart snapshots under its region's
+directory (`persist_entry`, after a build on a thread) and a fresh engine
+restores them with uploads only (`load_entry_snapshot`,
+`warm_from_snapshots`); a snapshot of an older data version is deleted
+when found. The JAX package also records the jit specs an entry served
+and precompiles them at warm time; the port's range program is eager
+torch with nothing to compile ahead, so that snapshot is not ported.
 """
 
 from __future__ import annotations
@@ -128,8 +137,10 @@ class _Entry:
     query_memo: dict = dc_field(default_factory=dict)
     nbytes: int = 0
     grow_lock: object = dc_field(default_factory=threading.Lock)
-    # host-side grid arrays kept by build_entry(keep_host=True)
+    # host-side grid arrays kept by build_entry(keep_host=True) until
+    # persist_entry writes them as a restart snapshot
     host_snap: dict | None = None
+    persist_thread: object = None    # persist_entry_async's thread
     # fields whose "n" state IS entry.nrow (every row valid)
     n_aliased: set = dc_field(default_factory=set)
 
@@ -198,6 +209,19 @@ class DeviceRangeCache:
                 self.evictions += 1
                 total -= victim.bytes()
             self._entries[key] = entry
+
+    def has_table(self, tkey) -> bool:
+        with self._lock:
+            return any(k[0] == tkey for k in self._entries)
+
+    def insert_if_table_absent(self, key: tuple, entry: _Entry) -> bool:
+        """Insert unless an entry of the same table arrived first (a warm
+        restore racing a query's build)."""
+        with self._lock:
+            if any(k[0] == key[0] for k in self._entries):
+                return False
+        self.insert(key, entry)
+        return True
 
     def reserve_growth(self, entry: _Entry, add: int) -> bool:
         """Admit an in-place growth of `add` bytes against the aggregate
@@ -1077,6 +1101,310 @@ def _group_ids_from_sids(plan, registry, active: np.ndarray):
     return gid_full, g, key_cols
 
 
+# ----------------------------------------------------------------------
+# restart snapshots (the module docstring)
+# ----------------------------------------------------------------------
+
+_SNAP_DIRNAME = "device_cache"
+_SNAP_MAGIC = b"GTDEVC1\n"
+_SNAP_ALIGN = 64
+_snapshot_io_lock = threading.Lock()
+# per-table restore serialization: a warm thread and a racing query must
+# not both decode and upload the same snapshot
+_restore_locks: dict = {}
+
+
+def _restore_lock(tkey) -> threading.Lock:
+    with _snapshot_io_lock:
+        return _restore_locks.setdefault(tkey, threading.Lock())
+
+
+def _ver_json(version) -> str:
+    import json
+
+    def norm(v):
+        if isinstance(v, (list, tuple)):
+            return [norm(x) for x in v]
+        return int(v) if isinstance(v, (bool, np.integer)) else v
+
+    return json.dumps(norm(version))
+
+
+def _snapshot_region(table):
+    """The durable region a table's snapshots live under (None: a table
+    in memory)."""
+    region = getattr(table, "region", None)
+    if region is None or getattr(region, "store", None) is None:
+        return None
+    return region
+
+
+def _host_arrays(entry: _Entry) -> dict:
+    """The entry's grids read back from its devices (shards concatenated
+    along the series axis), keyed as build_entry's host_snap."""
+    def host(parts):
+        return torch.cat([t.cpu() for t in parts]).numpy()
+
+    snap = {"nrow": host(entry.nrow), "imin": host(entry.imin),
+            "imax": host(entry.imax)}
+    for fname, states in entry.fields.items():
+        if fname == "__rows__":
+            continue
+        for skey, arr in states.items():
+            if skey == "n" and fname in entry.n_aliased:
+                continue
+            snap[f"f::{fname}::{skey}"] = host(arr)
+    return snap
+
+
+def persist_entry(entry: _Entry, table) -> bool:
+    """Write the entry's grids as a restart snapshot under the region's
+    directory: the host arrays build_entry(..., keep_host=True) kept (and
+    clears them), or, once they are gone, every grid read back from the
+    device, so an entry grown by later queries persists whole.
+
+    Format: magic + u64 JSON-meta length + meta + 64-aligned raw arrays,
+    flat so load_entry_snapshot can memory-map each array."""
+    import io
+    import json
+    import os
+
+    snap = entry.host_snap
+    entry.host_snap = None
+    region = _snapshot_region(table)
+    if region is None:
+        return False
+    if snap is None:
+        with entry.grow_lock:
+            snap = _host_arrays(entry)
+    names = list(snap)
+    layout = []
+    off = 0
+    for k in names:
+        arr = np.ascontiguousarray(snap[k])
+        snap[k] = arr
+        off += (-off) % _SNAP_ALIGN
+        layout.append({"key": k, "dtype": arr.dtype.str,
+                       "shape": list(arr.shape), "offset": off,
+                       "nbytes": arr.nbytes})
+        off += arr.nbytes
+    meta = {
+        "version": _ver_json(entry.version),
+        "res": entry.res, "phase": entry.phase, "t0c": entry.t0c,
+        "nb": entry.nb, "num_series": entry.num_series,
+        "rows_scanned": entry.rows_scanned,
+        "nan_ok": {k: bool(v) for k, v in entry.nan_ok.items()},
+        "n_alias": sorted(entry.n_aliased),
+        "arrays": layout,
+    }
+    mb = json.dumps(meta).encode()
+    header = _SNAP_MAGIC + len(mb).to_bytes(8, "little") + mb
+    data_start = len(header) + ((-len(header)) % _SNAP_ALIGN)
+
+    def stream(f):
+        f.write(header)
+        f.write(b"\0" * (data_start - len(header)))
+        pos = 0
+        for k, ent in zip(names, layout):
+            f.write(b"\0" * (ent["offset"] - pos))
+            f.write(memoryview(snap[k]).cast("B"))
+            pos = ent["offset"] + ent["nbytes"]
+
+    path = (f"{region.prefix}/{_SNAP_DIRNAME}/"
+            f"grid_{entry.res}_{entry.phase}.gtdc")
+    try:
+        with _snapshot_io_lock:
+            try:
+                lp = region.store.local_path(path)
+            except NotImplementedError:
+                buf = io.BytesIO()
+                stream(buf)
+                region.store.write(path, buf.getvalue())
+            else:
+                os.makedirs(os.path.dirname(lp), exist_ok=True)
+                tmp = lp + ".tmp"
+                with open(tmp, "wb") as f:
+                    stream(f)
+                os.replace(tmp, lp)
+        return True
+    except OSError:
+        return False
+
+
+def persist_entry_async(entry: _Entry, table):
+    """persist_entry on a daemon thread; returns the thread (also kept as
+    entry.persist_thread, so a caller can wait for the file)."""
+    if entry.host_snap is None:
+        return None
+    t = threading.Thread(target=persist_entry, args=(entry, table),
+                         daemon=True, name="device-cache-persist")
+    entry.persist_thread = t
+    t.start()
+    return t
+
+
+def _snap_open(region, path):
+    """-> (meta, fetch(layout entry) -> numpy view). Local files
+    memory-map; other stores slice the object's bytes."""
+    import json
+
+    try:
+        lp = region.store.local_read_path(path)
+    except (NotImplementedError, FileNotFoundError, OSError):
+        raw = region.store.read(path)
+        if raw[:len(_SNAP_MAGIC)] != _SNAP_MAGIC:
+            raise ValueError("bad snapshot magic")
+        mlen = int.from_bytes(
+            raw[len(_SNAP_MAGIC):len(_SNAP_MAGIC) + 8], "little")
+        hdr_end = len(_SNAP_MAGIC) + 8 + mlen
+        meta = json.loads(raw[len(_SNAP_MAGIC) + 8:hdr_end])
+        data_start = hdr_end + ((-hdr_end) % _SNAP_ALIGN)
+
+        def fetch(ent):
+            dt = np.dtype(ent["dtype"])
+            return np.frombuffer(
+                raw, dt, count=ent["nbytes"] // dt.itemsize,
+                offset=data_start + ent["offset"]).reshape(ent["shape"])
+
+        return meta, fetch
+
+    with open(lp, "rb") as f:
+        if f.read(len(_SNAP_MAGIC)) != _SNAP_MAGIC:
+            raise ValueError("bad snapshot magic")
+        mlen = int.from_bytes(f.read(8), "little")
+        meta = json.loads(f.read(mlen))
+    hdr_end = len(_SNAP_MAGIC) + 8 + mlen
+    data_start = hdr_end + ((-hdr_end) % _SNAP_ALIGN)
+
+    def fetch(ent):
+        return np.memmap(lp, dtype=np.dtype(ent["dtype"]), mode="r",
+                         offset=data_start + ent["offset"],
+                         shape=tuple(ent["shape"]))
+
+    return meta, fetch
+
+
+def load_entry_snapshot(table, r0: int, align_to: int, *, device,
+                        mesh=None, mesh_opts=None,
+                        byte_budget: int = _BYTE_BUDGET) -> _Entry | None:
+    """Restore a compatible snapshot for the table's CURRENT data version
+    onto `device` (or the mesh the planner picks for its series count),
+    deleting stale snapshot files as they are found."""
+    region = _snapshot_region(table)
+    if region is None:
+        return None
+    prefix = f"{region.prefix}/{_SNAP_DIRNAME}/"
+    # captured once: the restored entry carries the version validated
+    version = table.data_version()
+    cur_ver = _ver_json(version)
+    with _snapshot_io_lock:
+        metas = region.store.list(prefix)
+    for m in metas:
+        base = m.path.rsplit("/", 1)[-1]
+        if base.startswith("grid_") and base.endswith(".gtdc"):
+            try:
+                _, res_s, phase_s = base[:-5].split("_")
+                if (r0 % int(res_s) != 0
+                        or align_to % int(res_s) != int(phase_s)):
+                    continue
+            except ValueError:
+                pass
+        try:
+            with _snapshot_io_lock:
+                meta, fetch = _snap_open(region, m.path)
+        except (OSError, ValueError):
+            region.store.delete(m.path)
+            continue
+        if meta["version"] != cur_ver:
+            # stale: the data changed since this snapshot was written
+            region.store.delete(m.path)
+            continue
+        res, phase = meta["res"], meta["phase"]
+        if r0 % res != 0 or align_to % res != phase:
+            continue
+        S, nb = meta["num_series"], meta["nb"]
+        if S * nb * 4 * len(meta["arrays"]) > byte_budget:
+            continue
+        decision = None
+        if mesh is not None:
+            decision = decide_mesh_execution(mesh, kind="range", series=S,
+                                             opts=mesh_opts)
+            if decision.shard and S % shard_count(mesh):
+                # an unsharded build's series axis may not split evenly
+                decision = type(decision)("replicate", "snapshot_unaligned",
+                                          devices=decision.devices)
+            if not decision.shard:
+                mesh = None
+        entry = _Entry(
+            version=version, res=res, phase=phase, t0c=meta["t0c"], nb=nb,
+            num_series=S, registry=region.series,
+            rows_scanned=meta["rows_scanned"],
+            devices=(list(mesh.devices) if mesh is not None
+                     else [torch.device(device)]),
+            mesh=mesh, mesh_decision=decision,
+        )
+        put = _put(entry.devices)
+        by_key = {ent["key"]: ent for ent in meta["arrays"]}
+        entry.nrow = put(np.array(fetch(by_key["nrow"])))
+        entry.imin = put(np.array(fetch(by_key["imin"])))
+        entry.imax = put(np.array(fetch(by_key["imax"])))
+        for key, ent in by_key.items():
+            if key.startswith("f::"):
+                _, fname, skey = key.split("::", 2)
+                entry.fields.setdefault(fname, {})[skey] = put(
+                    np.array(fetch(ent)))
+        for fname in meta.get("n_alias", []):
+            entry.fields.setdefault(fname, {})["n"] = entry.nrow
+            entry.n_aliased.add(fname)
+        for fname in entry.fields:
+            entry.nan_ok[fname] = bool(meta["nan_ok"].get(fname, False))
+        entry.recount_bytes()
+        return entry
+    return None
+
+
+def _load_any_snapshot(table, engine) -> _Entry | None:
+    region = _snapshot_region(table)
+    for m in region.store.list(f"{region.prefix}/{_SNAP_DIRNAME}/"):
+        base = m.path.rsplit("/", 1)[-1]
+        if not base.startswith("grid_") or not base.endswith(".gtdc"):
+            continue
+        try:
+            _, res_s, phase_s = base[:-5].split("_")
+            res, phase = int(res_s), int(phase_s)
+        except ValueError:
+            continue
+        entry = load_entry_snapshot(
+            table, r0=res, align_to=phase, device=engine.device,
+            mesh=engine.mesh, mesh_opts=engine.mesh_opts,
+            byte_budget=engine.range_cache.byte_budget)
+        if entry is not None:
+            return entry
+    return None
+
+
+def warm_from_snapshots(engine, catalog) -> int:
+    """Restore every durable table's snapshot into the query engine's grid
+    cache (what an instance runs at open, on a background thread). Returns
+    the number of entries restored."""
+    restored = 0
+    for table in catalog.all_tables():
+        region = _snapshot_region(table)
+        if region is None or not region.store.list(
+                f"{region.prefix}/{_SNAP_DIRNAME}/"):
+            continue
+        tkey = (table.database, table.name, id(table))
+        cache: DeviceRangeCache = engine.range_cache
+        with _restore_lock(tkey):
+            if cache.has_table(tkey):
+                continue
+            entry = _load_any_snapshot(table, engine)
+            if entry is not None and cache.insert_if_table_absent(
+                    (tkey, entry.res, entry.phase), entry):
+                restored += 1
+    return restored
+
+
 def execute_range_device(engine, plan, table):
     """Run a RANGE plan on the device grid cache: a QueryResult, or None
     where the JAX package declines the shape (the host path answers)."""
@@ -1098,13 +1426,31 @@ def execute_range_device(engine, plan, table):
     cache: DeviceRangeCache = engine.range_cache
     tkey = (table.database, table.name, id(table))
     entry = cache.lookup_compatible(tkey, version, r0, plan.align_to)
+    persist = _snapshot_region(table) is not None
+    engine.last_grid = "hit"
+    if entry is None and persist:
+        with _restore_lock(tkey):
+            # a warm thread may have restored while we waited
+            entry = cache.lookup_compatible(tkey, version, r0,
+                                            plan.align_to)
+            if entry is None:
+                entry = load_entry_snapshot(
+                    table, r0, plan.align_to, device=engine.device,
+                    mesh=engine.mesh, mesh_opts=engine.mesh_opts,
+                    byte_budget=cache.byte_budget)
+                if entry is not None:
+                    cache.insert((tkey, entry.res, entry.phase), entry)
+                    engine.last_grid = "restored"
     if entry is None:
         entry = build_entry(plan, table, items, device=engine.device,
                             mesh=engine.mesh, mesh_opts=engine.mesh_opts,
-                            byte_budget=cache.byte_budget)
+                            byte_budget=cache.byte_budget, keep_host=persist)
         if entry is None:
             return None
+        engine.last_grid = "built"
         cache.insert((tkey, entry.res, entry.phase), entry)
+        if persist:
+            persist_entry_async(entry, table)
     elif not ensure_states(entry, table, items, cache):
         return None
     return execute_on_entry(engine, plan, table, entry, items)
@@ -1181,26 +1527,27 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         fold = not (g <= entry.num_series
                     and np.array_equal(gid_full[:g], np.arange(g))
                     and (gid_full[g:] == g).all())
-        ns = len(entry.devices)
         fb = _fold_blocks(g, entry.nb, entry.num_series)
-        if fold and ns > 1 and fb == 1:
-            # the JAX package leaves this shape to XLA's auto-SPMD program
-            # and its combine order; the port has no such program
-            raise UnsupportedError(
-                f"sharded fold of {g} groups x {entry.nb} cells: "
-                f"{FOLD_BLOCKS} x {g} x {entry.nb} block partials are past "
-                f"the blocked-fold cap of {_FOLD_CAP} cells")
-        put = _put(entry.devices)
+        # a sharded fold without the blocked form (past the cap, or a
+        # series count that is no multiple of FOLD_BLOCKS) runs the
+        # one-device program on the first shard's device over every
+        # shard's grids, as the JAX package runs its one-device program
+        # over the sharded arrays
+        gathered = fold and len(entry.devices) > 1 and fb == 1
+        devices = entry.devices[:1] if gathered else entry.devices
+        ns = len(devices)
+        put = _put(devices)
         per = entry.num_series // ns
         memo = {
             "gid": put(gid_full),
             "mask": put(active),
             "g": g, "key_cols": key_cols, "fold": fold,
+            "gathered": gathered,
             # shard k folds global blocks [k * fb / ns, (k + 1) * fb / ns):
             # its slice of gid cut into fb / ns blocks of the same width
             "fold_members": ([ring_fold.fold_members(
                 gid_full[k * per:(k + 1) * per], g, fb // ns, dev)
-                for k, dev in enumerate(entry.devices)] if fold else None),
+                for k, dev in enumerate(devices)] if fold else None),
             "delta": int(delta), "lo": lo_c, "hi": hi_c,
         }
         if len(entry.query_memo) >= 32:
@@ -1232,7 +1579,12 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     ns = len(entry.devices)
     comm_bytes = 0
     ring_form = None
-    if entry.mesh is None:
+    if memo["gathered"]:
+        dev0 = entry.devices[0]
+        arrs = {f: {k: [torch.cat([t.to(dev0) for t in parts])]
+                    for k, parts in d.items()} for f, d in arrs.items()}
+        ctx, program = LocalFoldCtx(), "single_gathered"
+    elif entry.mesh is None:
         ctx, program = LocalFoldCtx(), "single"
     elif entry.mesh_decision.kernel == "ring":
         ctx, program = ring_fold.RingFoldCtx(ns), "sharded_ring"

@@ -247,12 +247,16 @@ class QueryEngine:
     `mesh` (parallel/mesh.make_mesh) lets the planner shard large grids
     over the series axis and large GROUP BYs over the row axis;
     `mesh_opts` (parallel/mesh.MeshOptions) holds its thresholds and the
-    ring-kernel knob."""
+    ring-kernel knob. `x64` is the JAX package's jax_enable_x64 mode, off
+    by default as JAX's is; the PromQL engines read it
+    (promql/engine.PromEngine states the rule)."""
 
     def __init__(self, device=None, mesh=None, mesh_opts=None,
                  prefer_device: bool | None = True,
-                 byte_budget: int = device_range._BYTE_BUDGET):
+                 byte_budget: int = device_range._BYTE_BUDGET,
+                 x64: bool = False):
         self.device = resolve_device(device)
+        self.x64 = bool(x64)
         self.prefer_device = prefer_device
         self.mesh = mesh
         self.mesh_opts = mesh_opts
@@ -264,6 +268,11 @@ class QueryEngine:
         # the last GROUP BY's device program (query/reduce), or None
         self.last_reduce = None
         self.last_exec_path = "host"  # observability: host | device
+        # RANGE grids of durable tables persist as restart snapshots and
+        # restore from them (query/device_range); last_grid says whether
+        # the last device RANGE query's grid was a cache "hit", "restored"
+        # from a snapshot or "built" from a scan
+        self.last_grid = None
 
     def execute(self, plan, table) -> QueryResult:
         if table is None:

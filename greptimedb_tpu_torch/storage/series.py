@@ -84,6 +84,15 @@ class SeriesRegistry:
         """Map N rows of tag values to sids, creating new series on demand.
         tag_columns are aligned with tag_names. For tagless tables pass `n`
         explicitly (every row maps to series 0)."""
+        sids, _ = self.intern_rows_delta(tag_columns, n)
+        return sids
+
+    def intern_rows_delta(
+        self, tag_columns: list[np.ndarray], n: int | None = None,
+    ) -> tuple[np.ndarray, list[tuple[int, list[str]]]]:
+        """intern_rows that also reports the series this batch created as
+        (sid, decoded tag values) in sid order: what the WAL records so
+        replay rebuilds the registry without re-interning strings."""
         assert len(tag_columns) == len(self.tag_names)
         if tag_columns:
             n = len(tag_columns[0])
@@ -91,11 +100,13 @@ class SeriesRegistry:
             n = 0
         with self._lock:
             if not tag_columns:
+                new: list[tuple[int, list[str]]] = []
                 if not self._rows:
                     self._series[()] = 0
                     self._rows.append(())
+                    new.append((0, []))
                     self._version += 1
-                return np.zeros(n, dtype=np.int32)
+                return np.zeros(n, dtype=np.int32), new
             codes = [d.intern_array(c) for d, c in zip(self.dicts, tag_columns)]
             # dict work only on distinct tag combinations: rows fold into
             # one int64 key when the code space fits (radix = dict sizes)
@@ -116,7 +127,7 @@ class SeriesRegistry:
                     return_index=True, return_inverse=True,
                 )
             uniq_sids = np.empty(len(first), dtype=np.int32)
-            created = False
+            new = []
             for i, row_idx in enumerate(first):
                 key_t = tuple(int(c[row_idx]) for c in codes)
                 sid = self._series.get(key_t)
@@ -124,11 +135,30 @@ class SeriesRegistry:
                     sid = len(self._rows)
                     self._series[key_t] = sid
                     self._rows.append(key_t)
-                    created = True
+                    new.append((sid, [d.decode(c)
+                                      for d, c in zip(self.dicts, key_t)]))
                 uniq_sids[i] = sid
-            if created:
+            if new:
                 self._version += 1
-            return uniq_sids[np.ravel(inv)]
+            return uniq_sids[np.ravel(inv)], new
+
+    def ensure_series(self, sid: int, tag_values: list[str]) -> None:
+        """Idempotently (re)create one series at a known sid: the WAL
+        replay of an intern delta. Sids arrive in creation order, so a gap
+        means a corrupt log."""
+        with self._lock:
+            if sid < len(self._rows):
+                return
+            if sid != len(self._rows):
+                raise ValueError(
+                    f"series id gap in replay: have {len(self._rows)}, "
+                    f"got {sid}")
+            vals = list(tag_values) + [""] * (len(self.dicts)
+                                              - len(tag_values))
+            key = tuple(d.intern(v) for d, v in zip(self.dicts, vals))
+            self._series[key] = sid
+            self._rows.append(key)
+            self._version += 1
 
     def tag_codes(self, tag_name: str) -> np.ndarray:
         """Per-sid code of one tag column: (num_series,) int32."""
@@ -184,3 +214,21 @@ class SeriesRegistry:
             name: d.decode(code)
             for name, d, code in zip(self.tag_names, self.dicts, row)
         }
+
+    # ---- persistence --------------------------------------------------
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "tag_names": list(self.tag_names),
+                "dicts": [list(d.values) for d in self.dicts],
+                "rows": [[int(c) for c in r] for r in self._rows],
+            }
+
+    @staticmethod
+    def restore(obj: dict) -> "SeriesRegistry":
+        reg = SeriesRegistry(obj["tag_names"])
+        reg.dicts = [Dictionary(vals) for vals in obj["dicts"]]
+        reg._rows = [tuple(r) for r in obj["rows"]]
+        reg._series = {r: i for i, r in enumerate(reg._rows)}
+        reg._version = len(reg._rows)
+        return reg

@@ -946,7 +946,7 @@ def test_promql_on_cuda_matches_cpu(cuda):
     def engine(device, mesh=None, opts=None):
         return PromEngine(types.SimpleNamespace(
             catalog=catalog, query_engine=QueryEngine(
-                device=device, mesh=mesh, mesh_opts=opts)))
+                device=device, mesh=mesh, mesh_opts=opts, x64=True)))
 
     engines = {
         "cuda": engine(cuda),
@@ -1357,7 +1357,7 @@ def test_promql_rest_on_cuda_matches_cpu(cuda):
     def engine(device, mesh=None, opts=None):
         return PromEngine(types.SimpleNamespace(
             catalog=catalog, query_engine=QueryEngine(
-                device=device, mesh=mesh, mesh_opts=opts)))
+                device=device, mesh=mesh, mesh_opts=opts, x64=True)))
 
     engines = {
         "cuda": engine(cuda),
@@ -1421,3 +1421,60 @@ def test_promql_rest_on_cuda_matches_cpu(cuda):
         assert got.labels == want.labels and np.array_equal(
             got.present, want.present), q
         np.testing.assert_allclose(got.values, want.values, rtol=1e-12)
+
+
+def _durable_engine(root, device):
+    from greptimedb_tpu_torch.storage.compaction import CompactionOptions
+    from greptimedb_tpu_torch.storage.engine import EngineConfig, TsdbEngine
+
+    return TsdbEngine(EngineConfig(
+        data_root=str(root), enable_background=False,
+        compaction=CompactionOptions(verify_device_merge=True)),
+        device=device)
+
+
+def _durable_meta():
+    from greptimedb_tpu_torch.storage.region import (
+        RegionMetadata,
+        RegionOptions,
+    )
+
+    return RegionMetadata(
+        region_id=1, table="cpu", tag_names=["hostname"], field_names=["u"],
+        ts_name="ts", options=RegionOptions(compaction_trigger_files=2,
+                                            compaction_window_ms=3_600_000))
+
+
+def test_durable_compaction_and_reopen_on_cuda(cuda, tmp_path):
+    """A durable region's compaction merges on the card (K1 at the fused
+    path's floor, verified against the host merge), and a reopen on the
+    card reads back what the CPU reads."""
+    rng = np.random.default_rng(12)
+    hosts = np.array([f"h{i}" for i in range(400)], object)
+    outs = {}
+    for name, dev in (("cuda", cuda), ("cpu", "cpu")):
+        eng = _durable_engine(tmp_path / name, dev)
+        r = eng.create_region(_durable_meta())
+        rng = np.random.default_rng(12)
+        for k in range(3):
+            ts = np.tile(np.arange(720) * 5_000, 400)
+            hi = np.repeat(np.arange(400), 720)
+            r.write({"hostname": hosts[hi]}, ts,
+                    {"u": rng.random(len(ts))})
+            r.delete({"hostname": hosts[:50]}, np.full(50, 5_000 * k))
+            r.flush()
+        before = mg.gather_planes.launches
+        assert r.compact()
+        if name == "cuda":
+            assert max(r.merge_rows_in) >= dm.DEFAULT_KERNEL_MIN_ROWS
+            assert "fused" in r.merge_paths
+            assert mg.gather_planes.launches > before
+        eng.close()
+        eng = _durable_engine(tmp_path / name, dev)
+        r = eng.open_region(_durable_meta())
+        outs[name] = r.scan(["u"])
+        eng.close()
+    a, b = outs["cuda"], outs["cpu"]
+    for k in ("sid", "ts", "seq", "op"):
+        assert np.array_equal(getattr(a, k), getattr(b, k))
+    assert np.array_equal(a.fields["u"], b.fields["u"])

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor anything of the
-JAX package, and its entry points never fall back to the CPU silently."""
+JAX package, nor pyarrow or msgpack (the card machine has neither), and its
+entry points never fall back to the CPU silently."""
 
 import ast
 import os
@@ -25,9 +26,11 @@ def _imported_modules(path: pathlib.Path):
             yield node.module or ""
 
 
+_FOREIGN = ("jax", "jaxlib", "greptimedb_tpu", "pyarrow", "msgpack")
+
+
 def _foreign(mod: str) -> bool:
-    top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "greptimedb_tpu")
+    return mod.split(".")[0] in _FOREIGN
 
 
 def test_ast_scan_finds_no_jax_or_reference_imports():
@@ -94,19 +97,59 @@ for mesh in (None, make_mesh(["cpu"] * 4)):
         "sum by (region) (rate(cpu[1m]))", 600_000, 1_200_000,
         60_000)[0].num_series > 0
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
+print("LEAKED", leaked)
+"""
+
+_DURABLE_WORKLOAD = r"""
+import sys, tempfile
+import numpy as np
+from greptimedb_tpu_torch.catalog.manager import CatalogManager
+from greptimedb_tpu_torch.storage.engine import EngineConfig, TsdbEngine
+
+root = tempfile.mkdtemp()
+def open_catalog():
+    eng = TsdbEngine(EngineConfig(data_root=root, enable_background=False),
+                     device="cpu")
+    return eng, CatalogManager(eng)
+eng, cat = open_catalog()
+t = cat.create_table("public", "cpu", ts_name="ts", tag_names=["h"],
+                     fields=["u"], options={"compaction_trigger_files": 2})
+for k in range(3):
+    t.write({"h": np.array(["a", "b"], object)}, np.array([k, k]),
+            {"u": np.array([1.0, 2.0])})
+    t.flush()
+t.compact()
+eng.close()
+eng, cat = open_catalog()
+assert len(cat.table("public", "cpu").scan().rows) == 6
+eng.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
 print("LEAKED", leaked)
 """
 
 
-def test_port_workload_loads_no_jax():
+def _run_workload(workload):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
-    out = subprocess.run([sys.executable, "-c", _WORKLOAD], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", workload], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LEAKED []" in out.stdout
+
+
+def test_port_workload_loads_no_jax():
+    _run_workload(_WORKLOAD)
+
+
+def test_durable_workload_loads_no_jax_pyarrow_or_msgpack():
+    """Write, flush, compact and reopen a durable table: the storage path
+    loads neither pyarrow nor msgpack (the card machine has neither)."""
+    _run_workload(_DURABLE_WORKLOAD)
 
 
 @pytest.fixture
@@ -129,6 +172,17 @@ def test_entry_points_refuse_to_fall_back_without_cuda(no_cuda):
     # an explicit CPU request runs the plain versions
     out, path = merge_rows(rows, device="cpu")
     assert path == "host" and len(out) == 4
+
+
+def test_storage_engine_refuses_to_fall_back_without_cuda(no_cuda,
+                                                          tmp_path):
+    from greptimedb_tpu_torch.storage.engine import EngineConfig, TsdbEngine
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TsdbEngine(EngineConfig(data_root=str(tmp_path)))
+    eng = TsdbEngine(EngineConfig(data_root=str(tmp_path)), device="cpu")
+    assert eng.device.type == "cpu"
+    eng.close()
 
 
 def test_instance_refuses_to_fall_back_without_cuda(no_cuda):

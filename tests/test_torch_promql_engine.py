@@ -183,7 +183,8 @@ def both(tmp_path_factory):
                   fields=["greptime_value"]))
         table.write(tags, ts, {"greptime_value": vals})
     holder = types.SimpleNamespace(catalog=catalog,
-                                   query_engine=QueryEngine(device="cpu"))
+                                   query_engine=QueryEngine(device="cpu",
+                                                            x64=True))
     yield JPromEngine(inst), PromEngine(holder)
     JF.invalidate_cache()
     TF.invalidate_cache()

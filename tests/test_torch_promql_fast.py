@@ -121,7 +121,8 @@ def _metrics_runs():
 def _port_instance(catalog, **engine_kw):
     """The holder the engine reads: a catalog and a query engine."""
     return types.SimpleNamespace(
-        catalog=catalog, query_engine=QueryEngine(device="cpu", **engine_kw))
+        catalog=catalog, query_engine=QueryEngine(device="cpu", x64=True,
+                                                  **engine_kw))
 
 
 def _port_engines(catalog):

@@ -125,7 +125,7 @@ def test_range_functions_match_jax(shape, fused):
                                           args=args)
         wv, wp = (np.asarray(x) for x in want)
         gv, gp = TK.eval_range_function(name, tv, th, tt, twin, tps,
-                                        args=args, fused=fused)
+                                        args=args, fused=fused, x64=True)
         gv, gp = gv.numpy(), gp.numpy()
         assert np.array_equal(wp, gp), (name, args)
         assert _same(wv, gv).all(), (name, args, wv[~_same(wv, gv)][:4],
@@ -233,7 +233,7 @@ def test_mid_window_linear_fit_within_reorder_bound(l_cells, fused):
                                           args=args)
         wv, wp = (np.asarray(a) for a in want)
         gv, gp = TK.eval_range_function(name, tv, th, tg, twin, tps,
-                                        args=args, fused=fused)
+                                        args=args, fused=fused, x64=True)
         gv, gp = gv.numpy(), gp.numpy()
         assert np.array_equal(wp, gp), name
         held = clean & wp

@@ -159,7 +159,8 @@ _DDL = {
 def _engines(catalog):
     def holder(**kw):
         return types.SimpleNamespace(
-            catalog=catalog, query_engine=QueryEngine(device="cpu", **kw))
+            catalog=catalog, query_engine=QueryEngine(device="cpu", x64=True,
+                                                      **kw))
 
     out = {"single": holder()}
     for ns in SHARDS:

@@ -31,7 +31,6 @@ from greptimedb_tpu.query.executor import QueryEngine as JQueryEngine
 from greptimedb_tpu.query.planner import plan_select
 from greptimedb_tpu.sql.parser import parse_sql
 from greptimedb_tpu_torch.catalog.table import Table
-from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
 from greptimedb_tpu_torch.query import device_range as tdr
@@ -228,18 +227,45 @@ def test_planner_replicates_small_grids_by_default(setup):
 
 
 def test_oversized_sharded_fold_raises(setup, monkeypatch):
-    tt, plans, _, _ = setup
+    """A sharded fold past the blocked-fold cap no longer raises: it
+    gathers every shard's grids to the first shard's device and answers
+    as the one-device program does, bit for bit."""
+    tt, plans, want_single, _ = setup
     monkeypatch.setattr(tdr, "_FOLD_CAP", 1)    # every fold past the cap
     eng = QueryEngine(device="cpu", mesh=make_mesh(["cpu"] * 2),
                       mesh_opts=PORT_OPTS["ring"])
-    with pytest.raises(UnsupportedError, match="blocked-fold cap"):
-        eng.execute(plan_from_fields(plans["q2_by_region"]), tt)
+    res = eng.execute(plan_from_fields(plans["q2_by_region"]), tt)
+    assert eng.last_range["program"] == "single_gathered"
     # without a fold (one group per host) the sharded path still runs
     eng.execute(plan_from_fields(plans["q1_double_groupby_all"]), tt)
     assert eng.last_range["program"] == "sharded_ring"
-    # one device: fb = 1 degenerates to the direct fold
+    # one device: fb = 1 degenerates to the direct fold, the same program
     single = QueryEngine(device="cpu")
-    single.execute(plan_from_fields(plans["q2_by_region"]), tt)
+    _assert_identical(
+        single.execute(plan_from_fields(plans["q2_by_region"]), tt), res)
+
+
+@pytest.mark.parametrize("ns", SHARDS)
+@pytest.mark.parametrize("variant", ["ring", "gather"])
+def test_sharded_fold_without_blocks_gathers(setup, monkeypatch, ns,
+                                             variant):
+    """_fold_blocks == 1 on a sharded entry (the two conditions that reach
+    it: 8 g nb past the cap, or a series count no multiple of 8) answers
+    on the first shard's device, bit-identical to the port on one device
+    folding the same way (the direct fold, fb = 1)."""
+    tt, plans, _, _ = setup
+    monkeypatch.setattr(tdr, "_fold_blocks", lambda g, nb, s: 1)
+    plan = plans["q2_by_region"]
+    want = QueryEngine(device="cpu").execute(plan_from_fields(plan), tt)
+    eng = QueryEngine(device="cpu", mesh=make_mesh(["cpu"] * ns),
+                      mesh_opts=PORT_OPTS[variant])
+    for _ in range(2):                           # cold, then memoized
+        res = eng.execute(plan_from_fields(plan), tt)
+        assert eng.last_range["program"] == "single_gathered"
+        assert eng.last_range["decision"] == "shard(large_grid)"
+        _assert_identical(want, res)
+    entry = next(iter(eng.range_cache._entries.values()))
+    assert len(entry.devices) == ns and len(entry.nrow) == ns
 
 
 def test_sharded_prelude_equals_one_device(setup):
