@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
-                          [--rest-warm 5]
+                          [--rest-warm 5] [--server-hours 3]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -198,6 +198,46 @@ result line):
              restore (serial and pipelined) and open ms, snapshot cold
              time beside the rebuild's. K1 and K2 counts are zeroed before
              the phase and read after it. The data root is removed.
+12. server — the standalone server: a Standalone on the card in a
+             temporary data root serves HttpServer(inst, port=0); a second
+             Standalone(device="cpu") in another root, the reference, runs
+             in a worker process of its own and is fed the same payloads
+             and statements through the same module functions (no HTTP)
+             while the card's server works. Data: phase 2's TSBS devops
+             rows (4000 hosts, 9 regions, 10 s, ten usage_* fields, same
+             seed), cut to the first --server-hours 3 hours (4.32 M rows
+             plus 10 % re-deliveries) for the script's time limit. CREATE
+             TABLE goes over /v1/sql; each hour's four runs and its
+             re-delivery go as line protocol (precision=ms) in bodies of
+             10,000 lines (tsbs_load's --batch-size, formatted ahead on
+             four worker processes) to /v1/influxdb/write, with an ADMIN
+             flush_table after each run; the hour's tombstones are one
+             DELETE ... WHERE hostname IN (1 % of the hosts) AND ts in the
+             hour. Then ADMIN flush_table and compact_table over /v1/sql:
+             K1 must launch in every window merge of 262,144 rows or more,
+             and the card table's full scan must equal the reference's
+             bit for bit. Over HTTP, each once cold and five times warm:
+             Q1 and Q2 as SQL text, GROUP BY hostname and max by (region)
+             (rate(cpu[1m])) on /v1/prometheus/api/v1/query_range; every
+             request's launches are counted: each Q2 and PromQL request
+             must launch K2, each GROUP BY G, Q2 and the GROUP BY must take
+             the device path, and the PromQL fast path must serve each
+             PromQL request. Every answer equals the reference's (exact;
+             Q1's means within the reduction-order bound); Q2 and the
+             PromQL query run once more under the profiler. Then
+             Prometheus remote write: 20 metrics x 1,000 series (job,
+             instance) x 40 samples at 15 s in snappy WriteRequests of
+             2,000 samples (max_samples_per_send), sum by (job)
+             (rate(m_0[1m])) through the fast path within the
+             matrix-product bound of the reference's, and /read of m_0
+             equal to the reference's. Last, close, reopen from the data
+             root and Q1 over HTTP again. Printed: line-protocol rows/s
+             over HTTP and of the parse alone (native and Python),
+             remote-write samples/s, flush and compaction seconds, cold
+             and warm walls and launches (cold, per warm request) per
+             query, device ms and idle share of Q2 and the PromQL query,
+             reopen ms. Kernel counts are zeroed before the phase and read
+             after it; both data roots are removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -3153,6 +3193,7 @@ def durable_phase(args, dev, slice_out, P):
     import shutil
     import tempfile
 
+    from greptimedb_tpu_torch.datatypes.schema import Schema
     from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
     from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
     from greptimedb_tpu_torch.query import device_range as DR
@@ -3176,10 +3217,11 @@ def durable_phase(args, dev, slice_out, P):
     try:
         eng, cat = durable_catalog(root, dev)
         table = cat.create_table(
-            "public", "cpu", ts_name="ts", tag_names=["hostname", "region"],
-            fields=FIELDS, options={"compaction_trigger_files": 2,
-                                    "compaction_window_ms": HOUR_MS,
-                                    "memtable_window_ms": HOUR_MS})
+            "public", "cpu", Schema.of("ts", ["hostname", "region"],
+                                       dict.fromkeys(FIELDS, np.float64)),
+            options={"compaction_trigger_files": 2,
+                     "compaction_window_ms": HOUR_MS,
+                     "memtable_window_ms": HOUR_MS})
         # ---- ingest: phase 2's writes, each hour's four runs as one
         # batch (bench.py's hourly WAL batches), then its re-delivery
         # and tombstone runs; a flush after each write
@@ -3377,6 +3419,591 @@ def check_high_cpu(table, name, res):
     return int(sel.sum())
 
 
+# ---- phase 12: server ----------------------------------------------------
+
+LP_BATCH = 10_000           # lines a body: tsbs_load's default --batch-size
+RW_SERIES, RW_METRICS, RW_SAMPLES = 1_000, 20, 40
+RW_STEP_MS = 15_000
+RW_SEND = 2_000             # samples a WriteRequest: max_samples_per_send
+RW_JOBS = 10
+
+
+def lp_bodies(tags, ts, fields):
+    """One run as line-protocol bodies of LP_BATCH lines (precision ms)."""
+    fmt = ("cpu,hostname={},region={} "
+           + ",".join(f"{f}={{}}" for f in FIELDS) + " {}")
+    cols = [list(map(repr, fields[f].tolist())) for f in FIELDS]
+    lines = list(map(fmt.format, tags["hostname"].tolist(),
+                     tags["region"].tolist(), *cols, ts.tolist()))
+    return ["\n".join(lines[i:i + LP_BATCH])
+            for i in range(0, len(lines), LP_BATCH)]
+
+
+def run_bodies(run):
+    """lp_bodies of one put run (a pool worker's task)."""
+    return lp_bodies(*run[1:])
+
+
+def server_batches(args, rng, hosts, region_of, pool):
+    """Phase 12's writes in order: ("lp", body) line-protocol bodies of
+    each hour's four runs and its re-delivery (phase 2's rows: the same
+    rng, drawn as phase 2 draws it), each followed by ("sql", flush), then
+    ("sql", DELETE) for the hour's tombstones (1 % of its rows: 1 % of the
+    hosts, drawn from their own rng, over the hour) and a flush. The
+    bodies are formatted on `pool`'s worker processes, ahead of the
+    writes."""
+    flush = "ADMIN flush_table('cpu')"
+    hours = list(tsbs_hours(rng, hosts, region_of, args.server_hours))
+    bodies = pool.imap(run_bodies, [run for runs in hours
+                                    for run in runs[:5]])
+    gone_rng = np.random.default_rng(args.seed + 12)
+    for h in range(len(hours)):
+        for _ in range(5):
+            for body in next(bodies):
+                yield "lp", body
+            yield "sql", flush
+        gone = gone_rng.choice(len(hosts), max(1, len(hosts) // 100),
+                               replace=False)
+        names = ", ".join(f"'{hosts[i]}'" for i in sorted(gone))
+        yield "sql", (f"DELETE FROM cpu WHERE hostname IN ({names}) AND "
+                      f"ts >= {h * HOUR_MS} AND ts < {(h + 1) * HOUR_MS}")
+        yield "sql", flush
+
+
+def rw_requests():
+    """Remote write: RW_METRICS metrics x RW_SERIES series (job, instance
+    labels), RW_SAMPLES samples at RW_STEP_MS, as snappy WriteRequests of
+    RW_SEND samples (whole series)."""
+    from greptimedb_tpu_torch.servers import snappy
+    from greptimedb_tpu_torch.servers.prom_store import (
+        _field_bytes,
+        _field_double,
+        _field_varint,
+    )
+
+    rng = np.random.default_rng(17)
+    per = RW_SEND // RW_SAMPLES
+    stamps = [_field_varint(2, k * RW_STEP_MS) for k in range(RW_SAMPLES)]
+    for m in range(RW_METRICS):
+        counters = np.cumsum(rng.random((RW_SERIES, RW_SAMPLES)) * 10,
+                             axis=1)
+        for s0 in range(0, RW_SERIES, per):
+            msg = []
+            for s in range(s0, s0 + per):
+                labels = b"".join(
+                    _field_bytes(1, _field_bytes(1, k.encode())
+                                 + _field_bytes(2, v.encode()))
+                    for k, v in (("__name__", f"m_{m}"),
+                                 ("job", f"j{s % RW_JOBS}"),
+                                 ("instance", f"i{s}")))
+                samples = b"".join(
+                    _field_bytes(2, _field_double(1, float(v)) + st)
+                    for v, st in zip(counters[s].tolist(), stamps))
+                msg.append(_field_bytes(1, labels + samples))
+            yield snappy.compress(b"".join(msg))
+
+
+def http_call(port, path, data=None, headers=None):
+    """(status, body bytes, headers) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def http_sql(port, text):
+    import urllib.parse
+
+    status, body, _ = http_call(
+        port, "/v1/sql", urllib.parse.urlencode({"sql": text}).encode(),
+        {"Content-Type": "application/x-www-form-urlencoded"})
+    if status != 200:
+        raise AssertionError(f"/v1/sql {status}: {body[:300]!r}: {text[:80]}")
+    doc = json.loads(body)
+    doc.pop("execution_time_ms")
+    return doc
+
+
+def json_result(doc):
+    """The last output of a /v1/sql answer as columns (names, num_rows,
+    cols with values and valid_mask), for compare_engines."""
+    from types import SimpleNamespace
+
+    rec = doc["output"][-1]["records"]
+    names = [c["name"] for c in rec["schema"]["column_schemas"]]
+    cols = []
+    for j in range(len(names)):
+        vals = [r[j] for r in rec["rows"]]
+        mask = np.array([v is not None for v in vals], bool)
+        kinds = {type(v) for v in vals if v is not None}
+        if kinds <= {int}:
+            arr = np.array([0 if v is None else v for v in vals], np.int64)
+        elif kinds <= {int, float}:
+            arr = np.array([0.0 if v is None else v for v in vals],
+                           np.float64)
+        else:
+            arr = np.array(["" if v is None else v for v in vals], object)
+        cols.append(SimpleNamespace(values=arr, valid_mask=mask))
+    return SimpleNamespace(names=names, num_rows=rec["total_rows"],
+                           cols=cols)
+
+
+def cpu_sql(inst, text):
+    """`text` run in process on `inst`, in the /v1/sql envelope's form."""
+    from greptimedb_tpu_torch.servers.http import result_to_json
+
+    return json.loads(json.dumps({"output": [
+        result_to_json(o.result) if o.result is not None
+        else {"affectedrows": o.affected_rows or 0}
+        for o in inst.execute_sql(text)]}))
+
+
+def prom_range(port, q, start_s, end_s, step):
+    import urllib.parse
+
+    enc = urllib.parse.urlencode({"query": q, "start": start_s,
+                                  "end": end_s, "step": step})
+    status, body, _ = http_call(
+        port, f"/v1/prometheus/api/v1/query_range?{enc}")
+    if status != 200:
+        raise AssertionError(f"query_range {status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def prom_matrix(doc):
+    """{labels: (ts list, float values)} of a matrix answer."""
+    return {tuple(sorted(r["metric"].items())):
+            ([v[0] for v in r["values"]],
+             np.array([float(v[1]) for v in r["values"]]))
+            for r in doc["data"]["result"]}
+
+
+# the phase's CPU reference: a Standalone(device="cpu") in a process of
+# its own (a one-worker pool, so its calls run in the order they were
+# sent), fed while the card's server works
+_REF = None
+
+
+def ref_open(root):
+    """The reference worker's initializer."""
+    global _REF
+    from greptimedb_tpu_torch.instance import Standalone
+
+    _REF = Standalone(root, device="cpu")
+
+
+def ref_sql(text):
+    return cpu_sql(_REF, text)
+
+
+def ref_write_lines(body):
+    from greptimedb_tpu_torch.servers import influx
+
+    influx.write_lines(_REF, body, precision="ms")
+
+
+def ref_scan():
+    return _REF.catalog.table("public", "cpu").scan(FIELDS).rows
+
+
+def ref_prom(q, start_ms, end_ms, step_ms):
+    """A query_range's matrix as the HTTP API writes it."""
+    from greptimedb_tpu_torch.promql.engine import PromEngine
+    from greptimedb_tpu_torch.servers.http import _prom_matrix_json
+
+    return json.loads(json.dumps(_prom_matrix_json(
+        *PromEngine(_REF).query_range(q, start_ms, end_ms, step_ms))))
+
+
+def ref_remote_write(body):
+    from greptimedb_tpu_torch.servers import prom_store
+
+    prom_store.remote_write(_REF, body)
+
+
+def ref_rw_bound(q, rate_q, end_ms, step_ms):
+    """`q` (a sum by (job) of `rate_q`) as a matrix, with the step times
+    and, per job and step, the sum of |rate| over the job's series: the
+    matrix-product bound's scale."""
+    from greptimedb_tpu_torch.promql.engine import PromEngine
+
+    rates, ev = PromEngine(_REF).query_range(rate_q, 0, end_ms, step_ms)
+    abs_sum = {}
+    for lab, vals, pres in zip(rates.labels, rates.values, rates.present):
+        key = (("job", lab["job"]),)
+        abs_sum[key] = abs_sum.get(key, 0) + np.where(pres, np.abs(vals), 0)
+    return ref_prom(q, 0, end_ms, step_ms), abs_sum, ev.step_ts
+
+
+def ref_remote_read(body):
+    from greptimedb_tpu_torch.servers import prom_store
+
+    return prom_store.remote_read(_REF, body)
+
+
+def ref_close():
+    _REF.close()
+
+
+def server_phase(args, dev):
+    """Phase 12 (see the module docstring). Returns every kernel's
+    launches over the phase's main path."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.promql import fast as TF
+    from greptimedb_tpu_torch.servers import http as H
+    from greptimedb_tpu_torch.servers import influx, snappy
+    from greptimedb_tpu_torch.servers.prom_store import (
+        _field_bytes,
+        _field_varint,
+    )
+    from greptimedb_tpu_torch.storage.device_merge import (
+        DEFAULT_KERNEL_MIN_ROWS,
+    )
+
+    t_phase = time.perf_counter()
+    roots = [tempfile.mkdtemp(prefix="chip_smoke_server_"),
+             tempfile.mkdtemp(prefix="chip_smoke_server_cpu_")]
+    out, launches = {}, {}
+    zero_counts(rf, mg)
+    for k in GROUPED_KERNELS:
+        getattr(gr, k).launches = 0
+
+    def all_counts():
+        return {**counts(rf, mg),
+                **{k: getattr(gr, k).launches for k in GROUPED_KERNELS}}
+
+    # PromQL requests the fast path served (the HTTP API builds a
+    # PromEngine a request, so its last_fast notes are out of reach)
+    fast_hits = [0]
+    try_fast = TF.try_fast
+
+    def counted_try_fast(engine, e, ev):
+        hit = try_fast(engine, e, ev)
+        fast_hits[0] += hit is not None
+        return hit
+
+    card = srv = pool = ref = None
+    try:
+        TF.try_fast = counted_try_fast
+        ctx = mp.get_context("spawn")
+        ref = ctx.Pool(1, initializer=ref_open, initargs=(roots[1],))
+        card = Standalone(roots[0], device=dev)
+        srv = H.HttpServer(card, port=0).start()
+        port = srv.port
+
+        def ref_get(res):
+            return res.get(timeout=900)
+
+        create = ("CREATE TABLE cpu (ts TIMESTAMP TIME INDEX, hostname "
+                  "STRING, region STRING, "
+                  + ", ".join(f"{f} DOUBLE" for f in FIELDS)
+                  + ", PRIMARY KEY (hostname, region))")
+        want = ref.apply_async(ref_sql, (create,))
+        if http_sql(port, create) != ref_get(want):
+            raise AssertionError("server CREATE TABLE differs from the CPU")
+
+        # ---- ingest: line protocol over HTTP; the reference takes each
+        # body and statement in process while the card's server works
+        rng = np.random.default_rng(args.seed)
+        hosts = np.array([f"host_{i}" for i in range(args.hosts)])
+        region_of = np.array(AWS_REGIONS)[rng.integers(
+            0, len(AWS_REGIONS), args.hosts)]
+        lp_s = lp_bytes = rows = bodies = 0
+        sql_s = {"delete": 0.0, "flush": 0.0}
+        parse_sample = []
+        pending = []
+        pool = ctx.Pool(4)
+        for kind, payload in server_batches(args, rng, hosts, region_of,
+                                            pool):
+            if kind == "lp":
+                pending.append(ref.apply_async(ref_write_lines, (payload,)))
+                data = payload.encode()
+                t = time.perf_counter()
+                status, body, _ = http_call(
+                    port, "/v1/influxdb/write?precision=ms", data)
+                lp_s += time.perf_counter() - t
+                if status != 204:
+                    raise AssertionError(f"influx write {status}: {body!r}")
+                lp_bytes += len(data)
+                rows += payload.count("\n") + 1
+                bodies += 1
+                if len(parse_sample) < 10:
+                    parse_sample.append(payload)
+                continue
+            want = ref.apply_async(ref_sql, (payload,))
+            t = time.perf_counter()
+            got = http_sql(port, payload)
+            sql_s["flush" if payload.startswith("ADMIN") else
+                  "delete"] += time.perf_counter() - t
+            for res in pending:
+                ref_get(res)
+            pending = []
+            if got != ref_get(want):
+                raise AssertionError(f"server {payload[:40]} differs from "
+                                     f"the CPU")
+        pool.close()
+        pool.join()
+        pool = None
+        torch.cuda.synchronize()
+        sample = "\n".join(parse_sample)
+        n_sample = sample.count("\n") + 1
+        parse = {}
+        for name, native in (("native", True), ("python", False)):
+            t = time.perf_counter()
+            influx.parse_payload(sample, native=native)
+            parse[name] = n_sample / (time.perf_counter() - t)
+        out["ingest"] = {
+            "rows": rows, "bodies": bodies, "bytes": lp_bytes,
+            "http_s": lp_s, "rows_per_s_http": rows / lp_s,
+            "parse_rows_per_s": parse, "parse_sample_rows": n_sample,
+            "delete_s": sql_s["delete"], "flush_s": sql_s["flush"]}
+
+        # ---- flush and compaction over /v1/sql (K1 in every window
+        # merge of DEFAULT_KERNEL_MIN_ROWS rows or more)
+        ref_flush = ref.apply_async(ref_sql, ("ADMIN flush_table('cpu')",))
+        ref_compact = ref.apply_async(ref_sql,
+                                      ("ADMIN compact_table('cpu')",))
+        ref_rows = ref.apply_async(ref_scan)
+        region = card.catalog.table("public", "cpu").region
+        k1 = mg.gather_planes.launches
+        t = time.perf_counter()
+        doc = http_sql(port, "ADMIN flush_table('cpu')")
+        flush_s = time.perf_counter() - t
+        if doc != ref_get(ref_flush):
+            raise AssertionError("server flush answer differs from the CPU")
+        t = time.perf_counter()
+        doc = http_sql(port, "ADMIN compact_table('cpu')")
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t
+        k1 = mg.gather_planes.launches - k1
+        if doc != ref_get(ref_compact):
+            raise AssertionError("server compaction answer differs from "
+                                 "the CPU")
+        big = [p for p, n in zip(region.merge_paths, region.merge_rows_in)
+               if n >= DEFAULT_KERNEL_MIN_ROWS]
+        if doc["output"][0]["records"]["rows"] != [[1]] or not big \
+                or set(big) != {"fused"} or k1 < len(big):
+            raise AssertionError(
+                f"server compaction {region.merge_paths} "
+                f"{region.merge_rows_in}: K1 launched {k1} times")
+        out["compaction"] = {"flush_s": flush_s, "compact_s": compact_s,
+                             "merges": len(region.merge_paths),
+                             "rows_in": region.merge_rows_in,
+                             "k1_launches": k1}
+        same_scan("server scan after compaction", ref_get(ref_rows),
+                  card.catalog.table("public", "cpu").scan(FIELDS).rows)
+
+        # ---- queries over HTTP, cold then five times warm, against the
+        # reference; every request's launches are counted. `kernel`: the
+        # kernel each request must launch; `path`: the SQL engine's path
+        suite = {n: s for n, s, *_ in sql_suite(
+            args.hosts, args.server_hours, len(AWS_REGIONS))}
+        span = (0, args.server_hours * 3600)
+        promq = 'max by (region) (rate(cpu{__field__="usage_user"}[1m]))'
+        queries = [
+            ("q1", suite["double_groupby_all"], {"w": HOUR_MS // STEP_MS,
+                                                 "bounded": "avg("}),
+            ("q2", suite["q2_by_region"], {"kernel": "blocked_fold_sum",
+                                           "path": "device"}),
+            ("groupby_hostname", "SELECT hostname, avg(usage_user) FROM cpu "
+             "GROUP BY hostname", {"kernel": "grouped_block_reduce",
+                                   "path": "device"}),
+            # the fast path's max: a segment extreme, and K2 for the
+            # count of present series a group
+            ("promql_max_by_region", promq, {"kernel": "blocked_fold_sum",
+                                             "promql": True}),
+        ]
+        wants = {name: ref.apply_async(ref_prom, (text, span[0] * 1000,
+                                                  span[1] * 1000, 60_000))
+                 if spec.get("promql") else ref.apply_async(ref_sql, (text,))
+                 for name, text, spec in queries}
+
+        def request(text, spec):
+            if spec.get("promql"):
+                return prom_range(port, text, *spec.get("span", span),
+                                  spec.get("step", 60))
+            return http_sql(port, text)
+
+        def counted_request(name, text, spec):
+            """One request: (answer, wall s, launches, fast-path hits)."""
+            before, hits = all_counts(), fast_hits[0]
+            t = time.perf_counter()
+            got = request(text, spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            after = all_counts()
+            ran = {k: after[k] - before[k] for k in after
+                   if after[k] > before[k]}
+            hit = fast_hits[0] - hits
+            if spec.get("kernel") and not ran.get(spec["kernel"]):
+                raise AssertionError(f"server {name} did not launch "
+                                     f"{spec['kernel']}: {ran}")
+            if spec.get("promql") and hit != 1:
+                raise AssertionError(f"server {name}: the PromQL fast path "
+                                     f"served {hit} times, not once")
+            if spec.get("path") and \
+                    card.query_engine.last_exec_path != spec["path"]:
+                raise AssertionError(
+                    f"server {name} ran {card.query_engine.last_exec_path}")
+            return got, wall, ran
+
+        q_out = {}
+        answers = {}
+        for name, text, spec in queries:
+            got, cold, cold_ran = counted_request(name, text, spec)
+            warm, warm_ran = [], {}
+            for _ in range(5):
+                _, wall, ran = counted_request(name, text, spec)
+                warm.append(wall)
+                for k, v in ran.items():
+                    warm_ran[k] = warm_ran.get(k, 0) + v
+            want = ref_get(wants[name])
+            q_out[name] = {"cold_s": cold,
+                           "warm_median_s": float(np.median(warm)),
+                           "launches_cold": cold_ran,
+                           "launches_per_warm": {k: v / 5 for k, v
+                                                 in warm_ran.items()}}
+            if spec.get("promql"):
+                if got != want:
+                    raise AssertionError(f"server {name} differs from the "
+                                         f"CPU")
+                q_out[name]["series"] = len(got["data"]["result"])
+                continue
+            ref_res, res = json_result(want), json_result(got)
+            bounded = [c for c in ref_res.names
+                       if spec.get("bounded") and c.startswith(
+                           spec["bounded"])]
+            _, worst = compare_engines(f"server {name}", ref_res, res,
+                                       spec.get("w", 1), bounded)
+            answers[name] = (text, ref_res, spec)
+            q_out[name].update(rows=res.num_rows, max_rel_diff_vs_cpu=worst)
+        for name, text, spec in queries:
+            if name in ("q2", "promql_max_by_region"):
+                p = profiled(lambda: request(text, spec))
+                q_out[name].update(device_ms=p["device_ms"],
+                                   idle_share=p["idle_share"],
+                                   profile_wall_ms=p["wall_ms"])
+        out["queries"] = q_out
+
+        # ---- Prometheus remote write into the metric engine
+        t = time.perf_counter()
+        n_req = 0
+        rw_http_s = 0.0
+        for body in rw_requests():
+            pending.append(ref.apply_async(ref_remote_write, (body,)))
+            t0 = time.perf_counter()
+            status, resp, _ = http_call(
+                port, "/v1/prometheus/write", body,
+                {"Content-Encoding": "snappy",
+                 "Content-Type": "application/x-protobuf"})
+            rw_http_s += time.perf_counter() - t0
+            if status != 204:
+                raise AssertionError(f"remote write {status}: {resp!r}")
+            n_req += 1
+        for res in pending:
+            ref_get(res)
+        pending = []
+        samples = RW_METRICS * RW_SERIES * RW_SAMPLES
+        rwq = "sum by (job) (rate(m_0[1m]))"
+        rw_span = (0, RW_SAMPLES * RW_STEP_MS // 1000)
+        rw_ref = ref.apply_async(ref_rw_bound, (
+            rwq, "rate(m_0[1m])", rw_span[1] * 1000, RW_STEP_MS))
+        rw_spec = {"promql": True, "span": rw_span,
+                   "step": RW_STEP_MS // 1000}
+        doc, rw_cold, rw_ran = counted_request("remote-write query", rwq,
+                                               rw_spec)
+        got = prom_matrix(doc)
+        want_doc, abs_sum, step_ts = ref_get(rw_ref)
+        want = prom_matrix(want_doc)
+        # both sides sum each job's rates in one float32 matrix product
+        # (cuBLAS's order on the card, the CPU BLAS's here): |diff| <=
+        # 2 gamma_n sum |x|, n = rows per fold block + 8 blocks
+        s_pad = 1 << max(3, (RW_SERIES - 1).bit_length())
+        n_rows = s_pad // 8 + 8
+        gamma = n_rows * U / (1 - n_rows * U)
+        if got.keys() != want.keys():
+            raise AssertionError("remote-write query groups differ")
+        rw_worst = 0.0
+        for key, (ts_w, v_w) in want.items():
+            ts_g, v_g = got[key]
+            idx = np.searchsorted(step_ts / 1000.0, ts_w)
+            if ts_g != ts_w or not np.all(
+                    np.abs(v_g - v_w) <= 2 * gamma * abs_sum[key][idx]):
+                raise AssertionError(f"remote-write query {key} past the "
+                                     f"matrix-product bound")
+            rw_worst = max(rw_worst, float(np.max(np.abs(v_g - v_w)
+                                                  / np.abs(v_w))))
+        rr = snappy.compress(_field_bytes(1, _field_varint(1, 0)
+                                          + _field_varint(2, 10**9)
+                                          + _field_bytes(3, _field_varint(1, 0)
+                                          + _field_bytes(2, b"__name__")
+                                          + _field_bytes(3, b"m_0"))))
+        rr_want = ref.apply_async(ref_remote_read, (rr,))
+        t0 = time.perf_counter()
+        status, resp, _ = http_call(port, "/v1/prometheus/read", rr)
+        read_s = time.perf_counter() - t0
+        if status != 200 or snappy.decompress(resp) != snappy.decompress(
+                ref_get(rr_want)):
+            raise AssertionError("remote read differs from the CPU")
+        out["remote_write"] = {
+            "requests": n_req, "samples": samples, "http_s": rw_http_s,
+            "samples_per_s_http": samples / rw_http_s,
+            "phase_s": time.perf_counter() - t,
+            "query_cold_s": rw_cold, "query_launches": rw_ran,
+            "query_max_rel_diff_vs_cpu": rw_worst,
+            "read_s": read_s, "read_bytes": len(resp)}
+
+        # ---- close, reopen from the data root, Q1 again
+        srv.stop()
+        srv = None
+        card.close()
+        t = time.perf_counter()
+        card = Standalone(roots[0], device=dev)
+        reopen_ms = (time.perf_counter() - t) * 1e3
+        card.warm_thread.join()
+        srv = H.HttpServer(card, port=0).start()
+        port = srv.port
+        text, ref_res, spec = answers["q1"]
+        got, q1_reopen_s, ran = counted_request("q1 after reopen", text,
+                                                spec)
+        compare_engines("server q1 after reopen", ref_res, json_result(got),
+                        spec["w"], [c for c in ref_res.names
+                                    if c.startswith("avg(")])
+        out["reopen"] = {"open_ms": reopen_ms, "q1_cold_s": q1_reopen_s,
+                         "q1_launches": ran}
+        launches = all_counts()
+        out["launches"] = launches
+        ref_get(ref.apply_async(ref_close))
+    finally:
+        TF.try_fast = try_fast
+        for p in (pool, ref):
+            if p is not None:
+                p.terminate()
+                p.join()
+        if srv is not None:
+            srv.stop()
+        if card is not None:
+            card.close()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "server", "card": nvidia_smi_line(), **out})
+    return launches
+
+
 def run(args) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3536,6 +4163,8 @@ def run(args) -> int:
     rest_launches, g_at_f = promql_rest_phase(args, dev, prom_out)
     # ---- 11. durable ---------------------------------------------------
     durable_launches = durable_phase(args, dev, slice_out, P)
+    # ---- 12. server ----------------------------------------------------
+    server_launches = server_phase(args, dev)
     # every kernel's launches over the main-path runs of phases 2 and 6
     # to 10; the hop ring's seed, continuation and combines ran in phase 8
     # only, Gt in phase 9 only, G in phases 9 and 10
@@ -3571,6 +4200,9 @@ def run(args) -> int:
         if durable_launches.get(name):
             row["launches"] += durable_launches[name]
             row["launches_durable"] = durable_launches[name]
+        if server_launches.get(name):
+            row["launches"] += server_launches[name]
+            row["launches_server"] = server_launches[name]
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched")
     print(smi, flush=True)
@@ -3592,6 +4224,8 @@ def main() -> int:
     ap.add_argument("--hist-pods", type=int, default=12_500)
     ap.add_argument("--rest-warm", type=int, default=5,
                     help="warm runs of each phase-10 query (median)")
+    ap.add_argument("--server-hours", type=int, default=3,
+                    help="hours of TSBS devops phase 12 writes over HTTP")
     args = ap.parse_args()
     try:
         return run(args)

@@ -1,11 +1,23 @@
 """A single-region table: schema, writes, compaction and scans.
 
+A Table carries its TableInfo (catalog/manager.py): name, database, table
+id, engine, options and a typed Schema (datatypes/schema.py: semantic
+type, data type, nullability and default of every column), as the JAX
+package's Table does. Two ways to build one:
+
+- `Table(name, ts_name=, tag_names=, fields=)` with `fields` names
+  (float64) or {name: numpy dtype}: millisecond timestamps, string tags;
+- `Table(name, info=)` with the catalog's TableInfo and its full Schema
+  (durable tables, `CREATE TABLE` among them).
+
 `write` keeps the JAX package's signature (tag columns by name, int64 ms
-timestamps, fields by name). A Table built with `region=` (an engine-opened
-storage/region.Region: WAL, SSTs, manifest; catalog/manager.py builds
-those) is durable; a Table built without one keeps its rows in an
-in-memory region (Region.in_memory). Multi-region routing waits for the
-distributed roles.
+timestamps, fields by name); string, boolean and integer fields go through
+the same region as float ones. A Table built with `region=` (an
+engine-opened storage/region.Region: WAL, SSTs, manifest) is durable; one
+built without keeps its rows in an in-memory region (Region.in_memory).
+`alter_add_column`/`alter_drop_column` widen or narrow the region as the
+JAX catalog's ALTER does. The port's table has one region: multi-region
+routing (`num_regions`, `PARTITION ON`) waits for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -14,6 +26,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from greptimedb_tpu_torch.datatypes.schema import (
+    ColumnSchema,
+    Schema,
+    SemanticType,
+)
 from greptimedb_tpu_torch.index import tag_index
 from greptimedb_tpu_torch.storage.memtable import (
     OP_DELETE,
@@ -22,22 +39,6 @@ from greptimedb_tpu_torch.storage.memtable import (
 )
 from greptimedb_tpu_torch.storage.region import DEFAULT_WINDOW_MS, Region
 from greptimedb_tpu_torch.storage.series import SeriesRegistry
-
-
-@dataclass
-class TableSchema:
-    ts_name: str
-    tag_names: list[str]
-    field_dtypes: dict[str, np.dtype]   # field name -> numpy dtype
-
-    @property
-    def field_names(self) -> list[str]:
-        return list(self.field_dtypes)
-
-    @property
-    def column_names(self) -> list[str]:
-        """Time index, tags, then fields (what SELECT * expands to)."""
-        return [self.ts_name, *self.tag_names, *self.field_names]
 
 
 @dataclass
@@ -52,23 +53,42 @@ class TableScanData:
 
 
 class Table:
-    def __init__(self, name: str, *, ts_name: str, tag_names: list[str],
-                 fields, window_ms: int = DEFAULT_WINDOW_MS,
+    def __init__(self, name: str, *, ts_name: str | None = None,
+                 tag_names: list[str] = (), fields=(), info=None,
+                 window_ms: int = DEFAULT_WINDOW_MS,
                  database: str = "public", region: Region | None = None):
-        """`fields`: field names (float64) or {name: numpy dtype};
+        """`fields`: field names (float64) or {name: numpy dtype}, with
+        `ts_name` and `tag_names`; or the catalog's `info` (a TableInfo).
         `region`: an engine-opened region (default: in memory, its
         compaction window `window_ms`)."""
-        if not isinstance(fields, dict):
-            fields = {f: np.float64 for f in fields}
-        self.name = name
-        self.database = database
-        self.schema = TableSchema(
-            ts_name, list(tag_names),
-            {k: np.dtype(v) for k, v in fields.items()},
-        )
+        from greptimedb_tpu_torch.catalog.manager import TableInfo
+
+        if info is None:
+            if not isinstance(fields, dict):
+                fields = {f: np.float64 for f in fields}
+            info = TableInfo(table_id=0, name=name, database=database,
+                             schema=Schema.of(ts_name, list(tag_names),
+                                              fields))
+        self.info = info
         self.region = region if region is not None else Region.in_memory(
-            self.schema.tag_names, self.schema.field_names,
+            info.schema.tag_names, info.schema.field_names,
             window_ms=window_ms, table=name)
+
+    @property
+    def name(self) -> str:
+        return self.info.name
+
+    @property
+    def database(self) -> str:
+        return self.info.database
+
+    @property
+    def schema(self) -> Schema:
+        return self.info.schema
+
+    @property
+    def regions(self) -> list[Region]:
+        return [self.region]
 
     @property
     def tag_names(self) -> list[str]:
@@ -86,12 +106,20 @@ class Table:
               fields: dict[str, np.ndarray], *,
               field_valid: dict[str, np.ndarray] | None = None,
               op: int = OP_PUT) -> int:
-        """Append one run of rows; returns rows written."""
+        """Append one run of rows; returns rows written. A put fills every
+        field it leaves out with nulls of the field's type."""
         n = len(ts)
         if n == 0:
             return 0
-        fields = {k: np.asarray(v, self.schema.field_dtypes[k])
-                  for k, v in fields.items()}
+        dtypes = self.schema.field_dtypes
+        fields = {k: np.asarray(v, dtypes[k]) for k, v in fields.items()}
+        if op == OP_PUT and len(fields) < len(dtypes):
+            field_valid = dict(field_valid) if field_valid else {}
+            for k, dt in dtypes.items():
+                if k not in fields:
+                    fields[k] = (np.full(n, "", object) if dt == object
+                                 else np.zeros(n, dt))
+                    field_valid[k] = np.zeros(n, bool)
         self.region.write(tag_columns, np.asarray(ts, np.int64), fields,
                           field_valid=field_valid, op=op)
         return n
@@ -108,6 +136,39 @@ class Table:
         """Persist the memtable as an SST (a durable table; no-op in
         memory)."""
         return self.region.flush()
+
+    def truncate(self):
+        self.region.truncate()
+
+    # ------------------------------------------------------------------
+    # ALTER (the JAX catalog's region-level half)
+    # ------------------------------------------------------------------
+    def alter_add_column(self, col: ColumnSchema):
+        """Add a tag (existing series read "") or a field (existing rows
+        read null) to the schema and the region."""
+        region = self.region
+        self.info.schema = self.schema.with_column(col)
+        with region._lock:
+            if col.semantic_type == SemanticType.TAG:
+                region.series.add_tag(col.name)
+                if col.name not in region.meta.tag_names:
+                    region.meta.tag_names.append(col.name)
+                return
+            if col.name not in region.meta.field_names:
+                region.meta.field_names.append(col.name)
+                region.memtable.field_names.append(col.name)
+        region.invalidate_scan_cache()
+
+    def alter_drop_column(self, col_name: str):
+        """Drop a field from the schema and the region."""
+        region = self.region
+        self.info.schema = self.schema.without_column(col_name)
+        with region._lock:
+            if col_name in region.meta.field_names:
+                region.meta.field_names.remove(col_name)
+            if col_name in region.memtable.field_names:
+                region.memtable.field_names.remove(col_name)
+        region.invalidate_scan_cache()
 
     def scan(self, field_names: list[str] | None = None, *,
              ts_min: int | None = None, ts_max: int | None = None,

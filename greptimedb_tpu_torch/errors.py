@@ -53,3 +53,17 @@ class RegionNotFoundError(GreptimeError):
 
 class TableAlreadyExistsError(GreptimeError):
     """CREATE of a table name that is taken."""
+
+
+class InvalidArgumentError(GreptimeError):
+    """A request argument (an option, a value, a name) that is not
+    valid."""
+
+
+class DatabaseNotFoundError(GreptimeError):
+    """A database that does not exist."""
+
+
+class IllegalStateError(GreptimeError):
+    """An object used in a state that does not allow it (a table whose
+    open failed)."""

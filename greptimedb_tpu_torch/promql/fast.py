@@ -1185,3 +1185,9 @@ def try_fast_histogram(engine, phi: float, inner, ev):
 
 def invalidate_cache():
     _CACHE.invalidate()
+
+
+def drop_table_entries(table):
+    """Called by the catalog on DROP TABLE so grids don't pin dead
+    tables."""
+    _CACHE.drop_table(table)

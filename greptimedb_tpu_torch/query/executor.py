@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from greptimedb_tpu_torch.datatypes.types import ConcreteDataType, TypeId
+from greptimedb_tpu_torch.datatypes.types import ConcreteDataType
 from greptimedb_tpu_torch.device import resolve_device
 from greptimedb_tpu_torch.errors import (
     ColumnNotFoundError,
@@ -62,8 +62,43 @@ class QueryResult:
         self.types = types or {}
         self.num_rows = len(cols[0]) if cols else 0
 
+    def rows(self) -> list[list]:
+        """Row-major Python values (None for nulls): what the wire
+        protocols print. Decimal columns render as scale-fixed strings;
+        columns convert whole (ndarray.tolist), then transpose."""
+        pycols = []
+        for j, c in enumerate(self.cols):
+            vals = c.values
+            dt = self.types.get(self.names[j])
+            scale = dt.scale if dt is not None and dt.is_decimal() else None
+            if scale is not None:
+                lst = [f"{float(v):.{scale}f}" for v in vals.tolist()]
+            elif vals.dtype == object:
+                lst = [v.item() if isinstance(v, np.generic) else v
+                       for v in vals]
+            else:
+                lst = vals.tolist()
+            if c.validity is not None and not c.validity.all():
+                for i in np.flatnonzero(~c.validity).tolist():
+                    lst[i] = None
+            pycols.append(lst)
+        if not pycols:
+            return [[] for _ in range(self.num_rows)]
+        return [list(r) for r in zip(*pycols)]
+
     def column(self, name: str) -> Col:
         return self.cols[self.names.index(name)]
+
+    def type_name(self, i: int) -> str:
+        name = self.names[i]
+        if name in self.types:
+            return self.types[name].name
+        dt = self.cols[i].values.dtype
+        if dt == object:
+            return "string"
+        if dt == np.bool_:
+            return "bool"
+        return str(dt)
 
 
 class RowsSource(ColumnSource):
@@ -203,13 +238,8 @@ def _group_order(key_cols: dict, keys: list[str], g: int) -> np.ndarray:
 
 def _column_type(table, name: str) -> ConcreteDataType | None:
     """The declared type of a table column (None if it has none)."""
-    schema = table.schema
-    if name == schema.ts_name:
-        return ConcreteDataType.timestamp_millisecond()
-    if name in schema.tag_names:
-        return ConcreteDataType.string()
-    dt = schema.field_dtypes.get(name)
-    return None if dt is None else ConcreteDataType(TypeId(dt.name))
+    c = table.schema.maybe_column(name)
+    return None if c is None else c.data_type
 
 
 def _apply_fill(vals, present, fill, step_ts):
@@ -617,7 +647,7 @@ class QueryEngine:
         """Fill + output assembly over (g, n_steps) per-item grids, shared
         by the host path and the device grid path (the JAX package's,
         without its `since` delta cursor)."""
-        ts_type = ConcreteDataType.timestamp_millisecond()
+        ts_type = table.schema.time_index.data_type
         names = [nm for _, nm in plan.post_items]
         any_present = np.zeros((g, n_steps), dtype=bool)
         for item in plan.range_items:

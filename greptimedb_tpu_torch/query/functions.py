@@ -365,7 +365,8 @@ def eval_scalar_function(e: A.FuncCall, src: ColumnSource) -> Col:
     if name in ("matches", "matches_term"):
         # fulltext matching lives in query/fulltext.py, not ported yet
         raise UnsupportedError(
-            f"{name}: the fulltext functions are not ported yet")
+            f"{name}: the fulltext functions are not ported yet "
+            "(ROADMAP A4)")
     if name == "starts_with":
         c = eval_expr(args[0], src)
         prefix = str(_const_arg(args[1]))
@@ -383,14 +384,17 @@ def eval_scalar_function(e: A.FuncCall, src: ColumnSource) -> Col:
         c = eval_expr(args[0], src)
         return Col(np.full(n, str(c.values.dtype), object))
     if name == "version":
-        # the package version module is not ported yet
-        raise UnsupportedError("version(): not ported yet")
+        from greptimedb_tpu_torch.version import __version__
+
+        return Col(np.full(n, f"greptimedb-tpu-{__version__}", object))
     if name == "database" or name == "current_schema":
         return Col(np.full(n, "public", object))
 
     # ---- json / geo / net families (query/functions_ext.py) -----------
     # not ported yet: they raise below, naming the function
-    raise UnsupportedError(f"unknown function: {name}")
+    raise UnsupportedError(
+        f"unknown function: {name} (the json, geo and net functions are "
+        "not ported yet: ROADMAP A4)")
 
 
 def _string_fn(name: str, args, src) -> Col:

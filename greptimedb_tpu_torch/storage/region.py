@@ -266,6 +266,10 @@ class Region:
             if self.manifest.state.series_snapshot
             else SeriesRegistry(meta.tag_names)
         )
+        # tags added by ALTER after the last snapshot
+        for t in meta.tag_names:
+            if t not in self.series.tag_names:
+                self.series.add_tag(t)
         self._seq = self.manifest.state.committed_sequence
         t1 = time.perf_counter()
         self.recovery_stats["replayed_entries"] = self._replay()

@@ -160,6 +160,20 @@ class SeriesRegistry:
             self._rows.append(key)
             self._version += 1
 
+    def add_tag(self, name: str) -> None:
+        """Add a tag column; existing series read "" for it and keep their
+        sids. Rows and dictionaries widen before the name resolves."""
+        with self._lock:
+            if name in self.tag_names:
+                return
+            d = Dictionary()
+            empty = d.intern("")
+            self._rows = [r + (empty,) for r in self._rows]
+            self._series = {r: i for i, r in enumerate(self._rows)}
+            self.dicts.append(d)
+            self.tag_names.append(name)
+            self._version += 1
+
     def tag_codes(self, tag_name: str) -> np.ndarray:
         """Per-sid code of one tag column: (num_series,) int32."""
         i = self.tag_names.index(tag_name)

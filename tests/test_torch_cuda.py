@@ -1478,3 +1478,112 @@ def test_durable_compaction_and_reopen_on_cuda(cuda, tmp_path):
     for k in ("sid", "ts", "seq", "op"):
         assert np.array_equal(getattr(a, k), getattr(b, k))
     assert np.array_equal(a.fields["u"], b.fields["u"])
+
+
+def test_server_path_on_cuda_matches_cpu(cuda, tmp_path):
+    """The standalone server on the card: line protocol over HTTP, DELETE,
+    flush and compaction over /v1/sql (K1 in the merge), Q2 as SQL (K2),
+    GROUP BY (G) and a PromQL range query, every answer equal to a CPU
+    Standalone fed the same payloads in process; then remote write and
+    read, and the answers after a reopen."""
+    import json
+    import urllib.parse
+    import urllib.request
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.servers import http, influx
+    from greptimedb_tpu_torch.storage.device_merge import (
+        DEFAULT_KERNEL_MIN_ROWS,
+    )
+
+    rng = np.random.default_rng(5)
+    hosts, steps = 800, 360
+    lines = []
+    for k in range(steps):
+        for h in range(hosts):
+            lines.append(f"cpu,hostname=host_{h},region=r{h % 7} "
+                         f"u={float(rng.random() * 100)!r},"
+                         f"s={float(rng.random())!r} {k * 10_000}")
+    card = Standalone(str(tmp_path / "card"), device=cuda)
+    cpu = Standalone(str(tmp_path / "cpu"), device="cpu")
+    srv = http.HttpServer(card, port=0).start()
+
+    def post(path, data):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                     data=data)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+
+    def sql(text):
+        status, body = post("/v1/sql", urllib.parse.urlencode(
+            {"sql": text}).encode())
+        assert status == 200
+        doc = json.loads(body)
+        doc.pop("execution_time_ms")
+        return doc
+
+    def both(text):
+        got = sql(text)
+        want = json.loads(json.dumps({"output": [
+            http.result_to_json(cpu.sql(text))]}))
+        assert got["output"][-1] == want["output"][-1], text
+        return got
+
+    try:
+        create = ("CREATE TABLE cpu (ts TIMESTAMP TIME INDEX, hostname "
+                  "STRING, region STRING, u DOUBLE, s DOUBLE, "
+                  "PRIMARY KEY (hostname, region))")
+        sql(create)
+        cpu.sql(create)
+        for i in range(0, len(lines), 40_000):
+            body = "\n".join(lines[i:i + 40_000])
+            assert post("/v1/influxdb/write?precision=ms",
+                        body.encode())[0] == 204
+            influx.write_lines(cpu, body, precision="ms")
+            for stmt in ("ADMIN flush_table('cpu')",):
+                sql(stmt)
+                cpu.sql(stmt)
+        delete = ("DELETE FROM cpu WHERE hostname IN ('host_3', 'host_9') "
+                  "AND ts < 600000")
+        sql(delete)
+        cpu.sql(delete)
+        k1 = mg.gather_planes.launches
+        for stmt in ("ADMIN flush_table('cpu')",
+                     "ADMIN compact_table('cpu')"):
+            sql(stmt)
+            cpu.sql(stmt)
+        region = card.catalog.table("public", "cpu").region
+        big = [n for n in region.merge_rows_in
+               if n >= DEFAULT_KERNEL_MIN_ROWS]
+        assert big and mg.gather_planes.launches - k1 >= len(big)
+        k2, g = rf.blocked_fold_sum.launches, gr.grouped_block_reduce.launches
+        q2 = ("SELECT ts, region, count(u) RANGE '2h', sum(u) RANGE '2h', "
+              "min(u) RANGE '2h', max(u) RANGE '2h' FROM cpu ALIGN '1h' "
+              "BY (region)")
+        both(q2)
+        assert rf.blocked_fold_sum.launches > k2
+        both("SELECT hostname, avg(u), max(s) FROM cpu GROUP BY hostname")
+        assert gr.grouped_block_reduce.launches > g
+        both("SELECT count(*) FROM cpu")
+        q = urllib.parse.urlencode({
+            "query": 'max by (region) (rate(cpu{__field__="u"}[1m]))',
+            "start": 0, "end": 3600, "step": 60})
+        req = f"http://127.0.0.1:{srv.port}/v1/prometheus/api/v1/" \
+              f"query_range?{q}"
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.load(r)
+        from greptimedb_tpu_torch.promql.engine import PromEngine
+        want = http._prom_matrix_json(*PromEngine(cpu).query_range(
+            'max by (region) (rate(cpu{__field__="u"}[1m]))', 0,
+            3_600_000, 60_000))
+        assert got == json.loads(json.dumps(want))
+        srv.stop()
+        card.close()
+        card = Standalone(str(tmp_path / "card"), device=cuda)
+        srv = http.HttpServer(card, port=0).start()
+        both(q2)
+    finally:
+        srv.stop()
+        card.close()
+        cpu.close()

@@ -106,6 +106,7 @@ _DURABLE_WORKLOAD = r"""
 import sys, tempfile
 import numpy as np
 from greptimedb_tpu_torch.catalog.manager import CatalogManager
+from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.storage.engine import EngineConfig, TsdbEngine
 
 root = tempfile.mkdtemp()
@@ -114,8 +115,8 @@ def open_catalog():
                      device="cpu")
     return eng, CatalogManager(eng)
 eng, cat = open_catalog()
-t = cat.create_table("public", "cpu", ts_name="ts", tag_names=["h"],
-                     fields=["u"], options={"compaction_trigger_files": 2})
+t = cat.create_table("public", "cpu",
+                     Schema.of("ts", ["h"], {"u": np.float64}), options={"compaction_trigger_files": 2})
 for k in range(3):
     t.write({"h": np.array(["a", "b"], object)}, np.array([k, k]),
             {"u": np.array([1.0, 2.0])})
@@ -125,6 +126,49 @@ eng.close()
 eng, cat = open_catalog()
 assert len(cat.table("public", "cpu").scan().rows) == 6
 eng.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
+print("LEAKED", leaked)
+"""
+
+_SERVER_WORKLOAD = r"""
+import json, sys, tempfile, urllib.parse, urllib.request
+from greptimedb_tpu_torch import native
+from greptimedb_tpu_torch.instance import Standalone
+from greptimedb_tpu_torch.servers import http, snappy
+from greptimedb_tpu_torch.servers.prom_store import (
+    _field_bytes, _field_double, _field_varint)
+
+inst = Standalone(tempfile.mkdtemp(), device="cpu")
+srv = http.HttpServer(inst, port=0).start()
+def post(path, data, headers={}):
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                 data=data, headers=headers)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+lines = "\n".join(f"cpu,h=h{i % 3} u={i}.5 {i * 1000}" for i in range(300))
+assert post("/v1/influxdb/write?precision=ms", lines.encode())[0] == 204
+assert native.lib_path().exists()
+for q in ("admin flush_table('cpu')", "admin compact_table('cpu')",
+          "delete from cpu where h = 'h1'",
+          "select h, count(u) from cpu group by h",
+          "tql eval (0, 300, '1m') sum(rate(cpu[1m]))"):
+    status, body = post("/v1/sql", urllib.parse.urlencode(
+        {"sql": q}).encode())
+    assert status == 200, body
+series = _field_bytes(1, _field_bytes(1, _field_bytes(1, b"__name__")
+                                      + _field_bytes(2, b"m"))
+                      + _field_bytes(2, _field_double(1, 1.0)
+                                     + _field_varint(2, 1000)))
+assert post("/v1/prometheus/write", snappy.compress(series))[0] == 204
+q = urllib.parse.urlencode({"query": "sum(m)", "start": 0, "end": 60,
+                            "step": 15})
+with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/v1/prometheus/"
+                            f"api/v1/query_range?{q}") as r:
+    assert json.load(r)["status"] == "success"
+srv.stop()
+inst.close()
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
                                        "pyarrow", "msgpack"))
@@ -150,6 +194,13 @@ def test_durable_workload_loads_no_jax_pyarrow_or_msgpack():
     """Write, flush, compact and reopen a durable table: the storage path
     loads neither pyarrow nor msgpack (the card machine has neither)."""
     _run_workload(_DURABLE_WORKLOAD)
+
+
+def test_server_workload_loads_no_jax():
+    """DDL, line protocol (the native tokenizer), DELETE, ADMIN, GROUP BY,
+    TQL, remote write and the Prometheus API over HTTP: the server path
+    loads nothing of JAX, the JAX package, pyarrow or msgpack."""
+    _run_workload(_SERVER_WORKLOAD)
 
 
 @pytest.fixture
@@ -193,6 +244,17 @@ def test_instance_refuses_to_fall_back_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         Instance(device="cuda")
     assert Instance(device="cpu").query_engine.device.type == "cpu"
+
+
+def test_standalone_refuses_to_fall_back_without_cuda(no_cuda, tmp_path):
+    from greptimedb_tpu_torch.instance import Standalone
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Standalone(str(tmp_path / "a"))
+    inst = Standalone(str(tmp_path / "b"), device="cpu")
+    assert inst.query_engine.device.type == "cpu"
+    assert inst.engine.device.type == "cpu"
+    inst.close()
 
 
 def test_kernel_gate_semantics():

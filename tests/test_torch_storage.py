@@ -25,6 +25,7 @@ from greptimedb_tpu.storage import engine as JE
 from greptimedb_tpu.storage import region as JR
 from greptimedb_tpu.storage import wal as JW
 from greptimedb_tpu_torch.catalog.manager import CatalogManager
+from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.errors import SstRestoreError
 from greptimedb_tpu_torch.instance import Instance
 from greptimedb_tpu_torch.storage import codec
@@ -45,6 +46,7 @@ from greptimedb_tpu_torch.storage.object_store import (
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOUR = 3_600_000
+U_FIELD = {"u": np.float64}
 FIELDS = ["a", "b"]
 
 
@@ -615,13 +617,12 @@ def _bits(res):
 def test_catalog_reopens_tables_and_snapshots_restore(tmp_path):
     root = str(tmp_path)
     eng, cat = _durable_catalog(root)
-    t = cat.create_table("public", "cpu", ts_name="ts",
-                         tag_names=["hostname", "region"], fields=["u"],
+    t = cat.create_table("public", "cpu",
+                         Schema.of("ts", ["hostname", "region"], U_FIELD),
                          options={"compaction_trigger_files": 2,
                                   "compaction_window_ms": HOUR})
     with pytest.raises(Exception, match="already exists"):
-        cat.create_table("public", "cpu", ts_name="ts", tag_names=[],
-                         fields=["u"])
+        cat.create_table("public", "cpu", Schema.of("ts", [], U_FIELD))
     _tsbs(t)
     t.compact()
     inst = Instance(device="cpu", prefer_device=True, catalog=cat)
@@ -656,8 +657,8 @@ def test_snapshot_warm_and_stale_file_deleted(tmp_path):
     from greptimedb_tpu_torch.query import device_range as DR
 
     eng, cat = _durable_catalog(str(tmp_path))
-    t = cat.create_table("public", "cpu", ts_name="ts",
-                         tag_names=["hostname", "region"], fields=["u"])
+    t = cat.create_table("public", "cpu",
+                         Schema.of("ts", ["hostname", "region"], U_FIELD))
     _tsbs(t, hours=1)
     inst = Instance(device="cpu", prefer_device=True, catalog=cat)
     inst.sql(_Q2)
