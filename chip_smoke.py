@@ -33,7 +33,10 @@ result line):
              their plain PyTorch versions on the same inputs (bit-exact),
              and timed with CUDA events beside their plain versions, one
              PyTorch library call computing the same function, and the
-             card's bound for the work.
+             card's bound for the work (K2's: the largest of its bytes,
+             its adds and its longest chain of dependent adds, at the
+             card's dependent-add latency, measured here first with one
+             thread's chain of 2^20 adds).
 5. profile — one warm Q1, Q2 and one window's merge under torch.profiler.
 6. mesh    — the series-sharded RANGE path: TSBS devops at 8192 hosts (the
              JAX package's multichip probe size, past the planner's
@@ -174,7 +177,12 @@ result line):
              TF32: exactly summable data must come out exact, and TF32
              must not. Then G at f's shape (float32) and at h's (float64)
              against its plain version (bit for bit), timed beside
-             index_add_ and its bound.
+             index_add_ and its bound; and K2 at c's shape (its count of
+             1 M series, padded to 2^20 and the padding not listed, into
+             33 groups over 8 steps; K2 must launch once a warm c on one
+             device and never elsewhere), float32 on the query's own
+             input and int32 on random words, against its plain version
+             bit for bit, timed like phase 4's K2.
 11. durable — durable storage: phase 2's writes (same seed, same rows in
              the same order, so the same sequences) through a table that
              a storage engine opened in a temporary data root, WAL on and
@@ -536,7 +544,7 @@ def k1_inputs(rows0, dev):
     return planes, src_keep[:n_out].contiguous()
 
 
-def kernel_checks(dev, planes, src, entry, memo, launches):
+def kernel_checks(dev, planes, src, entry, memo, launches, add_ns):
     from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
     from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
 
@@ -571,31 +579,6 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
     # ---- K2 -------------------------------------------------------------
     # one device: every per-shard list of the entry holds one tensor
     fm = memo["fold_members"][0]
-    arr_f = entry.fields["usage_user"]["s"][0]
-    arr_i = entry.nrow[0]
-    err = 0.0
-    for arr in (arr_f, arr_i):
-        got = rf.blocked_fold_sum(arr, fm)
-        want = rf.blocked_fold_sum_plain(arr, fm)
-        torch.cuda.synchronize()
-        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
-        if not same:
-            raise AssertionError(
-                f"K2 blocked_fold_sum ({arr.dtype}) differs from its plain "
-                f"version")
-        err = max(err, float((got.double() - want.double()).abs().max()))
-    s, nb = arr_f.shape
-    m = fm.member.numel()
-    k2_bytes = 4 * m * nb + 4 * fm.g * nb + 4 * m + 4 * fm.ptr.numel()
-    k2_ops = m * nb
-    gid64 = memo["gid"][0].clamp(max=fm.g).to(torch.int64)
-
-    def library():
-        acc = torch.zeros((fm.g + 1, nb), dtype=arr_f.dtype, device=dev)
-        return acc.index_add_(0, gid64, arr_f)
-
-    bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = k2_ops / F32_OPS_PER_S * 1e3
     out.append({
         "name": "blocked_fold_sum", "route": "cuda",
         "source": "greptimedb_tpu_torch/parallel/kernels/csrc/ring_fold.cu",
@@ -603,18 +586,105 @@ def kernel_checks(dev, planes, src, entry, memo, launches):
                     "(_fold_seed_kernel) with "
                     "greptimedb_tpu/query/device_range.py:1509",
         "launches": launches["blocked_fold_sum"],
+        **k2_measure(dev, rf, entry.fields["usage_user"]["s"][0],
+                     entry.nrow[0], fm, add_ns),
+    })
+    return out
+
+
+def add_chain_ns(dev, n=1 << 20) -> float:
+    """The card's dependent-add latency: the fastest of three launches of
+    one thread's chain of n adds (ring_fold.add_chain), over n."""
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+
+    best = float("inf")
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = rf.add_chain(dev, n)
+        b.record()
+        b.synchronize()
+        if float(out) != n:
+            raise AssertionError(f"add_chain summed {float(out)}, not {n}")
+        best = min(best, a.elapsed_time(b))
+    return best * 1e6 / n
+
+
+def k2_bound(fm, nb, add_ns):
+    """K2's least time on this card for (S, nb) states over `fm`: the
+    largest of the bytes (every input read once, the output written once)
+    over HBM's rate, the adds over float32's peak, and the chain (the
+    longest (block, group) list plus the fb - 1 fold adds, one dependent
+    add each, at the card's `add_ns` a dependent add: add_chain_ns)."""
+    m = fm.member.numel()
+    counts = fm.ptr[1:] - fm.ptr[:-1]
+    longest = int(counts.max()) if counts.numel() else 0
+    nbytes = 4 * m * nb + 4 * fm.g * nb + 4 * m + 4 * fm.ptr.numel()
+    parts = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "operations": m * nb / F32_OPS_PER_S * 1e3,
+        "chain": (longest + fm.fb - 1) * add_ns * 1e-6,
+    }
+    by = max(parts, key=parts.get)
+    return {"bound_ms": parts[by], "bound_by": by,
+            "bound_parts_ms": parts, "bytes": nbytes,
+            "longest_list": longest, "add_ns": add_ns}
+
+
+def k2_measure(dev, rf, arr_f, arr_i, fm, add_ns, plain_reps=20):
+    """K2 at one shape: float32 (arr_f) and int32 (arr_i) held bit for bit
+    against the plain version on the same inputs, then timed: events ms,
+    host ms and profiler device ms a launch, beside the plain version,
+    index_add_ into g + 1 rows (unlisted series in the last) and the
+    bound."""
+    err = 0.0
+    for arr in (arr_f, arr_i):
+        got = rf.blocked_fold_sum(arr, fm)
+        want = rf.blocked_fold_sum_plain(arr, fm)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(
+                f"K2 blocked_fold_sum ({arr.dtype}, {tuple(arr.shape)}) "
+                f"differs from its plain version")
+        err = max(err, float(torch.nan_to_num(
+            (got.double() - want.double()).abs(), nan=0.0).max()))
+    s, nb = arr_f.shape
+    gid64 = torch.full((s,), fm.g, dtype=torch.int64, device=dev)
+    grp = torch.repeat_interleave(
+        torch.arange(fm.fb * fm.g, device=dev) % fm.g,
+        (fm.ptr[1:] - fm.ptr[:-1]).long())
+    gid64[fm.member.long()] = grp
+
+    def library():
+        acc = torch.zeros((fm.g + 1, nb), dtype=arr_f.dtype, device=dev)
+        return acc.index_add_(0, gid64, arr_f)
+
+    # a profile that saw no device activity (it happens after many
+    # profiles in one process) is taken once more; burst_ms times the
+    # same launches with events
+    dev_ms = None
+    for _ in range(2):
+        prof = profiled(lambda: [rf.blocked_fold_sum(arr_f, fm)
+                                 for _ in range(10)], top=3)
+        dev_ms = device_ms_per_launch(prof, is_seed_kernel)
+        if dev_ms is not None:
+            break
+    return {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: rf.blocked_fold_sum(arr_f, fm)),
         "host_ms": host_ms(lambda: rf.blocked_fold_sum(arr_f, fm)),
-        "plain_ms": cuda_ms(lambda: rf.blocked_fold_sum_plain(arr_f, fm)),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "device_ms_per_launch": dev_ms,
+        "burst_ms": burst_ms(lambda: rf.blocked_fold_sum(arr_f, fm)),
+        "plain_ms": cuda_ms(lambda: rf.blocked_fold_sum_plain(arr_f, fm),
+                            reps=plain_reps, warm=1),
+        **k2_bound(fm, nb, add_ns),
         "library_ms": cuda_ms(library),
         "ms_int32": cuda_ms(lambda: rf.blocked_fold_sum(arr_i, fm)),
-        "shape": {"S": s, "nb": nb, "g": fm.g, "fb": fm.fb, "members": m},
-        "bytes": k2_bytes,
-    })
-    return out
+        "form": rf.blocked_fold_form(fm.g, nb, fm.member.numel()),
+        "shape": {"S": s, "nb": nb, "g": fm.g, "fb": fm.fb,
+                  "members": fm.member.numel()},
+    }
 
 
 RING_KERNELS = ("fold_cont", "extreme", "onehot_add", "ring_fold_fused",
@@ -1312,8 +1382,9 @@ def launch_path_steps(a, b):
 
 
 def is_seed_kernel(k):
-    """Profiler-name matcher of K2's seed, fold_kernel<T>."""
-    return k.startswith("fold_kernel<")
+    """Profiler-name matcher of K2's seed in either form, fold_kernel<T>
+    (per cell) or fold_staged_kernel<T> (staged)."""
+    return k.startswith(("fold_kernel<", "fold_staged_kernel<"))
 
 
 # the forms of the pipelined member walk, ring_fold_fused_kernel<T,
@@ -1894,10 +1965,10 @@ def quantile_gap_bound(sums, le, q, bound):
     return span * (q + 1 + 2 * frac) * bound / width
 
 
-def promql_rest_phase(args, dev, prom):
+def promql_rest_phase(args, dev, prom, add_ns):
     """Phase 10 (see the module docstring). Returns every kernel's
-    launches over the phase's main path and G's numbers at query f's
-    shape."""
+    launches over the phase's main path, G's numbers at query f's shape
+    and K2's at query c's (its chain bound at `add_ns` a dependent add)."""
     import types
 
     from greptimedb_tpu_torch.catalog.table import Table
@@ -1952,7 +2023,10 @@ def promql_rest_phase(args, dev, prom):
             zero_all()
             eng.last_fast = None
             t = time.perf_counter()
-            with capture_grouped(gr, store):
+            k2_here = (capture_k2(rf, store)
+                       if (ename, name) == ("single", "c")
+                       else contextlib.nullcontext())
+            with capture_grouped(gr, store), k2_here:
                 results[ename, name] = run()
             torch.cuda.synchronize()
             cold = time.perf_counter() - t
@@ -2007,6 +2081,12 @@ def promql_rest_phase(args, dev, prom):
             if p_launch != want_p:
                 raise AssertionError(f"4r launched {p_launch} times per warm "
                                      f"{name} on {ename}, not {want_p}")
+            # K2 folds c's count on one device, once a query
+            k_launch = got.get("blocked_fold_sum", 0)
+            want_k = 1 if (name == "c" and ename == "single") else 0
+            if k_launch != want_k:
+                raise AssertionError(f"K2 launched {k_launch} times per warm "
+                                     f"{name} on {ename}, not {want_k}")
     for name in ("a", "b", "c", "d"):
         if results["single", name].num_series != 32:
             raise AssertionError(f"{name}: not 32 dc groups")
@@ -2177,6 +2257,21 @@ def promql_rest_phase(args, dev, prom):
         "shape": {"rows": v.numel(), "blocks": members.blocks,
                   "gb": members.gb, **segment_stats(members)},
     }
+    # ---- K2 at query c's shape ------------------------------------------
+    # its count of 1 M series (padded to 2^20, the padding not listed)
+    # into 33 groups over 8 steps; int32 on random words of that shape
+    arr_c, fm_c = store["k2"]
+    words = torch.randint(-2**31, 2**31 - 1, tuple(arr_c.shape),
+                          generator=torch.Generator(device=dev).manual_seed(
+                              args.seed), device=dev, dtype=torch.int32)
+    k2_row = {
+        **k2_measure(dev, rf, arr_c, words, fm_c, add_ns, plain_reps=3),
+        "launches_per_warm_c": stats["single"]["c"]["launches_per_warm"][
+            "blocked_fold_sum"],
+        "device_ms_per_launch_in_c": device_ms_per_launch(
+            {"ours": stats["single"]["c"]["ours"]}, is_seed_kernel),
+        "c_device_ms": stats["single"]["c"]["device_ms"],
+    }
     emit({"phase": "promql_rest", "seconds": seconds,
           "rows_written": written, "hist_series": args.hist_pods * len(
               HIST_LES),
@@ -2186,12 +2281,12 @@ def promql_rest_phase(args, dev, prom):
                      "matmul_gap_over_read_limit": read,
                      "tf32_probe": tf32_probe(dev, s_pad),
                      "h_without_x64": h32_note},
-          "g_at_f": g_row,
+          "g_at_f": g_row, "k2_at_c": k2_row,
           "phase_seconds": time.perf_counter() - t_phase})
     for k in ("grouped_block_reduce", "ring_pext_fused"):
         if not launches.get(k):
             raise AssertionError(f"{k} never launched in phase promql_rest")
-    return launches, g_row
+    return launches, g_row, k2_row
 
 
 def g_f64_row(dev, gr, store, stats):
@@ -2584,6 +2679,26 @@ def host_shapes():
          f"cpu WHERE hostname NOT LIKE 'host_1%' AND {cut} ALIGN '1h' "
          "BY (region)"),
     ]
+
+
+@contextlib.contextmanager
+def capture_k2(rf, store):
+    """Record the inputs of the first K2 call while this block is open;
+    the real wrapper runs as it would, and its launch count is carried on
+    the recorder while it stands in (as capture_grouped does)."""
+    real = rf.blocked_fold_sum
+
+    def k2(arr, fm):
+        store.setdefault("k2", (arr, fm))
+        return real(arr, fm)
+
+    k2.launches = real.launches
+    rf.blocked_fold_sum = k2
+    try:
+        yield
+    finally:
+        real.launches = k2.launches
+        rf.blocked_fold_sum = real
 
 
 @contextlib.contextmanager
@@ -2984,6 +3099,13 @@ def rows_phase(args, dev, slice_out, mesh_out):
                     times.append(time.perf_counter() - t)
                 after = all_counts()
                 prof = profiled(lambda: inst.sql(sql))
+                # a profile that saw fewer of the port's kernels than the
+                # counts saw launch a warm call is taken once more: now
+                # and then the profiler returns a session without its
+                # device records (the Gt check below reads this profile)
+                counted = sum(after[k] - before[k] for k in after) / 3
+                if sum(v["calls"] for v in prof["ours"].values()) < counted:
+                    prof = profiled(lambda: inst.sql(sql))
                 per_query[qname] = {
                     "cold_s": cold, "warm_median_s": float(np.median(times)),
                     "device_ms": prof["device_ms"],
@@ -4124,10 +4246,12 @@ def run(args) -> int:
 
     # ---- 4. kernels --------------------------------------------------
     t = time.perf_counter()
+    add_ns = add_chain_ns(dev)
     planes, src = k1_inputs(rows0, dev)
     memo = next(m for m in entry.query_memo.values() if m["fold"])
-    kernels = kernel_checks(dev, planes, src, entry, memo, launches)
-    emit({"phase": "kernels", "seconds": time.perf_counter() - t})
+    kernels = kernel_checks(dev, planes, src, entry, memo, launches, add_ns)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t,
+          "dependent_add_ns": add_ns})
 
     # ---- 5. profile: device busy time of one warm query each and of
     # one window's merge (no verify), under torch.profiler ------------
@@ -4160,7 +4284,8 @@ def run(args) -> int:
                                                         slice_out, mesh_out)
     kernels += grouped_rows
     # ---- 10. promql_rest ----------------------------------------------
-    rest_launches, g_at_f = promql_rest_phase(args, dev, prom_out)
+    rest_launches, g_at_f, k2_at_c = promql_rest_phase(args, dev, prom_out,
+                                                       add_ns)
     # ---- 11. durable ---------------------------------------------------
     durable_launches = durable_phase(args, dev, slice_out, P)
     # ---- 12. server ----------------------------------------------------
@@ -4185,6 +4310,7 @@ def run(args) -> int:
             row["launches_per_warm_groupby"] = rows_warm[
                 "hops" if name in GROUPBY_HOPS else "fused"].get(name, 0)
         if name == "blocked_fold_sum":
+            row["promql_c"] = k2_at_c
             row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
             row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
                 "blocked_fold_sum"]

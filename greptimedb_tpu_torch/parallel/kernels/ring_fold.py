@@ -14,7 +14,10 @@ the fixed order that carries the JAX package's bit-identity contract:
 
 On CUDA, index_add_/scatter_add_ add floats with atomics in no fixed
 order, so the fold needs its own kernels even on one card: the seed in
-csrc/ring_fold.cu, the continuation (`fold_cont`) and the partials
+csrc/ring_fold.cu (two forms, picked by `blocked_fold_form` from the
+shape: a thread per (group, cell) where the groups fill the card, a block
+per (series block, group, cell chunk) staging its member rows where few
+groups have long lists), the continuation (`fold_cont`) and the partials
 (`block_partials`) as forms of the fused ring's pipelined member walk in
 csrc/ring_fold_fused.cu. The plain versions below keep the same order:
 they step through member ranks, adding the k-th member of every (block,
@@ -223,18 +226,55 @@ def _fold_launch(source: str, kind: str, arr, fm, out) -> None:
                  fm.g, fm.fb, arr.shape[1])
 
 
+# K2's forms (csrc/ring_fold.cu kPerCell, kStaged) and the shape rule
+# between them: one thread per (group, cell) where g * nb fills the card
+# and each thread's walk (its group's members, m / g) is short; one block
+# per (series block, group, 256-cell chunk) staging its list otherwise
+_K2_FORMS = {"cells": 0, "staged": 1}
+_K2_FILL_CELLS = 16384
+_K2_CELL_ROWS = 1024
+
+
+def blocked_fold_form(g: int, nb: int, members: int) -> str:
+    """The form K2 launches for g groups of nb cells over `members`
+    listed sids: "cells" or "staged"."""
+    if g * nb >= _K2_FILL_CELLS and members <= _K2_CELL_ROWS * g:
+        return "cells"
+    return "staged"
+
+
 def blocked_fold_sum(arr: torch.Tensor, fm: FoldMembers) -> torch.Tensor:
     """(S, nb) float32/int32 per-series states -> (g, nb) per-group sums,
     segment-summed per series block and left-folded over the blocks from
-    block 0 (K2; the ring's seed on shard 0)."""
+    block 0 (K2; the ring's seed on shard 0), in one launch of the form
+    `blocked_fold_form` picks. The staged form with fb > 1 keeps its block
+    partials and arrival counts in the per-(device, stream) scratch."""
     _check_fold("blocked_fold_sum", arr, fm)
     if arr.is_cpu:
         return blocked_fold_sum_plain(arr, fm)
-    out = torch.empty((fm.g, arr.shape[1]), dtype=arr.dtype,
-                      device=arr.device)
+    g, fb, nb = fm.g, fm.fb, arr.shape[1]
+    out = torch.empty((g, nb), dtype=arr.dtype, device=arr.device)
     if out.numel() == 0:
         return out
-    _fold_launch("ring_fold", "blocked_fold_sum", arr, fm, out)
+    form = blocked_fold_form(g, nb, fm.member.numel())
+    index = arr.get_device()
+    lib, fn = build.entry("ring_fold",
+                          f"gtt_blocked_fold_sum_{_FOLD_TYPES[arr.dtype]}",
+                          (_PTR,) * 6 + (_INT,) * 4)
+    args = (arr.data_ptr(), fm.member.data_ptr(), fm.ptr.data_ptr(),
+            out.data_ptr())
+    if form == "staged" and fb > 1:
+        with build.scratch_lock:
+            stream = build.stream(index)
+            part, count = build.stream_scratch(arr.device, stream).take(
+                4 * fb * g * nb, g * -(-nb // _FUSED_CELLS))
+            rc = build.on_card(index, fn, *args, part, count, g, fb, nb,
+                               _K2_FORMS[form], stream)
+    else:
+        rc = build.on_card(index, fn, *args, None, None, g, fb, nb,
+                           _K2_FORMS[form], build.stream(index))
+    if rc:
+        build.check_launch(lib, rc, "blocked_fold_sum")
     blocked_fold_sum.launches += 1
     return out
 
@@ -335,6 +375,19 @@ def noop(device) -> None:
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     build.launch(build.entry("ring_fold", "gtt_noop", ()), "noop", index)
+
+
+def add_chain(device, n: int) -> torch.Tensor:
+    """One thread on `device` adds 1.0 to 0.0 n times, each add waiting on
+    the one before, as in K2's chains: the card's dependent-add latency,
+    which K2's chain bound counts in (a measurement hook; counted
+    nowhere). Returns the (1,) float32 sum: n, for n <= 2^24."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    out = torch.empty(1, dtype=torch.float32, device=dev)
+    build.launch(build.entry("ring_fold", "gtt_add_chain", (_PTR, _INT)),
+                 "add_chain", index, out.data_ptr(), n)
+    return out
 
 
 for _fn in (blocked_fold_sum, fold_cont, block_partials, extreme,

@@ -451,14 +451,18 @@ def _grouping_dev(entry: _Entry, table, grouping, without: bool
 def _fold_members(entry: _Entry, grp: _Grouping) -> list:
     """Per-shard K2 member lists of the grouping over g + 1 groups (the
     scatter branch's blocked segment sums), FOLD_BLOCKS / shards blocks
-    per shard; built once per grouping."""
+    per shard; built once per grouping. The padded series (group g,
+    dropped after the aggregation) are routed past g + 1, so no list holds
+    them: group g's sums start at 0 and add nothing, +0.0 as the sum of
+    their +0.0s was, and no walk spends its chain on them."""
     from greptimedb_tpu_torch.parallel.kernels.ring_fold import fold_members
     from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS
 
     if grp.fold_members is None:
         per = entry.s_pad // entry.shards
+        gid = np.where(grp.gid_host < grp.g, grp.gid_host, grp.g + 1)
         grp.fold_members = [
-            fold_members(grp.gid_host[k * per:(k + 1) * per], grp.g + 1,
+            fold_members(gid[k * per:(k + 1) * per], grp.g + 1,
                          FOLD_BLOCKS // entry.shards, d)
             for k, d in enumerate(entry.devices)]
     return grp.fold_members

@@ -51,33 +51,125 @@ def test_gather_planes_kernel_matches_plain(cuda):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("s,g,dtype", [(4000, 9, torch.float32),
-                                       (4000, 9, torch.int32),
-                                       (1000, 37, torch.float32),
-                                       (60, 4, torch.float32)])
-def test_blocked_fold_sum_kernel_matches_plain(cuda, s, g, dtype):
-    rng = np.random.default_rng(s + g)
-    nb = 257
+def _k2_input(rng, s, nb, g, layout, dtype, m=None):
+    """K2's inputs: (s, nb) states with edge bits (float32: wide
+    magnitudes, -0.0, one NaN payload in the plane; int32: extremes whose
+    sums wrap) and group ids. Layouts: "random" (10 % inactive), "mod32"
+    (PromQL's dc = i % 32, 5 % inactive; with g = 33 group 32 is empty, as
+    the grid's padding group is once it is left out), "skewed" (mod32 with
+    70 % of the series in group 0), "prefix" (sid i in group i % g for
+    i < m, the rest inactive: exactly m listed members)."""
     if dtype == torch.float32:
         arr = (rng.standard_normal((s, nb))
                * 10.0 ** rng.integers(-3, 4, (s, nb))).astype(np.float32)
         arr[rng.random((s, nb)) < 0.05] = -0.0
+        bits = np.uint32(int(rng.integers(0, 2**22)) | 0x7FC00000)
+        arr[rng.integers(s), rng.integers(nb)] = bits.view(np.float32)
     else:
-        arr = rng.integers(0, 5, (s, nb)).astype(np.int32)
-    gid = rng.integers(0, g, s).astype(np.int32)
-    gid[rng.random(s) < 0.1] = g
+        arr = rng.integers(-1000, 1000, (s, nb)).astype(np.int32)
+        r = rng.random(arr.shape)
+        arr[r < 0.05] = 2**31 - 1
+        arr[(r >= 0.05) & (r < 0.1)] = -(2**31)
+    sid = np.arange(s)
+    if layout == "random":
+        gid = rng.integers(0, g, s).astype(np.int32)
+        gid[rng.random(s) < 0.1] = g
+    elif layout == "prefix":
+        gid = np.where(sid < m, sid % g, g).astype(np.int32)
+    else:
+        gid = (sid % 32).astype(np.int32)
+        if layout == "skewed":
+            gid[rng.random(s) < 0.7] = 0
+        gid[rng.random(s) < 0.05] = g
+    return arr, gid
+
+
+def _same_bits_or_nan(got, want):
+    """got (card) equals want (CPU) bit for bit, except that a NaN may
+    carry the card's canonical payload (test_card_add_returns_its_
+    canonical_nan)."""
+    got = got.cpu()
+    if got.dtype != torch.float32:
+        return torch.equal(got, want)
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan],
+                            want.view(torch.int32)[~nan]))
+
+
+# (s, nb, g, layout, offset, form): fb = 8 where s % 8 == 0, else 1;
+# offset 1 cuts the rows one element into a larger buffer
+_K2_CASES = [
+    (4000, 2160, 9, "random", 0, "cells"),     # the one-device Q2 shape
+    (4000, 257, 9, "random", 0, "staged"),
+    (1000, 257, 37, "random", 0, "staged"),
+    (60, 257, 4, "random", 0, "staged"),
+    (1 << 18, 8, 33, "mod32", 0, "staged"),    # PromQL max by (dc)'s count
+    (1 << 18, 9, 33, "mod32", 0, "staged"),    # nb % 4 != 0: 4-byte copies
+    ((1 << 18) - 1, 8, 33, "mod32", 0, "staged"),       # fb = 1
+    ((1 << 18) - 1, 9, 33, "skewed", 0, "staged"),
+    (1 << 18, 8, 33, "skewed", 1, "staged"),   # misaligned rows
+    (1 << 18, 8, 32, "mod32", 0, "staged"),    # every group listed
+    # the switch point: g * nb at and below 16384, m at and above 1024 g
+    (4096, 2048, 8, "random", 0, "cells"),
+    (4096, 2047, 8, "random", 0, "staged"),
+    (8200, 2048, 8, "prefix", 0, "cells"),     # m = 8192
+    (8200, 2048, 8, "prefix", 1, "staged"),    # m = 8193
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("s,nb,g,layout,offset,form", _K2_CASES)
+def test_blocked_fold_sum_kernel_matches_plain(cuda, s, nb, g, layout,
+                                               offset, form, dtype):
+    """One launch of the form the shape picks, bit for bit against the
+    plain version on the card, and against the CPU up to the card's NaN."""
+    rng = np.random.default_rng(s + nb + g + offset)
+    m = 8192 + offset if layout == "prefix" else None
+    arr, gid = _k2_input(rng, s, nb, g, layout, dtype, m)
     fb = 8 if s % 8 == 0 else 1
-    want = rf.blocked_fold_sum(torch.from_numpy(arr),
-                               rf.fold_members(gid, g, fb, "cpu"))
+    fm_cpu = rf.fold_members(gid, g, fb, "cpu")
+    assert rf.blocked_fold_form(g, nb, fm_cpu.member.numel()) == form
+    want = rf.blocked_fold_sum(torch.from_numpy(arr), fm_cpu)
     fm = rf.fold_members(gid, g, fb, cuda)
-    x = torch.from_numpy(arr).to(cuda)
+    flat = torch.empty(offset + s * nb, dtype=dtype, device=cuda)
+    x = flat[offset:].view(s, nb)
+    x.copy_(torch.from_numpy(arr))
     before = rf.blocked_fold_sum.launches
     got = rf.blocked_fold_sum(x, fm)
     torch.cuda.synchronize()
     assert rf.blocked_fold_sum.launches == before + 1
-    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
-    assert torch.equal(rf.blocked_fold_sum_plain(x, fm).view(torch.int32),
-                       got.view(torch.int32))
+    assert torch.equal(_bits32(got), _bits32(rf.blocked_fold_sum_plain(x, fm)))
+    assert _same_bits_or_nan(got, want)
+
+
+def test_blocked_fold_sum_back_to_back_resets_its_arrival_counts(cuda):
+    """The staged form's partials and arrival counts live in the stream's
+    scratch, shared with the walk forms: back to back on one stream, with
+    forms, shapes, block counts and dtypes changing (and a fold_cont in
+    between), every fold equals its plain version and the counts are all
+    0 after each launch."""
+    rng = np.random.default_rng(31)
+    inputs = []
+    for s, nb, g, layout, dtype in [
+            (1 << 16, 8, 33, "mod32", torch.float32),
+            (4000, 2160, 9, "random", torch.int32),
+            (1 << 16, 9, 33, "skewed", torch.int32),
+            ((1 << 16) - 1, 8, 33, "mod32", torch.float32),
+            (4000, 300, 9, "random", torch.float32)]:
+        arr, gid = _k2_input(rng, s, nb, g, layout, dtype)
+        x = torch.from_numpy(arr).to(cuda)
+        fm = rf.fold_members(gid, g, 8 if s % 8 == 0 else 1, cuda)
+        inputs.append((x, fm, rf.blocked_fold_sum_plain(x, fm)))
+    key = (inputs[0][0].device, build.stream(cuda.index or 0))
+    acc = torch.zeros((33, 8), device=cuda)
+    for _ in range(3):
+        for x, fm, want in inputs * 2:
+            got = rf.blocked_fold_sum(x, fm)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits32(got), _bits32(want))
+            assert int(build.scratches[key].count.abs().sum()) == 0
+        rf.fold_cont(acc, inputs[0][0], inputs[0][1])
 
 
 def _bits32(t):
@@ -382,6 +474,13 @@ def test_launch_floor_runs(cuda):
     for _ in range(3):
         rf.noop(cuda)
     torch.cuda.synchronize()
+
+
+def test_add_chain_counts_its_adds(cuda):
+    """The dependent-add probe behind K2's chain bound adds 1.0 n times,
+    each add after the one before: exactly n below 2^24."""
+    for n in (1, 17, 1 << 16):
+        assert float(rf.add_chain(cuda, n)) == n
 
 
 def _stream_cases(cuda):

@@ -14,6 +14,7 @@ forms are held to on the card, must equal the Pallas _fold_cont_kernel
 
 import importlib.util
 import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,11 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from greptimedb_tpu.ops import promql as JK
 from greptimedb_tpu.parallel.dist import LocalFoldCtx as JLocalFoldCtx
 from greptimedb_tpu.parallel.kernels import ring_fold as jrf
 from greptimedb_tpu.query import device_range as jdr
+from greptimedb_tpu_torch.ops import promql as TK
 from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, left_fold_sum
 from greptimedb_tpu_torch.parallel.kernels import ring_fold as trf
+from greptimedb_tpu_torch.promql import fast as TF
 from greptimedb_tpu_torch.query import device_range as tdr
 
 
@@ -54,18 +58,33 @@ def _state(rng, s, nb):
     }
 
 
-def _gid(rng, s, g, inactive_frac):
-    gid = rng.integers(0, g, s).astype(np.int32)
+def _gid(rng, s, g, inactive_frac, layout="random"):
+    """Group ids: "random" over g groups; "dc" PromQL's dc = i % 32 (with
+    g = 33 group 32 is empty, as the grid's padding group is once it is
+    left out of the lists); "skewed" dc with 70 % of the series in
+    group 0."""
+    if layout == "random":
+        gid = rng.integers(0, g, s).astype(np.int32)
+    else:
+        gid = (np.arange(s) % 32).astype(np.int32)
+        if layout == "skewed":
+            gid[rng.random(s) < 0.7] = 0
     gid[rng.random(s) < inactive_frac] = g   # inactive: routed past g
     return gid
 
 
 CASES = {
-    # (S, nb, g, inactive fraction); S % 8 != 0 makes fb = 1
+    # (S, nb, g, inactive fraction[, layout]); S % 8 != 0 makes fb = 1
     "blocks8": (64, 40, 5, 0.2),
     "one_group": (48, 33, 1, 0.1),
     "fb1_unaligned": (60, 24, 4, 0.2),
     "many_groups": (96, 16, 40, 0.3),
+    # few groups, long lists: PromQL's max by (dc) count at 65,536 series
+    "dc_nb8": (65536, 8, 32, 0.05, "dc"),
+    "dc_nb9_empty_group": (65536, 9, 33, 0.05, "dc"),
+    "dc_nb8_fb1": (65533, 8, 33, 0.05, "dc"),
+    "dc_nb9_fb1_skewed": (65533, 9, 33, 0.05, "skewed"),
+    "dc_nb8_skewed": (65536, 8, 33, 0.05, "skewed"),
 }
 
 
@@ -81,10 +100,10 @@ def _jax_fold(op, st, gid, g):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_blocked_fold_sum_bit_identical_to_jax_fold_groups(case):
-    s, nb, g, frac = CASES[case]
+    s, nb, g, frac, *layout = CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     st = _state(rng, s, nb)
-    gid = _gid(rng, s, g, frac)
+    gid = _gid(rng, s, g, frac, *layout)
     want, _ = _jax_fold("var_samp", st, gid, g)
     fb = tdr._fold_blocks(g, nb, s)
     assert fb == jdr._fold_blocks(g, nb, s) == (8 if s % 8 == 0 else 1)
@@ -114,6 +133,60 @@ def test_port_fold_groups_matches_jax(op):
     assert set(got) == set(want)
     for k in want:
         assert np.array_equal(_bits(got[k].numpy()), _bits(want[k])), k
+
+
+@pytest.mark.parametrize("op", ["max", "count"])
+@pytest.mark.parametrize("steps", [8, 9])
+def test_blocked_aggregation_scatter_branch_matches_jax(op, steps,
+                                                        monkeypatch):
+    """PromQL's `max by (dc)` / `count by (dc)` over 60,000 series padded
+    to 65,536 (dc = i % 32; the padded series in group 32, dropped after
+    the aggregation): the port's aggregate_across_series_blocked through
+    K2 over the fast path's member lists (_fold_members: padded series not
+    listed) against the JAX package's, scatter branch, bit for bit on all
+    33 groups (group 32's sums are +0.0 on both sides)."""
+    s, n, g = 65536, 60000, 32
+    rng = np.random.default_rng(steps * 7 + len(op))
+    vals = (rng.standard_normal((s, steps))
+            * 10.0 ** rng.integers(-3, 4, (s, steps))).astype(np.float32)
+    vals[rng.random((s, steps)) < 0.05] = -0.0
+    present = rng.random((s, steps)) < 0.8
+    present[n:] = False
+    gid = np.where(np.arange(s) < n, np.arange(s) % 32, g).astype(np.int32)
+    # count is linear: keep it off the matrix-product branch on both sides
+    monkeypatch.setattr(JK, "_MATMUL_MIN_SERIES", 1 << 30)
+    monkeypatch.setattr(TK, "_MATMUL_MIN_SERIES", 1 << 30)
+    assert not TK.uses_matmul(op, g + 1, s)
+    want = JK.aggregate_across_series_blocked(
+        jnp.asarray(vals), jnp.asarray(present), jnp.asarray(gid), g + 1,
+        op, total_series=s)
+    entry = types.SimpleNamespace(s_pad=s, shards=1,
+                                  devices=[torch.device("cpu")])
+    fms = TF._fold_members(entry, TF._Grouping([], [torch.from_numpy(gid)],
+                                               gid, g))
+    assert len(fms[0].member) == n
+    got = TK.aggregate_across_series_blocked(
+        [torch.from_numpy(vals)], [torch.from_numpy(present)],
+        [torch.from_numpy(gid)], g + 1, op, total_series=s,
+        ctx=LocalFoldCtx(), fms=fms)
+    for w, t in zip(want, got):
+        w, t = np.asarray(w), t.numpy()
+        assert w.dtype == t.dtype and w.shape == t.shape == (g + 1, steps)
+        assert np.array_equal(_bits(t), _bits(w))
+
+
+@pytest.mark.parametrize("g,nb,members,form", [
+    (9, 2160, 4000, "cells"),         # the one-device Q2 shape
+    (33, 8, 1_000_000, "staged"),     # PromQL's max by (dc) count
+    (8, 2048, 8192, "cells"),         # the switch point: g * nb = 16384
+    (8, 2047, 8192, "staged"),
+    (8, 2048, 8193, "staged"),        # m = 1024 g + 1
+    (9, 2160, 1_000_000, "staged"),   # Q2's cells over a million series
+])
+def test_blocked_fold_form_rule(g, nb, members, form):
+    """K2's shape rule: one thread per (group, cell) where g * nb fills
+    the card and each thread's walk is short, the staged walk else."""
+    assert trf.blocked_fold_form(g, nb, members) == form
 
 
 def test_left_fold_stage_bit_identical_to_pallas_seed_kernel():
@@ -211,6 +284,9 @@ WALK_CASES = {
     "nb6_fb8": (64, 6, 3, 8, 0),
     "nb6_fb1_misaligned": (64, 6, 3, 1, 1),
     "long_list_fb1": (3000, 40, 3, 1, 0),
+    # few groups, long lists (PromQL's max by (dc) count)
+    "dc_nb8_fb8": (65536, 8, 33, 8, 0),
+    "dc_nb9_fb1_misaligned": (65536, 9, 33, 1, 1),
 }
 
 
@@ -279,6 +355,9 @@ def test_profiler_matchers_catch_their_own_rows_only():
     names = {
         "fold_kernel<float>": "blocked_fold_sum",
         "fold_kernel<int>": "blocked_fold_sum",
+        "fold_staged_kernel<float>": "blocked_fold_sum",
+        "fold_staged_kernel<int>": "blocked_fold_sum",
+        "group_fold_kernel<float, true>": None,
         "ring_fold_fused_kernel<float, true, 0>": "ring_fold_fused",
         "ring_fold_fused_kernel<int, false, 0>": "ring_fold_fused",
         "ring_fold_fused_kernel<float, true, 1>": "fold_cont",

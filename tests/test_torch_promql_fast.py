@@ -397,6 +397,73 @@ def test_big_sharded_identical_to_one_device(big, ns, variant):
                      (ns, variant, q))
 
 
+PAD_S = 1000          # not a power of two: the grid pads to 1024 series
+PAD_QUERIES = ["max by (dc) (rate(prom_bench[1m]))",
+               "count by (dc) (rate(prom_bench[1m]))",
+               "count by (dc) (prom_bench)"]
+
+
+def test_padded_series_leave_the_fold_lists(tmp_path):
+    """prom_bench's shape (dc = i % 32) at 1000 series, padded to 1024 on
+    the grid: `max by` and `count by` take the scatter branch (below 4096
+    series) through K2, whose member lists leave the 24 padded series out
+    (their group's row is dropped after the fold). Every answer stays bit
+    for bit the JAX package's, on one device and on every sharded engine,
+    and no list holds a padded sid."""
+    JF.invalidate_cache()
+    TF.invalidate_cache()
+    inst = Standalone(str(tmp_path / "jax_pad"))
+    inst.sql("CREATE TABLE prom_bench (host STRING, dc STRING, "
+             "greptime_value DOUBLE, ts TIMESTAMP TIME INDEX, "
+             "PRIMARY KEY (host, dc))")
+    jt = inst.catalog.table("public", "prom_bench")
+    tt = Table("prom_bench", ts_name="ts", tag_names=["host", "dc"],
+               fields=["greptime_value"])
+    rng = np.random.default_rng(41)
+    tags = {"host": np.array([f"host_{i}" for i in range(PAD_S)], object),
+            "dc": np.array([f"dc{i % 32}" for i in range(PAD_S)], object)}
+    base = np.cumsum(rng.random(PAD_S))
+    for k in range(10):
+        ts = np.full(PAD_S, T0 + k * 30_000, np.int64)
+        vals = base + k * rng.uniform(10, 90, PAD_S)
+        for t in (jt, tt):
+            t.write(tags, ts, {"greptime_value": vals})
+    catalog = CatalogManager()
+    catalog.register(tt)
+    try:
+        assert not TK.uses_matmul("count", 33, 1024)
+        want = {q: JPromEngine(inst).query_range(q, *BIG_RANGE)[0]
+                for q in PAD_QUERIES}
+        checked = 0
+        engines = _port_engines(catalog)
+        for name, holder in engines.items():
+            eng = PromEngine(holder)
+            for q in PAD_QUERIES:
+                got = eng.query_range(q, *BIG_RANGE)[0]
+                assert got.num_series == 32
+                _assert_same(want[q], got, (name, q))
+            for entry in list(TF._CACHE._entries.values()):
+                assert entry.s_pad == 1024 and entry.num_series == PAD_S
+                per = entry.s_pad // entry.shards
+                for grp in entry.group_cache.values():
+                    if not isinstance(grp, TF._Grouping):
+                        continue
+                    assert grp.fold_members is not None
+                    for k, fm in enumerate(grp.fold_members):
+                        sids = fm.member.numpy().astype(np.int64) + k * per
+                        assert (sids < PAD_S).all(), name
+                        assert len(sids) == (
+                            grp.gid_host[k * per:(k + 1) * per]
+                            < grp.g).sum()
+                    checked += 1
+            TF.invalidate_cache()
+        assert checked == len(engines)
+    finally:
+        JF.invalidate_cache()
+        TF.invalidate_cache()
+        inst.close()
+
+
 # ----------------------------------------------------------------------
 # (d) numeric rules
 # ----------------------------------------------------------------------
