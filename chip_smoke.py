@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
-                          [--rest-warm 5] [--server-hours 3]
+                          [--rest-warm 5] [--server-hours 2]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line):
@@ -213,7 +213,7 @@ result line):
              and statements through the same module functions (no HTTP)
              while the card's server works. Data: phase 2's TSBS devops
              rows (4000 hosts, 9 regions, 10 s, ten usage_* fields, same
-             seed), cut to the first --server-hours 3 hours (4.32 M rows
+             seed), cut to the first --server-hours 2 hours (2.88 M rows
              plus 10 % re-deliveries) for the script's time limit. CREATE
              TABLE goes over /v1/sql; each hour's four runs and its
              re-delivery go as line protocol (precision=ms) in bodies of
@@ -246,6 +246,45 @@ result line):
              query, device ms and idle share of Q2 and the PromQL query,
              reopen ms. Kernel counts are zeroed before the phase and read
              after it; both data roots are removed.
+
+13. flow   — flows (continuous aggregation): phase 2's TSBS devops rows
+             (same seed; 4000 hosts, 12 h at 10 s, ten usage_* fields),
+             each hour's four 15-minute runs without the re-delivery and
+             tombstone runs (a flow mirrors every insert, so a re-delivered
+             row would count twice), written in deltas of 10,000 rows
+             (tsbs_load's --batch-size; 1,728 deltas) through `_insert`'s
+             columnar write and its flow delta into a Standalone on the
+             card (engine-opened, WAL on, wal_sync at its default) with two
+             flows created first: cpu_1h (avg and max of the ten fields BY
+             hostname, date_bin('1 hour', ts): TSBS double-groupby-all and
+             cpu-max-all kept as a rollup) and cpu_1h_stats (count, min,
+             stddev_samp, first_value and last_value of usage_user), 48,000
+             groups each, ticked by hand at the end of every hour. Hard
+             checks: every delta launches G, the same number of times; no
+             flow is demoted and no apply or tick fails; after the first
+             hour's tick both sinks and both device states equal, bit for
+             bit, the port on the CPU fed the same deltas (run in a worker
+             process while the card writes); after twelve hours count,
+             min, max, first_value and last_value equal numpy over the
+             float32-cast rows, avg and stddev_samp within the bounds
+             stated in flow_check_numpy; 20 line-protocol bodies of 10,000
+             lines over HTTP into a fresh card Standalone give sinks and
+             states equal bit for bit to the same rows through the
+             columnar route in the same splits; cpu_1h_stats with
+             x64=True over the first hour launches G's float64 sum and
+             min forms and equals the CPU port in x64 mode bit for bit.
+             Then G at the flow's shapes (one row block over the state's
+             capacity) and G's float64 max/min form (the x64 leg's shape
+             and edge inputs: NaN payloads of both signs, +-0.0, +-inf,
+             ragged groups, one and eight row blocks) against their plain
+             versions, bit for bit, timed beside their bounds, their plain
+             versions and scatter_reduce. Printed: rows/s of the write
+             with the flows on, host ms of each delta in on_insert, G
+             calls a delta by form, the hourly ticks and the tick over all
+             96,000 groups (finalize and readback, sink upsert), the state
+             bytes, device ms and idle share of one warm delta under the
+             profiler. Kernel counts are zeroed before the phase and read
+             after its main path; the data roots are removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
 line, and last {"ok": true, "device": {...}}.
@@ -4126,6 +4165,634 @@ def server_phase(args, dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# 13. flow
+# ----------------------------------------------------------------------
+
+FLOW_BATCH = 10_000          # rows a delta: tsbs_load's default --batch-size
+FLOW_HTTP_DELTAS = 20        # the line-protocol leg's bodies
+FLOW_DDL = ("CREATE TABLE cpu (hostname STRING, region STRING, "
+            + ", ".join(f"{f} DOUBLE" for f in FIELDS)
+            + ", ts TIMESTAMP TIME INDEX, PRIMARY KEY (hostname, region))")
+# TSBS double-groupby-all and cpu-max-all kept as a 1 h rollup, and the
+# variance slots, the int32 winner stages and count/min beside them
+FLOWS = {
+    "cpu_1h": "CREATE FLOW cpu_1h SINK TO cpu_1h_out AS SELECT hostname, "
+              "date_bin('1 hour', ts) AS hour, "
+              + ", ".join(f"avg({f}) AS avg_{f}, max({f}) AS max_{f}"
+                          for f in FIELDS)
+              + " FROM cpu GROUP BY hostname, hour",
+    "cpu_1h_stats": "CREATE FLOW cpu_1h_stats SINK TO cpu_1h_stats_out AS "
+                    "SELECT hostname, date_bin('1 hour', ts) AS hour, "
+                    "count(usage_user) AS n, min(usage_user) AS lo, "
+                    "stddev_samp(usage_user) AS sd, "
+                    "first_value(usage_user ORDER BY ts) AS fv, "
+                    "last_value(usage_user ORDER BY ts) AS lv "
+                    "FROM cpu GROUP BY hostname, hour",
+}
+# the state slot of cpu_1h_stats' variance shift k (count 1, min 2 slots)
+FLOW_SHIFT_SLOT = 3
+
+
+def flow_deltas(args):
+    """Phase 13's writes in order: phase 2's TSBS rows (the same rng, drawn
+    as phase 2 draws them), each hour's four 15-minute runs (no
+    re-delivery, no tombstones) cut into deltas of FLOW_BATCH rows, as
+    (hour, run, data, valid) in `_insert`'s columnar form."""
+    rng = np.random.default_rng(args.seed)
+    hosts = np.array([f"host_{i}" for i in range(args.hosts)])
+    region_of = np.array(AWS_REGIONS)[rng.integers(0, len(AWS_REGIONS),
+                                                    args.hosts)]
+    for h, runs in enumerate(tsbs_hours(rng, hosts, region_of, args.hours)):
+        for r, (_, tags, ts, fields) in enumerate(runs[:4]):
+            for a in range(0, len(ts), FLOW_BATCH):
+                b = min(a + FLOW_BATCH, len(ts))
+                data = {"ts": ts[a:b],
+                        **{k: v[a:b].astype(object) for k, v in tags.items()},
+                        **{f: fields[f][a:b] for f in FIELDS}}
+                yield h, r, data, {k: np.ones(b - a, bool) for k in data}
+
+
+def flow_standalone(root, dev, x64=False, flows=FLOWS):
+    """A Standalone on `dev` in `root` with the cpu table and `flows`,
+    ticked by hand."""
+    from greptimedb_tpu_torch.instance import Standalone
+
+    inst = Standalone(root, device=dev, x64=x64, warm_start=False)
+    inst.enable_flows(tick_interval_s=3600)
+    inst.sql(FLOW_DDL)
+    for name in flows:
+        inst.sql(FLOWS[name])
+    return inst
+
+
+def flow_write(inst, data, valid):
+    """`_insert`'s columnar write, then the flows' delta; returns the
+    host seconds of the delta (`on_insert`)."""
+    table = inst.catalog.table("public", "cpu")
+    inst._write_columns(table, data, valid)
+    t = time.perf_counter()
+    inst._notify_flows("public", "cpu", table, data, valid)
+    return time.perf_counter() - t
+
+
+def flow_sinks(inst, names=FLOWS):
+    """{sink: (column names, [(values, valid mask)])} of the flows `names`,
+    ordered by the keys: numpy arrays, which pickle."""
+    out = {}
+    for n in names:
+        res = inst.sql(f"SELECT * FROM {n}_out ORDER BY hostname, hour")
+        out[f"{n}_out"] = (list(res.names),
+                           [(np.asarray(c.values), np.asarray(c.valid_mask))
+                            for c in res.cols])
+    return out
+
+
+def flow_states(inst, names=FLOWS):
+    """{flow: (capacity, key rows, [slot arrays])} of the device states."""
+    out = {}
+    for n in names:
+        ds = inst.flows.maybe_flow(n).device_state
+        if ds is None:
+            raise AssertionError(f"flow {n} left the device path")
+        out[n] = (ds.capacity, list(ds.key_rows()),
+                  [s.cpu().numpy() for s in ds.state])
+    return out
+
+
+def same_sinks(what, a, b):
+    """Sinks cell for cell, floats bit for bit, validity too (the tick's
+    wall clock in update_at aside)."""
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: sinks {sorted(a)} vs {sorted(b)}")
+    for sink in a:
+        (na, ca), (nb, cb) = a[sink], b[sink]
+        if na != nb or len(ca[0][0]) != len(cb[0][0]):
+            raise AssertionError(f"{what} {sink}: {len(ca[0][0])} rows "
+                                 f"{na} vs {len(cb[0][0])} {nb}")
+        for name, (va, ma), (vb, mb) in zip(na, ca, cb):
+            if va.dtype.kind == "f":
+                va, vb = va.view(np.uint64), vb.view(np.uint64)
+            if name != "update_at" and (not np.array_equal(va, vb)
+                                        or not np.array_equal(ma, mb)):
+                raise AssertionError(f"{what}: {sink}.{name} differs")
+
+
+def same_flow_states(what, a, b):
+    """flow_states of two runs slot for slot, bit for bit."""
+    for n in a:
+        (ca, ka, sa), (cb, kb, sb) = a[n], b[n]
+        if ca != cb or ka != kb:
+            raise AssertionError(f"{what}: flow {n} groups differ")
+        for i, (x, y) in enumerate(zip(sa, sb)):
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f"{what}: flow {n} slot {i} differs")
+
+
+def flow_cpu_run(seed, hosts, x64, names):
+    """The reference of checks 1 and 4, in a worker process: the port on
+    the CPU (G's plain versions) fed phase 13's first hour, drawn from the
+    same seed, and ticked once. Returns its sinks, its states and its
+    failure counts."""
+    import shutil
+    import tempfile
+    from types import SimpleNamespace
+
+    torch.set_num_threads(2)
+    root = tempfile.mkdtemp(prefix="chip_smoke_flow_cpu_")
+    try:
+        inst = flow_standalone(root, "cpu", x64=x64, flows=names)
+        n = 0
+        for _, _, data, valid in flow_deltas(SimpleNamespace(
+                seed=seed, hosts=hosts, hours=1)):
+            flow_write(inst, data, valid)
+            n += 1
+        inst.flows.flush_all()
+        out = {"deltas": n, "sinks": flow_sinks(inst, names),
+               "states": flow_states(inst, names),
+               "failed": (inst.flows.failed_applies,
+                          inst.flows.failed_ticks)}
+        inst.close()
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_cpu_run(what, ref, sinks, states):
+    """A worker's flow_cpu_run result against the card's."""
+    if ref["failed"] != (0, 0):
+        raise AssertionError(f"{what}: the cpu run failed {ref['failed']}")
+    same_sinks(what, sinks, ref["sinks"])
+    same_flow_states(what, states, ref["states"])
+
+
+def flow_ok(what, inst):
+    """No delta or tick failed, no flow left the device."""
+    fm = inst.flows
+    if fm.failed_applies or fm.failed_ticks:
+        raise AssertionError(f"{what}: {fm.failed_applies} failed applies, "
+                             f"{fm.failed_ticks} failed ticks")
+    for n in fm.flow_names():
+        if fm.maybe_flow(n).device_state is None:
+            raise AssertionError(f"{what}: flow {n} was demoted")
+
+
+@contextlib.contextmanager
+def count_g_forms(gr, store):
+    """Count G's calls by (form, dtype) and keep the last call of each (the
+    state's final capacity) while this block is open; the wrapper runs as
+    it would and its launch count is carried on the recorder (as
+    capture_grouped does)."""
+    real = gr.grouped_block_reduce
+
+    def g(v, members, form):
+        key = (form, str(v.dtype).removeprefix("torch."))
+        store.setdefault("calls", {}).setdefault(key, 0)
+        store["calls"][key] += 1
+        store[key] = (v, members)
+        return real(v, members, form)
+
+    g.launches = real.launches
+    gr.grouped_block_reduce = g
+    try:
+        yield
+    finally:
+        real.launches = g.launches
+        gr.grouped_block_reduce = real
+
+
+@contextlib.contextmanager
+def tick_timers(DS, FM, store):
+    """Host seconds of the tick's finalize + readback
+    (DeviceFlowState.finalize_snapshot) and of its sink upsert
+    (FlowManager._emit_groups), summed into `store` while open."""
+    fin = DS.DeviceFlowState.finalize_snapshot
+    emit_ = FM.FlowManager._emit_groups
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                if key == "finalize_readback_s":
+                    torch.cuda.synchronize()
+                store[key] = store.get(key, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    DS.DeviceFlowState.finalize_snapshot = timed(fin, "finalize_readback_s")
+    FM.FlowManager._emit_groups = timed(emit_, "sink_upsert_s")
+    try:
+        yield
+    finally:
+        DS.DeviceFlowState.finalize_snapshot = fin
+        FM.FlowManager._emit_groups = emit_
+
+
+def flow_phase(args, dev):
+    """Phase 13 (see the module docstring). Returns every kernel's
+    launches over the phase's main path, G's entries at the flow's shape
+    and its float64 max/min form."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.flow import device_state as DS
+    from greptimedb_tpu_torch.flow import manager as FM
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.servers import http as H
+
+    import multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    roots = [tempfile.mkdtemp(prefix=f"chip_smoke_flow{i}_")
+             for i in range(4)]
+    out, insts, srv, pool = {}, [], None, None
+    zero_counts(rf, mg)
+    for k in GROUPED_KERNELS:
+        getattr(gr, k).launches = 0
+
+    def all_counts():
+        return {**counts(rf, mg),
+                **{k: getattr(gr, k).launches for k in GROUPED_KERNELS}}
+
+    def opened(*a, **k):
+        inst = flow_standalone(*a, **k)
+        insts.append(inst)
+        return inst
+
+    try:
+        # the CPU references of checks 1 and 4 run in two worker processes
+        # while the card writes
+        pool = mp.get_context("spawn").Pool(2)
+        refs = {"f32": pool.apply_async(flow_cpu_run, (
+                    args.seed, args.hosts, False, tuple(FLOWS))),
+                "x64": pool.apply_async(flow_cpu_run, (
+                    args.seed, args.hosts, True, ("cpu_1h_stats",)))}
+
+        # ---- the 12 h write with both flows on the card, a tick at the
+        # end of every hour
+        card = opened(roots[0], dev)
+        first_hour, first = [], {}
+        hosts_rows = {}      # per hour and run: the usage_* columns
+        host_s, g_per_delta, ticks = [], [], []
+        store, timers = {}, {}
+        rows = 0
+
+        def tick():
+            t = time.perf_counter()
+            card.flows.flush_all()
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter() - t)
+
+        t_write = time.perf_counter()
+        with count_g_forms(gr, store), tick_timers(DS, FM, timers):
+            for h, r, data, valid in flow_deltas(args):
+                if h == 1 and not first:
+                    tick()
+                    first["sinks"] = flow_sinks(card)
+                    first["states"] = flow_states(card)
+                elif h and r == 0 and len(ticks) < h:
+                    tick()
+                if h == 0:
+                    first_hour.append((data, valid))
+                runs = hosts_rows.setdefault(h, [{} for _ in range(4)])
+                for f in FIELDS:
+                    runs[r].setdefault(f, []).append(data[f])
+                before = gr.grouped_block_reduce.launches
+                host_s.append(flow_write(card, data, valid))
+                g_per_delta.append(gr.grouped_block_reduce.launches - before)
+                rows += len(data["ts"])
+            tick()
+            if not first:
+                first["sinks"] = flow_sinks(card)
+                first["states"] = flow_states(card)
+        write_s = time.perf_counter() - t_write
+        n_deltas = len(host_s)
+        per_run = HOUR_MS // STEP_MS // 4 * args.hosts
+        if n_deltas != args.hours * 4 * -(-per_run // FLOW_BATCH):
+            raise AssertionError(f"flow: {n_deltas} deltas")
+        if min(g_per_delta) == 0 or len(set(g_per_delta)) != 1:
+            raise AssertionError(f"flow: G launches a delta "
+                                 f"{sorted(set(g_per_delta))}")
+        flow_ok("flow card", card)
+        groups = {n: card.flows.maybe_flow(n).device_state.num_groups
+                  for n in FLOWS}
+        if set(groups.values()) != {args.hosts * args.hours}:
+            raise AssertionError(f"flow: groups {groups}")
+        out["write"] = {
+            "deltas": n_deltas, "rows": rows, "seconds": write_s,
+            "rows_per_s": rows / write_s,
+            "on_insert_host_ms_median": float(np.median(host_s)) * 1e3,
+            "on_insert_host_ms_mean": float(np.mean(host_s)) * 1e3,
+            "on_insert_host_ms_p99": float(np.percentile(host_s, 99)) * 1e3,
+            "on_insert_host_s_total": float(np.sum(host_s)),
+            "g_launches_per_delta": g_per_delta[0],
+            "g_calls_by_form": {f"{k[0]} {k[1]}": v for k, v in
+                                store["calls"].items()},
+            "groups": groups,
+            "hourly_tick_ms": [x * 1e3 for x in ticks],
+            "hourly_tick_parts_ms": {k.replace("_s", "_ms"): v * 1e3
+                                     for k, v in timers.items()},
+            "state_bytes": {n: card.flows.maybe_flow(n).device_state.nbytes()
+                            for n in FLOWS}}
+        timers.clear()
+
+        # ---- check 1: the first hour's sinks and states against the CPU
+        # port (a worker's run)
+        t = time.perf_counter()
+        ref = refs["f32"].get(timeout=900)
+        if ref["deltas"] != len(first_hour):
+            raise AssertionError(f"flow cpu run: {ref['deltas']} deltas")
+        check_cpu_run("flow first hour card vs cpu", ref, first["sinks"],
+                      first["states"])
+        out["first_hour_vs_cpu_wait_s"] = time.perf_counter() - t
+
+        # ---- check 2: twelve hours against numpy
+        t = time.perf_counter()
+        out["vs_numpy"] = flow_check_numpy(args, card, hosts_rows)
+        out["vs_numpy"]["seconds"] = time.perf_counter() - t
+
+        # ---- the tick over every group: finalize, readback, sink upsert
+        for n in FLOWS:
+            ds = card.flows.maybe_flow(n).device_state
+            ds.dirty[:ds.num_groups] = True
+        with tick_timers(DS, FM, timers):
+            t = time.perf_counter()
+            card.flows.flush_all()
+            torch.cuda.synchronize()
+            full_tick = time.perf_counter() - t
+        out["tick_all_groups"] = {
+            "groups": sum(groups.values()), "ms": full_tick * 1e3,
+            **{k.replace("_s", "_ms"): v * 1e3 for k, v in timers.items()}}
+
+        # ---- check 3: line protocol over HTTP against the columnar route
+        t = time.perf_counter()
+        lp = opened(roots[2], dev)
+        col = opened(roots[3], dev)
+        srv = H.HttpServer(lp, port=0).start()
+        bodies = []
+        for data, valid in first_hour[:FLOW_HTTP_DELTAS]:
+            tags = {k: data[k] for k in ("hostname", "region")}
+            bodies += lp_bodies(tags, data["ts"], data)
+        if len(bodies) != FLOW_HTTP_DELTAS:
+            raise AssertionError(f"flow: {len(bodies)} line-protocol bodies")
+        t_http = time.perf_counter()
+        for body in bodies:
+            status, resp, _ = http_call(srv.port, "/v1/influxdb/write?"
+                                        "precision=ms", body.encode())
+            if status != 204:
+                raise AssertionError(f"influx write {status}: {resp[:200]!r}")
+        http_s = time.perf_counter() - t_http
+        for data, valid in first_hour[:FLOW_HTTP_DELTAS]:
+            flow_write(col, data, valid)
+        lp.flows.flush_all()
+        col.flows.flush_all()
+        same_sinks("flow line protocol vs columnar", flow_sinks(lp),
+                   flow_sinks(col))
+        same_flow_states("flow line protocol vs columnar", flow_states(lp),
+                         flow_states(col))
+        for inst in (lp, col):
+            flow_ok("flow http leg", inst)
+        out["line_protocol"] = {
+            "bodies": len(bodies), "rows": FLOW_HTTP_DELTAS * FLOW_BATCH,
+            "http_s": http_s,
+            "rows_per_s_http": FLOW_HTTP_DELTAS * FLOW_BATCH / http_s,
+            "seconds": time.perf_counter() - t}
+        srv.stop()
+        srv = None
+
+        # ---- check 4: x64, cpu_1h_stats over the first hour
+        t = time.perf_counter()
+        store64 = {}
+        stats = ("cpu_1h_stats",)
+        x64 = opened(roots[1], dev, x64=True, flows=stats)
+        with count_g_forms(gr, store64):
+            for data, valid in first_hour:
+                flow_write(x64, data, valid)
+            x64.flows.flush_all()
+        torch.cuda.synchronize()
+        calls64 = store64.get("calls", {})
+        for key in (("sum", "float64"), ("min", "float64")):
+            if not calls64.get(key):
+                raise AssertionError(f"flow x64: G {key} never ran")
+        flow_ok("flow x64", x64)
+        states64 = flow_states(x64, stats)
+        # slot 1: min's value (slot 0 is the int32 count)
+        if states64["cpu_1h_stats"][2][1].dtype != np.float64:
+            raise AssertionError("flow x64: state is not float64")
+        launches = all_counts()
+        check_cpu_run("flow x64 card vs cpu", refs["x64"].get(timeout=900),
+                      flow_sinks(x64, stats), states64)
+        out["x64"] = {"deltas": len(first_hour),
+                      "g_calls_by_form": {f"{k[0]} {k[1]}": v
+                                          for k, v in calls64.items()},
+                      "seconds": time.perf_counter() - t}
+
+        # ---- profile one warm delta on the card (after the checks: it
+        # folds the last delta in once more)
+        data, valid = first_hour[-1]
+        table = card.catalog.table("public", "cpu")
+        before = gr.grouped_block_reduce.launches
+        prof = profiled(lambda: card._notify_flows("public", "cpu", table,
+                                                   data, valid), top=6)
+        out["profile_one_delta"] = {
+            **prof, "g_launches": gr.grouped_block_reduce.launches - before,
+            "g_device_ms": device_ms_per_launch(
+                prof, lambda k: k.startswith(("segment_walk_kernel",
+                                              "group_fold_kernel")))}
+
+        # ---- G at the flow's shapes, and its float64 max/min form
+        t = time.perf_counter()
+        kern = flow_kernel_rows(dev, gr, store, store64, prof)
+        out["kernels_s"] = time.perf_counter() - t
+    finally:
+        if pool is not None:
+            pool.terminate()
+            pool.join()
+        if srv is not None:
+            srv.stop()
+        for inst in insts:
+            inst.close()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "flow", "card": nvidia_smi_line(), **out})
+    return launches, kern
+
+
+def flow_check_numpy(args, card, hosts_rows):
+    """Check 2: after twelve hours every (host, hour) of both sinks against
+    numpy over the written rows, cast to float32 as the default mode's
+    slots hold them. count, min, max, first_value and last_value equal
+    exactly. avg within (M - 1) u mean|x| + 4 u |mean|: each delta's
+    batch sum adds at most M = 90 rows of a group (the ninety 10 s steps of
+    a 15-minute run) in order from 0, the batch sums fold with Neumaier's
+    compensation (2 u |sum|), then one add and one division round.
+    stddev_samp within dvar / (2 sd) + u sd, dvar = u ((M + 8) A + 2 (M +
+    1) |S| sum|x - k| / n) / (n - 1) over the shifted sums A = sum (x -
+    k)^2, S = sum (x - k) with the state's shift k: each shifted value and
+    square rounds once, the sums as above, and the finalize's mean,
+    quotient, fma, ratio and product once each."""
+    per_run = HOUR_MS // STEP_MS // 4
+    m = per_run
+    hosts = np.array([f"host_{i}" for i in range(args.hosts)], object)
+    sinks = flow_sinks(card)
+    one = sinks["cpu_1h_out"]
+    st = sinks["cpu_1h_stats_out"]
+    n_rows = args.hosts * args.hours
+    for names, cols in (one, st):
+        if len(cols[0][0]) != n_rows:
+            raise AssertionError(f"flow sink rows {len(cols[0][0])}")
+    # sink rows ordered (hostname, hour): hostname sorts as strings
+    order = np.argsort(hosts)
+    ds = card.flows.maybe_flow("cpu_1h_stats").device_state
+    gid = {k: i for i, k in enumerate(ds.key_rows())}
+    shift = ds.state[FLOW_SHIFT_SLOT].cpu().numpy()
+    worst = {"avg_abs": 0.0, "avg_over_bound": 0.0, "sd_abs": 0.0,
+             "sd_over_bound": 0.0}
+
+    def col(res, name):
+        names, cols = res
+        return cols[names.index(name)][0].reshape(args.hosts, args.hours)
+
+    for h in range(args.hours):
+        runs = hosts_rows[h]
+        v = {f: np.concatenate([np.concatenate(r[f]).reshape(
+            args.hosts, per_run) for r in runs], axis=1).astype(
+            np.float32)[order] for f in FIELDS}
+        for f in FIELDS:
+            x = v[f].astype(np.float64)
+            if not np.array_equal(col(one, f"max_{f}")[:, h],
+                                  x.max(axis=1)):
+                raise AssertionError(f"flow max({f}) hour {h} differs")
+            mean = x.mean(axis=1)
+            err = np.abs(col(one, f"avg_{f}")[:, h] - mean)
+            bound = U * ((m - 1) * np.abs(x).mean(axis=1)
+                         + 4 * np.abs(mean))
+            if (err > bound).any():
+                raise AssertionError(f"flow avg({f}) hour {h} past its "
+                                     f"bound: {err.max()}")
+            worst["avg_abs"] = max(worst["avg_abs"], float(err.max()))
+            worst["avg_over_bound"] = max(worst["avg_over_bound"],
+                                          float((err / bound).max()))
+        x = v["usage_user"].astype(np.float64)
+        n = x.shape[1]
+        for name, want in (("n", np.full(args.hosts, n, np.float64)),
+                           ("lo", x.min(axis=1)), ("fv", x[:, 0]),
+                           ("lv", x[:, -1])):
+            if not np.array_equal(col(st, name)[:, h], want):
+                raise AssertionError(f"flow {name} hour {h} differs")
+        k = shift[[gid[(hosts[i], h * HOUR_MS)] for i in order]].astype(
+            np.float64)[:, None]
+        a = ((x - k) ** 2).sum(axis=1)
+        s = (x - k).sum(axis=1)
+        sd_ref = x.std(axis=1, ddof=1)
+        dvar = U * ((m + 8) * a + 2 * (m + 1) * np.abs(s)
+                    * np.abs(x - k).sum(axis=1) / n) / (n - 1)
+        bound = dvar / (2 * sd_ref) + U * sd_ref
+        err = np.abs(col(st, "sd")[:, h] - sd_ref)
+        if (err > bound).any():
+            raise AssertionError(f"flow stddev_samp hour {h} past its "
+                                 f"bound: {err.max()}")
+        worst["sd_abs"] = max(worst["sd_abs"], float(err.max()))
+        worst["sd_over_bound"] = max(worst["sd_over_bound"],
+                                     float((err / bound).max()))
+    return {"groups": n_rows, "exact": ["count", "min", "max",
+                                        "first_value", "last_value"],
+            **worst}
+
+
+def flow_kernel_rows(dev, gr, store, store64, prof):
+    """G at the flow's shapes (the main run's last float32 sum and max,
+    one row block over the state's capacity) and G's float64 max/min form
+    (the x64 leg's last min, and edge inputs: NaN payloads of both signs, +-0.0,
+    +-inf, masked and empty groups, ragged segments, one and eight row
+    blocks) against their plain versions, bit for bit, timed beside their
+    bounds and scatter_reduce."""
+    errs = []
+
+    def exact(what, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"{what} differs from its plain version")
+        errs.append(float(torch.nan_to_num(
+            (got.double() - want.double()).abs(), nan=0.0).max()))
+
+    def ext_bytes(members, width):
+        live = int(members.ptr[-1])
+        return ((width + 4) * live + 4 * (members.gb * members.blocks + 1)
+                + width * members.gb)
+
+    def timed(v, members, form, width, ops_per_s):
+        live = members.perm[:int(members.ptr[-1])].long()
+        seg = torch.repeat_interleave(
+            torch.arange(members.gb * members.blocks, device=dev),
+            (members.ptr[1:] - members.ptr[:-1]).long()) // members.blocks
+        nbytes = ext_bytes(members, width)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = int(members.ptr[-1]) / ops_per_s * 1e3
+        if form == "sum":
+            def library():
+                return torch.zeros(members.gb, dtype=v.dtype,
+                                   device=dev).index_add_(0, seg, v[live])
+        else:
+            def library():
+                return torch.full((members.gb,), -torch.inf if form == "max"
+                                  else torch.inf, dtype=v.dtype,
+                                  device=dev).scatter_reduce_(
+                    0, seg, v[live], "amax" if form == "max" else "amin")
+        ms = cuda_ms(lambda: gr.grouped_block_reduce(v, members, form))
+        return {"ms": ms,
+                "burst_ms": burst_ms(lambda: gr.grouped_block_reduce(
+                    v, members, form)),
+                "plain_ms": cuda_ms(lambda: gr.grouped_block_reduce_plain(
+                    v, members, form), reps=3, warm=1),
+                "library_ms": cuda_ms(library),
+                "bound_ms": max(b_ms, o_ms),
+                "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                "bytes": nbytes,
+                "shape": {"rows": v.numel(), "live_rows": int(members.ptr[-1]),
+                          "blocks": members.blocks, "gb": members.gb,
+                          **segment_stats(members)}}
+
+    out = {}
+    # the main run's first sum (avg(usage_user)) and max, float32
+    for form in ("sum", "max"):
+        v, members = store[(form, "float32")]
+        exact(f"G flow {form}", gr.grouped_block_reduce(v, members, form),
+              gr.grouped_block_reduce_plain(v, members, form))
+        out[form] = timed(v, members, form, 4, F32_OPS_PER_S)
+        out[form]["share_of_bound"] = (out[form]["bound_ms"]
+                                       / out[form]["burst_ms"])
+    out["device_ms_per_launch_in_delta"] = device_ms_per_launch(
+        prof, lambda k: k.startswith("segment_walk_kernel<float, 0>"))
+    # the float64 max/min form: the x64 leg's min, then edge inputs
+    v64, m64 = store64[("min", "float64")]
+    for form in ("min", "max"):
+        exact(f"G f64 {form} flow", gr.grouped_block_reduce(v64, m64, form),
+              gr.grouped_block_reduce_plain(v64, m64, form))
+    rng = np.random.default_rng(29)
+    for layout in ("random", "runs"):
+        for n, blocks, gb in ((10_000, 1, 4096), (30_011, 8, 64),
+                              (20_000, 1, 16), (50_000, 256, 1)):
+            v, members = edge_members(dev, gr, rng, n, blocks, gb, layout)
+            bits = v.view(torch.int32).cpu().numpy()
+            # the float32 edge bits widened (payloads and signs kept)
+            v = torch.from_numpy(bits.view(np.float32).astype(
+                np.float64)).to(dev)
+            for form in ("max", "min"):
+                exact(f"G f64 {form} edge {layout} {n}x{blocks}x{gb}",
+                      gr.grouped_block_reduce(v, members, form),
+                      gr.grouped_block_reduce_plain(v, members, form))
+    f64 = timed(v64, m64, "min", 8, F64_OPS_PER_S)
+    f64["max_abs_err"] = max(errs)
+    f64["launches_x64_leg"] = store64["calls"][("min", "float64")]
+    return {"flow": out, "float64_ext_form": f64, "max_abs_err": max(errs)}
+
+
 def run(args) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4290,9 +4957,11 @@ def run(args) -> int:
     durable_launches = durable_phase(args, dev, slice_out, P)
     # ---- 12. server ----------------------------------------------------
     server_launches = server_phase(args, dev)
+    # ---- 13. flow ------------------------------------------------------
+    flow_launches, flow_kern = flow_phase(args, dev)
     # every kernel's launches over the main-path runs of phases 2 and 6
-    # to 10; the hop ring's seed, continuation and combines ran in phase 8
-    # only, Gt in phase 9 only, G in phases 9 and 10
+    # to 13; the hop ring's seed, continuation and combines ran in phase 8
+    # only, Gt in phase 9 only, G in phases 9, 10, 12 and 13
     extreme_row = next(r for r in mesh_out["rows"] if r["name"] == "extreme")
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
@@ -4329,6 +4998,14 @@ def run(args) -> int:
         if server_launches.get(name):
             row["launches"] += server_launches[name]
             row["launches_server"] = server_launches[name]
+        if flow_launches.get(name):
+            row["launches"] += flow_launches[name]
+            row["launches_flow"] = flow_launches[name]
+        if name == "grouped_block_reduce":
+            row["flow"] = flow_kern["flow"]
+            row["float64_ext_form"] = flow_kern["float64_ext_form"]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     flow_kern["max_abs_err"])
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched")
     print(smi, flush=True)
@@ -4350,7 +5027,7 @@ def main() -> int:
     ap.add_argument("--hist-pods", type=int, default=12_500)
     ap.add_argument("--rest-warm", type=int, default=5,
                     help="warm runs of each phase-10 query (median)")
-    ap.add_argument("--server-hours", type=int, default=3,
+    ap.add_argument("--server-hours", type=int, default=2,
                     help="hours of TSBS devops phase 12 writes over HTTP")
     args = ap.parse_args()
     try:

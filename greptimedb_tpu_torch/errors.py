@@ -67,3 +67,11 @@ class DatabaseNotFoundError(GreptimeError):
 class IllegalStateError(GreptimeError):
     """An object used in a state that does not allow it (a table whose
     open failed)."""
+
+
+class FlowNotFoundError(GreptimeError):
+    """A flow name that does not exist (DROP FLOW, ADMIN flush_flow)."""
+
+
+class FlowAlreadyExistsError(GreptimeError):
+    """CREATE FLOW of a flow name that is taken."""

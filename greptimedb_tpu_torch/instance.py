@@ -14,14 +14,18 @@ one `Output` per statement, `sql` the last statement's result):
   TRUNCATE, ALTER TABLE add/drop column and rename;
 - USE, SHOW DATABASES/TABLES/COLUMNS/INDEX, DESCRIBE, SHOW CREATE TABLE;
 - TQL EVAL/EXPLAIN (promql/engine.PromEngine.query_range_result);
-- ADMIN flush_table, compact_table, flush_region, compact_region.
+- ADMIN flush_table, compact_table, flush_region, compact_region;
+- flows (flow/manager.FlowManager, enabled by CREATE FLOW or
+  `enable_flows()`, which also reloads the flows a data root persisted):
+  CREATE/DROP FLOW, SHOW FLOWS, SHOW CREATE FLOW, ADMIN flush_flow; every
+  write (INSERT, line protocol, remote write) feeds them.
 
 Every other statement raises UnsupportedError naming its ROADMAP item:
 set operations, views, joins, CTEs, EXPLAIN, information_schema,
 PREPARE/EXECUTE, SET/SHOW VARIABLES, SHOW PROCESSLIST and KILL, SHOW
-STATUS/CHARSET/COLLATION (A4),
-flows (A7), COPY (A2's tail). An Instance without a storage engine
-answers DDL with the catalog's UnsupportedError. Entry points run on
+STATUS/CHARSET/COLLATION (A4), COPY (A2's tail). An Instance without a
+storage engine answers DDL with the catalog's UnsupportedError, and
+flows with its own. Entry points run on
 CUDA unless the caller passes device="cpu". servers/http.HttpServer
 serves either over HTTP; `promql/engine.PromEngine(instance)` reads the
 same catalog and engine.
@@ -45,6 +49,7 @@ from greptimedb_tpu_torch.datatypes.types import ConcreteDataType
 from greptimedb_tpu_torch.errors import (
     DatabaseNotFoundError,
     InvalidArgumentError,
+    TableNotFoundError,
     UnsupportedError,
 )
 from greptimedb_tpu_torch.query.executor import Col, QueryEngine, QueryResult
@@ -63,12 +68,11 @@ _WAITING = {
     A.SetVariable: "A4", A.ShowVariables: "A4", A.ShowProcesslist: "A4",
     A.Prepare: "A4", A.Execute: "A4", A.Deallocate: "A4",
     A.ShowStatus: "A4", A.ShowCharset: "A4", A.ShowCollation: "A4",
-    A.CreateFlow: "A7", A.DropFlow: "A7", A.ShowFlows: "A7",
-    A.ShowCreateFlow: "A7", A.Copy: "A2's tail",
+    A.Copy: "A2's tail",
 }
 # ADMIN functions that wait, and their item
 _WAITING_ADMIN = {
-    "kill": "A4", "flush_flow": "A7", "migrate_region": "A10",
+    "kill": "A4", "migrate_region": "A10",
     "set_config": "A9", "autotune_freeze": "A9",
     "autotune_unfreeze": "A9", "reset_device_profiler": "A9",
     "reset_statement_statistics": "A9",
@@ -124,6 +128,7 @@ class Instance:
         self.query_engine = QueryEngine(device=device, mesh=mesh,
                                         mesh_opts=mesh_opts,
                                         prefer_device=prefer_device, x64=x64)
+        self.flows = None   # flow.FlowManager once flows are enabled
 
     # ------------------------------------------------------------------
     # entry points
@@ -198,6 +203,24 @@ class Instance:
             return Output.records(self._tql(stmt, ctx))
         if isinstance(stmt, A.Admin):
             return self._admin(stmt, ctx)
+        if isinstance(stmt, A.CreateFlow):
+            self.enable_flows().create_flow(stmt, ctx)
+            return Output.rows(0)
+        if isinstance(stmt, A.DropFlow):
+            self.enable_flows().drop_flow(stmt.name,
+                                          if_exists=stmt.if_exists)
+            return Output.rows(0)
+        if isinstance(stmt, A.ShowFlows):
+            names = [] if self.flows is None else self.flows.flow_names()
+            return Output.records(_result_from_lists(["Flows"], [names]))
+        if isinstance(stmt, A.ShowCreateFlow):
+            if self.flows is None:
+                raise UnsupportedError("flows are not enabled")
+            flow = self.flows.maybe_flow(stmt.name)
+            if flow is None:
+                raise TableNotFoundError(f"flow not found: {stmt.name}")
+            return Output.records(_result_from_lists(
+                ["Flow", "Create Flow"], [[stmt.name], [flow.raw_sql]]))
         raise UnsupportedError(
             f"statement not supported yet: {type(stmt).__name__}")
 
@@ -230,6 +253,16 @@ class Instance:
             n = sum(1 for ok in results if ok)
             return Output.records(_result_from_lists(
                 [f"ADMIN {name}('{ident}')"], [[n]]))
+        if name == "flush_flow":
+            fname = eval_const(arg(0))
+            if not isinstance(fname, str):
+                raise InvalidArgumentError(
+                    f"admin {name}: arg 0 must be a string")
+            if self.flows is None:
+                raise UnsupportedError("flows are not enabled")
+            n = 1 if self.flows.flush_flow(fname) else 0
+            return Output.records(_result_from_lists(
+                [f"ADMIN flush_flow('{fname}')"], [[n]]))
         if name in ("flush_region", "compact_region"):
             rid = eval_const(arg(0))
             if isinstance(rid, bool) or not isinstance(rid, (int,
@@ -314,7 +347,9 @@ class Instance:
                     for c, col in zip(cols, res.cols)}
             valid = {c: col.valid_mask for c, col in zip(cols, res.cols)}
             _apply_defaults(schema, data, valid, res.num_rows)
-            return self._write_columns(table, data, valid)
+            written = self._write_columns(table, data, valid)
+            self._notify_flows(db, name, table, data, valid)
+            return written
         cols = stmt.columns or schema.column_names
         n = len(stmt.values)
         raw = {c: [] for c in cols}
@@ -329,7 +364,9 @@ class Instance:
             data[c], valid[c] = _coerce_insert(
                 vals, schema.column(c).data_type)
         _apply_defaults(schema, data, valid, n)
-        return self._write_columns(table, data, valid)
+        written = self._write_columns(table, data, valid)
+        self._notify_flows(db, name, table, data, valid)
+        return written
 
     def _write_columns(self, table, data: dict, valid: dict) -> int:
         schema = table.schema
@@ -351,6 +388,27 @@ class Instance:
                     fvalid[cname] = valid[cname]
         ts = np.asarray(data[ts_name], np.int64)
         return table.write(tags, ts, fields, field_valid=fvalid or None)
+
+    def _notify_flows(self, db, name, table, data, valid):
+        """Mirror a write's columns to the flows reading its table."""
+        if self.flows is not None:
+            self.flows.on_insert(db, name, table, data, valid)
+
+    def enable_flows(self, *, tick_interval_s: float | None = None):
+        """The flow manager, started on first use: it loads the flows
+        the data root persisted and re-derives their state from their
+        sources. A later call retargets the tick interval."""
+        if self.engine is None:
+            raise UnsupportedError(
+                "flows need a storage engine (Standalone)")
+        if self.flows is None:
+            from greptimedb_tpu_torch.flow import FlowManager
+
+            self.flows = FlowManager(self, tick_interval_s=tick_interval_s)
+        elif tick_interval_s is not None:
+            # the running ticker takes it at its next wait
+            self.flows.tick_interval_s = tick_interval_s
+        return self.flows
 
     def _delete(self, stmt: A.Delete, ctx: QueryContext) -> int:
         db, name = self._resolve(stmt.table, ctx)
@@ -562,6 +620,10 @@ class Standalone(Instance):
     def close(self):
         if self.warm_thread is not None:
             self.warm_thread.join()
+        if self.flows is not None:
+            # the ticker stops and the last state reaches the sinks
+            # before the engine closes
+            self.flows.stop()
         self.engine.close()
 
 

@@ -16,6 +16,10 @@
 //     out[g] = fold of XLA's max / min from -inf / +inf (int32: its least
 //              or greatest value) over the live rows of group g,
 //              ascending i
+//     in float32 and int32, and in float64 for the flow state's min/max
+//     in x64 mode (greptimedb_tpu/flow/device_state.py _apply_program:
+//     136-147, jax.ops.segment_min / segment_max into the state's
+//     capacity, one block)
 //   column tree sum  (:274, jnp.sum(sp, axis=0) over (blocks, gb))
 //     XLA:CPU rewrites a reduction over more than 32 rows into chunks of
 //     32 rows, each summed in order from 0, then reduces the chunk sums
@@ -47,8 +51,8 @@
 // row's member index and value once (8 bytes a row), the pointers once
 // (4 * gb * blocks) and write 4 * gb * blocks (sum) or 4 * gb (max/min):
 // at the GROUP BY hostname shape (17.1 M rows, 4096 x 256 segments) about
-// 145 MB, 0.043 ms at 3.35 TB/s. The float64 sum reads 12 bytes a row and
-// writes 8 a segment.
+// 145 MB, 0.043 ms at 3.35 TB/s. The float64 forms read 12 bytes a row and
+// write 8 a segment (sum) or a group (max/min).
 //
 // Design of the segment walk. Rows come in series order (Region.scan
 // returns them by (sid, ts)), so a group's rows are long contiguous runs:
@@ -144,6 +148,28 @@ __device__ __forceinline__ float ext(float a, float x) {
   float q = __int_as_float(qb);
   bool take_p = kMax ? (p > q) : (p < q);
   return __int_as_float((isnan(p) || take_p) ? pb : qb);
+}
+
+// the same on float64: XLA:CPU lowers maximum/minimum on doubles as on
+// floats (the pair ordered by the sign bit of acc, a NaN first operand
+// wins), so the bits follow the same rule at 64 bits
+template <bool kMax>
+__device__ __forceinline__ double ext(double a, double x) {
+  long long ab = __double_as_longlong(a);
+  long long xb = __double_as_longlong(x);
+  bool neg = ab < 0;  // sign bit of a
+  long long pb, qb;
+  if (kMax) {
+    pb = neg ? ab : xb;
+    qb = neg ? xb : ab;
+  } else {
+    pb = neg ? xb : ab;
+    qb = neg ? ab : xb;
+  }
+  double p = __longlong_as_double(pb);
+  double q = __longlong_as_double(qb);
+  bool take_p = kMax ? (p > q) : (p < q);
+  return __longlong_as_double((isnan(p) || take_p) ? pb : qb);
 }
 
 template <bool kMax>
@@ -570,6 +596,14 @@ extern "C" int gtt_grouped_extreme_f32(const void* v, const void* perm,
                                        void* stream) {
   return launch_extreme<float>(v, perm, ptr, part, out, gb, blocks, take_max,
                                stream);
+}
+
+extern "C" int gtt_grouped_extreme_f64(const void* v, const void* perm,
+                                       const void* ptr, void* part, void* out,
+                                       int gb, int blocks, int take_max,
+                                       void* stream) {
+  return launch_extreme<double>(v, perm, ptr, part, out, gb, blocks, take_max,
+                                stream);
 }
 
 extern "C" int gtt_grouped_extreme_i32(const void* v, const void* perm,

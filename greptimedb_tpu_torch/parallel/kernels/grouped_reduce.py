@@ -14,12 +14,13 @@ hand kernels on the card (csrc/grouped_reduce.cu):
   float64, out[b, g] = 0 + v[i0] + v[i1] + ... over the member rows of
   group g in row block b, ascending (pseg2; float64: the PromQL generic
   engine's vectors through aggregate_across_series' scatter branch);
-- `grouped_block_reduce(v, members, "max" | "min")`: (gb,) float32 or
-  int32, the fold of XLA's maximum/minimum from -inf/+inf (int32: from
-  its least/greatest value) over the member rows of group g, ascending
-  (segment_max/segment_min, and the int32 stages of the first/last
-  winners); the fold is associative (csrc/grouped_reduce.cu says why), so
-  it folds each segment and then the segments in block order as a tree;
+- `grouped_block_reduce(v, members, "max" | "min")`: (gb,) float32,
+  float64 or int32, the fold of XLA's maximum/minimum from -inf/+inf
+  (int32: from its least/greatest value) over the member rows of group g,
+  ascending (segment_max/segment_min, the int32 stages of the first/last
+  winners, and float64 for the flow state's min/max in x64 mode); the
+  fold is associative (csrc/grouped_reduce.cu says why), so it folds each
+  segment and then the segments in block order as a tree;
 - `column_tree_sum(x)`: (cols,) float32, XLA:CPU's order for a float32
   sum over axis 0: chunks of 32 rows summed in order from 0, then the
   chunk sums the same way until one chunk is left; every level in one
@@ -51,7 +52,8 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
 _FORMS = ("sum", "max", "min")
-_EXT_TYPES = {torch.float32: "f32", torch.int32: "i32"}
+_EXT_TYPES = {torch.float32: "f32", torch.float64: "f64",
+              torch.int32: "i32"}
 _SUM_ENTRIES = {torch.float32: "gtt_grouped_block_sum",
                 torch.float64: "gtt_grouped_block_sum_f64"}
 _TREE = 32          # rows a chunk of XLA:CPU's tree reduction
@@ -197,7 +199,7 @@ def grouped_block_reduce(v: torch.Tensor, members: GroupMembers,
                          form: str) -> torch.Tensor:
     """G over the rows of `members`: form "sum" gives the (blocks, gb)
     per-(block, group) sums of float32 or float64 values, "max"/"min" the
-    (gb,) per-group extremes of float32 or int32 values."""
+    (gb,) per-group extremes of float32, float64 or int32 values."""
     _check(v, members, form)
     if v.is_cpu:
         return grouped_block_reduce_plain(v, members, form)

@@ -304,6 +304,8 @@ def _write_measurement(instance, db: str, measurement: str, rows) -> int:
         if not validity.all():
             valid_out[k] = validity
     table.write(tag_cols, ts, fields_out, field_valid=valid_out or None)
+    data = {table.ts_name: ts, **tag_cols, **fields_out}
+    instance._notify_flows(db, measurement, table, data, valid_out)
     return n
 
 

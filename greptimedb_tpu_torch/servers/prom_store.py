@@ -169,6 +169,8 @@ def apply_series(instance, serieses, *, db: str = "public") -> int:
         vals = np.asarray(rows_val, np.float64)
         tag_cols = {k: np.asarray(v, object) for k, v in rows_tags.items()}
         table.write(tag_cols, ts, {VALUE_FIELD: vals})
+        data = {table.ts_name: ts, VALUE_FIELD: vals, **tag_cols}
+        instance._notify_flows(db, metric, table, data, {})
         n_samples += len(ts)
     return n_samples
 

@@ -1686,3 +1686,218 @@ def test_server_path_on_cuda_matches_cpu(cuda, tmp_path):
         srv.stop()
         card.close()
         cpu.close()
+
+
+# ----------------------------------------------------------------------
+# flows: G's float64 max/min form, the device flow state
+# ----------------------------------------------------------------------
+
+_EDGE64 = np.array([0xFFF8000000000001, 0x7FF8000000000002,
+                    0xFFF0000000000000, 0x7FF0000000000000,
+                    0x8000000000000000, 0x0000000000000000,
+                    0x7FF8000000000000, 0x8000000000000000], np.uint64)
+
+
+@pytest.mark.parametrize("layout,n,blocks,gb,edge", [
+    (layout, *shape) for layout in ("random", "runs")
+    for shape in _G_SHAPES[:6]] + [
+        ("random", 10_000, 1, 65536, True),     # the flow's shape
+        ("runs", 10_000, 1, 1024, True), ("random", 777, 1, 4096, True),
+        ("runs", 1 << 17, 1, 16, True), ("random", 1 << 17, 8, 4096, True),
+        ("mixed", 1 << 18, 256, 64, True)])
+def test_grouped_block_reduce_float64_extreme_matches_plain(
+        cuda, layout, n, blocks, gb, edge):
+    """G's float64 max/min form (the flow state's min/max in x64 mode)
+    against its plain version and the CPU run, bit for bit: the extremes
+    are selections, so NaN payloads of both signs, +-0.0 and +-inf pass
+    through as XLA's maximum/minimum pick them. Ragged groups (random and
+    series-ordered ids, planted segment lengths), one row block (the
+    flow's) and several."""
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(n + blocks + gb + 128)
+    _, mask, gid = _layout_input(rng, n, blocks, gb, layout, edge)
+    v = rng.standard_normal(n) * 10.0 ** rng.integers(-300, 300, n)
+    if edge:
+        k = rng.choice(n, min(n, 64), replace=False)
+        v[k] = np.resize(_EDGE64, len(k)).view(np.float64)
+    members = gr.group_members(torch.from_numpy(gid).to(cuda),
+                               torch.from_numpy(mask).to(cuda), blocks, gb)
+    cpu_members = gr.group_members(torch.from_numpy(gid),
+                                   torch.from_numpy(mask), blocks, gb)
+    x = torch.from_numpy(v).to(cuda)
+    for form in ("max", "min"):
+        before = gr.grouped_block_reduce.launches
+        got = gr.grouped_block_reduce(x, members, form)
+        torch.cuda.synchronize()
+        assert gr.grouped_block_reduce.launches == before + 1
+        assert got.dtype == torch.float64 and got.shape == (gb,)
+        plain = gr.grouped_block_reduce_plain(x, members, form)
+        assert torch.equal(got.view(torch.int64), plain.view(torch.int64))
+        want = gr.grouped_block_reduce(torch.from_numpy(v), cpu_members,
+                                       form)
+        assert torch.equal(got.cpu().view(torch.int64),
+                           want.view(torch.int64)), form
+
+
+_FLOW_DDL = ("CREATE TABLE cpu (hostname STRING, region STRING, "
+             "usage_user DOUBLE, usage_system DOUBLE, ts TIMESTAMP TIME "
+             "INDEX, PRIMARY KEY (hostname, region))")
+_FLOWS = (
+    "CREATE FLOW f_avg SINK TO f_avg_out AS SELECT hostname, "
+    "date_bin('1 hour', ts) AS hour, avg(usage_user) AS a, "
+    "max(usage_user) AS m, sum(usage_system) AS s FROM cpu "
+    "GROUP BY hostname, hour",
+    "CREATE FLOW f_stats SINK TO f_stats_out AS SELECT hostname, "
+    "date_bin('1 hour', ts) AS hour, count(usage_user) AS n, "
+    "min(usage_user) AS lo, stddev_samp(usage_user) AS sd, "
+    "var_pop(usage_system) AS vp, "
+    "first_value(usage_user ORDER BY ts) AS fv, "
+    "last_value(usage_user ORDER BY ts) AS lv FROM cpu "
+    "GROUP BY hostname, hour",
+)
+
+
+def _flow_deltas(seed, hosts=300, steps=40, per=2000):
+    """TSBS-like rows (hosts x steps at 10 s, host-major, two fields, some
+    nulls, equal timestamps across hosts) cut into deltas of `per` rows."""
+    rng = np.random.default_rng(seed)
+    names = np.asarray([f"host_{i}" for i in range(hosts)], object)
+    hi = np.repeat(np.arange(hosts), steps)
+    ts = np.tile(np.arange(steps, dtype=np.int64) * 10_000 + 3_590_000,
+                 hosts)
+    u = (rng.random(len(ts)) * 100.0).astype(np.float32).astype(np.float64)
+    s = rng.normal(50.0, 5.0, len(ts))
+    sv = rng.random(len(ts)) > 0.05
+    for a in range(0, len(ts), per):
+        b = min(a + per, len(ts))
+        data = {"hostname": names[hi[a:b]],
+                "region": np.asarray([f"r{i % 3}" for i in hi[a:b]],
+                                     object),
+                "ts": ts[a:b], "usage_user": u[a:b], "usage_system": s[a:b]}
+        valid = {k: np.ones(b - a, bool) for k in data}
+        valid["usage_system"] = sv[a:b]
+        yield data, valid
+
+
+def _flow_standalone(root, device, x64, tick_s=3600):
+    from greptimedb_tpu_torch.instance import Standalone
+
+    inst = Standalone(str(root), device=device, x64=x64, warm_start=False)
+    inst.enable_flows(tick_interval_s=tick_s)
+    inst.sql(_FLOW_DDL)
+    for sql in _FLOWS:
+        inst.sql(sql)
+    return inst
+
+
+def _write_delta(inst, data, valid):
+    t = inst.catalog.table("public", "cpu")
+    inst._write_columns(t, data, valid)
+    inst._notify_flows("public", "cpu", t, data, valid)
+
+
+def _same_flow_state(a, b):
+    assert a.capacity == b.capacity and a.key_rows() == b.key_rows()
+    for i, (x, y) in enumerate(zip(a.state, b.state)):
+        assert x.dtype == y.dtype
+        assert torch.equal(x.cpu().view(torch.uint8),
+                           y.cpu().view(torch.uint8)), f"slot {i}"
+
+
+def _same_sinks(a, b):
+    for sink, order in (("f_avg_out", "hostname, hour"),
+                        ("f_stats_out", "hostname, hour")):
+        ra = a.sql(f"SELECT * FROM {sink} ORDER BY {order}")
+        rb = b.sql(f"SELECT * FROM {sink} ORDER BY {order}")
+        assert ra.names == rb.names and ra.num_rows == rb.num_rows > 0
+        for name, ca, cb in zip(ra.names, ra.cols, rb.cols):
+            if name == "update_at":
+                continue
+            va, vb = np.asarray(ca.values), np.asarray(cb.values)
+            if va.dtype.kind == "f":
+                va, vb = va.view(np.uint64), vb.view(np.uint64)
+            assert np.array_equal(va, vb), (sink, name)
+            assert np.array_equal(ca.valid_mask, cb.valid_mask), name
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "x64"])
+def test_flow_on_cuda_matches_cpu(cuda, tmp_path, x64):
+    """Flow deltas, a tick and the finalize on the card equal the same on
+    the CPU (G's plain versions), bit for bit: every state slot and every
+    sink cell; float32 slots by default, float64 with x64 (G's float64
+    sum and min/max forms). Every delta launches G; nothing fails and
+    nothing demotes."""
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    card = _flow_standalone(tmp_path / "card", cuda, x64)
+    cpu = _flow_standalone(tmp_path / "cpu", "cpu", x64)
+    try:
+        for k, (data, valid) in enumerate(_flow_deltas(3)):
+            before = gr.grouped_block_reduce.launches
+            _write_delta(card, data, valid)
+            torch.cuda.synchronize()
+            assert gr.grouped_block_reduce.launches > before
+            _write_delta(cpu, data, valid)
+            if k == 2:
+                card.flows.flush_all()
+                cpu.flows.flush_all()
+        for name in ("f_avg", "f_stats"):
+            a = card.flows.maybe_flow(name).device_state
+            b = cpu.flows.maybe_flow(name).device_state
+            assert a is not None and b is not None
+            assert all(t.is_cuda for t in a.state)
+            assert {t.dtype for t in a.state if t.is_floating_point()} == {
+                torch.float64 if x64 else torch.float32}
+            _same_flow_state(a, b)
+        card.flows.flush_all()
+        cpu.flows.flush_all()
+        _same_sinks(card, cpu)
+        for inst in (card, cpu):
+            assert inst.flows.failed_applies == inst.flows.failed_ticks == 0
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_flow_tick_thread_beside_writes_on_cuda(cuda, tmp_path):
+    """The tick thread finalizes on the card while a writer folds deltas
+    in: a snapshot taken for a tick stays intact under later deltas (the
+    state is never written in place), and after the last tick the sinks
+    and states equal a CPU run fed the same deltas with manual ticks."""
+    import time
+
+    card = _flow_standalone(tmp_path / "card", cuda, False, tick_s=0.005)
+    cpu = _flow_standalone(tmp_path / "cpu", "cpu", False)
+    try:
+        deltas = list(_flow_deltas(4))
+        _write_delta(card, *deltas[0])
+        _write_delta(cpu, *deltas[0])
+        flow = card.flows.maybe_flow("f_stats")
+        ds = flow.device_state
+        with flow.lock:
+            snap = (ds.state, ds.capacity, np.arange(ds.num_groups))
+        kept = [s.clone() for s in snap[0]]
+        ticks = card.flows.ticks
+        for data, valid in deltas[1:]:
+            _write_delta(card, data, valid)
+            _write_delta(cpu, data, valid)
+        deadline = time.monotonic() + 30
+        while card.flows.ticks < ticks + 3 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert card.flows.ticks >= ticks + 3, "the tick thread did not run"
+        card.flows._stop.set()
+        card.flows._ticker.join(timeout=30)
+        for s, k in zip(snap[0], kept):
+            assert torch.equal(s.view(torch.uint8), k.view(torch.uint8))
+        ds.finalize_snapshot(snap)      # still usable after the deltas
+        card.flows.flush_all()
+        cpu.flows.flush_all()
+        for name in ("f_avg", "f_stats"):
+            _same_flow_state(card.flows.maybe_flow(name).device_state,
+                             cpu.flows.maybe_flow(name).device_state)
+        _same_sinks(card, cpu)
+        assert card.flows.failed_applies == card.flows.failed_ticks == 0
+    finally:
+        card.close()
+        cpu.close()

@@ -18,7 +18,6 @@ from greptimedb_tpu_torch.session import QueryContext
 from tests.test_golden import format_result, golden_files, parse_cases
 
 WAITING = {
-    "alter_flow_interaction": "A7",          # flows
     "copy_roundtrip": "A2's tail",           # COPY
     "cte_edge": "A4",                        # CTEs
     "cte_setops": "A4",

@@ -413,9 +413,10 @@ def test_group_members_and_wrappers_refuse_bad_inputs():
         with pytest.raises(TypeError):
             gr.grouped_block_reduce(torch.zeros(10, dtype=dtype), members,
                                     "sum")
-    with pytest.raises(TypeError):
-        gr.grouped_block_reduce(torch.zeros(10, dtype=torch.float64),
-                                members, "max")
+    for dtype in (torch.float16, torch.int64):   # max/min: f32, f64, i32
+        with pytest.raises(TypeError):
+            gr.grouped_block_reduce(torch.zeros(10, dtype=dtype), members,
+                                    "max")
     with pytest.raises(TypeError):
         gr.grouped_block_reduce(torch.zeros(9), members, "sum")
     with pytest.raises(TypeError):

@@ -175,6 +175,38 @@ leaked = sorted(m for m in sys.modules
 print("LEAKED", leaked)
 """
 
+_FLOW_WORKLOAD = r"""
+import sys, tempfile
+from greptimedb_tpu_torch.instance import Standalone
+from greptimedb_tpu_torch.servers import influx
+
+root = tempfile.mkdtemp()
+inst = Standalone(root, device="cpu")
+inst.enable_flows(tick_interval_s=3600)
+inst.sql("CREATE TABLE cpu (h STRING PRIMARY KEY, u DOUBLE, "
+         "ts TIMESTAMP TIME INDEX)")
+inst.sql("CREATE FLOW f SINK TO f_out AS SELECT h, date_bin('1 hour', ts) "
+         "AS w, avg(u) AS a, max(u) AS m, stddev_samp(u) AS s, "
+         "first_value(u ORDER BY ts) AS fv FROM cpu GROUP BY h, w")
+inst.sql("INSERT INTO cpu VALUES ('a', 1.0, 1000), ('b', 2.0, 2000)")
+influx.write_lines(inst, "cpu,h=a u=3.5 3000\ncpu,h=b u=4.5 4000\n",
+                   precision="ms")
+assert inst.flows.maybe_flow("f").device_state is not None
+inst.sql("ADMIN flush_flow('f')")
+assert inst.sql("SELECT h, a FROM f_out ORDER BY h").rows() == [
+    ["a", 2.25], ["b", 3.25]]
+inst.close()
+inst = Standalone(root, device="cpu")
+inst.enable_flows(tick_interval_s=3600)
+assert inst.sql("SHOW FLOWS").rows() == [["f"]]
+assert inst.flows.failed_applies == inst.flows.failed_ticks == 0
+inst.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
+print("LEAKED", leaked)
+"""
+
 
 def _run_workload(workload):
     env = dict(os.environ)
@@ -201,6 +233,13 @@ def test_server_workload_loads_no_jax():
     TQL, remote write and the Prometheus API over HTTP: the server path
     loads nothing of JAX, the JAX package, pyarrow or msgpack."""
     _run_workload(_SERVER_WORKLOAD)
+
+
+def test_flow_workload_loads_no_jax():
+    """Flows (CREATE FLOW, INSERT and line protocol deltas on the device
+    state, ADMIN flush_flow, a reopen that reloads the flow) load nothing
+    of JAX, the JAX package, pyarrow or msgpack."""
+    _run_workload(_FLOW_WORKLOAD)
 
 
 @pytest.fixture

@@ -248,9 +248,6 @@ WAITING = [
     ("SELECT * FROM information_schema.tables", "A4"),
     ("SELECT a.ts FROM t a JOIN t b ON a.ts = b.ts", "A4"),
     ("WITH c AS (SELECT * FROM t) SELECT * FROM c", "A4"),
-    ("CREATE FLOW f SINK TO s AS SELECT count(v) FROM t", "A7"),
-    ("SHOW FLOWS", "A7"),
-    ("ADMIN flush_flow('f')", "A7"),
     ("COPY t TO '/tmp/x.parquet'", "A2's tail"),
     ("CREATE TABLE p (ts TIMESTAMP TIME INDEX, h STRING, v DOUBLE, "
      "PRIMARY KEY (h)) PARTITION ON COLUMNS (h) (h < 'm', h >= 'm')", "A10"),
@@ -270,6 +267,28 @@ def test_waiting_statements_name_their_item(tmp_path, stmt, item):
             inst.sql(stmt)
     finally:
         inst.close()
+
+
+FLOW_STATEMENTS = [
+    "CREATE FLOW f2 SINK TO s2 AS SELECT count(v) AS c FROM t",
+    "SHOW FLOWS",
+    "ADMIN flush_flow('f')",
+]
+
+
+@pytest.mark.parametrize("stmt", FLOW_STATEMENTS,
+                         ids=[s[:24] for s in FLOW_STATEMENTS])
+def test_flow_statements_run(pair, stmt):
+    """Flow statements run on the port as on the JAX package (the flow
+    engine's own cases are tests/test_torch_flow*.py)."""
+    pair.same("CREATE TABLE t (ts TIMESTAMP TIME INDEX, v DOUBLE)")
+    pair.same("CREATE FLOW f SINK TO s AS SELECT count(v) AS c FROM t")
+    pair.same("INSERT INTO t VALUES (1000, 1.5), (2000, 2.5)")
+    assert pair.same(stmt)[0] != "error"
+    pair.port.flows.flush_all()
+    pair.jax.flows.flush_all()
+    pair.same("SHOW FLOWS")
+    pair.same("SELECT c FROM s")
 
 
 def test_instance_without_engine_refuses_ddl():
