@@ -5,9 +5,14 @@
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
                           [--rest-warm 5] [--server-hours 2]
+                          [--phases 1,14]
 
 Phases (each failure raises; the script then exits non-zero and prints no
-result line):
+result line). `--phases` runs the listed phases only, with phase 1 and the
+phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
+9 phases 2 and 6; 10 phase 7); by default every phase runs. The kernels
+line then holds, and checks the launches of, the kernels of the phases
+that ran.
 
 1. build   — compile the CUDA kernels from greptimedb_tpu_torch's sources
              (one nvcc per source, all at once) and print the card's name
@@ -286,8 +291,38 @@ result line):
              profiler. Kernel counts are zeroed before the phase and read
              after its main path; the data roots are removed.
 
-Output: one JSON line per phase, the nvidia-smi line, a {"kernels": [...]}
-line, and last {"ok": true, "device": {...}}.
+14. window — SQL window functions on bench.py's table: phase 2's TSBS
+             devops rows (same seed), each hour's four 15-minute runs
+             without the re-delivery and tombstone runs, so every host
+             keeps its 4,320 rows, written anew and compacted on the card.
+             bench.py's window metric, sum(usage_user) OVER (PARTITION BY
+             hostname ORDER BY ts) over 61 hosts (263,520 rows at 12 h),
+             and max and count over the same window, through
+             Instance(device=card).sql, with x64 off (the compensated
+             two-float scans and int32 counts) and on (float64 and int64
+             scans): each cold, then warm (median of 7 for the metric,
+             sql_window_running_sum_262k_ms, the sum without x64; of 3
+             for the others) and once under the profiler, and the
+             metric's scan alone (its query without the window). Both must take the device path, through kernel
+             S. Then ROWS BETWEEN 5 PRECEDING AND CURRENT ROW sum and count
+             with x64 over the process-wide mesh of 4 shards on the card,
+             which must take the device_mesh path. Every answer equals the
+             port on the CPU (Instance(device="cpu"), the same mesh) bit
+             for bit. Then S alone, in each of its eight forms, against
+             its plain version on the same inputs, bit for bit (the add
+             forms hold NaN positions, C2), on edge inputs (NaN of both
+             signs, +-0.0, +-inf, tied hi parts; a reset on every row, on
+             row 0 only, every 7 rows and every 4,320) at sizes across its
+             tile levels, and at the full table's 17.28 M rows (a reset
+             per host) and the metric's 263,520, timed there with CUDA
+             events (median of 20) and the profiler beside its bytes
+             bound, its plain version and torch.cumsum over the same rows
+             for scale. S's count is zeroed before the phase's queries and
+             read after them.
+
+Output: one JSON line per phase, the nvidia-smi line, a line with the
+phases that ran and the script's seconds, a {"kernels": [...]} line, and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -4793,38 +4828,379 @@ def flow_kernel_rows(dev, gr, store, store64, prof):
     return {"flow": out, "float64_ext_form": f64, "max_abs_err": max(errs)}
 
 
-def run(args) -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this script "
-              "runs the port on a CUDA card", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    if here not in sys.path:
-        sys.path.insert(0, here)
+# ----------------------------------------------------------------------
+# phase 14: SQL window functions
+# ----------------------------------------------------------------------
+
+WINDOW_HOSTS = 61       # bench.py:2242's 61 hosts: 263,520 rows at 12 h
+WINDOW_WARM = 7         # bench.py:2253's runs of the window metric
+S_SOURCE = "greptimedb_tpu_torch/parallel/kernels/csrc/segmented_scan.cu"
+# (form, value dtype) of every S form the window path runs
+S_FORMS = (("add", torch.int32), ("add", torch.int64),
+           ("add", torch.float64), ("max", torch.float64),
+           ("min", torch.float64), ("comp", torch.float32),
+           ("max2", torch.float32), ("min2", torch.float32))
+
+
+def window_sql(hosts: int) -> dict:
+    """The phase's queries over the first `hosts` hosts: bench.py's
+    metric (sum), its max and count, and the sliding frame."""
+    where = ("FROM cpu WHERE hostname IN ("
+             + ", ".join(f"'host_{i}'" for i in range(hosts)) + ")")
+    run = "OVER (PARTITION BY hostname ORDER BY ts)"
+    rows = ("OVER (PARTITION BY hostname ORDER BY ts ROWS BETWEEN 5 "
+            "PRECEDING AND CURRENT ROW)")
+    return {
+        "sum": f"SELECT hostname, ts, sum(usage_user) {run} {where}",
+        "max_count": (f"SELECT hostname, ts, max(usage_user) {run}, "
+                      f"count(usage_user) {run} {where}"),
+        "rows_pre": (f"SELECT hostname, ts, sum(usage_user) {rows}, "
+                     f"count(usage_user) {rows} {where}"),
+    }
+
+
+def window_table(args, dev):
+    """bench.py's table for the window metric: phase 2's TSBS devops rows
+    (same seed, 4000 hosts, 12 h at 10 s, ten usage_* fields), each hour's
+    four 15-minute runs without the re-delivery and tombstone runs, so
+    that every host keeps its 4,320 rows and 61 hosts are the metric's
+    263,520; compacted on the card. Returns (table, seconds)."""
     from greptimedb_tpu_torch.catalog.table import Table
-    from greptimedb_tpu_torch.parallel.kernels import build
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    hosts = np.array([f"host_{i}" for i in range(args.hosts)])
+    region_of = np.array(AWS_REGIONS)[rng.integers(0, len(AWS_REGIONS),
+                                                    args.hosts)]
+    table = Table("cpu", ts_name="ts", tag_names=["hostname", "region"],
+                  fields=FIELDS)
+    for runs in tsbs_hours(rng, hosts, region_of, args.hours):
+        for run in runs[:4]:
+            write_run(table, run)
+    table.compact(device=dev, verify=False, kernels="on")
+    torch.cuda.synchronize()
+    return table, time.perf_counter() - t
+
+
+def same_window_result(what, a, b):
+    """Two window answers equal bit for bit (values and validity)."""
+    if a.names != b.names or a.num_rows != b.num_rows:
+        raise AssertionError(f"{what}: shapes differ")
+    for x, y in zip(a.cols, b.cols):
+        vx, vy = np.asarray(x.values), np.asarray(y.values)
+        if not np.array_equal(x.valid_mask, y.valid_mask) or \
+                vx.dtype != vy.dtype or not np.array_equal(
+                    vx.view(np.uint8) if vx.dtype.kind == "f" else vx,
+                    vy.view(np.uint8) if vy.dtype.kind == "f" else vy):
+            raise AssertionError(f"{what}: the card differs from the CPU")
+
+
+def scan_inputs(dev, n, per, dtype, seed, edge=False):
+    """One S form's inputs on the card (float32: the two-float forms' hi
+    and lo): n rows, a reset every `per` rows
+    (per = 1: every row; per = n: row 0 only). Values are TSBS-like
+    usage in [0, 100); `edge` adds NaN of both signs (float64), +-0.0 and
+    +-inf (float64), and for the two-float forms -0.0 and hi parts that
+    tie."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.zeros(n, dtype=torch.bool, device=dev)
+    r[::per] = True
+    if dtype in (torch.int32, torch.int64):
+        hi = torch.randint(0, 2, (n,), generator=g, device=dev, dtype=dtype)
+        if edge:
+            big = torch.iinfo(dtype).max // 4
+            hi = torch.randint(-big, big, (n,), generator=g, device=dev,
+                               dtype=dtype)
+        return [hi], r
+    v = torch.rand(n, generator=g, device=dev, dtype=torch.float64) * 100
+    pick = torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+    if edge and dtype == torch.float64:
+        v[pick < 0.02] = torch.inf
+        v[(pick >= 0.02) & (pick < 0.04)] = -torch.inf
+        v[(pick >= 0.04) & (pick < 0.06)] = -0.0
+        v[(pick >= 0.06) & (pick < 0.07)] = 0.0
+        v[(pick >= 0.07) & (pick < 0.08)] = torch.nan
+        v[(pick >= 0.08) & (pick < 0.09)] = -torch.nan
+    elif edge:
+        v = torch.round(v) * 1e6 + torch.randint(
+            0, 4, (n,), generator=g, device=dev) * 1e-3
+        v[pick < 0.05] = -0.0
+    if dtype == torch.float64:
+        return [v], r
+    hi = v.float()
+    lo = (v - hi.double()).float()
+    return [hi, lo], r
+
+
+def host_breakdown(fn) -> dict:
+    """Cumulative host ms of one call of fn in the functions of the SQL
+    window path, under cProfile (which slows the call down; the shares
+    are what it reads)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wanted = {"execute": "executor.py", "_scan": "executor.py",
+              "eval_window": "window_fns.py", "_key_codes": "window_fns.py",
+              "_sort_indices": "executor.py", "_dispatch": "window_fns.py",
+              "_running_scans": "window_fns.py", "unique": "arraysetops",
+              "segmented_scan": "segmented_scan.py", "read_full": "readback"}
+    out = {}
+    for (path, _, func), row in pstats.Stats(prof).stats.items():
+        if func in wanted and wanted[func] in path:
+            out[func] = out.get(func, 0.0) + row[3] * 1e3
+    return out
+
+
+def s_device_ms(fn) -> float | None:
+    """Device ms of S's kernels (every up_kernel and down_kernel
+    instantiation) in one call of fn, under torch.profiler; None when the
+    profiler saw no device activity at all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total]
+    if not dev:
+        return None
+    return sum(e.self_device_time_total for e in dev
+               if "up_kernel<" in e.key or "down_kernel<" in e.key) / 1e3
+
+
+def s_bytes(form, dtype, n) -> int:
+    """S's bytes: each input read once (values and the reset flag), each
+    output written once."""
+    width = torch.tensor([], dtype=dtype).element_size()
+    vals = 2 if form in ("comp", "max2", "min2") else 1
+    return n * (vals * width + 1) + n * vals * width
+
+
+def s_check(dev, ss, form, dtype, xs, r, errs):
+    """S against its plain version on the same inputs, bit for bit (the
+    add forms hold NaN positions: the card's add returns its canonical
+    NaN, ROADMAP C2)."""
+    got = ss.segmented_scan(form, xs[0], r, *xs[1:])
+    want = ss.segmented_scan_plain(form, xs[0], r, *xs[1:])
+    torch.cuda.synchronize()
+    keep = torch.ones_like(want, dtype=torch.bool)
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(want)
+        if not torch.equal(nan, torch.isnan(got)):
+            raise AssertionError(f"S {form} {dtype}: NaN positions differ")
+        if form == "add":
+            keep = ~nan
+    g, w = got[keep], want[keep]
+    if not torch.equal(g.view(torch.uint8) if g.is_floating_point() else g,
+                       w.view(torch.uint8) if w.is_floating_point() else w):
+        raise AssertionError(f"S {form} {dtype} differs from its plain "
+                             f"version")
+    errs.append(float((g.double() - w.double()).abs().nan_to_num(nan=0.0)
+                      .max()) if g.numel() else 0.0)
+
+
+def s_kernel_rows(dev, ss, n_full, per, launches):
+    """S alone: every form at the full table's rows (one reset per host)
+    and at the metric's 263,520 rows against its plain version, bit for
+    bit, with edge inputs and reset patterns, and timed beside its bytes
+    bound, its plain version and torch.cumsum over the same rows (no
+    resets; for scale only: no PyTorch call computes a segmented scan)."""
+    errs = []
+    n_metric = WINDOW_HOSTS * per
+    # edge inputs and reset patterns, across the kernel's tile levels
+    for form, dtype in S_FORMS:
+        for n in (1, 2, 2047, 2048, 2049, 100_003, n_metric):
+            for every in (1, 7, 4320, n):
+                xs, r = scan_inputs(dev, n, every, dtype,
+                                    seed=n + every, edge=True)
+                s_check(dev, ss, form, dtype, xs, r, errs)
+    forms = {}
+    for form, dtype in S_FORMS:
+        key = f"{form}_{str(dtype).split('.')[-1]}"
+        forms[key] = {}
+        for shape, n in (("full_table", n_full), ("metric", n_metric)):
+            xs, r = scan_inputs(dev, n, per, dtype, seed=n)
+            s_check(dev, ss, form, dtype, xs, r, errs)
+            nbytes = s_bytes(form, dtype, n)
+
+            def kernel(xs=xs, r=r, form=form):
+                return ss.segmented_scan(form, xs[0], r, *xs[1:])
+
+            forms[key][shape] = {
+                "rows": n, "resets": int(r.sum()),
+                "ms": cuda_ms(kernel), "device_ms": s_device_ms(kernel),
+                "host_ms": host_ms(kernel),
+                "plain_ms": cuda_ms(lambda xs=xs, r=r, form=form:
+                                    ss.segmented_scan_plain(
+                                        form, xs[0], r, *xs[1:]),
+                                    reps=3, warm=1),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                "cumsum_ms_for_scale": cuda_ms(
+                    lambda xs=xs: torch.cumsum(xs[0], 0)),
+            }
+            forms[key][shape]["share_of_bound"] = (
+                forms[key][shape]["bound_ms"] / forms[key][shape]["ms"])
+    head = forms["add_float64"]["full_table"]
+    return {
+        "name": "segmented_scan", "route": "cuda", "source": S_SOURCE,
+        "replaces": "greptimedb_tpu/ops/segment.py:211-292 "
+                    "(jax.lax.associative_scan; XLA, not a Pallas kernel)",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": head["ms"], "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "cumsum_ms_for_scale": head["cumsum_ms_for_scale"],
+        "headline": "add float64 at the full table",
+        "forms": forms,
+    }
+
+
+def window_phase(args, dev):
+    """Phase 14 (see the module docstring). Returns kernel S's row."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.parallel import mesh as M
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    t_phase = time.perf_counter()
+    table, t_table = window_table(args, dev)
+    per = args.hours * (HOUR_MS // STEP_MS)
+    queries = window_sql(WINDOW_HOSTS)
+
+    def instance(device, x64):
+        inst = Instance(device=device, x64=x64)
+        inst.catalog.register(table)
+        return inst
+
+    ss.segmented_scan.launches = 0
+    out = {"rows": WINDOW_HOSTS * per}
+    cpu_answers = {}
+    for x64 in (False, True):
+        card, cpu = instance(dev, x64), instance("cpu", x64)
+        mode = "x64" if x64 else "f32"
+        for name in ("sum", "max_count"):
+            sql = queries[name]
+            t = time.perf_counter()
+            res = card.sql(sql)
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t) * 1e3
+            if card.query_engine.last_window_path != "device":
+                raise AssertionError(f"window {name} {mode} ran "
+                                     f"{card.query_engine.last_window_path}")
+            if res.num_rows != out["rows"]:
+                raise AssertionError(f"window {name}: {res.num_rows} rows")
+            times = []
+            metric = name == "sum" and not x64
+            for _ in range(WINDOW_WARM if metric else 3):
+                t = time.perf_counter()
+                card.sql(sql)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            want = cpu_answers[mode, name] = cpu.sql(sql)
+            cpu_ms = (time.perf_counter() - t) * 1e3
+            if cpu.query_engine.last_window_path != "device":
+                raise AssertionError(f"CPU window {name} {mode} ran "
+                                     f"{cpu.query_engine.last_window_path}")
+            same_window_result(f"window {name} {mode}", res, want)
+            out[f"{name}_{mode}"] = {
+                "cold_ms": cold, "warm_ms_median": float(np.median(times)),
+                "warm_ms": times, "cpu_port_ms": cpu_ms,
+                "profile_warm": profiled(lambda: card.sql(sql)),
+            }
+    out["sql_window_running_sum_262k_ms"] = out["sum_f32"]["warm_ms_median"]
+    # the metric's scan and projection alone, without the window: the
+    # share of the warm wall that is not window work
+    scan_sql = queries["sum"].replace(
+        "sum(usage_user) OVER (PARTITION BY hostname ORDER BY ts)",
+        "usage_user")
+    out["scan_only_warm_ms"] = host_ms(lambda: card.sql(scan_sql), reps=3,
+                                       warm=1)
+    out["metric_host_breakdown_ms"] = host_breakdown(
+        lambda: instance(dev, False).sql(queries["sum"]))
+    # the sliding frame over 4 shards on the card (x64: the JAX package
+    # shards it only with x64), the same mesh on the CPU run
+    M.reset_for_tests()
+    M.configure(M.MeshOptions(enabled=True, axis_size=4), device=dev)
+    try:
+        card, cpu = instance(dev, True), instance("cpu", True)
+        sql = queries["rows_pre"]
+        t = time.perf_counter()
+        res = card.sql(sql)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t) * 1e3
+        want = cpu.sql(sql)
+        paths = (card.query_engine.last_window_path,
+                 cpu.query_engine.last_window_path)
+        if paths != ("device_mesh", "device_mesh"):
+            raise AssertionError(f"sliding window ran {paths}")
+        same_window_result("window rows_pre x64 mesh", res, want)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            card.sql(sql)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out["rows_pre_x64_mesh4"] = {"cold_ms": cold,
+                                     "warm_ms_median": float(np.median(times))}
+    finally:
+        M.reset_for_tests()
+    launches = ss.segmented_scan.launches
+    out["s_launches_main_path"] = launches
+    out["table_seconds"] = t_table
+    t = time.perf_counter()
+    row = s_kernel_rows(dev, ss, args.hosts * per, per, launches)
+    out["kernel_seconds"] = time.perf_counter() - t
+    row["device_ms_in_warm_metric_query"] = s_device_ms(
+        lambda: instance(dev, False).sql(queries["sum"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "window", **out})
+    if launches == 0:
+        raise AssertionError("kernel segmented_scan never launched on the "
+                             "window path")
+    return [row]
+
+
+# phases whose inputs another phase makes: a selected phase brings these
+PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
+               11: {2}}
+ALL_PHASES = tuple(range(1, 15))
+
+
+def selected_phases(text: str | None) -> set:
+    """The phases to run: every phase by default, else the listed ones,
+    the phases whose inputs they take, and phase 1 (the build)."""
+    if not text:
+        return set(ALL_PHASES)
+    want = {1}
+    todo = [int(p) for p in text.split(",") if p.strip()]
+    while todo:
+        p = todo.pop()
+        if p not in ALL_PHASES:
+            raise SystemExit(f"chip_smoke: no phase {p} (phases "
+                             f"{ALL_PHASES[0]}..{ALL_PHASES[-1]})")
+        if p not in want:
+            want.add(p)
+            todo.extend(PHASE_NEEDS.get(p, ()))
+    return want
+
+
+def slice_phases(args, dev, P, want):
+    """Phases 2 to 5 (see the module docstring). Returns the kernel rows
+    of phase 4 (none when it did not run) and what later phases take from
+    the slice: its table, engine, answers and shape."""
+    from greptimedb_tpu_torch.catalog.table import Table
     from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
     from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
-    from greptimedb_tpu_torch.query import planner as P
     from greptimedb_tpu_torch.query.executor import QueryEngine
-
-    dev = _device()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # ---- 1. build -----------------------------------------------------
-    t0 = time.perf_counter()
-    built = build.build_all()
-    for name in build.SOURCES:
-        build.load(name)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": built})
-    for name, log in build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                emit({"ptxas": name, "line": line.strip()})
-    smi = nvidia_smi_line()
-    print(smi, flush=True)
 
     # ---- 2. the slice ------------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -4886,83 +5262,145 @@ def run(args) -> int:
         if n == 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"main path")
-
-    # ---- 3. check ----------------------------------------------------
-    t = time.perf_counter()
-    n_steps1 = args.hours
-    if r1.num_rows != args.hosts * n_steps1:
-        raise AssertionError(f"Q1 rows {r1.num_rows}")
-    for c in r1.cols[2:]:
-        if c.validity is not None or not np.isfinite(c.values).all():
-            raise AssertionError("Q1 has missing or non-finite cells")
-    if r2.num_rows != len(set(region_of)) * (args.hours + 1):
-        raise AssertionError(f"Q2 rows {r2.num_rows}")
-    cpu = QueryEngine(device="cpu")
-    c1 = cpu.execute(q1, table)
-    c2 = cpu.execute(q2, table)
-    exact = {"count", "min", "max", "first_value", "last_value"}
-    q1_err = compare_results("Q1", r1, c1, exact, w=HOUR_MS // STEP_MS)
-    q2_err = compare_results("Q2", r2, c2, exact | {
-        "sum", "mean", "stddev_samp"}, w=2 * HOUR_MS // STEP_MS)
-    q1_np = check_q1_against_numpy(table, r1, hosts)
-    emit({"phase": "check", "seconds": time.perf_counter() - t,
-          "q1_rows": r1.num_rows, "q2_rows": r2.num_rows,
-          "q1_max_abs_diff_vs_cpu": q1_err,
-          "q2_max_abs_diff_vs_cpu": q2_err,
-          "q1_max_rel_diff_vs_numpy": q1_np})
-
-    # ---- 4. kernels --------------------------------------------------
-    t = time.perf_counter()
-    add_ns = add_chain_ns(dev)
-    planes, src = k1_inputs(rows0, dev)
-    memo = next(m for m in entry.query_memo.values() if m["fold"])
-    kernels = kernel_checks(dev, planes, src, entry, memo, launches, add_ns)
-    emit({"phase": "kernels", "seconds": time.perf_counter() - t,
-          "dependent_add_ns": add_ns})
-
-    # ---- 5. profile: device busy time of one warm query each and of
-    # one window's merge (no verify), under torch.profiler ------------
-    from greptimedb_tpu_torch.storage.device_merge import merge_rows
-
-    t = time.perf_counter()
-    profs = {"q1_warm": profiled(lambda: eng.execute(q1, table)),
-             "q2_warm": profiled(lambda: eng.execute(q2, table))}
-    merge_prof = profs["merge_one_window"] = profiled(lambda: merge_rows(
-        rows0, drop_deletes=True, device=dev, kernels="on"))
-    emit({"phase": "profile", **profs,
-          "seconds": time.perf_counter() - t})
-    # K1's device time in the profiled merge of window 0
-    kernels[0]["device_ms_per_launch_merge"] = device_ms_per_launch(
-        merge_prof, lambda k: k.startswith("gather_planes"))
-    # ---- 6. mesh -----------------------------------------------------
-    mesh_out = mesh_phase(args, dev, P)
-    kernels += mesh_out["rows"]
-    # ---- 7. promql ---------------------------------------------------
-    prom_rows, prom_out = promql_phase(args, dev)
-    kernels += prom_rows
-    # ---- 8. sql ------------------------------------------------------
     slice_out = {"table": table, "engine": eng, "hosts": args.hosts,
                  "hours": args.hours, "regions": len(set(region_of)),
                  "q1": r1, "q2": r2}
-    sql_launches, hop_launches, sql_per_launch, q2_warm = sql_phase(
-        args, dev, slice_out, mesh_out)
+
+    # ---- 3. check ----------------------------------------------------
+    if 3 in want:
+        t = time.perf_counter()
+        n_steps1 = args.hours
+        if r1.num_rows != args.hosts * n_steps1:
+            raise AssertionError(f"Q1 rows {r1.num_rows}")
+        for c in r1.cols[2:]:
+            if c.validity is not None or not np.isfinite(c.values).all():
+                raise AssertionError("Q1 has missing or non-finite cells")
+        if r2.num_rows != len(set(region_of)) * (args.hours + 1):
+            raise AssertionError(f"Q2 rows {r2.num_rows}")
+        cpu = QueryEngine(device="cpu")
+        c1 = cpu.execute(q1, table)
+        c2 = cpu.execute(q2, table)
+        exact = {"count", "min", "max", "first_value", "last_value"}
+        q1_err = compare_results("Q1", r1, c1, exact, w=HOUR_MS // STEP_MS)
+        q2_err = compare_results("Q2", r2, c2, exact | {
+            "sum", "mean", "stddev_samp"}, w=2 * HOUR_MS // STEP_MS)
+        q1_np = check_q1_against_numpy(table, r1, hosts)
+        emit({"phase": "check", "seconds": time.perf_counter() - t,
+              "q1_rows": r1.num_rows, "q2_rows": r2.num_rows,
+              "q1_max_abs_diff_vs_cpu": q1_err,
+              "q2_max_abs_diff_vs_cpu": q2_err,
+              "q1_max_rel_diff_vs_numpy": q1_np})
+
+    # ---- 4. kernels --------------------------------------------------
+    kernels = []
+    add_ns = add_chain_ns(dev)
+    if 4 in want:
+        t = time.perf_counter()
+        planes, src = k1_inputs(rows0, dev)
+        memo = next(m for m in entry.query_memo.values() if m["fold"])
+        kernels = kernel_checks(dev, planes, src, entry, memo, launches,
+                                add_ns)
+        emit({"phase": "kernels", "seconds": time.perf_counter() - t,
+              "dependent_add_ns": add_ns})
+
+    # ---- 5. profile: device busy time of one warm query each and of
+    # one window's merge (no verify), under torch.profiler ------------
+    if 5 in want:
+        from greptimedb_tpu_torch.storage.device_merge import merge_rows
+
+        t = time.perf_counter()
+        profs = {"q1_warm": profiled(lambda: eng.execute(q1, table)),
+                 "q2_warm": profiled(lambda: eng.execute(q2, table))}
+        merge_prof = profs["merge_one_window"] = profiled(
+            lambda: merge_rows(rows0, drop_deletes=True, device=dev,
+                               kernels="on"))
+        emit({"phase": "profile", **profs,
+              "seconds": time.perf_counter() - t})
+        if kernels:
+            # K1's device time in the profiled merge of window 0
+            kernels[0]["device_ms_per_launch_merge"] = device_ms_per_launch(
+                merge_prof, lambda k: k.startswith("gather_planes"))
+    return kernels, slice_out, add_ns
+
+
+def run(args) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs the port on a CUDA card", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from greptimedb_tpu_torch.parallel.kernels import build
+    from greptimedb_tpu_torch.query import planner as P
+
+    dev = _device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want = selected_phases(args.phases)
+    t_script = time.perf_counter()
+
+    # ---- 1. build -----------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build_all()
+    for name in build.SOURCES:
+        build.load(name)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": built, "phases": sorted(want)})
+    for name, log in build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                emit({"ptxas": name, "line": line.strip()})
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+
+    # ---- 2 to 5. the slice, its check, K1/K2 and the profile ----------
+    kernels, slice_out, add_ns = [], None, None
+    if 2 in want:
+        kernels, slice_out, add_ns = slice_phases(args, dev, P, want)
+    # ---- 6. mesh -----------------------------------------------------
+    mesh_out = None
+    if 6 in want:
+        mesh_out = mesh_phase(args, dev, P)
+        kernels += mesh_out["rows"]
+    # ---- 7. promql ---------------------------------------------------
+    prom_out = None
+    if 7 in want:
+        prom_rows, prom_out = promql_phase(args, dev)
+        kernels += prom_rows
+    # ---- 8. sql ------------------------------------------------------
+    sql_launches, hop_launches, sql_per_launch = {}, {}, {}
+    q2_warm = {"hops": {}, "fused": {}}
+    if 8 in want:
+        sql_launches, hop_launches, sql_per_launch, q2_warm = sql_phase(
+            args, dev, slice_out, mesh_out)
     # ---- 9. rows -----------------------------------------------------
-    grouped_rows, rows_launches, rows_warm = rows_phase(args, dev,
-                                                        slice_out, mesh_out)
-    kernels += grouped_rows
+    rows_launches, rows_warm = {}, {"hops": {}, "fused": {}}
+    if 9 in want:
+        grouped_rows, rows_launches, rows_warm = rows_phase(
+            args, dev, slice_out, mesh_out)
+        kernels += grouped_rows
     # ---- 10. promql_rest ----------------------------------------------
-    rest_launches, g_at_f, k2_at_c = promql_rest_phase(args, dev, prom_out,
-                                                       add_ns)
+    rest_launches, g_at_f, k2_at_c = {}, None, None
+    if 10 in want:
+        rest_launches, g_at_f, k2_at_c = promql_rest_phase(
+            args, dev, prom_out, add_ns if add_ns else add_chain_ns(dev))
     # ---- 11. durable ---------------------------------------------------
-    durable_launches = durable_phase(args, dev, slice_out, P)
+    durable_launches = durable_phase(args, dev, slice_out, P) \
+        if 11 in want else {}
     # ---- 12. server ----------------------------------------------------
-    server_launches = server_phase(args, dev)
+    server_launches = server_phase(args, dev) if 12 in want else {}
     # ---- 13. flow ------------------------------------------------------
-    flow_launches, flow_kern = flow_phase(args, dev)
-    # every kernel's launches over the main-path runs of phases 2 and 6
-    # to 13; the hop ring's seed, continuation and combines ran in phase 8
-    # only, Gt in phase 9 only, G in phases 9, 10, 12 and 13
-    extreme_row = next(r for r in mesh_out["rows"] if r["name"] == "extreme")
+    flow_launches, flow_kern = {}, None
+    if 13 in want:
+        flow_launches, flow_kern = flow_phase(args, dev)
+    # ---- 14. window ----------------------------------------------------
+    if 14 in want:
+        kernels += window_phase(args, dev)
+    # every kernel's launches over the main-path runs of the phases that
+    # ran; the hop ring's seed, continuation and combines run in phase 8
+    # only, Gt in phase 9 only, G in phases 9, 10, 12 and 13, S in 14
+    extreme_row = next((r for r in kernels if r["name"] == "extreme"), {})
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
     for row in kernels:
@@ -4971,7 +5409,7 @@ def run(args) -> int:
         if rest_launches.get(name):
             row["launches"] += rest_launches[name]
             row["launches_promql_rest"] = rest_launches[name]
-        if name == "grouped_block_reduce":
+        if name == "grouped_block_reduce" and g_at_f is not None:
             row["promql_f"] = g_at_f
         if name not in GROUPED_KERNELS and rows_launches.get(name):
             row["launches"] += rows_launches[name]
@@ -4979,10 +5417,13 @@ def run(args) -> int:
             row["launches_per_warm_groupby"] = rows_warm[
                 "hops" if name in GROUPBY_HOPS else "fused"].get(name, 0)
         if name == "blocked_fold_sum":
-            row["promql_c"] = k2_at_c
-            row["launches_hop_ring_sql"] = hop_launches["blocked_fold_sum"]
-            row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
-                "blocked_fold_sum"]
+            if k2_at_c is not None:
+                row["promql_c"] = k2_at_c
+            if hop_launches:
+                row["launches_hop_ring_sql"] = hop_launches[
+                    "blocked_fold_sum"]
+                row["device_ms_per_launch_hop_ring_q2"] = sql_per_launch[
+                    "blocked_fold_sum"]
         elif name in sql_per_launch:
             row["device_ms_per_launch_sql_q2"] = sql_per_launch[name]
         if name in Q2_HOPS:
@@ -5001,13 +5442,15 @@ def run(args) -> int:
         if flow_launches.get(name):
             row["launches"] += flow_launches[name]
             row["launches_flow"] = flow_launches[name]
-        if name == "grouped_block_reduce":
+        if name == "grouped_block_reduce" and flow_kern is not None:
             row["flow"] = flow_kern["flow"]
             row["float64_ext_form"] = flow_kern["float64_ext_form"]
             row["max_abs_err"] = max(row["max_abs_err"],
                                      flow_kern["max_abs_err"])
         if row["launches"] == 0:
             raise AssertionError(f"kernel {name} never launched")
+    emit({"phases": sorted(want),
+          "script_seconds": time.perf_counter() - t_script})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {
@@ -5029,6 +5472,10 @@ def main() -> int:
                     help="warm runs of each phase-10 query (median)")
     ap.add_argument("--server-hours", type=int, default=2,
                     help="hours of TSBS devops phase 12 writes over HTTP")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all); "
+                         "phase 1 and the phases a listed one takes its "
+                         "inputs from run too")
     args = ap.parse_args()
     try:
         return run(args)

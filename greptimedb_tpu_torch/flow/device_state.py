@@ -200,15 +200,6 @@ def _apply(state: tuple, gid: torch.Tensor, ts_hi: torch.Tensor,
     return tuple(out)
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded square root, as XLA:CPU's: CUDA's sqrt rounds
-    correctly; torch's vectorized CPU kernel can be one ulp off in float32
-    and float64, so a CPU tensor takes numpy's."""
-    if x.is_cuda:
-        return torch.sqrt(x)
-    return torch.from_numpy(np.sqrt(x.numpy()))
-
-
 def _finalize(state: tuple, ops: tuple, fdt: torch.dtype):
     """All-group finalize: per agg (values, presence) over the capacity.
     Counts stay int32."""
@@ -248,7 +239,7 @@ def _finalize(state: tuple, ops: tuple, fdt: torch.dtype):
             var = extreme_plain(var, torch.zeros_like(var), True)
             var = var * (n1 / torch.clamp(n1 - ddof, min=1.0))
             if op.startswith("stddev"):
-                var = _sqrt(var)
+                var = W.sqrt_rn(var)
             outs.append(torch.where(ok, var, 0.0))
             pres.append(ok)
             si += 6

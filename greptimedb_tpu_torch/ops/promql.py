@@ -302,7 +302,7 @@ def aggregate_across_series_blocked(vals: list, present: list, gids: list,
         devs = [torch.where(p, v - mean[gid.to(torch.int64)], 0.0)
                 for v, p, gid, mean in zip(vals, present, gids, means)]
         var = bsum([d * d for d in devs])[0] / cnt[0].clamp(min=1)
-        out = var if op == "stdvar" else W.sqrt_f32(var)
+        out = var if op == "stdvar" else W.sqrt_rn(var)
         return torch.where(any_present, out, 0.0), any_present
     raise ValueError(f"unsupported aggregation: {op}")
 
@@ -371,7 +371,7 @@ def aggregate_across_series(vals: torch.Tensor, present: torch.Tensor,
         mean = _group_matmul(masked, onehot_t) / n
         dev_ = torch.where(present, vals - mean[gid], 0.0)
         var = _group_matmul(dev_ * dev_, onehot_t) / n
-        out = var if op == "stdvar" else W.sqrt_f32(var)
+        out = var if op == "stdvar" else W.sqrt_rn(var)
         return torch.where(any_present, out, 0.0), any_present
 
     cnt = torch.zeros((num_groups, vals.shape[1]), dtype=torch.int32,
@@ -401,5 +401,5 @@ def aggregate_across_series(vals: torch.Tensor, present: torch.Tensor,
     mean = s / n
     dev_ = torch.where(present, vals - mean[gid], 0.0)
     var = _segment_sum(dev_ * dev_, members) / n
-    out = var if op == "stdvar" else W.sqrt_f32(var)
+    out = var if op == "stdvar" else W.sqrt_rn(var)
     return torch.where(any_present, out, 0.0), any_present

@@ -154,11 +154,15 @@ def _f2i(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2147483648.0, 2147483647, out.to(torch.int32))
 
 
-def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root, as XLA:CPU's (torch's CPU
-    kernel can be one ulp off): the float64 root rounds to the right
-    float32."""
-    return torch.sqrt(x.double()).to(x.dtype)
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded square root in x's float dtype, as XLA:CPU's.
+    CUDA's sqrt rounds correctly; torch's vectorized CPU kernel can be one
+    ulp off in float32 and float64 (ROADMAP C6), so a CPU tensor takes
+    numpy's root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
 
 
 def _seq_sum_last(x: torch.Tensor) -> torch.Tensor:
@@ -552,7 +556,7 @@ def window_stdvar(vals, has, tsg, hi, num_cells: int, *,
     dev = torch.where(g_has, g_vals - mean[:, :, None], 0.0)
     denom = (n - 1).clamp(min=1) if sample_var else n1
     var = _window_dot(dev, dev) / denom
-    return var, sqrt_f32(var), n > 0
+    return var, sqrt_rn(var), n > 0
 
 
 def _small_sort_lanes(x: torch.Tensor, length: int) -> torch.Tensor:

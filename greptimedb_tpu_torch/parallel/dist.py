@@ -37,6 +37,24 @@ def gather_blocks(parts: list, dim: int = 0) -> torch.Tensor:
     return torch.cat([p.to(dev) for p in parts], dim=dim)
 
 
+def halo_prev_1d(parts: list, halo: int, fill=0.0) -> list:
+    """Each shard of a 1-D row-sharded array with the last `halo` cells of
+    the PREVIOUS shard prepended (the first shard gets `fill`), on the
+    shard's device. The sliding-window primitive for frames crossing
+    shard boundaries (query/window_fns.py ROWS k PRECEDING); on one card
+    it is a copy of the previous shard's tail. Every shard holds at least
+    `halo` cells."""
+    out = []
+    for s, x in enumerate(parts):
+        if s == 0:
+            tail = torch.full((halo,), fill, dtype=x.dtype, device=x.device)
+        else:
+            prev = parts[s - 1]
+            tail = prev[prev.numel() - halo:].to(x.device)
+        out.append(torch.cat([tail, x]))
+    return out
+
+
 def replicate(x: torch.Tensor, like: list) -> list:
     """`x` on the device of every shard of `like`, in shard order."""
     return [x.to(t.device) for t in like]

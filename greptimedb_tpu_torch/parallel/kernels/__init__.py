@@ -9,4 +9,6 @@
 - grouped_reduce.grouped_block_reduce (G): the GROUP BY's fixed-order
   per-(block, group) sums and per-group extremes, and
   grouped_reduce.column_tree_sum (Gt): XLA:CPU's order of a column sum.
+- segmented_scan.segmented_scan (S): the segmented scans of SQL window
+  running frames, in jax.lax.associative_scan's combine tree.
 """

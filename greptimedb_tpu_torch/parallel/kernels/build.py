@@ -31,11 +31,14 @@ import torch
 from greptimedb_tpu_torch.device import native_available
 
 SOURCES = ("merge_gather", "ring_fold", "ring_fold_fused", "topk_merge",
-           "grouped_reduce")
+           "grouped_reduce", "segmented_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags of one source on top of NVCC_FLAGS: S's bit contract is its IEEE
+# operations one by one, so nvcc contracts nothing there
+SOURCE_FLAGS = {"segmented_scan": ("-fmad=false",)}
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -60,9 +63,13 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -77,7 +84,8 @@ def build_all(names=SOURCES) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,

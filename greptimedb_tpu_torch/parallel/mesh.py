@@ -6,13 +6,18 @@ that card, and every ring hop (`tensor.to(next_shard_device)`) is a no-op;
 across cards the same hop is a peer copy. The replicate-vs-shard decision
 per query lives in query/planner.py (decide_mesh_execution).
 
-The time axis of the JAX package's (shard, time) mesh belongs to the
-window-function slice, and the process-wide mesh (configure/global_mesh)
-to the instance slice; this module holds neither yet.
+The process-wide mesh (configure/global_mesh) is the one the sites
+without an engine mesh in reach read, as in the JAX package: SQL window
+functions shard ROWS k PRECEDING frames over its shard count
+(query/window_fns.py), every shard on the engine's device. Built with
+`MeshOptions(enabled=True, axis_size=N)` it holds N shards on one card.
+The time axis of the JAX package's (shard, time) mesh (time_parallel,
+halo_exchange_prev) is not ported yet (ROADMAP A5).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -30,9 +35,13 @@ FOLD_BLOCKS = 8
 
 @dataclass(frozen=True)
 class MeshOptions:
-    """The `[mesh]` knobs the range and GROUP BY paths read (the JAX
-    package's MeshOptions fields of the same names)."""
+    """The `[mesh]` knobs the range, GROUP BY and window paths read (the
+    JAX package's MeshOptions fields of the same names)."""
 
+    enabled: bool = False           # configure() builds a mesh at all
+    # shards of the process-wide mesh, all on configure's device;
+    # 0 = one shard per visible CUDA card
+    axis_size: int = 0
     shard_min_series: int = 4096    # grids below this replicate
     shard_min_rows: int = 262144    # row paths: rows below this replicate
     # ring-fold kernels: auto = CUDA tensors only; on = everywhere (the
@@ -69,3 +78,60 @@ def make_mesh(devices: list | None = None) -> Mesh:
 def shard_count(mesh) -> int:
     """Shard-axis size of a mesh (1 when mesh is None)."""
     return 1 if mesh is None else int(mesh.shape[AXIS_SHARD])
+
+
+# ----------------------------------------------------------------------
+# process-wide mesh
+# ----------------------------------------------------------------------
+
+_state_lock = threading.Lock()
+_global_mesh: Mesh | None = None
+_global_opts: MeshOptions | None = None
+_configured = False
+
+
+def configure(opts: MeshOptions, device=None) -> Mesh | None:
+    """Build (once) and return the process-wide query mesh, or None when
+    disabled or when it would hold one shard. `opts.axis_size` shards all
+    on `device` (default CUDA), or with axis_size 0 one shard per visible
+    CUDA card. The first configuration wins until reset_for_tests."""
+    global _global_mesh, _global_opts, _configured
+    with _state_lock:
+        if _configured:
+            return _global_mesh
+        _configured = True
+        _global_opts = opts
+        if not opts.enabled:
+            return None
+        if opts.axis_size:
+            devices = [resolve_device(device)] * opts.axis_size
+        else:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        if len(devices) <= 1:
+            return None
+        _global_mesh = Mesh(devices)
+        return _global_mesh
+
+
+def global_mesh() -> Mesh | None:
+    """The process-wide mesh, or None when not configured/enabled."""
+    with _state_lock:
+        return _global_mesh
+
+
+def global_mesh_opts() -> MeshOptions | None:
+    """The MeshOptions configure() ran with, or None before configure.
+    Sites without an engine in reach (query/window_fns.py) use this so
+    the operator's `[mesh]` thresholds apply everywhere."""
+    with _state_lock:
+        return _global_opts
+
+
+def reset_for_tests() -> None:
+    """Drop the process-wide mesh so tests can reconfigure."""
+    global _global_mesh, _global_opts, _configured
+    with _state_lock:
+        _global_mesh = None
+        _global_opts = None
+        _configured = False

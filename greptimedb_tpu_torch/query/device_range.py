@@ -55,6 +55,7 @@ import torch
 
 from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.index import tag_index
+from greptimedb_tpu_torch.ops import window as W
 from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
@@ -807,7 +808,7 @@ def _finalize_j(op, state: dict):
             var = var * n / torch.clamp(n - 1, min=1)
             present = state["n"] > 1
         if op.startswith("stddev"):
-            return torch.sqrt(var), present
+            return W.sqrt_rn(var), present
         return var, present
     if op == "last_value":
         return torch.where(present, state["vl"], 0.0), present

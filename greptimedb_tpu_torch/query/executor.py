@@ -13,18 +13,23 @@ the seam the JAX package's engine exposes as
   query/reduce.grouped_reduce: on the card (the fused program with kernel
   G, sharded over a mesh when the planner says so) or on the host;
 - plain plans (row filters, projections, ORDER BY/LIMIT) and SELECT
-  without a table run on the host. Window functions (OVER) are not
-  ported yet (ROADMAP A6) and raise UnsupportedError.
+  without a table run on the host; their window functions (OVER) go
+  through query/window_fns.py, whose running scans and sharded frames
+  run on the engine's device from its DEVICE_THRESHOLD rows.
 
 `prefer_device` has the JAX package's meaning: None decides by the row
 count (reduce.DEVICE_THRESHOLD), False keeps everything on the host, True
 takes the device path wherever the shape is eligible (the port's
-default). `last_exec_path` is "device" or "host" after each query.
+default). `last_exec_path` is "device" or "host" after each query;
+`last_window_path` is the path of its last running or sliding window
+frame ("host", "device" or "device_mesh"), None when it ran none.
 Result assembly (fill, group order, HAVING, output expressions, DISTINCT,
 ORDER BY, LIMIT/OFFSET) is copied from the JAX package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -44,7 +49,6 @@ from greptimedb_tpu_torch.query.expr import (
     collect_columns,
     eval_expr,
 )
-from greptimedb_tpu_torch.query.planner import _has_window_call
 from greptimedb_tpu_torch.query.reduce import grouped_reduce
 from greptimedb_tpu_torch.sql import ast as A
 from greptimedb_tpu_torch.storage.memtable import _slice_rows
@@ -99,6 +103,22 @@ class QueryResult:
         if dt == np.bool_:
             return "bool"
         return str(dt)
+
+
+class _WindowOverlay(ColumnSource):
+    """A row source plus computed window-function columns (__win_k)."""
+
+    def __init__(self, base, extra: dict):
+        self.base = base
+        self.extra = extra
+        self.num_rows = base.num_rows
+
+    def col(self, name: str) -> Col:
+        hit = self.extra.get(name)
+        return hit if hit is not None else self.base.col(name)
+
+    def __getattr__(self, name):
+        return getattr(self.base, name)
 
 
 class RowsSource(ColumnSource):
@@ -160,10 +180,14 @@ class DictSource(ColumnSource):
 
 
 def _sort_indices(cols: list[Col], ascs: list[bool],
-                  nulls_first: list[bool | None]) -> np.ndarray:
+                  nulls_first: list[bool | None],
+                  primary: np.ndarray | None = None) -> np.ndarray:
     """Stable multi-key sort. Numeric keys via lexsort; object keys ranked
-    first. SQL default null placement: last for ASC, first for DESC."""
-    n = len(cols[0]) if cols else 0
+    first. SQL default null placement: last for ASC, first for DESC.
+    `primary` (a window partition id) sorts most-significant."""
+    n = len(cols[0]) if cols else (
+        len(primary) if primary is not None else 0
+    )
     keys = []
     for c, asc, nf in zip(reversed(cols), reversed(ascs), reversed(nulls_first)):
         vals = c.values
@@ -186,6 +210,8 @@ def _sort_indices(cols: list[Col], ascs: list[bool],
             nullkey = -nullkey
         keys.append(vals)
         keys.append(nullkey)
+    if primary is not None:
+        keys.append(primary)
     if not keys:
         return np.arange(n)
     return np.lexsort(keys)
@@ -298,6 +324,7 @@ class QueryEngine:
         # the last GROUP BY's device program (query/reduce), or None
         self.last_reduce = None
         self.last_exec_path = "host"  # observability: host | device
+        self.last_window_path = None  # host | device | device_mesh
         # RANGE grids of durable tables persist as restart snapshots and
         # restore from them (query/device_range); last_grid says whether
         # the last device RANGE query's grid was a cache "hit", "restored"
@@ -308,6 +335,7 @@ class QueryEngine:
         if table is None:
             return self._execute_tableless(plan)
         self.last_exec_path = "host"
+        self.last_window_path = None
         self.last_range = self.last_reduce = None
         if plan.kind == "range":
             res = device_range.execute_range_device(self, plan, table)
@@ -379,10 +407,38 @@ class QueryEngine:
         if src.num_rows == 0:
             cols = [Col(np.zeros(0)) for _ in plan.items]
             return QueryResult(names, cols, self._types_hint(plan, table))
-        if any(_has_window_call(e) for e, _ in plan.items) or any(
-                _has_window_call(o.expr) for o in plan.order_by):
-            raise UnsupportedError(
-                "window functions (OVER) are not ported yet (ROADMAP A6)")
+        # window functions: compute each OVER() call over the full row
+        # set, then project with the results spliced in as columns
+        from greptimedb_tpu_torch.query import window_fns as W
+
+        win_calls = []
+        for e, _ in plan.items:
+            W.collect_window_calls(e, win_calls)
+        for o in plan.order_by:
+            W.collect_window_calls(o.expr, win_calls)
+        # alias resolution can splice the SAME FuncCall object into
+        # order_by — dedupe by identity so it's evaluated once
+        win_calls = list({id(fc): fc for fc in win_calls}.values())
+        if win_calls:
+            ctx = W.WindowCtx(self.device, self.x64)
+            extra: dict[str, Col] = {}
+            mapping: dict[int, str] = {}
+            for k, fc in enumerate(win_calls):
+                cname = f"__win_{k}"
+                mapping[id(fc)] = cname
+                extra[cname] = W.eval_window(fc, src, ctx)
+            self.last_window_path = ctx.path
+            src = _WindowOverlay(src, extra)
+            plan = dataclasses.replace(
+                plan,
+                items=[(W.replace_window_calls(e, mapping), n)
+                       for e, n in plan.items],
+                order_by=[
+                    A.OrderItem(W.replace_window_calls(o.expr, mapping),
+                                o.asc, o.nulls_first)
+                    for o in plan.order_by
+                ],
+            )
         cols = [eval_expr(e, src) for e, _ in plan.items]
         if plan.distinct:
             idx = _distinct_indices(cols)

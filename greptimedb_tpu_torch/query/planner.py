@@ -154,15 +154,15 @@ def decide_mesh_execution(mesh, *, kind: str = "range",
                           ops=(), opts=None) -> MeshDecision:
     """Choose replicate vs shard for one query execution site (the JAX
     package's gate): "range" and "promql" are grid kinds and gate on
-    `series` (shard_min_series), "aggregate" is the row kind and gates on
-    `rows` (shard_min_rows). `ops` are the row kind's normalized
-    aggregate op names; one op that does not fold exactly across shards
-    keeps the whole query on one device."""
+    `series` (shard_min_series), "aggregate" and "window" are row kinds
+    and gate on `rows` (shard_min_rows). `ops` are the row kind's
+    normalized aggregate op names; one op that does not fold exactly
+    across shards keeps the whole query on one device."""
     from greptimedb_tpu_torch.parallel.mesh import (
         FOLD_BLOCKS, MeshOptions, shard_count,
     )
 
-    if kind not in ("range", "promql", "aggregate"):
+    if kind not in ("range", "promql", "aggregate", "window"):
         raise ValueError(f"unknown execution kind: {kind}")
     grid = kind in ("range", "promql")
     n_dev = shard_count(mesh)
@@ -260,23 +260,6 @@ def plan_from_fields(obj) -> SelectPlan:
 # ----------------------------------------------------------------------
 # SELECT planning (copied from the JAX package's planner)
 # ----------------------------------------------------------------------
-
-def _has_window_call(e) -> bool:
-    """Does an expression tree hold a window function call (OVER)?"""
-    if isinstance(e, A.FuncCall) and e.over is not None:
-        return True
-    if dataclasses.is_dataclass(e) and not isinstance(e, type):
-        for f in dataclasses.fields(e):
-            v = getattr(e, f.name)
-            vs = v if isinstance(v, (list, tuple)) else [v]
-            for x in vs:
-                if isinstance(x, tuple):
-                    if any(_has_window_call(y) for y in x):
-                        return True
-                elif isinstance(x, A.Expr) and _has_window_call(x):
-                    return True
-    return False
-
 
 _NORMALIZE_AGG = {
     "avg": "mean", "mean": "mean", "sum": "sum", "min": "min", "max": "max",
@@ -642,14 +625,21 @@ def plan_select(
     ) or (stmt.having is not None and contains_aggregate(stmt.having))
 
     if has_agg:
-        wins = any(_has_window_call(it.expr) for it in items) or any(
-            _has_window_call(o.expr) for o in stmt.order_by) or (
-            stmt.having is not None and _has_window_call(stmt.having))
+        from greptimedb_tpu_torch.query.window_fns import (
+            collect_window_calls,
+        )
+
+        wins: list = []
+        for it in items:
+            collect_window_calls(it.expr, wins)
+        for o in stmt.order_by:
+            collect_window_calls(o.expr, wins)
+        if stmt.having is not None:
+            collect_window_calls(stmt.having, wins)
         if wins:
-            # query/window_fns.py is not ported yet
-            raise UnsupportedError(
+            raise PlanError(
                 "window functions combined with GROUP BY/aggregates are "
-                "not ported yet"
+                "not supported yet"
             )
 
     if not has_agg:

@@ -1901,3 +1901,155 @@ def test_flow_tick_thread_beside_writes_on_cuda(cuda, tmp_path):
     finally:
         card.close()
         cpu.close()
+
+
+# ----------------------------------------------------------------------
+# S: the segmented scans, and the window functions that run them
+# ----------------------------------------------------------------------
+
+def _scan_inputs(rng, n, form, reset):
+    """One form's inputs: values with edge bits (float64: NaN of both
+    signs, +-0.0, +-inf; the two-float forms: +-0.0 and large values
+    whose hi parts tie) and a reset pattern."""
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    if reset == "every_row":
+        r = np.ones(n, bool)
+    elif reset == "row0_only":
+        r = np.zeros(n, bool)
+        r[0] = True
+    else:
+        r = rng.random(n) < 0.01
+    if form in ss.TWO_FLOAT:
+        v = np.round(rng.standard_normal(n), 1) * 1e6 + rng.integers(
+            0, 4, n) * 1e-3
+        v[rng.random(n) < 0.05] = -0.0
+        hi = v.astype(np.float32)
+        lo = (v - hi.astype(np.float64)).astype(np.float32)
+        return [hi, lo], r
+    v = np.round(rng.standard_normal(n), 1)
+    pick = rng.random(n)
+    v[pick < 0.02] = np.inf
+    v[(pick >= 0.02) & (pick < 0.04)] = -np.inf
+    v[(pick >= 0.04) & (pick < 0.06)] = -0.0
+    v[(pick >= 0.06) & (pick < 0.08)] = np.nan
+    v[(pick >= 0.08) & (pick < 0.10)] = -np.nan
+    return [v], r
+
+
+SCAN_FORMS = [("add", np.int32), ("add", np.int64), ("add", np.float64),
+              ("max", np.float64), ("min", np.float64),
+              ("comp", np.float32), ("max2", np.float32),
+              ("min2", np.float32)]
+
+
+@pytest.mark.parametrize("reset", ["random", "every_row", "row0_only"])
+@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 263_520,
+                               2048 * 2048 + 5])
+@pytest.mark.parametrize("form,dtype", SCAN_FORMS,
+                         ids=[f"{f}-{np.dtype(d).name}" for f, d in
+                              SCAN_FORMS])
+def test_segmented_scan_kernel_matches_plain(cuda, form, dtype, n, reset):
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    rng = np.random.default_rng(n)
+    xs, r = _scan_inputs(rng, n, form, reset)
+    if dtype in (np.int32, np.int64):
+        info = np.iinfo(dtype)
+        xs = [rng.integers(info.min // 4, info.max // 4, n, dtype=dtype)]
+    cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+    want = ss.segmented_scan(form, cpu[0], torch.from_numpy(r), *cpu[1:])
+    before = ss.segmented_scan.launches
+    got = ss.segmented_scan(form, cpu[0].to(cuda),
+                            torch.from_numpy(r).to(cuda),
+                            *(c.to(cuda) for c in cpu[1:])).cpu()
+    assert ss.segmented_scan.launches == before + 1
+    w, g = want.numpy(), got.numpy()
+    if w.dtype.kind == "f":
+        # the card's add returns its canonical NaN (ROADMAP C2): NaN
+        # positions, and every other cell's bits
+        nan = np.isnan(w)
+        assert np.array_equal(nan, np.isnan(g))
+        w, g = w[~nan], g[~nan]
+        w, g = w.view(np.uint8), g.view(np.uint8)
+    assert np.array_equal(w, g)
+
+
+def test_segmented_scan_extremes_keep_nan_payloads(cuda):
+    """The extreme forms select operands, so the card keeps every NaN
+    payload as the CPU does."""
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    rng = np.random.default_rng(3)
+    n = 70_000
+    v = rng.standard_normal(n)
+    v[rng.random(n) < 0.01] = np.nan
+    v[rng.random(n) < 0.01] = -np.nan
+    r = rng.random(n) < 0.001
+    for form in ("max", "min"):
+        want = ss.segmented_scan(form, torch.from_numpy(v),
+                                 torch.from_numpy(r))
+        got = ss.segmented_scan(form, torch.from_numpy(v).to(cuda),
+                                torch.from_numpy(r).to(cuda)).cpu()
+        assert torch.equal(want.view(torch.int64), got.view(torch.int64))
+
+
+def test_window_sql_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """Running frames (the device path through S) and the sharded ROWS k
+    PRECEDING path (four shards on the card) on a CUDA Standalone equal a
+    CPU Standalone's, in both x64 modes."""
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel import mesh as M
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+    from greptimedb_tpu_torch.query import window_fns as W
+
+    monkeypatch.setattr(W, "DEVICE_THRESHOLD", 1000)
+    rng = np.random.default_rng(5)
+    hosts, steps = 16, 400
+    n = hosts * steps
+    tags = {"g": np.repeat(np.array([f"g{i}" for i in range(hosts)],
+                                    object), steps)}
+    ts = np.tile(np.arange(steps, dtype=np.int64) * 1000, hosts)
+    vals = {"v": rng.random(n) * 1e6 + rng.random(n) * 1e-3}
+    valid = {"v": rng.random(n) >= 0.05}
+    running = ("SELECT g, ts, sum(v) OVER (PARTITION BY g ORDER BY ts), "
+               "max(v) OVER (PARTITION BY g ORDER BY ts), count(v) OVER "
+               "(PARTITION BY g ORDER BY ts), min(v) OVER (ORDER BY ts, g "
+               "ROWS UNBOUNDED PRECEDING) FROM w ORDER BY g, ts")
+    sliding = ("SELECT g, ts, sum(v) OVER (PARTITION BY g ORDER BY ts ROWS "
+               "BETWEEN 5 PRECEDING AND CURRENT ROW), count(v) OVER "
+               "(PARTITION BY g ORDER BY ts ROWS 5 PRECEDING) FROM w "
+               "ORDER BY g, ts")
+    M.reset_for_tests()
+    M.configure(M.MeshOptions(enabled=True, axis_size=4, shard_min_rows=1),
+                device=cuda)
+    try:
+        for x64 in (False, True):
+            insts = [Standalone(str(tmp_path / f"{d}{x64}"), device=d,
+                                x64=x64, warm_start=False)
+                     for d in (cuda, "cpu")]
+            try:
+                for inst in insts:
+                    inst.execute_sql("create table w (ts timestamp time "
+                                     "index, g string primary key, "
+                                     "v double)")
+                    inst.catalog.table("public", "w").write(
+                        tags, ts, vals, field_valid=valid)
+                for sql, path in ((running, "device"),
+                                  (sliding, "device_mesh" if x64
+                                   else None)):
+                    before = ss.segmented_scan.launches
+                    card, cpu = (inst.sql(sql) for inst in insts)
+                    assert [i.query_engine.last_window_path
+                            for i in insts] == [path, path]
+                    if sql is running:
+                        assert ss.segmented_scan.launches > before
+                    for a, b in zip(card.cols, cpu.cols):
+                        assert np.array_equal(a.valid_mask, b.valid_mask)
+                        assert np.array_equal(np.asarray(a.values),
+                                              np.asarray(b.values))
+            finally:
+                for inst in insts:
+                    inst.close()
+    finally:
+        M.reset_for_tests()

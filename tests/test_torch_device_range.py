@@ -360,11 +360,11 @@ def test_unported_shapes_raise(tables):
     """Plan shapes the port does not run yet. (The residual-filter and
     expression-argument RANGE shapes and the GROUP BY this list held are
     answered now, on the host RANGE path and the grouped reduce, and held
-    against Standalone.sql in tests/test_torch_sql_host.py.)"""
+    against Standalone.sql in tests/test_torch_sql_host.py; the window
+    function it held is answered too, tests/test_torch_window.py.)"""
     _, tt = tables
     eng = QueryEngine(device="cpu")
     for sql in (
-        "SELECT ts, sum(usage_user) OVER (PARTITION BY hostname) FROM cpu",
         "SELECT hostname, sum(DISTINCT usage_user) FROM cpu "
         "GROUP BY hostname",
     ):

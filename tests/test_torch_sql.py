@@ -438,13 +438,13 @@ def test_unported_statements_raise(setup):
     """Statements the port does not run yet. (The plain, aggregate and
     host RANGE shapes this list held are answered now and held against
     Standalone.sql in tests/test_torch_sql_host.py; INSERT runs since the
-    server slice, tests/test_torch_statements.py; CREATE TABLE needs a
-    storage engine, which this Instance lacks.)"""
+    server slice, tests/test_torch_statements.py, and window functions
+    since the window slice, tests/test_torch_window.py; CREATE TABLE needs
+    a storage engine, which this Instance lacks.)"""
     _, inst, _, _ = setup
     for sql in (
         "SELECT 1 UNION SELECT 2",
         "CREATE TABLE t (ts timestamp time index, v double)",
-        "SELECT ts, sum(usage_user) OVER (PARTITION BY hostname) FROM cpu",
     ):
         with pytest.raises(UnsupportedError):
             inst.sql(sql)
