@@ -313,12 +313,18 @@ that ran.
              forms hold NaN positions, C2), on edge inputs (NaN of both
              signs, +-0.0, +-inf, tied hi parts; a reset on every row, on
              row 0 only, every 7 rows and every 4,320) at sizes across its
-             tile levels, and at the full table's 17.28 M rows (a reset
-             per host) and the metric's 263,520, timed there with CUDA
-             events (median of 20) and the profiler beside its bytes
-             bound, its plain version and torch.cumsum over the same rows
-             for scale. S's count is zeroed before the phase's queries and
-             read after them.
+             tile levels: its tile's edges (4,095, 4,096 and 4,097 rows),
+             the resident form's edge (as many tiles as the card holds
+             blocks of the form at once, and one more) and past one
+             block's capacity of totals (4,096 x 4,097 + 5 rows); and at
+             the full table's 17.28 M rows (a reset per host) and the
+             metric's 263,520, timed there with CUDA events (median of
+             20) and the profiler beside its bytes bound, its plain
+             version and torch.cumsum over the same rows for scale. The
+             profiler, whose count of kernel records is a floor in a long
+             process, must see no more than one launch of S's kernel a
+             scan, and S in what it sees of a warm metric query. S's count is zeroed before the phase's
+             queries and read after them.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -4956,24 +4962,54 @@ def host_breakdown(fn) -> dict:
     return out
 
 
-def s_device_ms(fn) -> float | None:
-    """Device ms of S's kernels (every up_kernel and down_kernel
-    instantiation) in one call of fn, under torch.profiler; None when the
-    profiler saw no device activity at all."""
-    from torch.profiler import ProfilerActivity, profile
+S_KERNEL = "segscan_kernel<"     # every instantiation of S's one kernel
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+
+def s_profile(fn, calls=3, per_call=1, sessions=3) -> dict | None:
+    """S's kernel under torch.profiler: one call of fn as the schedule's
+    warm-up step, then `calls` calls recorded; None when no session (of
+    up to `sessions`) saw device activity at all. In a long process the
+    profiler loses some kernel records (a session of one launch often
+    shows none), so its count is a floor: `events` S launches were seen
+    in `calls` calls, `device_ms` is the device time of one seen launch.
+    Raises when the profiler saw device activity and none of it was S's,
+    or more S launches than `per_call` a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(sessions):
+        seen = []    # the recorded step's events (the cycle clears them)
         torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total]
-    if not dev:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: seen.extend(
+                         p.key_averages())) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        dev = [e for e in seen
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total]
+        if dev:
+            break
+    else:
         return None
-    return sum(e.self_device_time_total for e in dev
-               if "up_kernel<" in e.key or "down_kernel<" in e.key) / 1e3
+    ours = [e for e in dev if S_KERNEL in e.key]
+    if not ours:
+        raise AssertionError("the profiler saw device activity and no "
+                             "launch of S's kernel: "
+                             + ", ".join(e.key[:60] for e in dev[:4]))
+    events = sum(e.count for e in ours)
+    if events > calls * per_call:
+        raise AssertionError(f"S: {events} kernel launches in {calls} "
+                             f"calls")
+    total = sum(e.self_device_time_total for e in ours) / 1e3
+    return {"device_ms": total / events, "total_ms": total,
+            "events": events, "calls": calls}
 
 
 def s_bytes(form, dtype, n) -> int:
@@ -5007,18 +5043,37 @@ def s_check(dev, ss, form, dtype, xs, r, errs):
                       .max()) if g.numel() else 0.0)
 
 
-def s_kernel_rows(dev, ss, n_full, per, launches):
+def s_edge_sizes(ss, form, dtype, dev) -> dict:
+    """Row counts at S's edges: its tile's (2^k - 1, 2^k, 2^k + 1), the
+    resident form's (tiles = the blocks the card holds at once, and one
+    more: the streaming form), and past one block's capacity of totals
+    (2^k (2^k + 1) + 5 rows: the totals take a second level)."""
+    tile = ss.tile_rows()
+    grid = ss.resident_tiles(form, dtype, dev)
+    return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "resident": grid * tile, "resident+1": (grid + 1) * tile,
+            "totals_past_one_block": tile * (tile + 1) + 5}
+
+
+def s_kernel_rows(dev, ss, n_full, per, launches, metric_launches):
     """S alone: every form at the full table's rows (one reset per host)
     and at the metric's 263,520 rows against its plain version, bit for
-    bit, with edge inputs and reset patterns, and timed beside its bytes
-    bound, its plain version and torch.cumsum over the same rows (no
-    resets; for scale only: no PyTorch call computes a segmented scan)."""
+    bit, with edge inputs and reset patterns at the kernel's edges, and
+    timed beside its bytes bound, its plain version and torch.cumsum over
+    the same rows (no resets; for scale only: no PyTorch call computes a
+    segmented scan). Each timed shape is one launch of the wrapper and at
+    most one of S's kernel by the profiler's count."""
     errs = []
     n_metric = WINDOW_HOSTS * per
     # edge inputs and reset patterns, across the kernel's tile levels
+    edges = {}
     for form, dtype in S_FORMS:
-        for n in (1, 2, 2047, 2048, 2049, 100_003, n_metric):
+        sizes = s_edge_sizes(ss, form, dtype, dev)
+        edges[f"{form}_{str(dtype).split('.')[-1]}"] = sizes
+        for n in (1, 2, 100_003, n_metric, *sizes.values()):
             for every in (1, 7, 4320, n):
+                if n > 10_000_000 and every == 7:
+                    continue
                 xs, r = scan_inputs(dev, n, every, dtype,
                                     seed=n + every, edge=True)
                 s_check(dev, ss, form, dtype, xs, r, errs)
@@ -5034,9 +5089,19 @@ def s_kernel_rows(dev, ss, n_full, per, launches):
             def kernel(xs=xs, r=r, form=form):
                 return ss.segmented_scan(form, xs[0], r, *xs[1:])
 
+            before = ss.segmented_scan.launches
+            kernel()
+            if ss.segmented_scan.launches != before + 1:
+                raise AssertionError(f"S {key} {shape}: one call counted "
+                                     f"{ss.segmented_scan.launches - before}"
+                                     f" launches")
+            prof = s_profile(kernel)
             forms[key][shape] = {
                 "rows": n, "resets": int(r.sum()),
-                "ms": cuda_ms(kernel), "device_ms": s_device_ms(kernel),
+                "ms": cuda_ms(kernel),
+                "device_ms": prof and prof["device_ms"],
+                "profiler_s_events": prof and f"{prof['events']} in "
+                                             f"{prof['calls']} scans",
                 "host_ms": host_ms(kernel),
                 "plain_ms": cuda_ms(lambda xs=xs, r=r, form=form:
                                     ss.segmented_scan_plain(
@@ -5060,6 +5125,9 @@ def s_kernel_rows(dev, ss, n_full, per, launches):
         "bound_by": "bytes", "library_ms": None,
         "cumsum_ms_for_scale": head["cumsum_ms_for_scale"],
         "headline": "add float64 at the full table",
+        "profiler_s_events": head["profiler_s_events"],
+        "launches_per_warm_metric_query": metric_launches,
+        "edge_sizes": edges,
         "forms": forms,
     }
 
@@ -5156,11 +5224,24 @@ def window_phase(args, dev):
     launches = ss.segmented_scan.launches
     out["s_launches_main_path"] = launches
     out["table_seconds"] = t_table
+    # S in one warm metric query: the wrapper's launches, and the device
+    # time and kernel launches the profiler reads
+    warm = instance(dev, False)
+    warm.sql(queries["sum"])
+    before = ss.segmented_scan.launches
+    warm.sql(queries["sum"])
+    torch.cuda.synchronize()
+    metric_launches = ss.segmented_scan.launches - before
+    in_query = s_profile(lambda: warm.sql(queries["sum"]), calls=1,
+                         per_call=metric_launches)
     t = time.perf_counter()
-    row = s_kernel_rows(dev, ss, args.hosts * per, per, launches)
+    row = s_kernel_rows(dev, ss, args.hosts * per, per, launches,
+                        metric_launches)
     out["kernel_seconds"] = time.perf_counter() - t
-    row["device_ms_in_warm_metric_query"] = s_device_ms(
-        lambda: instance(dev, False).sql(queries["sum"]))
+    row["device_ms_in_warm_metric_query"] = in_query and in_query[
+        "total_ms"]
+    row["profiler_s_events_in_warm_metric_query"] = in_query and (
+        f"{in_query['events']} of {metric_launches}")
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "window", **out})
     if launches == 0:

@@ -25,7 +25,8 @@ the same way (`positive_zero`).
 
 `segmented_scan_plain` is the plain PyTorch version: the same tree, one
 vectorized step a level. It runs for CPU tensors; on a CUDA tensor
-`segmented_scan` launches the kernel or raises.
+`segmented_scan` launches the kernel (one cooperative launch a scan) or
+raises, with the CUDA error when the card refuses the launch.
 """
 
 from __future__ import annotations
@@ -187,19 +188,46 @@ def _check(form: str, x: torch.Tensor, reset: torch.Tensor,
         raise ValueError("segmented_scan takes contiguous inputs")
 
 
-_sizers: dict = {}
+# blocks of a launch; 0: as many as the card holds at once (a larger
+# cooperative grid is refused by the card, and the wrapper raises)
+GRID = 0
+# (device, symbol) -> (rows, scratch bytes) of the largest scan sized so far
+_sized: dict = {}
 
 
-def _scratch_bytes(lib, symbol: str, n: int) -> int:
-    """Bytes of the aux cells the kernel's upper levels need for n rows
-    (the library's own count, bound once per form)."""
-    fn = _sizers.get(symbol)
-    if fn is None:
+def _scratch_bytes(lib, symbol: str, dev, n: int) -> int:
+    """Bytes of the tiles' totals that n rows need (the library's own
+    count, asked only when n exceeds the rows sized so far: the count
+    only grows with n)."""
+    rows, nbytes = _sized.get((dev, symbol), (-1, 0))
+    if n > rows:
         fn = getattr(lib, f"{symbol}_scratch_bytes")
         fn.argtypes = [_LL]
         fn.restype = _LL
-        _sizers[symbol] = fn
-    return int(fn(n))
+        nbytes = int(fn(n))
+        _sized[dev, symbol] = (n, nbytes)
+    return nbytes
+
+
+def tile_rows() -> int:
+    """Rows a block of the kernel scans at once (its kTile)."""
+    lib = build.load("segmented_scan")
+    lib.gtt_segscan_tile.restype = ctypes.c_int
+    return int(lib.gtt_segscan_tile())
+
+
+def resident_tiles(form: str, dtype: torch.dtype, device) -> int:
+    """The most tiles whose scan the card of `device` runs in the
+    resident form (each block keeps its one tile in registers from the
+    up-sweep to the down-sweep): the blocks that it holds at once."""
+    lib = build.load("segmented_scan")
+    fn = getattr(lib, f"gtt_segscan_{form}_{_SUFFIX[dtype]}_resident_tiles")
+    fn.restype = _LL
+    got = int(build.on_card(torch.device(device).index or 0, fn))
+    if got < 0:
+        raise RuntimeError("segmented_scan: the card's occupancy could not "
+                           "be asked")
+    return got
 
 
 def segmented_scan(form: str, x: torch.Tensor, reset: torch.Tensor,
@@ -207,24 +235,35 @@ def segmented_scan(form: str, x: torch.Tensor, reset: torch.Tensor,
     """S over the rows of `x` (and `lo` for the two-float forms),
     restarting at every row whose `reset` is set: (n,) for "add", "max"
     and "min", (2, n) for "comp" (sum, compensation) and "max2"/"min2"
-    (hi, lo)."""
+    (hi, lo). On the card: one cooperative launch, its totals in the
+    (device, stream) scratch (build.stream_scratch)."""
     _check(form, x, reset, lo)
     if x.is_cpu:
         return segmented_scan_plain(form, x, reset, lo)
     n = x.numel()
+    if n >= 1 << 31:
+        raise ValueError(f"segmented_scan takes fewer than 2^31 rows, "
+                         f"not {n}")
     two = form in TWO_FLOAT
     out = torch.empty((2, n) if two else (n,), dtype=x.dtype,
                       device=x.device)
     if n == 0:
         return out
     symbol = f"gtt_segscan_{form}_{_SUFFIX[x.dtype]}"
-    bound = build.entry("segmented_scan", symbol, (_PTR,) * 6 + (_LL,))
-    scratch = torch.empty(_scratch_bytes(bound[0], symbol, n),
-                          dtype=torch.uint8, device=x.device)
-    build.launch(bound, "segmented_scan", x.get_device(), x.data_ptr(),
-                 lo.data_ptr() if two else None, reset.data_ptr(),
-                 out[0].data_ptr() if two else out.data_ptr(),
-                 out[1].data_ptr() if two else None, scratch.data_ptr(), n)
+    lib, fn = build.entry("segmented_scan", symbol,
+                          (_PTR,) * 6 + (_LL, _LL, ctypes.c_int))
+    index = x.get_device()
+    with build.scratch_lock:
+        stream = build.stream(index)
+        sc = build.stream_scratch(x.device, stream)
+        ptr, _ = sc.take(_scratch_bytes(lib, symbol, x.device, n), 0)
+        rc = build.on_card(index, fn, x.data_ptr(),
+                           lo.data_ptr() if two else None, reset.data_ptr(),
+                           out[0].data_ptr() if two else out.data_ptr(),
+                           out[1].data_ptr() if two else None, ptr,
+                           sc.part.numel(), n, GRID, stream)
+    if rc:
+        build.check_launch(lib, rc, "segmented_scan")
     segmented_scan.launches += 1
     return out
 

@@ -802,7 +802,10 @@ def _finalize_j(op, state: dict):
     if op in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
         ddof = 1 if op.endswith("_samp") else 0
         mean = state["s"] / torch.clamp(n, min=1)
-        var = torch.clamp(state["s2"] / torch.clamp(n, min=1) - mean * mean,
+        # XLA:CPU contracts s2 / n - mean * mean into one fused
+        # multiply-add (an fnmadd), in float32 and in float64 alike
+        var = torch.clamp(W._fma(-mean, mean,
+                                 state["s2"] / torch.clamp(n, min=1)),
                           min=0.0)
         if ddof:
             var = var * n / torch.clamp(n - 1, min=1)

@@ -1943,26 +1943,47 @@ SCAN_FORMS = [("add", np.int32), ("add", np.int64), ("add", np.float64),
               ("min2", np.float32)]
 
 
+def _scan_rows(ss, size, form, dtype, cuda):
+    """Row count of a named size: the kernel's tile edges, the resident
+    form's edge (as many tiles as the card holds blocks at once, and one
+    more) and past one block's capacity of totals."""
+    if isinstance(size, int):
+        return size
+    tile = ss.tile_rows()
+    grid = ss.resident_tiles(form, torch.from_numpy(np.zeros(
+        0, dtype)).dtype, cuda)
+    return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "resident": grid * tile, "resident+1": (grid + 1) * tile,
+            "totals_past_one_block": tile * (tile + 1) + 5}[size]
+
+
 @pytest.mark.parametrize("reset", ["random", "every_row", "row0_only"])
-@pytest.mark.parametrize("n", [1, 2, 2047, 2048, 2049, 263_520,
-                               2048 * 2048 + 5])
+@pytest.mark.parametrize("size", [1, 2, "tile-1", "tile", "tile+1", 263_520,
+                                  "resident", "resident+1",
+                                  "totals_past_one_block"])
 @pytest.mark.parametrize("form,dtype", SCAN_FORMS,
                          ids=[f"{f}-{np.dtype(d).name}" for f, d in
                               SCAN_FORMS])
-def test_segmented_scan_kernel_matches_plain(cuda, form, dtype, n, reset):
+def test_segmented_scan_kernel_matches_plain(cuda, form, dtype, size, reset):
     from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
 
+    n = _scan_rows(ss, size, form, dtype, cuda)
     rng = np.random.default_rng(n)
     xs, r = _scan_inputs(rng, n, form, reset)
     if dtype in (np.int32, np.int64):
         info = np.iinfo(dtype)
         xs = [rng.integers(info.min // 4, info.max // 4, n, dtype=dtype)]
     cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
-    want = ss.segmented_scan(form, cpu[0], torch.from_numpy(r), *cpu[1:])
+    dev = [c.to(cuda) for c in cpu]
+    rc = torch.from_numpy(r)
+    if n > 10_000_000:
+        # the plain version on the card: the same IEEE operations
+        want = ss.segmented_scan_plain(form, dev[0], rc.to(cuda),
+                                       *dev[1:]).cpu()
+    else:
+        want = ss.segmented_scan(form, cpu[0], rc, *cpu[1:])
     before = ss.segmented_scan.launches
-    got = ss.segmented_scan(form, cpu[0].to(cuda),
-                            torch.from_numpy(r).to(cuda),
-                            *(c.to(cuda) for c in cpu[1:])).cpu()
+    got = ss.segmented_scan(form, dev[0], rc.to(cuda), *dev[1:]).cpu()
     assert ss.segmented_scan.launches == before + 1
     w, g = want.numpy(), got.numpy()
     if w.dtype.kind == "f":
@@ -1973,6 +1994,57 @@ def test_segmented_scan_kernel_matches_plain(cuda, form, dtype, n, reset):
         w, g = w[~nan], g[~nan]
         w, g = w.view(np.uint8), g.view(np.uint8)
     assert np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("size", ["tile", "resident", "resident+1",
+                                  "totals_past_one_block"])
+def test_segmented_scan_is_one_kernel_launch(cuda, size):
+    """Every size is one launch of S's one cooperative kernel, by the
+    profiler's count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    n = _scan_rows(ss, size, "add", np.float64, cuda)
+    x = torch.rand(n, dtype=torch.float64, device=cuda)
+    r = torch.rand(n, device=cuda) < 0.001
+    ss.segmented_scan("add", x, r)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ss.segmented_scan("add", x, r)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total]
+    assert [c for k, c in kernels if "segscan_kernel<" in k] == [1], kernels
+    assert len(kernels) == 1, kernels
+
+
+def test_segmented_scan_refused_launch_raises(cuda, monkeypatch):
+    """A grid larger than the card holds at once, or a scratch smaller
+    than the totals need, is refused: the wrapper raises with the CUDA
+    error, counts no launch and does not give way to the plain version."""
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+
+    n = 3 * ss.tile_rows() + 5
+    x = torch.rand(n, dtype=torch.float64, device=cuda)
+    r = torch.zeros(n, dtype=torch.bool, device=cuda)
+    ss.segmented_scan("add", x, r)
+    before = ss.segmented_scan.launches
+    with monkeypatch.context() as m:
+        m.setattr(ss, "GRID", 1 << 24)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            ss.segmented_scan("add", x, r)
+    with monkeypatch.context() as m:
+        m.setattr(ss, "_scratch_bytes", lambda *a: 0)
+        m.setattr(build, "scratches", {})
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            ss.segmented_scan("add", x, r)
+    assert ss.segmented_scan.launches == before
+    # the card goes on: the next scan launches and is right
+    got = ss.segmented_scan("add", x, r)
+    want = ss.segmented_scan_plain("add", x, r)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
 
 
 def test_segmented_scan_extremes_keep_nan_payloads(cuda):

@@ -28,20 +28,23 @@ segment_sum order and the window combine is elementwise. Bounds
   relative bound 2 (w - 1) u on sum and mean; on signed data a sum may
   cancel far below sum|x|, so a bound relative to the sum does not hold.
 - stddev, var: XLA:CPU contracts var = s2/n - mean*mean into one fused
-  multiply-add; the port rounds mean*mean first. With the same s1, s2 the
-  two variances differ by at most u * mean^2 + 2u * var before the
-  n/(n-1) correction, so with c = n/(n-1) the squared results differ by at
-  most 4u * c * (mean^2 + var). Over disjoint windows s1 = sum x and
-  s2 = sum x^2 also differ by the reduction orders, by at most E1 and
-  E2 = 2 (w - 1) u sum x^2, which moves var by at most
-  c * (E2 + 2 |mean| E1) / n (to first order). The two gaps add up:
-  |a^2 - b^2| <= 4u c (mean^2 + var) + c (E2 + 2 |mean| E1) / n.
+  multiply-add, and so does the port (ops/window._fma), so with the same
+  s1, s2 (overlapping windows) they are bit-equal. Over disjoint windows
+  s1 = sum x and s2 = sum x^2 differ by the reduction orders, by at most E1
+  and E2 = 2 (w - 1) u sum x^2, which moves var by at most
+  c * (E2 + 2 |mean| E1) / n (to first order), with c = n/(n-1):
+  |a^2 - b^2| <= c (E2 + 2 |mean| E1) / n.
 """
 
+import contextlib
 import re
+from fractions import Fraction
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from greptimedb_tpu.instance import Standalone
 from greptimedb_tpu.query import device_range as jdr
@@ -182,8 +185,8 @@ def _compare(want, got, *, w, exact_sums, stats=None):
     """exact_sums: sums and means must be bit-equal too (overlapping
     windows); else (disjoint windows) they are held to E1 and E1 / n, and
     stddev to the FMA gap plus the reorder gap, from stats[column] =
-    _cell_stats(...) (module docstring). With exact_sums stddev is held to
-    the FMA bound alone."""
+    _cell_stats(...) (module docstring). With exact_sums stddev must be
+    bit-equal too."""
     assert got.names == want.names
     assert got.num_rows == want.num_rows > 0
     by_op = {_op_of(n): i for i, n in enumerate(want.names)}
@@ -196,15 +199,16 @@ def _compare(want, got, *, w, exact_sums, stats=None):
             assert (av == bv).all(), name
             continue
         op = _op_of(name)
-        if op == "stddev_samp":
+        if op == "stddev_samp" and exact_sums:
+            assert av.dtype == bv.dtype, name
+            assert np.array_equal(av.view(np.uint8), bv.view(np.uint8)), name
+        elif op == "stddev_samp":
             n = np.asarray(want.cols[by_op["count"]].values)[m]
             mean = np.asarray(want.cols[by_op["avg"]].values)[m]
             c = n / np.maximum(n - 1, 1)
-            bound = 4 * U * c * (mean * mean + av * av)
-            if not exact_sums:
-                _, abs1, sq = (v[m] for v in stats[name])
-                e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
-                bound = bound + c * (e2 + 2 * np.abs(mean) * e1) / n
+            _, abs1, sq = (v[m] for v in stats[name])
+            e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
+            bound = c * (e2 + 2 * np.abs(mean) * e1) / n
             assert np.all(np.abs(bv * bv - av * av) <= bound), name
         elif name == "ts" or exact_sums or op in (
                 "count", "min", "max", "first_value", "last_value"):
@@ -375,3 +379,55 @@ def test_unported_shapes_raise(tables):
 def test_cpu_run_launches_no_kernel(tables):
     assert merge_gather.gather_planes.launches == 0
     assert ring_fold.blocked_fold_sum.launches == 0
+
+
+@contextlib.contextmanager
+def _jax_x64(on: bool):
+    saved = bool(jax.config.read("jax_enable_x64"))
+    jax.config.update("jax_enable_x64", on)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", saved)
+
+
+def _fnmadd_cells(dtype, rng, m=4000):
+    """Window states (n, s, s2) of `dtype` sums, drawn from `rng`, whose
+    variance s2/n - mean*mean differs when mean*mean is rounded first
+    (the uncontracted form, which numpy computes) from the one rounding of
+    fma(-mean, mean, s2/n) (computed exactly with fractions)."""
+    n = rng.integers(1, 40, m).astype(np.int32)
+    nf = n.astype(np.float32)
+    s = (rng.random(m) * 100.0 * n).astype(dtype)
+    s2 = (s.astype(np.float64) ** 2 / n * (1.0 + rng.random(m))).astype(dtype)
+    mean = s / nf.astype(dtype)
+    q = s2 / nf.astype(dtype)
+    loose = q - mean * mean
+    tight = np.array([float(Fraction(float(b)) - Fraction(float(a)) ** 2)
+                      for a, b in zip(mean, q)]).astype(dtype)
+    pick = loose != tight
+    return {"n": n[pick], "s": s[pick], "s2": s2[pick]}
+
+
+@pytest.mark.parametrize("op", ["var_pop", "var_samp", "stddev_pop",
+                                "stddev_samp"])
+@pytest.mark.parametrize("dtype,x64", [(np.float32, False),
+                                       (np.float32, True),
+                                       (np.float64, True)],
+                         ids=["f32", "f32_x64", "f64_x64"])
+def test_range_variance_is_xlas_fnmadd(op, dtype, x64):
+    """The RANGE programs' finalize on window sums whose contracted and
+    uncontracted variances differ (ROADMAP C2): XLA:CPU computes the
+    variance as one fnmadd, in float32 and in float64, and the port's bits
+    equal the JAX program's on every such cell."""
+    state = _fnmadd_cells(dtype, np.random.default_rng(17))
+    assert len(state["n"]) > 100
+    with _jax_x64(x64):
+        fin = jax.jit(lambda st: jdr._finalize_j(op, st, jnp))
+        want, wp = (np.asarray(a) for a in fin(
+            {k: jnp.asarray(v) for k, v in state.items()}))
+    got, gp = (t.numpy() for t in tdr._finalize_j(
+        op, {k: torch.from_numpy(v) for k, v in state.items()}))
+    assert np.array_equal(wp, gp)
+    assert want.dtype == got.dtype == dtype
+    assert np.array_equal(want.view(np.uint8), got.view(np.uint8))

@@ -16,7 +16,14 @@ exact, and the extremes always are.
 Kernel S cuts the tree at tiles (csrc/segmented_scan.cu): a tile-local
 up-sweep, the same scan over the tiles' last cells, a tile-local
 down-sweep. `_tiled` models that order at any tile size, and it must
-equal the level order bit for bit.
+equal the level order bit for bit. Inside a tile the kernel splits the
+levels again: a thread's 2^j contiguous cells in registers, its warp's
+lanes' last cells by shuffles, one warp over the warps' last cells, and
+the down-sweep back with the previous thread's, warp's or tile's last
+cell. `_split_scan` models that split (at the card's 16 cells x 32 lanes x
+8 warps and at smaller ones, so that the totals need two levels and more
+at test sizes), and it must equal the level order and the JAX package's
+associative_scan bit for bit.
 """
 
 import jax.numpy as jnp
@@ -238,7 +245,7 @@ def _tiled(cells, comb, tile):
 
 
 @pytest.mark.parametrize("n", [1, 3, 33, 100, 4097, 20_000])
-@pytest.mark.parametrize("tile", [2, 8, 32, 2048])
+@pytest.mark.parametrize("tile", [2, 8, 32, 2048, 4096])
 def test_tiled_order_equals_level_order(tile, n):
     rng = np.random.default_rng(tile * 7 + n)
     r = torch.from_numpy(_reset(rng, n, "random"))
@@ -252,6 +259,126 @@ def test_tiled_order_equals_level_order(tile, n):
         got = _tiled(cells, comb, tile)
         for w, g in zip(want, got):
             _same(w.numpy(), g.numpy())
+
+
+# ----------------------------------------------------------------------
+# the kernel's thread, warp and block split against the level order
+# ----------------------------------------------------------------------
+
+def _up_last(fields, comb, log):
+    """Up-sweep levels 1 .. log over the last axis (2^log cells) of every
+    row of `fields`, in place."""
+    for lev in range(1, log + 1):
+        s, h = 1 << lev, 1 << (lev - 1)
+        right = [t[..., s - 1::s] for t in fields]
+        left = [t[..., h - 1::s] for t in fields]
+        for dst, val in zip(right, comb(left, right)):
+            dst.copy_(val)
+
+
+def _down_last(fields, comb, log, prev, skip):
+    """Down-sweep levels log .. 1 over the last axis, in place. A level's
+    first target (m = 0) takes `prev`, the final cell before the row, as
+    its left cell, except in the rows where `skip` is set (the array's
+    first: there m starts at 1)."""
+    for lev in range(log, 0, -1):
+        s, h = 1 << lev, 1 << (lev - 1)
+        right = [t[..., h - 1::s] for t in fields]
+        k = right[0].shape[-1]
+        left = [torch.cat([p[..., None], t], -1)[..., 0::s][..., :k]
+                for p, t in zip(prev, fields)]
+        m0 = torch.zeros(k, dtype=torch.bool)
+        m0[0] = True
+        keep = skip[..., None] & m0
+        for dst, val in zip(right, comb(left, right)):
+            dst.copy_(torch.where(keep, dst, val))
+
+
+def _split_scan(cells, comb, cells_log, lane_log, warp_log):
+    """associative_scan's tree as kernel S splits it: tiles of
+    2^(cells_log + lane_log + warp_log) cells; in a tile, levels
+    1 .. cells_log on each thread's 2^cells_log cells, the next lane_log
+    on the lanes' last cells (the shuffles), the rest on the warps' last
+    cells (warp 0); the full tiles' totals scanned by the same scheme;
+    then the down-sweep, warp level, lanes, threads, each level's first
+    target taking the last cell of the tile, warp or thread before."""
+    C, L, W = 1 << cells_log, 1 << lane_log, 1 << warp_log
+    T = C * L * W
+    n = cells[0].numel()
+    tiles, full = -(-n // T), n // T
+    rows = [torch.cat([c, torch.zeros(tiles * T - n, dtype=c.dtype)])
+            .view(tiles, W * L, C) for c in cells]
+    lanes = [r[..., C - 1].view(tiles, W, L) for r in rows]
+    warps = [x[..., L - 1] for x in lanes]
+    _up_last(rows, comb, cells_log)
+    _up_last(lanes, comb, lane_log)
+    _up_last(warps, comb, warp_log)
+    first = torch.arange(tiles) == 0
+    prev = [torch.zeros(tiles, dtype=c.dtype) for c in cells]
+    if tiles > 1:
+        totals = [w[:full, W - 1].clone() for w in warps]
+        if full > 1:
+            totals = _split_scan(totals, comb, cells_log, lane_log, warp_log)
+        for w, p, t in zip(warps, prev, totals):
+            w[:full, W - 1] = t
+            p[1:] = t[:tiles - 1]
+    _down_last(warps, comb, warp_log, prev, first)
+    wprev = [torch.cat([p[:, None], w[:, :-1]], 1)
+             for p, w in zip(prev, warps)]
+    _down_last(lanes, comb, lane_log, wprev,
+               first[:, None] & (torch.arange(W) == 0))
+    last = [x.reshape(tiles, W * L) for x in lanes]
+    tprev = [torch.cat([p[:, None], x[:, :-1]], 1)
+             for p, x in zip(prev, last)]
+    _down_last(rows, comb, cells_log, tprev,
+               first[:, None] & (torch.arange(W * L) == 0))
+    return [r.reshape(-1)[:n] for r in rows]
+
+
+# (cells_log, lane_log, warp_log): the card's, and smaller ones whose
+# totals take two levels (and three) at test sizes
+SPLITS = {"card": (4, 5, 3), "c2l4w2": (1, 2, 1), "c8l2w4": (3, 1, 2)}
+SPLIT_CASES = [("card", n) for n in (1, 2, 4095, 4096, 4097, 3 * 4096 + 5,
+                                     263_520)]
+SPLIT_CASES += [("c2l4w2", n) for n in (3, 15, 16, 17, 271, 272, 277, 1000,
+                                        16 * 16 * 17 + 5)]
+SPLIT_CASES += [("c8l2w4", n) for n in (63, 64, 65, 64 * 65 + 5, 20_000)]
+
+
+@pytest.mark.parametrize("split,n", SPLIT_CASES,
+                         ids=[f"{s}-{n}" for s, n in SPLIT_CASES])
+def test_thread_warp_block_split_equals_level_order(split, n):
+    rng = np.random.default_rng(n + len(split))
+    r = torch.from_numpy(_reset(rng, n, "random"))
+    v = rng.random(n) * 1e6 + rng.random(n) * 1e-3
+    v[rng.random(n) < 0.05] = -0.0
+    hi, lo = (torch.from_numpy(a) for a in _split(v))
+    f64 = torch.from_numpy(np.round(rng.standard_normal(n), 1))
+    f32 = f64.float()
+    for form, cells in (("add", (f64, r)), ("add", (f32, r)),
+                        ("max", (f64, r)), ("comp", (hi, lo, r)),
+                        ("min2", (hi, lo, r))):
+        comb = SS.COMBINES[form]
+        want = SS.tree_scan(cells, comb)
+        got = _split_scan(cells, comb, *SPLITS[split])
+        for w, g in zip(want, got):
+            _same(w.numpy(), g.numpy())
+    # and against associative_scan itself, with its interleave's +0.0
+    for fn, cells in (("segmented_cumsum", (f64, r)),
+                      ("segmented_cumsum", (f32, r)),
+                      ("segmented_cumsum_compensated", (hi, lo, r)),
+                      ("segmented_cumextreme2", (hi, lo, r))):
+        kw = {"take_max": True} if fn == "segmented_cumextreme2" else {}
+        comb = SS.COMBINES["max2" if kw else "comp" if len(cells) == 3
+                           else "add"]
+        got = _split_scan(cells, comb, *SPLITS[split])[:len(cells) - 1]
+        if n > 1:
+            got = [SS.positive_zero(g) for g in got]
+        want = getattr(JS, fn)(*(jnp.asarray(c.numpy()) for c in cells),
+                               **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for w, g in zip(want, got):
+            _same(np.asarray(w), g.numpy())
 
 
 def test_wrapper_refuses_wrong_inputs():

@@ -21,8 +21,9 @@ The contract is slice 1's, as tests/test_torch_device_range.py states it:
 exact for counts, min/max, first/last, keys and timestamps; sums and
 means of disjoint windows (range == align) within E1 = 2 (w - 1) 2^-24
 sum|x| per cell (E1 / n for means; sum|x| from the written rows), the
-gap of two reduction orders over w cells; stddev within the FMA gap, plus
-the reorder gap over disjoint windows. The sharded port (four shards on
+gap of two reduction orders over w cells; stddev bit for bit over
+overlapping windows (both packages contract its variance into one fused
+multiply-add), within the reorder gap over disjoint windows. The sharded port (four shards on
 the CPU: the fused ring, the hop ring, the gather twin) must equal the
 one-device port bit for bit.
 """
@@ -255,7 +256,8 @@ def _stats_fn(table, sql, res):
 def _compare(want, got, w, stats=None):
     """Slice 1's contract (module docstring). `stats(column)` gives the
     per-cell (n, sum|x|, sum x^2) of a disjoint-window query's column;
-    without it (overlapping windows) sums and means must be bit-equal."""
+    without it (overlapping windows) sums, means and stddev must be
+    bit-equal."""
     assert got.names == want.names
     assert got.num_rows == want.num_rows
     names = [_op_of(n) for n in want.names]
@@ -271,14 +273,13 @@ def _compare(want, got, w, stats=None):
             continue
         op = _op_of(name)
         if op == "stddev_samp":
+            assert stats is not None, f"{name} not bit-equal"
             n = np.asarray(want.cols[names.index("count")].values)[m]
             mean = np.asarray(want.cols[names.index("avg")].values)[m]
             c = n / np.maximum(n - 1, 1)
-            bound = 4 * U * c * (mean * mean + av * av)
-            if stats is not None:
-                _, abs1, sq = (v[m] for v in stats(name))
-                e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
-                bound = bound + c * (e2 + 2 * np.abs(mean) * e1) / n
+            _, abs1, sq = (v[m] for v in stats(name))
+            e1, e2 = 2 * (w - 1) * U * abs1, 2 * (w - 1) * U * sq
+            bound = c * (e2 + 2 * np.abs(mean) * e1) / n
             assert np.all(np.abs(bv * bv - av * av) <= bound), name
         else:
             assert op in ("avg", "sum") and stats is not None, (
