@@ -5,14 +5,15 @@
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
                           [--rest-warm 5] [--server-hours 2]
-                          [--phases 1,14]
+                          [--flow-hours 4]
+                          [--phases 1,14,15]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line). `--phases` runs the listed phases only, with phase 1 and the
 phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
-9 phases 2 and 6; 10 phase 7); by default every phase runs. The kernels
-line then holds, and checks the launches of, the kernels of the phases
-that ran.
+9 phases 2 and 6; 10 phase 7; 15 phase 14); by default every phase
+runs. The kernels line then holds, and checks the launches of, the
+kernels of the phases that ran.
 
 1. build   — compile the CUDA kernels from greptimedb_tpu_torch's sources
              (one nvcc per source, all at once) and print the card's name
@@ -253,23 +254,26 @@ that ran.
              after it; both data roots are removed.
 
 13. flow   — flows (continuous aggregation): phase 2's TSBS devops rows
-             (same seed; 4000 hosts, 12 h at 10 s, ten usage_* fields),
-             each hour's four 15-minute runs without the re-delivery and
-             tombstone runs (a flow mirrors every insert, so a re-delivered
-             row would count twice), written in deltas of 10,000 rows
-             (tsbs_load's --batch-size; 1,728 deltas) through `_insert`'s
-             columnar write and its flow delta into a Standalone on the
-             card (engine-opened, WAL on, wal_sync at its default) with two
+             (same seed; 4000 hosts at 10 s, ten usage_* fields), cut to
+             the first --flow-hours 4 hours for the script's time limit
+             (12 is phase 2's whole span), each hour's four 15-minute
+             runs without the re-delivery and tombstone runs (a flow
+             mirrors every insert, so a re-delivered row would count
+             twice), written in deltas of 10,000 rows (tsbs_load's
+             --batch-size; 576 deltas) through `_insert`'s columnar write
+             and its flow delta into a Standalone on the card
+             (engine-opened, WAL on, wal_sync at its default) with two
              flows created first: cpu_1h (avg and max of the ten fields BY
              hostname, date_bin('1 hour', ts): TSBS double-groupby-all and
              cpu-max-all kept as a rollup) and cpu_1h_stats (count, min,
-             stddev_samp, first_value and last_value of usage_user), 48,000
-             groups each, ticked by hand at the end of every hour. Hard
+             stddev_samp, first_value and last_value of usage_user), 4,000
+             groups an hour each, ticked by hand at the end of every hour.
+             Hard
              checks: every delta launches G, the same number of times; no
              flow is demoted and no apply or tick fails; after the first
              hour's tick both sinks and both device states equal, bit for
              bit, the port on the CPU fed the same deltas (run in a worker
-             process while the card writes); after twelve hours count,
+             process while the card writes); after the last hour count,
              min, max, first_value and last_value equal numpy over the
              float32-cast rows, avg and stddev_samp within the bounds
              stated in flow_check_numpy; 20 line-protocol bodies of 10,000
@@ -286,7 +290,7 @@ that ran.
              versions and scatter_reduce. Printed: rows/s of the write
              with the flows on, host ms of each delta in on_insert, G
              calls a delta by form, the hourly ticks and the tick over all
-             96,000 groups (finalize and readback, sink upsert), the state
+             groups (finalize and readback, sink upsert), the state
              bytes, device ms and idle share of one warm delta under the
              profiler. Kernel counts are zeroed before the phase and read
              after its main path; the data roots are removed.
@@ -325,6 +329,40 @@ that ran.
              process, must see no more than one launch of S's kernel a
              scan, and S in what it sees of a warm metric query. S's count is zeroed before the phase's
              queries and read after them.
+
+15. relational — joins, CTEs, subqueries, set operations and views
+             through Standalone.sql on the card, over phase 14's table
+             (handed over, not written again; 17.28 M rows compacted on
+             the card through K1) and a tags table of one row a host
+             (hostname, its region, a datacenter of that region, a rack
+             and an os, drawn from --seed as TSBS devops draws them,
+             cmd/tsbs_generate_data/devops/host.go in the TSBS sources),
+             created by SQL DDL and INSERT in a card Standalone and in a
+             CPU Standalone, each with the cpu table registered. The first
+             hour is ts < 3600000 (1.44 M rows). R1: a join, then GROUP BY
+             datacenter over the 1.44 M-row frame (G on the card; counts
+             against the tags table); R2: an uncorrelated IN over a device
+             GROUP BY; R3: a RANGE 1h BY hostname on the grid inside a CTE
+             (the CTE must take the grid's one-device program), joined and
+             grouped by region and ts; R4: a correlated scalar subquery
+             (decorrelated: one inner GROUP BY, then a lookup per outer
+             row); R5: the first hour's hosts with max(usage_user) > 99
+             EXCEPT, and once INTERSECT ALL, the hosts of one os; R6: a
+             view (avg(usage_user) by host over the first hour) joined to
+             the tags and grouped by region. Each query runs cold, warm
+             (median of 3; the first warm call under query/stats'
+             collector, for the join's host ms and rows) and once under
+             the profiler (device ms, idle share), and equals the CPU
+             Standalone's answer bit for bit (names, row order, dtypes,
+             values, validity), but for R3's max of the CTE's means:
+             the grid sums an hour's 360 ten-second cells in torch's
+             order, which differs between the card and the CPU (ROADMAP
+             C2), so that column is held to 2 (w - 1) 2^-24 relative
+             with w = 360 (compare_engines), its keys, order, dtypes and
+             validity exactly. Every query must launch G; every one but
+             R5 (whose last leaf is the tags scan) must end on the device
+             path. Kernel counts are zeroed before the queries and read
+             after them; the data roots are removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -4472,7 +4510,7 @@ def flow_phase(args, dev):
                 "x64": pool.apply_async(flow_cpu_run, (
                     args.seed, args.hosts, True, ("cpu_1h_stats",)))}
 
-        # ---- the 12 h write with both flows on the card, a tick at the
+        # ---- the write with both flows on the card, a tick at the
         # end of every hour
         card = opened(roots[0], dev)
         first_hour, first = [], {}
@@ -4550,7 +4588,7 @@ def flow_phase(args, dev):
                       first["states"])
         out["first_hour_vs_cpu_wait_s"] = time.perf_counter() - t
 
-        # ---- check 2: twelve hours against numpy
+        # ---- check 2: every hour against numpy
         t = time.perf_counter()
         out["vs_numpy"] = flow_check_numpy(args, card, hosts_rows)
         out["vs_numpy"]["seconds"] = time.perf_counter() - t
@@ -4665,7 +4703,7 @@ def flow_phase(args, dev):
 
 
 def flow_check_numpy(args, card, hosts_rows):
-    """Check 2: after twelve hours every (host, hour) of both sinks against
+    """Check 2: after the last hour every (host, hour) of both sinks against
     numpy over the written rows, cast to float32 as the default mode's
     slots hold them. count, min, max, first_value and last_value equal
     exactly. avg within (M - 1) u mean|x| + 4 u |mean|: each delta's
@@ -4870,8 +4908,10 @@ def window_table(args, dev):
     (same seed, 4000 hosts, 12 h at 10 s, ten usage_* fields), each hour's
     four 15-minute runs without the re-delivery and tombstone runs, so
     that every host keeps its 4,320 rows and 61 hosts are the metric's
-    263,520; compacted on the card. Returns (table, seconds)."""
+    263,520; compacted on the card. Returns (table, seconds, the hosts'
+    regions, K1's launches in the compaction)."""
     from greptimedb_tpu_torch.catalog.table import Table
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 
     t = time.perf_counter()
     rng = np.random.default_rng(args.seed)
@@ -4883,9 +4923,11 @@ def window_table(args, dev):
     for runs in tsbs_hours(rng, hosts, region_of, args.hours):
         for run in runs[:4]:
             write_run(table, run)
+    k1 = mg.gather_planes.launches
     table.compact(device=dev, verify=False, kernels="on")
     torch.cuda.synchronize()
-    return table, time.perf_counter() - t
+    return (table, time.perf_counter() - t, region_of,
+            mg.gather_planes.launches - k1)
 
 
 def same_window_result(what, a, b):
@@ -5133,13 +5175,15 @@ def s_kernel_rows(dev, ss, n_full, per, launches, metric_launches):
 
 
 def window_phase(args, dev):
-    """Phase 14 (see the module docstring). Returns kernel S's row."""
+    """Phase 14 (see the module docstring). Returns kernel S's row and
+    what phase 15 takes: the table, its hosts' regions and K1's launches
+    in its compaction."""
     from greptimedb_tpu_torch.instance import Instance
     from greptimedb_tpu_torch.parallel import mesh as M
     from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
 
     t_phase = time.perf_counter()
-    table, t_table = window_table(args, dev)
+    table, t_table, region_of, k1_launches = window_table(args, dev)
     per = args.hours * (HOUR_MS // STEP_MS)
     queries = window_sql(WINDOW_HOSTS)
 
@@ -5242,18 +5286,235 @@ def window_phase(args, dev):
         "total_ms"]
     row["profiler_s_events_in_warm_metric_query"] = in_query and (
         f"{in_query['events']} of {metric_launches}")
+    out["k1_launches_compaction"] = k1_launches
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "window", **out})
     if launches == 0:
         raise AssertionError("kernel segmented_scan never launched on the "
                              "window path")
-    return [row]
+    return [row], {"table": table, "region_of": region_of,
+                   "k1_launches": k1_launches}
+
+
+REL_WARM = 3            # warm runs of each phase-15 query (median)
+REL_HOUR = "ts < 3600000"   # the first hour: 1.44 M rows at 4000 hosts
+# TSBS devops host tags (cmd/tsbs_generate_data/devops/host.go in the
+# TSBS sources): each region's datacenters, 100 racks a datacenter, three
+# operating systems
+TSBS_DATACENTERS = {
+    "us-east-1": "abce", "us-west-1": "ab", "us-west-2": "abc",
+    "eu-west-1": "abc", "eu-central-1": "ab", "ap-southeast-1": "ab",
+    "ap-southeast-2": "ab", "ap-northeast-1": "ac", "sa-east-1": "abc",
+}
+TSBS_RACKS = 100
+TSBS_OS = ("Ubuntu16.10", "Ubuntu16.04LTS", "Ubuntu15.10")
+REL_DDL = ("CREATE TABLE tags (ts TIMESTAMP TIME INDEX, hostname STRING "
+           "PRIMARY KEY, region STRING, datacenter STRING, rack STRING, "
+           "os STRING)")
+REL_VIEW = ("CREATE VIEW hot AS SELECT hostname, avg(usage_user) AS u "
+            f"FROM cpu WHERE {REL_HOUR} GROUP BY hostname")
+REL_QUERIES = {
+    # a join, then GROUP BY over the 1.44 M-row frame through G
+    "R1": ("SELECT t.datacenter, count(*), avg(c.usage_user), "
+           "max(c.usage_system) FROM cpu c JOIN tags t ON c.hostname = "
+           f"t.hostname WHERE c.{REL_HOUR} GROUP BY t.datacenter "
+           "ORDER BY t.datacenter"),
+    # an uncorrelated IN over a device GROUP BY
+    "R2": (f"SELECT hostname, max(usage_user) FROM cpu WHERE {REL_HOUR} "
+           f"AND hostname IN (SELECT hostname FROM cpu WHERE {REL_HOUR} "
+           "GROUP BY hostname HAVING avg(usage_user) > 50) "
+           "GROUP BY hostname ORDER BY hostname"),
+    # a RANGE on the grid inside a CTE, joined
+    "R3": ("WITH h AS (SELECT ts, hostname, avg(usage_user) RANGE '1h' "
+           "AS u FROM cpu ALIGN '1h' BY (hostname)) SELECT t.region, h.ts, "
+           "max(h.u) FROM h JOIN tags t ON h.hostname = t.hostname "
+           "GROUP BY t.region, h.ts ORDER BY t.region, h.ts"),
+    # a correlated scalar subquery that decorrelate accepts
+    "R4": ("SELECT c.hostname, c.ts, c.usage_user FROM cpu c WHERE "
+           f"c.{REL_HOUR} AND c.usage_user > (SELECT avg(d.usage_user) + 49 "
+           "FROM cpu d WHERE d.hostname = c.hostname AND "
+           f"d.{REL_HOUR}) ORDER BY c.hostname, c.ts"),
+    # set operations: the first hour's hot hosts (a GROUP BY on cpu)
+    # against the hosts of one os
+    "R5_except": (f"SELECT hostname FROM cpu WHERE {REL_HOUR} GROUP BY "
+                  "hostname HAVING max(usage_user) > 99 EXCEPT SELECT "
+                  f"hostname FROM tags WHERE os = '{TSBS_OS[1]}'"),
+    "R5_intersect_all": (f"SELECT hostname FROM cpu WHERE {REL_HOUR} "
+                         "GROUP BY hostname HAVING max(usage_user) > 99 "
+                         "INTERSECT ALL SELECT hostname FROM tags WHERE "
+                         f"os = '{TSBS_OS[1]}'"),
+    # a view, joined and grouped
+    "R6": ("SELECT t.region, count(*), avg(h.u), max(h.u) FROM hot h "
+           "JOIN tags t ON h.hostname = t.hostname GROUP BY t.region "
+           "ORDER BY t.region"),
+}
+
+
+# the columns held to a bound against the CPU port, not bit for bit: R3's
+# CTE averages 360 ten-second cells of the grid an hour, and torch sums
+# a window's cells in another order on the card than on the CPU (ROADMAP
+# C2's disjoint-window tolerance), so its max stays within 2 (w - 1) u
+# relative (compare_engines); every other column, and every other query,
+# bit for bit
+REL_BOUNDED = {"R3": ("max(h.u)",)}
+
+
+def relational_tags(seed, region_of, batch=1000) -> list:
+    """The tags table's INSERT statements: one row a host (host_i, its
+    cpu-table region), with a datacenter of that region, a rack and an
+    os drawn from `seed` as TSBS devops draws them."""
+    rng = np.random.default_rng(seed + 15)
+    rows = []
+    for i, region in enumerate(region_of):
+        dcs = TSBS_DATACENTERS[str(region)]
+        dc = f"{region}{dcs[rng.integers(len(dcs))]}"
+        rack = int(rng.integers(TSBS_RACKS))
+        os_ = TSBS_OS[rng.integers(len(TSBS_OS))]
+        rows.append(f"(0, 'host_{i}', '{region}', '{dc}', '{rack}', "
+                    f"'{os_}')")
+    return ["INSERT INTO tags VALUES " + ", ".join(rows[k:k + batch])
+            for k in range(0, len(rows), batch)]
+
+
+def relational_phase(args, dev, window_out):
+    """Phase 15 (see the module docstring). Returns the launches of the
+    kernels its queries ran on the card."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.query import stats
+
+    t_phase = time.perf_counter()
+    table, region_of = window_out["table"], window_out["region_of"]
+    roots = [tempfile.mkdtemp(prefix="chip_smoke_relational_"),
+             tempfile.mkdtemp(prefix="chip_smoke_relational_cpu_")]
+    insts = []
+    out = {"rows": int(table.row_count())}
+    try:
+        t = time.perf_counter()
+        for root, device in zip(roots, (dev, "cpu")):
+            inst = Standalone(root, device=device, prefer_device=True,
+                              warm_start=False)
+            insts.append(inst)
+            inst.catalog.register(table)
+            for stmt in [REL_DDL] + relational_tags(args.seed, region_of) \
+                    + [REL_VIEW]:
+                inst.execute_sql(stmt)
+        card, cpu = insts
+        out["setup_seconds"] = time.perf_counter() - t
+        gr.grouped_block_reduce.launches = 0
+        rf.blocked_fold_sum.launches = 0
+        results = {}
+        qe = card.query_engine
+        ranges = []     # (exec path, program) of each RANGE plan it runs
+        real_execute = qe.execute
+
+        def execute(plan, table):
+            res = real_execute(plan, table)
+            if plan.kind == "range":
+                ranges.append((qe.last_exec_path,
+                               (qe.last_range or {}).get("program")))
+            return res
+
+        qe.execute = execute
+        for name, sql in REL_QUERIES.items():
+            ranges.clear()
+            before = gr.grouped_block_reduce.launches
+            t = time.perf_counter()
+            res = card.sql(sql)
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t) * 1e3
+            g_cold = gr.grouped_block_reduce.launches - before
+            path, range_paths, grid = (qe.last_exec_path, list(ranges),
+                                       qe.last_grid)
+            times, joined = [], None
+            for k in range(REL_WARM):
+                # the first warm call under the stats collector: the
+                # join's host ms and rows
+                with (stats.collect() if k == 0
+                      else contextlib.nullcontext()) as st:
+                    t = time.perf_counter()
+                    card.sql(sql)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+                if k == 0:
+                    joined = dict(st.counters)
+            t = time.perf_counter()
+            want = cpu.sql(sql)
+            cpu_ms = (time.perf_counter() - t) * 1e3
+            identical, worst = True, 0.0
+            if name in REL_BOUNDED:
+                if [np.asarray(c.values).dtype for c in res.cols] != [
+                        np.asarray(c.values).dtype for c in want.cols]:
+                    raise AssertionError(f"relational {name}: dtypes")
+                identical, worst = compare_engines(
+                    f"relational {name}", want, res, HOUR_MS // STEP_MS,
+                    bounded=REL_BOUNDED[name])
+            else:
+                same_window_result(f"relational {name}", res, want)
+            if res.num_rows == 0:
+                raise AssertionError(f"relational {name}: no rows")
+            if g_cold == 0:
+                raise AssertionError(f"relational {name}: G never launched")
+            # a set operation's last leaf is the tags scan (host); every
+            # other query ends in an aggregate, which must take the card
+            if path != "device" and not name.startswith("R5"):
+                raise AssertionError(f"relational {name}: its last "
+                                     f"aggregate ran on the {path}")
+            results[name] = res
+            prof = profiled(lambda: card.sql(sql))
+            out[name] = {
+                "rows_out": res.num_rows, "cold_ms": cold,
+                "warm_ms_median": float(np.median(times)), "warm_ms": times,
+                "device_ms": prof["device_ms"],
+                "idle_share": prof["idle_share"],
+                "join_ms": joined.get("join_ms"),
+                "join_rows": joined.get("join_rows"),
+                "cpu_port_ms": cpu_ms, "g_launches_cold": g_cold,
+                "bit_identical_to_cpu": identical,
+                "max_rel_diff_to_cpu": worst,
+                "range_plans": range_paths, "grid": grid,
+                "profile_warm": prof,
+            }
+            emit({"relational_query": name,
+                  **{k: v for k, v in out[name].items()
+                     if k not in ("profile_warm", "warm_ms")}})
+        if out["R3"]["range_plans"] != [("device", "single")] or \
+                out["R3"]["grid"] != "built":
+            raise AssertionError(f"relational R3: the CTE took "
+                                 f"{out['R3']['range_plans']}, grid "
+                                 f"{out['R3']['grid']}")
+        # R1's counts against the tags: every host keeps 360 rows in the
+        # first hour
+        r1 = results["R1"]
+        got = dict(zip(r1.column("datacenter").values.tolist(),
+                       r1.column("count(*)").values.tolist()))
+        want = {}
+        for d in cpu.sql("SELECT datacenter FROM tags").cols[0].values:
+            want[d] = want.get(d, 0) + HOUR_MS // STEP_MS
+        if got != want:
+            raise AssertionError("relational R1: counts differ from the "
+                                 "tags table's")
+    finally:
+        for inst in insts:
+            inst.close()
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = {"grouped_block_reduce": gr.grouped_block_reduce.launches,
+                "blocked_fold_sum": rf.blocked_fold_sum.launches}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "relational", **out})
+    return launches
 
 
 # phases whose inputs another phase makes: a selected phase brings these
 PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
-               11: {2}}
-ALL_PHASES = tuple(range(1, 15))
+               11: {2}, 15: {14}}
+ALL_PHASES = tuple(range(1, 16))
 
 
 def selected_phases(text: str | None) -> set:
@@ -5474,13 +5735,20 @@ def run(args) -> int:
     # ---- 13. flow ------------------------------------------------------
     flow_launches, flow_kern = {}, None
     if 13 in want:
-        flow_launches, flow_kern = flow_phase(args, dev)
+        flow_launches, flow_kern = flow_phase(argparse.Namespace(
+            **{**vars(args), "hours": args.flow_hours}), dev)
     # ---- 14. window ----------------------------------------------------
+    window_out = None
     if 14 in want:
-        kernels += window_phase(args, dev)
+        window_rows_, window_out = window_phase(args, dev)
+        kernels += window_rows_
+    # ---- 15. relational ------------------------------------------------
+    rel_launches = relational_phase(args, dev, window_out) \
+        if 15 in want else {}
     # every kernel's launches over the main-path runs of the phases that
     # ran; the hop ring's seed, continuation and combines run in phase 8
-    # only, Gt in phase 9 only, G in phases 9, 10, 12 and 13, S in 14
+    # only, Gt in phase 9 only, G in phases 9, 10, 12, 13 and 15, S in 14,
+    # K1 in 2, 11, 12 and 14 (the compaction of the table 14 and 15 read)
     extreme_row = next((r for r in kernels if r["name"] == "extreme"), {})
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
@@ -5523,6 +5791,12 @@ def run(args) -> int:
         if flow_launches.get(name):
             row["launches"] += flow_launches[name]
             row["launches_flow"] = flow_launches[name]
+        if rel_launches.get(name):
+            row["launches"] += rel_launches[name]
+            row["launches_relational"] = rel_launches[name]
+        if name == "gather_planes" and window_out is not None:
+            row["launches"] += window_out["k1_launches"]
+            row["launches_window_table"] = window_out["k1_launches"]
         if name == "grouped_block_reduce" and flow_kern is not None:
             row["flow"] = flow_kern["flow"]
             row["float64_ext_form"] = flow_kern["float64_ext_form"]
@@ -5553,6 +5827,8 @@ def main() -> int:
                     help="warm runs of each phase-10 query (median)")
     ap.add_argument("--server-hours", type=int, default=2,
                     help="hours of TSBS devops phase 12 writes over HTTP")
+    ap.add_argument("--flow-hours", type=int, default=4,
+                    help="hours of TSBS devops phase 13 writes into flows")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all); "
                          "phase 1 and the phases a listed one takes its "

@@ -9,8 +9,10 @@ metadata (TableInfo: the typed schema, engine, options) as JSON
 (meta/catalog.json in the engine's object store), so a fresh process
 reopens every table, WAL replay included (`CatalogManager(engine)` loads
 them, opening their regions on the engine's bounded recovery pool in one
-batch). `create_table` takes the JAX signature (a Schema; `Schema.of`
-builds one from names). Logical metric tables (engine="metric", metric_engine.py) ride one shared physical
+batch). Views are stored as SQL text per database (`create_view`,
+`maybe_view`), persisted beside the tables and re-planned by
+query/relational.py on every query. `create_table` takes the JAX
+signature (a Schema; `Schema.of` builds one from names). Logical metric tables (engine="metric", metric_engine.py) ride one shared physical
 table per database. Region ids pack (table_id, region number) as the JAX
 package's do; `num_regions > 1` and `PARTITION ON` wait for ROADMAP A10,
 the file engine (`CREATE EXTERNAL TABLE`) for A2's tail.
@@ -177,6 +179,7 @@ class CatalogManager:
     def __init__(self, engine=None):
         self.engine = engine
         self._databases: dict[str, dict[str, object]] = {DEFAULT_SCHEMA: {}}
+        self._views: dict[str, dict[str, str]] = {}  # db -> name -> SQL text
         self._lock = threading.RLock()
         self._next_table_id = 1024
         if engine is not None:
@@ -192,6 +195,8 @@ class CatalogManager:
             return
         doc = json.loads(store.read(CATALOG_PATH))
         self._next_table_id = doc.get("next_table_id", 1024)
+        self._views = {db: dict(views)
+                       for db, views in doc.get("views", {}).items()}
         all_infos = {db: [TableInfo.from_json(t) for t in tables]
                      for db, tables in doc.get("databases", {}).items()}
         # every region in one batch on the engine's recovery pool; the
@@ -219,7 +224,8 @@ class CatalogManager:
             return
         doc = {"next_table_id": self._next_table_id,
                "databases": {db: [t.info.to_json() for t in tables.values()]
-                             for db, tables in self._databases.items()}}
+                             for db, tables in self._databases.items()},
+               "views": {db: dict(v) for db, v in self._views.items() if v}}
         self.engine.store.write(CATALOG_PATH, json.dumps(doc).encode())
 
     def _region_meta(self, info: TableInfo):
@@ -276,7 +282,43 @@ class CatalogManager:
             for tname in list(self._databases[name]):
                 self.drop_table(name, tname)
             del self._databases[name]
+            self._views.pop(name, None)
             self._persist()
+
+    # ------------------------------------------------------------------
+    # views (name -> stored SQL text; query/relational re-plans the text
+    # on every query)
+    # ------------------------------------------------------------------
+    def create_view(self, database: str, name: str, sql_text: str,
+                    *, or_replace: bool = False):
+        with self._lock:
+            self._db(database)  # the database must exist
+            if name in self._databases.get(database, {}):
+                raise InvalidArgumentError(
+                    f"a table named {name!r} already exists")
+            views = self._views.setdefault(database, {})
+            if name in views and not or_replace:
+                raise InvalidArgumentError(f"view already exists: {name}")
+            views[name] = sql_text
+            self._persist()
+
+    def drop_view(self, database: str, name: str, *, if_exists: bool = False):
+        with self._lock:
+            views = self._views.get(database, {})
+            if name not in views:
+                if if_exists:
+                    return
+                raise TableNotFoundError(f"view not found: {name}")
+            del views[name]
+            self._persist()
+
+    def maybe_view(self, database: str, name: str) -> str | None:
+        with self._lock:
+            return self._views.get(database, {}).get(name)
+
+    def view_names(self, database: str) -> list[str]:
+        with self._lock:
+            return sorted(self._views.get(database, {}))
 
     def database_names(self) -> list[str]:
         with self._lock:
@@ -318,6 +360,9 @@ class CatalogManager:
         validate_table_options(options)
         with self._lock:
             db = self._db(database)
+            if name in self._views.get(database, {}):
+                raise InvalidArgumentError(
+                    f"a view named {name!r} already exists")
             if name in db:
                 if if_not_exists:
                     return db[name]

@@ -7,7 +7,10 @@ one `Output` per statement, `sql` the last statement's result):
 
 - SELECT: RANGE on the device grid or the host RANGE path, GROUP BY
   through the grouped reduce (on the card or the host), row filters and
-  projections on the host;
+  projections on the host; joins, CTEs, subqueries, set operations and
+  views through query/relational.py, whose leaves are single-table
+  SELECTs (`_select_single`);
+- CREATE [OR REPLACE] VIEW, DROP VIEW, SHOW VIEWS, SHOW CREATE VIEW;
 - INSERT … VALUES and INSERT … SELECT (declared defaults, nulls, typed
   fields), DELETE (tombstones for the rows its WHERE selects);
 - CREATE TABLE (LIKE, IF NOT EXISTS), CREATE/DROP DATABASE, DROP TABLE,
@@ -21,7 +24,7 @@ one `Output` per statement, `sql` the last statement's result):
   write (INSERT, line protocol, remote write) feeds them.
 
 Every other statement raises UnsupportedError naming its ROADMAP item:
-set operations, views, joins, CTEs, EXPLAIN, information_schema,
+EXPLAIN, information_schema and pg_catalog (joined or not),
 PREPARE/EXECUTE, SET/SHOW VARIABLES, SHOW PROCESSLIST and KILL, SHOW
 STATUS/CHARSET/COLLATION (A4), COPY (A2's tail). An Instance without a
 storage engine answers DDL with the catalog's UnsupportedError, and
@@ -63,8 +66,7 @@ _log = logging.getLogger("greptimedb_tpu_torch.instance")
 
 # statements that wait, and the ROADMAP item that ports them
 _WAITING = {
-    A.SetOp: "A4", A.CreateView: "A4", A.DropView: "A4",
-    A.ShowViews: "A4", A.ShowCreateView: "A4", A.Explain: "A4",
+    A.Explain: "A4",
     A.SetVariable: "A4", A.ShowVariables: "A4", A.ShowProcesslist: "A4",
     A.Prepare: "A4", A.Execute: "A4", A.Deallocate: "A4",
     A.ShowStatus: "A4", A.ShowCharset: "A4", A.ShowCollation: "A4",
@@ -156,6 +158,21 @@ class Instance:
             raise _waiting(f"{type(stmt).__name__} statements", item)
         if isinstance(stmt, A.Select):
             return Output.records(self._select(stmt, ctx))
+        if isinstance(stmt, A.SetOp):
+            from greptimedb_tpu_torch.query import relational
+
+            return Output.records(relational.execute(self, stmt, ctx))
+        if isinstance(stmt, A.CreateView):
+            db, name = self._resolve(stmt.name, ctx)
+            if stmt.text is None:
+                raise UnsupportedError("CREATE VIEW requires query text")
+            self.catalog.create_view(db, name, stmt.text,
+                                     or_replace=stmt.or_replace)
+            return Output.rows(0)
+        if isinstance(stmt, A.DropView):
+            db, name = self._resolve(stmt.name, ctx)
+            self.catalog.drop_view(db, name, if_exists=stmt.if_exists)
+            return Output.rows(0)
         if isinstance(stmt, A.Insert):
             return Output.rows(self._insert(stmt, ctx))
         if isinstance(stmt, A.Delete):
@@ -210,6 +227,17 @@ class Instance:
             self.enable_flows().drop_flow(stmt.name,
                                           if_exists=stmt.if_exists)
             return Output.rows(0)
+        if isinstance(stmt, A.ShowViews):
+            return Output.records(_result_from_lists(
+                ["Views"], [self.catalog.view_names(ctx.database)]))
+        if isinstance(stmt, A.ShowCreateView):
+            db, name = self._resolve(stmt.name, ctx)
+            sql_text = self.catalog.maybe_view(db, name)
+            if sql_text is None:
+                raise TableNotFoundError(f"view not found: {name}")
+            return Output.records(_result_from_lists(
+                ["View", "Create View"],
+                [[name], [f"CREATE VIEW {name} AS {sql_text}"]]))
         if isinstance(stmt, A.ShowFlows):
             names = [] if self.flows is None else self.flows.flow_names()
             return Output.records(_result_from_lists(["Flows"], [names]))
@@ -431,10 +459,17 @@ class Instance:
     # ------------------------------------------------------------------
     def _select(self, stmt: A.Select, ctx: QueryContext | None = None
                 ) -> QueryResult:
+        from greptimedb_tpu_torch.query import relational
+
         ctx = ctx or QueryContext()
-        if stmt.ctes or isinstance(stmt.source, (A.JoinSource,
-                                                 A.SubquerySource)):
-            raise _waiting("CTEs, joins and subqueries in FROM", "A4")
+        if relational.needs_relational(self, stmt, ctx):
+            return relational.execute(self, stmt, ctx)
+        return self._select_single(stmt, ctx)
+
+    def _select_single(self, stmt: A.Select, ctx: QueryContext
+                       ) -> QueryResult:
+        """A single-table SELECT (or one without FROM): the plan runs
+        straight on the table's scan, device grid and grouped reduce."""
         if not stmt.from_table:
             plan = plan_select(stmt, ts_name=None, tag_names=[],
                                all_columns=None)

@@ -200,10 +200,6 @@ def eval_expr(e: A.Expr, src: ColumnSource) -> Col:
         return eval_scalar_function(e, src)
     if isinstance(e, A.Star):
         raise PlanError("'*' is only valid as a select item or in count(*)")
-    if isinstance(e, (A.ScalarSubquery, A.InSubquery, A.Exists)):
-        raise UnsupportedError(
-            "subqueries in expressions are not ported yet (ROADMAP A4, "
-            "query/decorrelate.py)")
     raise UnsupportedError(f"cannot evaluate expression: {e!r}")
 
 

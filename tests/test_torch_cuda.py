@@ -2125,3 +2125,64 @@ def test_window_sql_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
                     inst.close()
     finally:
         M.reset_for_tests()
+
+
+# ----------------------------------------------------------------------
+# the relational layer: a GROUP BY over a joined frame through G
+# ----------------------------------------------------------------------
+
+def test_join_groupby_on_cuda_matches_cpu(cuda, tmp_path):
+    """chip_smoke.py's R1 at a small size: a join of the cpu table with a
+    tags table, then GROUP BY datacenter over the joined frame, on a CUDA
+    Standalone and a CPU one: bit for bit (names, order, dtypes, values,
+    validity); the card launches G and ends on the device path."""
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(18)
+    hosts, steps = 300, 720
+    n = hosts * steps
+    tags = {"hostname": np.repeat(np.array(
+        [f"host_{i}" for i in range(hosts)], object), steps)}
+    ts = np.tile(np.arange(steps, dtype=np.int64) * 10_000, hosts)
+    fields = {"usage_user": rng.random(n) * 100,
+              "usage_system": rng.random(n) * 100}
+    valid = {"usage_system": rng.random(n) > 0.05}
+    rows = ", ".join(f"(0, 'host_{i}', 'dc{i % 7}', '{i % 3}')"
+                     for i in range(hosts + 5))
+    sql = ("SELECT t.datacenter, count(*), avg(c.usage_user), "
+           "max(c.usage_system) FROM cpu c JOIN tags t ON c.hostname = "
+           "t.hostname WHERE c.ts < 3600000 GROUP BY t.datacenter "
+           "ORDER BY t.datacenter")
+    insts = [Standalone(str(tmp_path / str(d)), device=d,
+                        prefer_device=True, warm_start=False)
+             for d in (cuda, "cpu")]
+    try:
+        for inst in insts:
+            inst.execute_sql(
+                "CREATE TABLE cpu (ts TIMESTAMP TIME INDEX, hostname STRING "
+                "PRIMARY KEY, usage_user DOUBLE, usage_system DOUBLE); "
+                "CREATE TABLE tags (ts TIMESTAMP TIME INDEX, hostname STRING "
+                "PRIMARY KEY, datacenter STRING, os STRING); "
+                f"INSERT INTO tags VALUES {rows}")
+            inst.catalog.table("public", "cpu").write(tags, ts, fields,
+                                                      field_valid=valid)
+        before = gr.grouped_block_reduce.launches
+        card = insts[0].sql(sql)
+        torch.cuda.synchronize()
+        assert gr.grouped_block_reduce.launches > before
+        assert insts[0].query_engine.last_exec_path == "device"
+        want = insts[1].sql(sql)
+        assert card.names == want.names and card.num_rows == want.num_rows
+        assert card.column("count(*)").values.tolist() == [
+            360 * len(range(d, hosts, 7)) for d in range(7)]
+        for a, b in zip(card.cols, want.cols):
+            va, vb = np.asarray(a.values), np.asarray(b.values)
+            assert va.dtype == vb.dtype
+            assert np.array_equal(a.valid_mask, b.valid_mask)
+            if va.dtype.kind == "f":
+                va, vb = va.view(np.uint8), vb.view(np.uint8)
+            assert np.array_equal(va, vb)
+    finally:
+        for inst in insts:
+            inst.close()

@@ -21,8 +21,6 @@ from tests.test_golden import format_result, golden_files, parse_cases
 
 WAITING = {
     "copy_roundtrip": "A2's tail",           # COPY
-    "cte_edge": "A4",                        # CTEs
-    "cte_setops": "A4",
     "describe_show_more": "A4",              # information_schema
     "explain_output": "A4",                  # EXPLAIN
     "explain_plan": "A4",
@@ -32,8 +30,6 @@ WAITING = {
     "information_schema": "A4",
     "information_schema_cluster": "A4",
     "information_schema_joins": "A4",
-    "join_variants": "A4",                   # joins
-    "joins": "A4",
     "json_functions_edge": "A4",             # functions_ext.py
     "json_geo": "A4",
     "multi_region_partition": "A10",         # more than one region
@@ -41,15 +37,7 @@ WAITING = {
     "pg_catalog": "A4",
     "prepare_execute": "A4",
     "session_admin": "A4",                   # SET
-    "subqueries": "A4",                      # query/decorrelate.py
-    "subqueries_correlated": "A4",
-    "subquery_edge": "A4",
-    "subquery_orderby_limit": "A4",
     "timezone_session": "A4",                # SET time_zone
-    "union_coercion": "A4",                  # set operations
-    "union_except": "A4",
-    "view_edge": "A4",                       # views
-    "views": "A4",
 }
 
 

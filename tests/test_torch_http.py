@@ -5,8 +5,8 @@ same requests go to each. Status codes must be equal, and bodies equal
 after dropping the timing field (`execution_time_ms`). Covered: /v1/sql in
 its three formats and its errors, /v1/promql and the Prometheus API
 endpoints, InfluxDB v1 and v2 writes at every precision with
-auto-widening, Prometheus remote write and read with snappy bodies, and
-/health. The snappy codec is also held against the JAX package's.
+auto-widening, Prometheus remote write and read with snappy bodies,
+/health, and a join and a view over /v1/sql. The snappy codec is also held against the JAX package's.
 """
 
 import json
@@ -157,6 +157,39 @@ def test_ddl_and_insert_over_http(servers):
     sql(servers, "select * from t order by ts", db="web")
     sql(servers, "show databases")
     sql(servers, "admin flush_table('web.t')")
+
+
+def test_join_and_view_over_http(servers):
+    """A join and a view through /v1/sql: equal across the packages, and
+    the port's body equal to its in-process answer."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    sql(servers, "create database rel")
+    sql(servers, "create table m (ts timestamp time index, host string, "
+                 "v double, primary key (host))", db="rel")
+    sql(servers, "create table tags (ts timestamp time index, host string, "
+                 "dc string, primary key (host))", db="rel")
+    sql(servers, "insert into m values (1000, 'a', 1.5), (2000, 'a', 2.5), "
+                 "(1000, 'b', 4.0), (1000, 'c', null)", db="rel")
+    sql(servers, "insert into tags values (0, 'a', 'east'), "
+                 "(0, 'b', 'west'), (0, 'd', 'east')", db="rel")
+    sql(servers, "create view hot as select host, avg(v) as u from m "
+                 "group by host", db="rel")
+    for q in (
+        "select t.dc, count(*), sum(m.v) from m join tags t "
+        "on m.host = t.host group by t.dc order by t.dc",
+        "select m.host, t.dc, m.v from m left join tags t "
+        "on m.host = t.host order by m.host, m.ts",
+        "select h.host, h.u, t.dc from hot h join tags t using (host) "
+        "order by h.host",
+        "show views",
+        "show create view hot",
+    ):
+        status, body = sql(servers, q, db="rel")
+        assert status == 200, body
+        inproc = servers[0].instance.sql(q, QueryContext(database="rel"))
+        want = json.loads(json.dumps(http.result_to_json(inproc)))
+        assert body["output"][0] == want, q
 
 
 @pytest.mark.parametrize("precision", ["ns", "u", "us", "ms", "s", "m",

@@ -440,11 +440,12 @@ def test_unported_statements_raise(setup):
     host RANGE shapes this list held are answered now and held against
     Standalone.sql in tests/test_torch_sql_host.py; INSERT runs since the
     server slice, tests/test_torch_statements.py, and window functions
-    since the window slice, tests/test_torch_window.py; CREATE TABLE needs
+    since the window slice, tests/test_torch_window.py; set operations
+    since the relational slice, tests/test_torch_relational.py; CREATE TABLE needs
     a storage engine, which this Instance lacks.)"""
     _, inst, _, _ = setup
     for sql in (
-        "SELECT 1 UNION SELECT 2",
+        "EXPLAIN SELECT 1",
         "CREATE TABLE t (ts timestamp time index, v double)",
     ):
         with pytest.raises(UnsupportedError):
