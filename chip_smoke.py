@@ -4,14 +4,14 @@
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
-                          [--rest-warm 5] [--server-hours 2]
-                          [--flow-hours 4]
-                          [--phases 1,14,15]
+                          [--rest-warm 5] [--server-hours 1]
+                          [--flow-hours 3]
+                          [--phases 1,14,16]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line). `--phases` runs the listed phases only, with phase 1 and the
 phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
-9 phases 2 and 6; 10 phase 7; 15 phase 14); by default every phase
+9 phases 2 and 6; 10 phase 7; 15 and 16 phase 14); by default every phase
 runs. The kernels line then holds, and checks the launches of, the
 kernels of the phases that ran.
 
@@ -219,7 +219,7 @@ kernels of the phases that ran.
              and statements through the same module functions (no HTTP)
              while the card's server works. Data: phase 2's TSBS devops
              rows (4000 hosts, 9 regions, 10 s, ten usage_* fields, same
-             seed), cut to the first --server-hours 2 hours (2.88 M rows
+             seed), cut to the first --server-hours 1 hour (1.44 M rows
              plus 10 % re-deliveries) for the script's time limit. CREATE
              TABLE goes over /v1/sql; each hour's four runs and its
              re-delivery go as line protocol (precision=ms) in bodies of
@@ -255,13 +255,13 @@ kernels of the phases that ran.
 
 13. flow   — flows (continuous aggregation): phase 2's TSBS devops rows
              (same seed; 4000 hosts at 10 s, ten usage_* fields), cut to
-             the first --flow-hours 4 hours for the script's time limit
+             the first --flow-hours 3 hours for the script's time limit
              (12 is phase 2's whole span), each hour's four 15-minute
              runs without the re-delivery and tombstone runs (a flow
              mirrors every insert, so a re-delivered row would count
              twice), written in deltas of 10,000 rows (tsbs_load's
-             --batch-size; 576 deltas) through `_insert`'s columnar write
-             and its flow delta into a Standalone on the card
+             --batch-size; 432 deltas at 3 hours) through `_insert`'s
+             columnar write and its flow delta into a Standalone on the card
              (engine-opened, WAL on, wal_sync at its default) with two
              flows created first: cpu_1h (avg and max of the ten fields BY
              hostname, date_bin('1 hour', ts): TSBS double-groupby-all and
@@ -363,6 +363,46 @@ kernels of the phases that ran.
              R5 (whose last leaf is the tags scan) must end on the device
              path. Kernel counts are zeroed before the queries and read
              after them; the data roots are removed.
+
+16. session — EXPLAIN and EXPLAIN ANALYZE, PREPARE/EXECUTE, ADMIN kill,
+             information_schema and pg_catalog, and SET, through a card
+             Standalone and a CPU one built as phase 15 builds them (phase
+             14's table registered as cpu, the tags table and the view
+             made by SQL). EXPLAIN of Q2 (count/sum/min/max/avg/
+             stddev_samp/first/last of usage_user RANGE 2h ALIGN 1h BY
+             region, on the grid through K2), of a GROUP BY hostname over
+             the first hour (G), of R1 (G) and of the window metric's
+             query (S): the plan lines equal the CPU port's. Each query
+             runs cold, then the plain query and its EXPLAIN ANALYZE in
+             turns, three times each, the order swapped every turn (the
+             collector's overhead: warm median beside warm median). The
+             first EXPLAIN ANALYZE is held against the CPU port's: the
+             plan lines and the row
+             count equal the plain query's and the CPU port's, every note
+             and count equals the CPU port's (times only present), the
+             path is the device's (exec_path_range, _aggregate or
+             _window) and its kernel launches. PREPARE g AS a GROUP BY
+             hostname over $1 <= ts < $2, EXECUTE'd for the first and the
+             second hour: each answer equals the literal query and the
+             CPU port's bit for bit, G launches, and EXECUTE and the
+             literal query run in turns three times each, the order
+             swapped every turn; DEALLOCATE, then EXECUTE must raise the
+             JAX package's error. ADMIN kill: the victim, a UNION ALL of
+             the --hours hourly GROUP BYs (a scan and so a cancellation
+             checkpoint a leaf), runs on a thread of its own; the main
+             thread reads SHOW PROCESSLIST until it shows the victim
+             Running, then ADMIN kill('<id>') must answer 1 and the victim
+             raise "query <id> was killed" (the time from the kill to the
+             raise is printed beside one leaf's warm wall); then the
+             victim runs whole, equal to the CPU port's answer, and once
+             more, warm. information_schema tables, columns and
+             key_column_usage of cpu and tags, the tables-columns join and
+             psql's \\dt (pg_class JOIN pg_namespace) equal the CPU port's
+             answers, and over /v1/sql (HttpServer on the card Standalone)
+             the in-process answer; each is timed warm (median of 3).
+             SET time_zone and read_preference round-trip through SHOW
+             VARIABLES on one session. Kernel counts are zeroed before
+             the phase and read after it; the data roots are removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -5376,34 +5416,44 @@ def relational_tags(seed, region_of, batch=1000) -> list:
             for k in range(0, len(rows), batch)]
 
 
+def relational_standalones(args, dev, window_out, name, roots, insts):
+    """A card Standalone and a CPU one (prefer_device=True), each in a
+    temporary data root (appended to `roots`, the instances to `insts`)
+    with phase 14's table registered as `cpu` and the tags table and the
+    `hot` view made by SQL. Returns (card, cpu)."""
+    import tempfile
+
+    from greptimedb_tpu_torch.instance import Standalone
+
+    for device in (dev, "cpu"):
+        roots.append(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+        inst = Standalone(roots[-1], device=device, prefer_device=True,
+                          warm_start=False)
+        insts.append(inst)
+        inst.catalog.register(window_out["table"])
+        for stmt in [REL_DDL] + relational_tags(
+                args.seed, window_out["region_of"]) + [REL_VIEW]:
+            inst.execute_sql(stmt)
+    return insts[0], insts[1]
+
+
 def relational_phase(args, dev, window_out):
     """Phase 15 (see the module docstring). Returns the launches of the
     kernels its queries ran on the card."""
     import shutil
-    import tempfile
 
-    from greptimedb_tpu_torch.instance import Standalone
     from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
     from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
     from greptimedb_tpu_torch.query import stats
 
     t_phase = time.perf_counter()
-    table, region_of = window_out["table"], window_out["region_of"]
-    roots = [tempfile.mkdtemp(prefix="chip_smoke_relational_"),
-             tempfile.mkdtemp(prefix="chip_smoke_relational_cpu_")]
-    insts = []
+    table = window_out["table"]
+    roots, insts = [], []
     out = {"rows": int(table.row_count())}
     try:
         t = time.perf_counter()
-        for root, device in zip(roots, (dev, "cpu")):
-            inst = Standalone(root, device=device, prefer_device=True,
-                              warm_start=False)
-            insts.append(inst)
-            inst.catalog.register(table)
-            for stmt in [REL_DDL] + relational_tags(args.seed, region_of) \
-                    + [REL_VIEW]:
-                inst.execute_sql(stmt)
-        card, cpu = insts
+        card, cpu = relational_standalones(args, dev, window_out, "relational",
+                                           roots, insts)
         out["setup_seconds"] = time.perf_counter() - t
         gr.grouped_block_reduce.launches = 0
         rf.blocked_fold_sum.launches = 0
@@ -5511,10 +5561,367 @@ def relational_phase(args, dev, window_out):
     return launches
 
 
+SESSION_WARM = 3        # warm runs of each phase-16 timing (median)
+SESSION_Q2 = ("SELECT ts, region, " + ", ".join(
+    f"{op}(usage_user) RANGE '2h'" for op in SQL_Q2_OPS)
+    + " FROM cpu ALIGN '1h' BY (region)")
+SESSION_GROUPBY = ("SELECT hostname, max(usage_user), avg(usage_system) "
+                   f"FROM cpu WHERE {REL_HOUR} GROUP BY hostname "
+                   "ORDER BY hostname")
+SESSION_PREPARE = ("PREPARE g AS SELECT hostname, max(usage_user) FROM cpu "
+                   "WHERE ts >= $1 AND ts < $2 GROUP BY hostname "
+                   "ORDER BY hostname")
+SESSION_LITERAL = ("SELECT hostname, max(usage_user) FROM cpu WHERE ts >= "
+                   "{lo} AND ts < {hi} GROUP BY hostname ORDER BY hostname")
+# the system-table queries a SQL client sends: the two tables' rows,
+# columns and keys, the golden information_schema_joins join and psql's
+# \dt (pg_class JOIN pg_namespace)
+SESSION_SYSTEM = {
+    "tables": ("SELECT table_name, table_type, engine, region_count FROM "
+               "information_schema.tables WHERE table_name IN ('cpu', "
+               "'tags') ORDER BY table_name"),
+    "columns": ("SELECT table_name, column_name, data_type, semantic_type, "
+                "is_nullable FROM information_schema.columns WHERE "
+                "table_name IN ('cpu', 'tags') ORDER BY table_name, "
+                "column_name"),
+    "key_column_usage": ("SELECT table_name, constraint_name, column_name, "
+                         "ordinal_position FROM "
+                         "information_schema.key_column_usage WHERE "
+                         "table_name IN ('cpu', 'tags') ORDER BY "
+                         "table_name, constraint_name, ordinal_position"),
+    "joins": ("SELECT t.table_name, c.column_name FROM "
+              "information_schema.tables t JOIN information_schema.columns "
+              "c ON c.table_name = t.table_name WHERE t.table_schema = "
+              "'public' ORDER BY t.table_name, c.column_name"),
+    "psql_dt": ("SELECT n.nspname, c.relname FROM pg_catalog.pg_class c "
+                "JOIN pg_catalog.pg_namespace n ON n.oid = c.relnamespace "
+                "WHERE n.nspname = 'public' AND c.relkind = 'r' ORDER BY "
+                "c.relname"),
+}
+
+
+def session_queries() -> dict:
+    """Phase 16's EXPLAIN and EXPLAIN ANALYZE targets: Q2 on the grid, a
+    GROUP BY hostname over the first hour, R1 and the window metric's
+    query."""
+    return {"Q2": SESSION_Q2, "groupby": SESSION_GROUPBY,
+            "R1": REL_QUERIES["R1"],
+            "window": window_sql(WINDOW_HOSTS)["sum"]}
+
+
+def session_victim(hours: int) -> str:
+    """ADMIN kill's victim: a UNION ALL of the hourly GROUP BYs, one scan
+    (one cancellation checkpoint) a leaf."""
+    return " UNION ALL ".join(
+        SESSION_LITERAL.format(lo=h * HOUR_MS, hi=(h + 1) * HOUR_MS)
+        .replace(" ORDER BY hostname", "") for h in range(hours))
+
+
+def explain_parts(res):
+    """(plan lines, row count or None, {key: value}) of an EXPLAIN or
+    EXPLAIN ANALYZE answer."""
+    lines = [str(v) for v in res.cols[0].values]
+    at = next((i for i, ln in enumerate(lines)
+               if ln.startswith("  Metrics:")), len(lines))
+    rows = None
+    if at < len(lines):
+        rows = int(lines[at].split("rows=")[1].split()[0])
+    notes = dict(ln.strip().split(": ", 1) for ln in lines[at + 1:])
+    return lines[:at], rows, notes
+
+
+def session_phase(args, dev, window_out):
+    """Phase 16 (see the module docstring). Returns the launches of the
+    kernels its statements ran on the card."""
+    import shutil
+    import threading
+
+    from greptimedb_tpu_torch.errors import (
+        ExecutionError,
+        InvalidArgumentError,
+    )
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+    from greptimedb_tpu_torch.servers.http import HttpServer, result_to_json
+    from greptimedb_tpu_torch.session import QueryContext
+
+    t_phase = time.perf_counter()
+    roots, insts, srv = [], [], None
+    out = {"rows": int(window_out["table"].row_count())}
+    mods = {"grouped_block_reduce": gr, "blocked_fold_sum": rf,
+            "segmented_scan": ss}
+
+    def counts():
+        return {n: getattr(m, n).launches for n, m in mods.items()}
+
+    def walls(fn):
+        ts = [walls_one(fn) for _ in range(SESSION_WARM)]
+        return float(np.median(ts)), ts
+
+    cpu_s = [0.0]   # the CPU port's reference work, apart
+
+    def on_cpu(text, ctx=None):
+        t = time.perf_counter()
+        res = cpu.sql(text, ctx)
+        cpu_s[0] += time.perf_counter() - t
+        return res
+
+    def g_launches(fn):
+        before = gr.grouped_block_reduce.launches
+        res = fn()
+        torch.cuda.synchronize()
+        return res, gr.grouped_block_reduce.launches - before
+
+    try:
+        t = time.perf_counter()
+        card, cpu = relational_standalones(args, dev, window_out, "session",
+                                           roots, insts)
+        out["setup_seconds"] = time.perf_counter() - t
+        for n, m in mods.items():
+            getattr(m, n).launches = 0
+
+        # ---- EXPLAIN and EXPLAIN ANALYZE -----------------------------
+        explain, t_part = {}, time.perf_counter()
+        launched = None
+        for name, q in session_queries().items():
+            cpu0 = cpu_s[0]
+            plan = explain_parts(card.sql(f"EXPLAIN {q}"))[0]
+            if plan != explain_parts(on_cpu(f"EXPLAIN {q}"))[0]:
+                raise AssertionError(f"session EXPLAIN {name}: plan lines "
+                                     f"differ from the CPU port's")
+            t = time.perf_counter()
+            plain = card.sql(q)
+            torch.cuda.synchronize()
+            cold = (time.perf_counter() - t) * 1e3
+            if name == "Q2":
+                # the grid's note reads "hit" on both sides
+                on_cpu(q)
+            # warm: the plain query and its EXPLAIN ANALYZE in turns
+            # (plain first, then EXPLAIN ANALYZE first, ...: a drift of
+            # the host's speed falls on both); the first EXPLAIN ANALYZE
+            # is checked
+            plain_ts, ea_ts, first = [], [], None
+
+            def analyzed():
+                nonlocal first, launched
+                before = counts()
+                t = time.perf_counter()
+                got = card.sql(f"EXPLAIN ANALYZE {q}")
+                torch.cuda.synchronize()
+                ea_ts.append((time.perf_counter() - t) * 1e3)
+                if first is None:
+                    launched = {n: c - before[n]
+                                for n, c in counts().items()}
+                    first = got
+
+            for k in range(SESSION_WARM):
+                if k % 2:
+                    analyzed()
+                plain_ts.append(walls_one(lambda: card.sql(q)))
+                if k % 2 == 0:
+                    analyzed()
+            lines, rows, notes = explain_parts(first)
+            _, cpu_rows, cpu_notes = explain_parts(
+                on_cpu(f"EXPLAIN ANALYZE {q}"))
+            if lines != plan or rows != plain.num_rows or rows != cpu_rows:
+                raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
+                                     f"plan or rows ({rows}, plain "
+                                     f"{plain.num_rows}, cpu {cpu_rows})")
+            if set(notes) != set(cpu_notes) or any(
+                    notes[k] != cpu_notes[k] for k in notes
+                    if not k.endswith("_ms")):
+                raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
+                                     f"card {notes} cpu {cpu_notes}")
+            path_key, kernel = {
+                "Q2": ("exec_path_range", "blocked_fold_sum"),
+                "groupby": ("exec_path_aggregate", "grouped_block_reduce"),
+                "R1": ("exec_path_aggregate", "grouped_block_reduce"),
+                "window": ("exec_path_window", "segmented_scan"),
+            }[name]
+            if notes.get(path_key) != "device":
+                raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
+                                     f"{path_key} {notes.get(path_key)}")
+            if launched[kernel] == 0:
+                raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
+                                     f"{kernel} never launched")
+            if name == "Q2" and card.query_engine.last_range[
+                    "program"] != "single":
+                raise AssertionError("session Q2 left the grid's program")
+            explain[name] = {
+                "rows": rows, "cold_ms": cold, "launches": launched,
+                "notes": {k: v for k, v in notes.items()
+                          if not k.endswith("_ms")},
+                "warm_ms_median": float(np.median(plain_ts)),
+                "explain_analyze_warm_ms_median": float(np.median(ea_ts)),
+                "overhead_pct": 100.0 * (np.median(ea_ts)
+                                         / np.median(plain_ts) - 1.0),
+                "warm_ms": plain_ts, "explain_analyze_warm_ms": ea_ts,
+                "cpu_port_seconds": cpu_s[0] - cpu0,
+            }
+            emit({"session_explain": name, **explain[name]})
+        out["explain"] = explain
+        out["explain_seconds"] = time.perf_counter() - t_part
+
+        # ---- PREPARE / EXECUTE / DEALLOCATE --------------------------
+        t_part = time.perf_counter()
+        pctx, cctx = QueryContext(), QueryContext()
+        card.execute_sql(SESSION_PREPARE, pctx)
+        cpu.execute_sql(SESSION_PREPARE, cctx)
+        execute = {}
+        for h in (0, 1):
+            lo, hi = h * HOUR_MS, (h + 1) * HOUR_MS
+            run_ = f"EXECUTE g ({lo}, {hi})"
+            literal = SESSION_LITERAL.format(lo=lo, hi=hi)
+            got, g_n = g_launches(lambda: card.sql(run_, pctx))
+            if g_n == 0:
+                raise AssertionError(f"session {run_}: G never launched")
+            same_window_result(f"session {run_} vs literal", got,
+                               card.sql(literal))
+            same_window_result(f"session {run_} vs cpu", got,
+                               on_cpu(run_, cctx))
+            ex_ts, lit_ts = [], []
+            for k in range(SESSION_WARM):
+                # in turns, the order swapped every turn
+                pair_ = [(ex_ts, lambda: card.sql(run_, pctx)),
+                         (lit_ts, lambda: card.sql(literal))]
+                for ts_, fn in (pair_[::-1] if k % 2 else pair_):
+                    ts_.append(walls_one(fn))
+            execute[f"hour_{h}"] = {
+                "rows": got.num_rows, "g_launches": g_n,
+                "execute_warm_ms_median": float(np.median(ex_ts)),
+                "literal_warm_ms_median": float(np.median(lit_ts)),
+                "overhead_ms": float(np.median(ex_ts) - np.median(lit_ts)),
+                "execute_warm_ms": ex_ts, "literal_warm_ms": lit_ts,
+            }
+        card.execute_sql("DEALLOCATE g", pctx)
+        try:
+            card.sql("EXECUTE g (0, 3600000)", pctx)
+        except InvalidArgumentError as e:
+            if str(e) != "prepared statement 'g' does not exist":
+                raise
+        else:
+            raise AssertionError("session: EXECUTE after DEALLOCATE ran")
+        out["execute"] = execute
+        out["execute_seconds"] = time.perf_counter() - t_part
+        emit({"session_execute": execute})
+
+        # ---- ADMIN kill of a statement running on the card -----------
+        t_part = time.perf_counter()
+        victim_sql = session_victim(args.hours)
+        leaf = SESSION_LITERAL.format(lo=0, hi=HOUR_MS)
+        card.sql(leaf)
+        leaf_ms, _ = walls(lambda: card.sql(leaf))
+        state = {}
+
+        def victim():
+            try:
+                state["res"] = card.sql(victim_sql, QueryContext())
+            except ExecutionError as e:
+                state["raised"] = time.perf_counter()
+                state["err"] = str(e)
+
+        th = threading.Thread(target=victim, name="session-victim")
+        th.start()
+        pid, polls = None, 0
+        while pid is None:
+            procs = card.sql("SHOW PROCESSLIST")
+            polls += 1
+            for row in procs.rows():
+                doc = dict(zip(procs.names, row))
+                if doc["Info"] == "SetOp" and doc["State"] == "Running":
+                    pid = doc["Id"]
+            if pid is None and not th.is_alive():
+                raise AssertionError("session kill: the victim ended "
+                                     "before it was seen running")
+        t_kill = time.perf_counter()
+        ack = card.sql(f"ADMIN kill('{pid}')").rows()
+        th.join(600)
+        if ack != [[1]]:
+            raise AssertionError(f"session kill: ADMIN kill answered {ack}")
+        if "err" not in state:
+            raise AssertionError("session kill: the victim ended before the "
+                                 "kill landed")
+        if state["err"] != f"query {pid} was killed":
+            raise AssertionError(f"session kill: {state['err']}")
+        if card._process_list.snapshot():
+            raise AssertionError("session kill: the process list kept an "
+                                 "entry")
+        kill_ms = (state["raised"] - t_kill) * 1e3
+        # the victim whole (its later leaves' scans cold), then once warm
+        whole = card.sql(victim_sql)
+        cpu0 = cpu_s[0]
+        same_window_result("session victim vs cpu", whole,
+                           on_cpu(victim_sql))
+        victim_cpu_s = cpu_s[0] - cpu0
+        victim_ms = walls_one(lambda: card.sql(victim_sql))
+        out["kill"] = {"polls_until_running": polls, "kill_to_raise_ms":
+                       kill_ms, "leaf_warm_ms_median": leaf_ms,
+                       "victim_rows": whole.num_rows, "victim_leaves":
+                       args.hours, "victim_warm_ms": victim_ms,
+                       "cpu_port_seconds": victim_cpu_s,
+                       "seconds": time.perf_counter() - t_part}
+        emit({"session_kill": out["kill"]})
+
+        # ---- information_schema and pg_catalog, in process and HTTP --
+        t_part = time.perf_counter()
+        srv = HttpServer(card, port=0).start()
+        system = {}
+        for name, q in SESSION_SYSTEM.items():
+            got = card.sql(q)
+            if got.num_rows == 0:
+                raise AssertionError(f"session {name}: no rows")
+            same_window_result(f"session {name} vs cpu", got, on_cpu(q))
+            doc = http_sql(srv.port, q)
+            want = json.loads(json.dumps({"output": [result_to_json(got)]}))
+            if doc != want:
+                raise AssertionError(f"session {name}: /v1/sql differs from "
+                                     f"the in-process answer")
+            ms, ts = walls(lambda: card.sql(q))
+            system[name] = {"rows": got.num_rows, "warm_ms_median": ms,
+                            "warm_ms": ts}
+        out["system_tables"] = system
+        out["system_seconds"] = time.perf_counter() - t_part
+        emit({"session_system_tables": system})
+
+        # ---- SET and SHOW VARIABLES on one session --------------------
+        ctx = QueryContext()
+        card.execute_sql("SET time_zone = '+08:00'", ctx)
+        card.execute_sql("SET SESSION read_preference = 'leader'", ctx)
+        got = [card.sql(f"SHOW VARIABLES LIKE '{v}'", ctx).rows()
+               for v in ("time_zone", "read_preference")]
+        if got != [[["time_zone", "+08:00"]],
+                   [["read_preference", "leader"]]] or \
+                ctx.timezone != "+08:00":
+            raise AssertionError(f"session SET: {got}, {ctx.timezone}")
+    finally:
+        if srv is not None:
+            srv.stop()
+        for inst in insts:
+            inst.close()
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    launches = counts()
+    out["launches"] = launches
+    out["cpu_reference_seconds"] = cpu_s[0]
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "session", **{k: v for k, v in out.items() if k not in (
+        "explain", "execute", "kill", "system_tables")}})
+    return launches
+
+
+def walls_one(fn) -> float:
+    """One warm host wall (ms) of `fn`, synchronised with the card."""
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
 # phases whose inputs another phase makes: a selected phase brings these
 PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
-               11: {2}, 15: {14}}
-ALL_PHASES = tuple(range(1, 16))
+               11: {2}, 15: {14}, 16: {14}}
+ALL_PHASES = tuple(range(1, 17))
 
 
 def selected_phases(text: str | None) -> set:
@@ -5745,10 +6152,14 @@ def run(args) -> int:
     # ---- 15. relational ------------------------------------------------
     rel_launches = relational_phase(args, dev, window_out) \
         if 15 in want else {}
+    # ---- 16. session ---------------------------------------------------
+    session_launches = session_phase(args, dev, window_out) \
+        if 16 in want else {}
     # every kernel's launches over the main-path runs of the phases that
     # ran; the hop ring's seed, continuation and combines run in phase 8
-    # only, Gt in phase 9 only, G in phases 9, 10, 12, 13 and 15, S in 14,
-    # K1 in 2, 11, 12 and 14 (the compaction of the table 14 and 15 read)
+    # only, Gt in phase 9 only, G in phases 9, 10, 12, 13, 15 and 16, S in
+    # 14 and 16, K1 in 2, 11, 12 and 14 (the compaction of the table 14,
+    # 15 and 16 read); phase 16 adds K2's launches of its RANGE query
     extreme_row = next((r for r in kernels if r["name"] == "extreme"), {})
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
@@ -5794,6 +6205,9 @@ def run(args) -> int:
         if rel_launches.get(name):
             row["launches"] += rel_launches[name]
             row["launches_relational"] = rel_launches[name]
+        if session_launches.get(name):
+            row["launches"] += session_launches[name]
+            row["launches_session"] = session_launches[name]
         if name == "gather_planes" and window_out is not None:
             row["launches"] += window_out["k1_launches"]
             row["launches_window_table"] = window_out["k1_launches"]
@@ -5825,9 +6239,9 @@ def main() -> int:
     ap.add_argument("--hist-pods", type=int, default=12_500)
     ap.add_argument("--rest-warm", type=int, default=5,
                     help="warm runs of each phase-10 query (median)")
-    ap.add_argument("--server-hours", type=int, default=2,
+    ap.add_argument("--server-hours", type=int, default=1,
                     help="hours of TSBS devops phase 12 writes over HTTP")
-    ap.add_argument("--flow-hours", type=int, default=4,
+    ap.add_argument("--flow-hours", type=int, default=3,
                     help="hours of TSBS devops phase 13 writes into flows")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all); "

@@ -177,6 +177,11 @@ class Table:
         [ts_min, ts_max], of the series every tag matcher (tag, op, value)
         accepts; rows sorted by (sid, ts)."""
         names = field_names if field_names is not None else self.field_names
+        from greptimedb_tpu_torch import cancellation
+
+        # a killed statement stops here (the JAX package checks once a
+        # region; a port table has one)
+        cancellation.checkpoint()
         region = self.region
         sids = None
         if matchers:

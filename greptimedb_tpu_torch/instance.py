@@ -17,18 +17,23 @@ one `Output` per statement, `sql` the last statement's result):
   TRUNCATE, ALTER TABLE add/drop column and rename;
 - USE, SHOW DATABASES/TABLES/COLUMNS/INDEX, DESCRIBE, SHOW CREATE TABLE;
 - TQL EVAL/EXPLAIN (promql/engine.PromEngine.query_range_result);
-- ADMIN flush_table, compact_table, flush_region, compact_region;
+- ADMIN flush_table, compact_table, flush_region, compact_region, kill;
 - flows (flow/manager.FlowManager, enabled by CREATE FLOW or
   `enable_flows()`, which also reloads the flows a data root persisted):
   CREATE/DROP FLOW, SHOW FLOWS, SHOW CREATE FLOW, ADMIN flush_flow; every
-  write (INSERT, line protocol, remote write) feeds them.
+  write (INSERT, line protocol, remote write) feeds them;
+- EXPLAIN and EXPLAIN ANALYZE (the plan's lines; ANALYZE runs the
+  statement under query/stats' collector and adds its metrics);
+- information_schema and the pg_catalog shims (information_schema.py),
+  alone or joined;
+- the session: SET, SHOW VARIABLES, PREPARE/EXECUTE/DEALLOCATE, SHOW
+  STATUS/CHARSET/COLLATION, SHOW PROCESSLIST and ADMIN kill (KILL). Every
+  statement registers in the process list while it runs; a kill lands at
+  its next cancellation checkpoint (cancellation.py: each table scan).
 
-Every other statement raises UnsupportedError naming its ROADMAP item:
-EXPLAIN, information_schema and pg_catalog (joined or not),
-PREPARE/EXECUTE, SET/SHOW VARIABLES, SHOW PROCESSLIST and KILL, SHOW
-STATUS/CHARSET/COLLATION (A4), COPY (A2's tail). An Instance without a
-storage engine answers DDL with the catalog's UnsupportedError, and
-flows with its own. Entry points run on
+COPY raises UnsupportedError naming its ROADMAP item (A2's tail). An
+Instance without a storage engine answers DDL with the catalog's
+UnsupportedError, and flows with its own. Entry points run on
 CUDA unless the caller passes device="cpu". servers/http.HttpServer
 serves either over HTTP; `promql/engine.PromEngine(instance)` reads the
 same catalog and engine.
@@ -38,10 +43,13 @@ from __future__ import annotations
 
 import functools
 import logging
+import re
 import threading
+import time
 
 import numpy as np
 
+from greptimedb_tpu_torch import cancellation, concurrency
 from greptimedb_tpu_torch.catalog.manager import CatalogManager
 from greptimedb_tpu_torch.datatypes.schema import (
     ColumnSchema,
@@ -51,6 +59,7 @@ from greptimedb_tpu_torch.datatypes.schema import (
 from greptimedb_tpu_torch.datatypes.types import ConcreteDataType
 from greptimedb_tpu_torch.errors import (
     DatabaseNotFoundError,
+    ExecutionError,
     InvalidArgumentError,
     TableNotFoundError,
     UnsupportedError,
@@ -65,16 +74,10 @@ from greptimedb_tpu_torch.sql.parser import parse_sql
 _log = logging.getLogger("greptimedb_tpu_torch.instance")
 
 # statements that wait, and the ROADMAP item that ports them
-_WAITING = {
-    A.Explain: "A4",
-    A.SetVariable: "A4", A.ShowVariables: "A4", A.ShowProcesslist: "A4",
-    A.Prepare: "A4", A.Execute: "A4", A.Deallocate: "A4",
-    A.ShowStatus: "A4", A.ShowCharset: "A4", A.ShowCollation: "A4",
-    A.Copy: "A2's tail",
-}
+_WAITING = {A.Copy: "A2's tail"}
 # ADMIN functions that wait, and their item
 _WAITING_ADMIN = {
-    "kill": "A4", "migrate_region": "A10",
+    "migrate_region": "A10",
     "set_config": "A9", "autotune_freeze": "A9",
     "autotune_unfreeze": "A9", "reset_device_profiler": "A9",
     "reset_statement_statistics": "A9",
@@ -119,6 +122,69 @@ def _result_from_lists(names: list[str], columns: list[list]) -> QueryResult:
     return QueryResult(names, cols)
 
 
+class _ProcessList:
+    """The running statements, for SHOW PROCESSLIST and ADMIN kill (the
+    JAX package's registry). A killed id raises in the thread that runs
+    it, at its next cancellation checkpoint."""
+
+    def __init__(self):
+        self._lock = concurrency.Lock()
+        self._next_id = 1
+        self._running: dict[int, dict] = {}
+
+    def register(self, query: str, ctx) -> int:
+        with self._lock:
+            pid = self._next_id
+            self._next_id += 1
+            self._running[pid] = {
+                "id": pid, "query": query, "db": ctx.database,
+                "user": ctx.username or "greptime", "start": time.time(),
+                # elapsed time from the monotonic clock
+                "_start_mono": time.monotonic(),
+                "killed": False,
+                "state": "Queued",
+            }
+            return pid
+
+    def set_state(self, pid: int, state: str):
+        with self._lock:
+            entry = self._running.get(pid)
+            if entry is not None:
+                entry["state"] = state
+
+    def unregister(self, pid: int):
+        with self._lock:
+            self._running.pop(pid, None)
+
+    def kill(self, pid_text: str) -> bool:
+        try:
+            pid = int(pid_text)
+        except ValueError:
+            return False
+        with self._lock:
+            entry = self._running.get(pid)
+            if entry is None:
+                return False
+            entry["killed"] = True
+            return True
+
+    def check_killed(self, pid: int):
+        with self._lock:
+            entry = self._running.get(pid)
+            killed = entry is not None and entry["killed"]
+        if killed:
+            raise ExecutionError(f"query {pid} was killed")
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            now = time.monotonic()
+            return [
+                {**{k: v for k, v in e.items() if not k.startswith("_")},
+                 "elapsed_s": now - e["_start_mono"]}
+                for e in self._running.values()
+            ]
+
+
 class Instance:
     """A query engine over a catalog: the statement executor."""
 
@@ -131,6 +197,7 @@ class Instance:
                                         mesh_opts=mesh_opts,
                                         prefer_device=prefer_device, x64=x64)
         self.flows = None   # flow.FlowManager once flows are enabled
+        self._process_list = _ProcessList()
 
     # ------------------------------------------------------------------
     # entry points
@@ -152,7 +219,24 @@ class Instance:
 
     def execute_statement(self, stmt: A.Statement,
                           ctx: QueryContext | None = None) -> Output:
+        """Run one statement, registered in the process list while it
+        runs; a kill raises at its next cancellation checkpoint. (The
+        JAX package's statement statistics and span wait for ROADMAP A9,
+        its admission for A4's admission part: a statement runs at
+        once.)"""
         ctx = ctx or QueryContext()
+        pid = self._process_list.register(type(stmt).__name__, ctx)
+        token = cancellation.set_check(
+            lambda: self._process_list.check_killed(pid))
+        try:
+            self._process_list.set_state(pid, "Running")
+            return self._execute_statement(stmt, ctx)
+        finally:
+            cancellation.reset(token)
+            self._process_list.unregister(pid)
+
+    def _execute_statement(self, stmt: A.Statement, ctx: QueryContext
+                           ) -> Output:
         item = _WAITING.get(type(stmt))
         if item is not None:
             raise _waiting(f"{type(stmt).__name__} statements", item)
@@ -249,6 +333,40 @@ class Instance:
                 raise TableNotFoundError(f"flow not found: {stmt.name}")
             return Output.records(_result_from_lists(
                 ["Flow", "Create Flow"], [[stmt.name], [flow.raw_sql]]))
+        if isinstance(stmt, A.Explain):
+            return Output.records(self._explain(stmt, ctx))
+        if isinstance(stmt, A.SetVariable):
+            return self._set_variable(stmt, ctx)
+        if isinstance(stmt, A.ShowVariables):
+            return Output.records(self._show_variables(stmt, ctx))
+        if isinstance(stmt, A.ShowStatus):
+            return Output.records(_result_from_lists(
+                ["Variable_name", "Value"], [["Uptime"], ["0"]]))
+        if isinstance(stmt, A.ShowCharset):
+            return Output.records(_result_from_lists(
+                ["Charset", "Description", "Default collation", "Maxlen"],
+                [["utf8mb4"], ["UTF-8 Unicode"], ["utf8mb4_bin"], [4]]))
+        if isinstance(stmt, A.ShowCollation):
+            return Output.records(_result_from_lists(
+                ["Collation", "Charset", "Id", "Default", "Compiled",
+                 "Sortlen"],
+                [["utf8mb4_bin"], ["utf8mb4"], [46], ["Yes"], ["Yes"], [1]]))
+        if isinstance(stmt, A.ShowProcesslist):
+            return Output.records(self._show_processlist())
+        if isinstance(stmt, A.Prepare):
+            ctx.extensions.setdefault("prepared", {})[
+                stmt.name.lower()] = stmt.sql_text
+            return Output.rows(0)
+        if isinstance(stmt, A.Execute):
+            return self._execute_prepared(stmt, ctx)
+        if isinstance(stmt, A.Deallocate):
+            prepared = ctx.extensions.get("prepared", {})
+            if stmt.name == "all":
+                prepared.clear()
+            elif prepared.pop(stmt.name.lower(), None) is None:
+                raise InvalidArgumentError(
+                    f"prepared statement {stmt.name!r} does not exist")
+            return Output.rows(0)
         raise UnsupportedError(
             f"statement not supported yet: {type(stmt).__name__}")
 
@@ -308,7 +426,70 @@ class Instance:
                 n = 1 if region.compact(force=True) else 0
             return Output.records(_result_from_lists(
                 [f"ADMIN {name}({rid})"], [[n]]))
+        if name == "kill":
+            target = eval_const(arg(0))
+            ok = self._process_list.kill(str(target))
+            return Output.records(_result_from_lists(
+                [f"ADMIN kill('{target}')"], [[1 if ok else 0]]))
         raise UnsupportedError(f"unknown admin function {name!r}")
+
+    # ------------------------------------------------------------------
+    # the session: SET, SHOW VARIABLES, PREPARE/EXECUTE, SHOW PROCESSLIST
+    # ------------------------------------------------------------------
+    def _set_variable(self, stmt: A.SetVariable, ctx: QueryContext
+                      ) -> Output:
+        for name, value_expr in stmt.assignments:
+            value = eval_const(value_expr)
+            if name in ("time_zone", "timezone", "session_time_zone"):
+                # no result reads the session's zone yet (nor does the JAX
+                # package's)
+                ctx.timezone = str(value)
+                ctx.variables["time_zone"] = str(value)
+            else:
+                ctx.variables[name] = (value if isinstance(value, str)
+                                       else str(value))
+        return Output.rows(0)
+
+    def _show_variables(self, stmt: A.ShowVariables, ctx: QueryContext):
+        from greptimedb_tpu_torch.query.expr import like_to_regex
+        from greptimedb_tpu_torch.session import DEFAULT_VARIABLES
+
+        merged = dict(DEFAULT_VARIABLES)
+        merged.update(ctx.variables)
+        items = sorted(merged.items())
+        if stmt.like:
+            pat = like_to_regex(stmt.like.lower())
+            items = [(k, v) for k, v in items if pat.fullmatch(k.lower())]
+        return _result_from_lists(
+            ["Variable_name", "Value"],
+            [[k for k, _ in items], [v for _, v in items]])
+
+    def _show_processlist(self) -> QueryResult:
+        entries = self._process_list.snapshot()
+        return _result_from_lists(
+            ["Id", "User", "db", "Command", "State", "Time", "Info"],
+            [[e["id"] for e in entries],
+             [e["user"] for e in entries],
+             [e["db"] for e in entries],
+             ["Query"] * len(entries),
+             [e.get("state", "Running") for e in entries],
+             [round(e["elapsed_s"], 3) for e in entries],
+             [e["query"] for e in entries]])
+
+    def _execute_prepared(self, stmt: A.Execute, ctx: QueryContext
+                          ) -> Output:
+        """EXECUTE: the prepared text with its placeholders bound to the
+        arguments as literals, parsed and run as one statement."""
+        text = ctx.extensions.get("prepared", {}).get(stmt.name.lower())
+        if text is None:
+            raise InvalidArgumentError(
+                f"prepared statement {stmt.name!r} does not exist")
+        args = [eval_const(a) for a in stmt.args]
+        stmts = parse_sql(substitute_placeholders(text, args))
+        if len(stmts) != 1:
+            raise InvalidArgumentError(
+                "prepared statement must be a single statement")
+        return self._execute_statement(stmts[0], ctx)
 
     # ------------------------------------------------------------------
     # DDL
@@ -469,23 +650,78 @@ class Instance:
     def _select_single(self, stmt: A.Select, ctx: QueryContext
                        ) -> QueryResult:
         """A single-table SELECT (or one without FROM): the plan runs
-        straight on the table's scan, device grid and grouped reduce."""
-        if not stmt.from_table:
-            plan = plan_select(stmt, ts_name=None, tag_names=[],
-                               all_columns=None)
-            return self.query_engine.execute(plan, None)
+        straight on the table's scan, device grid and grouped reduce; a
+        system table answers from its provider."""
+        if stmt.from_table:
+            from greptimedb_tpu_torch import information_schema as IS
+
+            if self._is_information_schema(stmt.from_table, ctx):
+                return IS.query_information_schema(self, stmt, ctx)
+            if self._is_pg_catalog(stmt.from_table, ctx):
+                return IS.query_pg_catalog(self, stmt, ctx)
         plan, table = self.plan(stmt, ctx)
         return self.query_engine.execute(plan, table)
 
     def plan(self, stmt: A.Select, ctx: QueryContext | None = None):
-        """(plan, table) of a single-table SELECT."""
-        db, name = self._resolve(stmt.from_table, ctx or QueryContext())
-        if db.lower() in ("information_schema", "pg_catalog"):
-            raise _waiting(db.lower(), "A4")
-        table = self.catalog.table(db, name)
-        return plan_select(stmt, ts_name=table.ts_name,
-                           tag_names=table.tag_names,
-                           all_columns=table.schema.column_names), table
+        """(plan, table) of a single-table SELECT (table None without
+        FROM)."""
+        table = None
+        ts_name, tag_names, all_columns = None, [], None
+        if stmt.from_table:
+            db, name = self._resolve(stmt.from_table, ctx or QueryContext())
+            table = self.catalog.table(db, name)
+            ts_name, tag_names = table.ts_name, table.tag_names
+            all_columns = table.schema.column_names
+        return plan_select(stmt, ts_name=ts_name, tag_names=tag_names,
+                           all_columns=all_columns), table
+
+    def _explain(self, stmt: A.Explain, ctx: QueryContext) -> QueryResult:
+        """EXPLAIN: a single-table SELECT's plan lines, or
+        `SelectPlan[relational]` for a CTE, a join, a subquery in FROM or
+        a set operation. ANALYZE also runs it under query/stats'
+        collector: a `Metrics:` line (rows, elapsed ms), then the
+        collector's lines. (The JAX package's statement fingerprint and
+        span tree wait for ROADMAP A9.)"""
+        from greptimedb_tpu_torch.query import relational, stats
+
+        inner = stmt.statement
+        if not isinstance(inner, (A.Select, A.SetOp)):
+            raise UnsupportedError("EXPLAIN supports SELECT only")
+        if isinstance(inner, A.Select) and not (
+                inner.ctes or isinstance(
+                    inner.source, (A.JoinSource, A.SubquerySource))):
+            plan, _ = self.plan(inner, ctx)
+            lines = plan.explain_lines()
+        else:
+            lines = ["SelectPlan[relational]"]
+        if stmt.analyze:
+            t0 = time.perf_counter()
+            with stats.collect() as st:
+                if isinstance(inner, A.SetOp):
+                    res = relational.execute(self, inner, ctx)
+                else:
+                    res = self._select(inner, ctx)
+            dt = (time.perf_counter() - t0) * 1000
+            lines.append(f"  Metrics: rows={res.num_rows} elapsed={dt:.3f}ms")
+            lines.extend(st.lines())
+        return _result_from_lists(["plan"], [lines])
+
+    def _is_information_schema(self, name: str, ctx: QueryContext) -> bool:
+        if "." in name:
+            return name.split(".", 1)[0].lower() == "information_schema"
+        return ctx.database.lower() == "information_schema"
+
+    def _is_pg_catalog(self, name: str, ctx: QueryContext) -> bool:
+        """A pg_catalog shim: a name qualified by pg_catalog, or a bare
+        shim name that no user table shadows."""
+        from greptimedb_tpu_torch.information_schema import PG_CATALOG_TABLES
+
+        if "." in name:
+            return name.split(".", 1)[0].lower() == "pg_catalog"
+        if name.lower() not in PG_CATALOG_TABLES:
+            return False
+        db, tname = self._resolve(name, ctx)
+        return self.catalog.maybe_table(db, tname) is None
 
     def _tql(self, stmt: A.Tql, ctx: QueryContext) -> QueryResult:
         from greptimedb_tpu_torch.promql.engine import PromEngine
@@ -663,7 +899,8 @@ class Standalone(Instance):
 
 
 # ----------------------------------------------------------------------
-# defaults and literals (copies of the JAX instance's helpers)
+# defaults, literals and placeholders (copies of the JAX instance's
+# helpers)
 # ----------------------------------------------------------------------
 def format_sql_literal(v) -> str:
     """Python value -> SQL literal text."""
@@ -677,6 +914,83 @@ def format_sql_literal(v) -> str:
         return repr(float(v))
     s = str(v).replace("\\", "\\\\").replace("'", "''")
     return f"'{s}'"
+
+
+def _scan_sql_segments(text: str):
+    """Yields ('text'|'quoted'|'qmark'|'dollar', segment) pieces: the one
+    quoting state machine that placeholder binding and the `?` counter
+    share. Placeholders inside quotes and comments stay text."""
+    i, n = 0, len(text)
+    while i < n:
+        c = text[i]
+        if c == "-" and text[i:i + 2] == "--":
+            j = text.find("\n", i)
+            j = n if j < 0 else j
+            yield "text", text[i:j]
+            i = j
+            continue
+        if c == "/" and text[i:i + 2] == "/*":
+            j = text.find("*/", i + 2)
+            j = n if j < 0 else j + 2
+            yield "text", text[i:j]
+            i = j
+            continue
+        if c in ("'", '"', "`"):
+            close = c
+            j = i + 1
+            while j < n:
+                if text[j] == close and j + 1 < n and text[j + 1] == close:
+                    j += 2
+                elif text[j] == "\\" and close == "'" and j + 1 < n:
+                    j += 2
+                elif text[j] == close:
+                    break
+                else:
+                    j += 1
+            yield "quoted", text[i:j + 1]
+            i = j + 1
+            continue
+        if c == "?":
+            yield "qmark", "?"
+            i += 1
+            continue
+        if c == "$":
+            m = re.match(r"\$(\d+)", text[i:])
+            if m:
+                yield "dollar", m.group(1)
+                i += m.end()
+                continue
+        yield "text", c
+        i += 1
+
+
+def count_placeholders(text: str) -> int:
+    """`?` placeholders outside strings, quoted names and comments."""
+    return sum(1 for kind, _ in _scan_sql_segments(text) if kind == "qmark")
+
+
+def substitute_placeholders(text: str, args: list) -> str:
+    """Bind `?` (positional) and `$n` placeholders outside strings,
+    quoted names and comments to `args` as literals (PREPARE/EXECUTE
+    binds at the text layer, before parsing)."""
+    out = []
+    pos = 0  # next ? index
+    for kind, seg in _scan_sql_segments(text):
+        if kind == "qmark":
+            if pos >= len(args):
+                raise InvalidArgumentError(
+                    f"not enough parameters: need > {pos}, have {len(args)}")
+            out.append(format_sql_literal(args[pos]))
+            pos += 1
+        elif kind == "dollar":
+            k = int(seg)
+            if not (1 <= k <= len(args)):
+                raise InvalidArgumentError(
+                    f"parameter ${k} out of range (have {len(args)})")
+            out.append(format_sql_literal(args[k - 1]))
+        else:
+            out.append(seg)
+    return "".join(out)
 
 
 def _const_default(default):

@@ -59,8 +59,14 @@ from greptimedb_tpu_torch.ops import window as W
 from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
-from greptimedb_tpu_torch.query import readback
-from greptimedb_tpu_torch.query.planner import Column, decide_mesh_execution
+from greptimedb_tpu_torch.query import readback, stats
+from greptimedb_tpu_torch.query.planner import (
+    Column,
+    MeshDecision,
+    decide_mesh_execution,
+    record_mesh_decision,
+    record_scan_path,
+)
 from greptimedb_tpu_torch.query.reduce import DEVICE_THRESHOLD
 
 _CELL_CAP = 256 * 1024 * 1024    # max S*NB cells per cached array (1GB f32)
@@ -1433,7 +1439,7 @@ def execute_range_device(engine, plan, table):
     persist = _snapshot_region(table) is not None
     engine.last_grid = "hit"
     if entry is None and persist:
-        with _restore_lock(tkey):
+        with stats.timed("grid_cache_restore_ms"), _restore_lock(tkey):
             # a warm thread may have restored while we waited
             entry = cache.lookup_compatible(tkey, version, r0,
                                             plan.align_to)
@@ -1446,17 +1452,33 @@ def execute_range_device(engine, plan, table):
                     cache.insert((tkey, entry.res, entry.phase), entry)
                     engine.last_grid = "restored"
     if entry is None:
-        entry = build_entry(plan, table, items, device=engine.device,
-                            mesh=engine.mesh, mesh_opts=engine.mesh_opts,
-                            byte_budget=cache.byte_budget, keep_host=persist)
+        with stats.timed("grid_cache_build_ms"):
+            entry = build_entry(plan, table, items, device=engine.device,
+                                mesh=engine.mesh, mesh_opts=engine.mesh_opts,
+                                byte_budget=cache.byte_budget,
+                                keep_host=persist)
         if entry is None:
             return None
+        stats.note("grid_cache", "miss(build)")
         engine.last_grid = "built"
         cache.insert((tkey, entry.res, entry.phase), entry)
         if persist:
             persist_entry_async(entry, table)
-    elif not ensure_states(entry, table, items, cache):
-        return None
+    else:
+        stats.note("grid_cache", "miss(restored)"
+                   if engine.last_grid == "restored" else "hit")
+        with stats.timed("grid_cache_ensure_ms"):
+            ok = ensure_states(entry, table, items, cache)
+        if not ok:
+            return None
+    stats.add("grid_cache_bytes", entry.bytes())
+    if engine.mesh is not None:
+        dec = entry.mesh_decision
+        if dec is None:
+            dec = MeshDecision(
+                "shard" if entry.mesh is not None else "replicate",
+                "cached", devices=shard_count(engine.mesh))
+        record_mesh_decision(dec, "range")
     return execute_on_entry(engine, plan, table, entry, items)
 
 
@@ -1484,6 +1506,8 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     empty = engine._empty_result(names)
     sid_mask = None
     mask_key = None
+    # no secondary tag index yet (ROADMAP A8): the registry matches
+    record_scan_path(False)
     if s.matchers:
         sids = tag_index.match_sids(entry.registry, s.matchers)
         if len(sids) == 0:
@@ -1610,12 +1634,17 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         # hop by hop) on the ring engine, None otherwise
         "ring_form": ring_form,
     }
-    parts = _range_body(arrs, memo, spec, ctx)
-    # fold=False leaves the series axis un-folded and series-sharded: the
-    # shards' outputs concatenate in shard order, and rows [g:] are the
-    # padded/inactive tail, cut on the card before the one readback
-    out = readback.read_gathered(parts, dim=1,
-                                 stop=None if memo["fold"] else g)
+    with stats.timed("device_exec_ms"):
+        parts = _range_body(arrs, memo, spec, ctx)
+        # fold=False leaves the series axis un-folded and series-sharded:
+        # the shards' outputs concatenate in shard order, and rows [g:]
+        # are the padded/inactive tail, cut on the card before the one
+        # readback
+        out = readback.read_gathered(parts, dim=1,
+                                     stop=None if memo["fold"] else g)
+    stats.add("device_readback_bytes", out.nbytes)
+    stats.add("range_groups", g)
+    stats.add("range_steps", n_steps)
     n_items = len(plan.range_items)
     vals = out[:n_items].astype(np.float64)
     if nanenc:

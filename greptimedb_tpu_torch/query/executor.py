@@ -22,7 +22,10 @@ count (reduce.DEVICE_THRESHOLD), False keeps everything on the host, True
 takes the device path wherever the shape is eligible (the port's
 default). `last_exec_path` is "device" or "host" after each query;
 `last_window_path` is the path of its last running or sliding window
-frame ("host", "device" or "device_mesh"), None when it ran none.
+frame ("host", "device" or "device_mesh"), None when it ran none. Under
+query/stats' collector (EXPLAIN ANALYZE) the engine notes the JAX
+package's counts and paths: rows and series scanned, groups, and
+`exec_path_<kind>`.
 Result assembly (fill, group order, HAVING, output expressions, DISTINCT,
 ORDER BY, LIMIT/OFFSET) is copied from the JAX package.
 """
@@ -41,7 +44,8 @@ from greptimedb_tpu_torch.errors import (
     PlanError,
     UnsupportedError,
 )
-from greptimedb_tpu_torch.query import device_range
+from greptimedb_tpu_torch.index import tag_index
+from greptimedb_tpu_torch.query import device_range, stats
 from greptimedb_tpu_torch.query.expr import (
     Col,
     ColumnSource,
@@ -49,6 +53,7 @@ from greptimedb_tpu_torch.query.expr import (
     collect_columns,
     eval_expr,
 )
+from greptimedb_tpu_torch.query.planner import record_scan_path
 from greptimedb_tpu_torch.query.reduce import grouped_reduce
 from greptimedb_tpu_torch.sql import ast as A
 from greptimedb_tpu_torch.storage.memtable import _slice_rows
@@ -331,6 +336,13 @@ class QueryEngine:
         # from a snapshot or "built" from a scan
         self.last_grid = None
 
+    def _record_path(self, kind: str, path: str):
+        """The path a query took: `last_exec_path` ("device" or "host")
+        and EXPLAIN ANALYZE's `exec_path_<kind>` note ("device" or
+        "host:<reason>")."""
+        self.last_exec_path = "device" if path == "device" else "host"
+        stats.note(f"exec_path_{kind}", path)
+
     def execute(self, plan, table) -> QueryResult:
         if table is None:
             return self._execute_tableless(plan)
@@ -340,8 +352,9 @@ class QueryEngine:
         if plan.kind == "range":
             res = device_range.execute_range_device(self, plan, table)
             if res is not None:
-                self.last_exec_path = "device"
+                self._record_path("range", "device")
                 return res
+            self._record_path("range", "host:shape")
         src = self._scan(plan, table)
         if plan.kind == "plain":
             return self._execute_plain(plan, src, table)
@@ -376,9 +389,18 @@ class QueryEngine:
         if plan.having is not None:
             collect_columns(plan.having, needed)
         field_names = [f for f in table.field_names if f in needed]
-        data = table.scan(field_names, ts_min=plan.scan.ts_min,
-                          ts_max=plan.scan.ts_max,
-                          matchers=plan.scan.matchers or None)
+        with stats.timed("scan_ms"):
+            data = table.scan(field_names, ts_min=plan.scan.ts_min,
+                              ts_max=plan.scan.ts_max,
+                              matchers=plan.scan.matchers or None)
+        # no secondary tag index yet (ROADMAP A8): every scan is full
+        record_scan_path(False)
+        stats.add("rows_scanned", data.num_rows)
+        stats.add("series_total", data.registry.num_series)
+        if stats.active() is not None and plan.scan.matchers:
+            # selectivity is worth a re-match under EXPLAIN ANALYZE only
+            stats.add("series_matched", len(tag_index.match_sids(
+                table.region.series, plan.scan.matchers)))
         src = RowsSource(data.rows, data.registry, table.tag_names,
                          table.ts_name)
         if plan.scan.residual is not None and src.num_rows:
@@ -388,6 +410,8 @@ class QueryEngine:
                 # one flatnonzero + integer takes beats re-scanning the
                 # boolean mask once per column at low selectivity
                 idx = np.flatnonzero(mask)
+                stats.add("rows_filtered_residual",
+                          int(src.num_rows - len(idx)))
                 src = RowsSource(_slice_rows(src.rows, idx), data.registry,
                                  table.tag_names, table.ts_name)
         return src
@@ -546,12 +570,14 @@ class QueryEngine:
                 raise UnsupportedError(f"DISTINCT {a.op} is not supported")
             specs.append((a.key, a.op, vk, a.q))
         ts = src.rows.ts if src.rows is not None else None
-        results, path, self.last_reduce = grouped_reduce(
-            specs, values, gid, valid_map, g, ts=ts,
-            prefer_device=self.prefer_device, device=self.device,
-            mesh=self.mesh, mesh_opts=self.mesh_opts,
-        )
-        self.last_exec_path = "device" if path == "device" else "host"
+        with stats.timed("reduce_ms"):
+            results, path, self.last_reduce = grouped_reduce(
+                specs, values, gid, valid_map, g, ts=ts,
+                prefer_device=self.prefer_device, device=self.device,
+                mesh=self.mesh, mesh_opts=self.mesh_opts,
+            )
+        stats.add("agg_groups", g)
+        self._record_path("aggregate", path)
         agg_cols = dict(key_cols)
         for name, (vals, valid) in results.items():
             agg_cols[name] = Col(

@@ -23,6 +23,7 @@ from dataclasses import dataclass, field as dc_field
 
 from greptimedb_tpu_torch.datatypes.types import ConcreteDataType, TypeId
 from greptimedb_tpu_torch.errors import PlanError, UnsupportedError
+from greptimedb_tpu_torch.query import stats
 from greptimedb_tpu_torch.query.expr import (
     eval_const,
     format_expr,
@@ -39,7 +40,8 @@ from greptimedb_tpu_torch.sql.ast import Column
 __all__ = [
     "Column", "ScanSpec", "AggSpec", "KeySpec", "RangeItemSpec",
     "SelectPlan", "MeshDecision", "SHARDABLE_ROW_OPS",
-    "decide_mesh_execution", "decide_kernel",
+    "decide_mesh_execution", "decide_kernel", "record_kernel_decision",
+    "record_scan_path", "record_mesh_decision",
     "analyze_where", "plan_select", "plan_from_fields", "convert_expr",
 ]
 
@@ -106,6 +108,41 @@ class SelectPlan:
     # planner sets it; both RANGE paths honour it)
     grid_ts_min: int | None = None
     grid_ts_max: int | None = None
+
+    def explain_lines(self) -> list[str]:
+        """EXPLAIN's rendering of the plan (the JAX package's text)."""
+        out = [f"SelectPlan[{self.kind}] table={self.table_name}"]
+        s = self.scan
+        out.append(
+            f"  Scan: ts=[{s.ts_min}, {s.ts_max}] "
+            f"matchers={[(m[0], m[1]) for m in s.matchers]} "
+            f"residual={format_expr(s.residual) if s.residual else None}"
+        )
+        if self.kind == "aggregate":
+            out.append(
+                "  Aggregate: keys="
+                + str([format_expr(k.expr) for k in self.keys])
+                + " aggs="
+                + str([f"{a.op}({format_expr(a.arg) if a.arg else '*'})"
+                       for a in self.aggs])
+            )
+        if self.kind == "range":
+            out.append(
+                f"  Range: align={self.align_ms}ms to={self.align_to} "
+                f"by={[format_expr(k.expr) for k in self.keys]} "
+                f"items={[f'{r.op} RANGE {r.range_ms}ms' for r in self.range_items]}"
+            )
+        if self.order_by:
+            out.append(
+                "  Sort: "
+                + ", ".join(
+                    f"{format_expr(o.expr)} {'ASC' if o.asc else 'DESC'}"
+                    for o in self.order_by
+                )
+            )
+        if self.limit is not None:
+            out.append(f"  Limit: {self.limit} offset={self.offset or 0}")
+        return out
 
 
 # ----------------------------------------------------------------------
@@ -217,6 +254,41 @@ def decide_kernel(kind: str = "range", *, series: int | None = None,
     if rows is not None and rows < max(opts.pallas_min_rows, 1):
         return "gather", "small_rowset"
     return "ring", "ring_fold"
+
+
+# ----------------------------------------------------------------------
+# EXPLAIN ANALYZE notes of the planner's decisions (the JAX package's
+# record_* helpers, their query/stats part; its metrics and statement
+# statistics wait for ROADMAP A9)
+# ----------------------------------------------------------------------
+
+def record_kernel_decision(kind: str, kernel: str, reason: str) -> None:
+    """Note one program-variant choice (`mesh_kernel_<kind>`)."""
+    stats.note(f"mesh_kernel_{kind}", f"{kernel}({reason})")
+
+
+def record_scan_path(pruned: bool) -> None:
+    """Note whether a scan rode the secondary tag index (`index_pruned`)
+    or read the whole table (`full_scan`). The port has no secondary
+    index yet (ROADMAP A8), so its scans pass False."""
+    stats.note("scan_path", "index_pruned" if pruned else "full_scan")
+
+
+def record_mesh_decision(decision: MeshDecision, kind: str) -> None:
+    """Note one replicate-vs-shard decision (`mesh_decision_<kind>`),
+    the shard count of a sharded one (`mesh_devices`) and its program
+    variant."""
+    stats.note(f"mesh_decision_{kind}", decision.label())
+    if decision.devices <= 1:
+        return
+    if decision.shard:
+        # only sharded executions spread over the mesh
+        active = stats.active()
+        if active is not None:
+            active.counters["mesh_devices"] = decision.devices
+        if decision.kernel_reason:
+            record_kernel_decision(kind, decision.kernel,
+                                   decision.kernel_reason)
 
 
 # ----------------------------------------------------------------------

@@ -498,13 +498,16 @@ def grouped_reduce(specs: list, values: dict, gid: np.ndarray,
                  for _, _, vk, _ in specs):
         path = "host:dtype"
     if path == "device":
-        from greptimedb_tpu_torch.query.planner import decide_mesh_execution
+        from greptimedb_tpu_torch.query.planner import (
+            decide_mesh_execution, record_mesh_decision,
+        )
 
         use_mesh, kernel, decision = None, False, None
         if mesh is not None:
             decision = decide_mesh_execution(
                 mesh, kind="aggregate", rows=n,
                 ops=[op for _, op, _, _ in specs], opts=mesh_opts)
+            record_mesh_decision(decision, "aggregate")
             if decision.shard:
                 use_mesh = mesh
                 kernel = decision.kernel == "ring"

@@ -467,17 +467,17 @@ def _frame_for_table(inst, src: A.TableName, ctx, env, conjuncts):
     qual = src.alias or src.name.rsplit(".", 1)[-1]
     if src.name in env:
         return Frame.from_result(env[src.name], qual), conjuncts
-    db, name = inst._resolve(src.name, ctx)
-    if db.lower() in ("information_schema", "pg_catalog"):
+    if inst._is_information_schema(src.name, ctx) or inst._is_pg_catalog(
+            src.name, ctx):
         # system virtual tables join like any other relation; the
-        # single-table path answers them (or names the item that ports
-        # them)
+        # single-table path answers them
         leaf = A.Select(items=[A.SelectItem(A.Star())],
                         from_table=src.name)
         return (
             Frame.from_result(inst._select_single(leaf, ctx), qual),
             conjuncts,
         )
+    db, name = inst._resolve(src.name, ctx)
     view_sql = inst.catalog.maybe_view(db, name)
     if view_sql is not None:
         from greptimedb_tpu_torch.sql.parser import parse_sql

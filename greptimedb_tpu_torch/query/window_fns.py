@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from greptimedb_tpu_torch.errors import PlanError, UnsupportedError
+from greptimedb_tpu_torch.query import stats
 from greptimedb_tpu_torch.query.expr import Col, eval_const, eval_expr
 from greptimedb_tpu_torch.query.readback import read_full
 from greptimedb_tpu_torch.sql import ast as A
@@ -458,31 +459,33 @@ def _running_scans(numeric, cnt, valid, part_start, name, n,
         if want_mm:
             masked = np.where(valid, numeric,
                               -np.inf if name == "max" else np.inf)
-        d_reset = up(part_start)
-        if x64:
-            run_sum = read_full(S.segmented_cumsum(up(numeric), d_reset))
-            run_cnt = read_full(S.segmented_cumsum(
-                up(cnt.astype(np.int64)), d_reset))
-            run_mm = None
-            if want_mm:
-                run_mm = read_full(S.segmented_cumextreme(
-                    up(masked), d_reset, take_max=name == "max"))
-        else:
-            v_hi, v_lo = _split_two_float(numeric)
-            packed = read_full(S.segmented_cumsum_compensated_packed(
-                up(v_hi), up(v_lo), d_reset), np.float64)
-            run_sum = packed[0] + packed[1]
-            # row counts fit int32 exactly (n < 2^31)
-            run_cnt = read_full(S.segmented_cumsum(
-                up(cnt.astype(np.int32)), d_reset)).astype(np.int64)
-            run_mm = None
-            if want_mm:
-                m_hi, m_lo = _split_two_float(masked)
-                h, low = S.segmented_cumextreme2(
-                    up(m_hi), up(m_lo), d_reset, take_max=name == "max")
-                run_mm = (read_full(h, np.float64)
-                          + read_full(low, np.float64))
+        with stats.timed("window_device_ms"):
+            d_reset = up(part_start)
+            if x64:
+                run_sum = read_full(S.segmented_cumsum(up(numeric), d_reset))
+                run_cnt = read_full(S.segmented_cumsum(
+                    up(cnt.astype(np.int64)), d_reset))
+                run_mm = None
+                if want_mm:
+                    run_mm = read_full(S.segmented_cumextreme(
+                        up(masked), d_reset, take_max=name == "max"))
+            else:
+                v_hi, v_lo = _split_two_float(numeric)
+                packed = read_full(S.segmented_cumsum_compensated_packed(
+                    up(v_hi), up(v_lo), d_reset), np.float64)
+                run_sum = packed[0] + packed[1]
+                # row counts fit int32 exactly (n < 2^31)
+                run_cnt = read_full(S.segmented_cumsum(
+                    up(cnt.astype(np.int32)), d_reset)).astype(np.int64)
+                run_mm = None
+                if want_mm:
+                    m_hi, m_lo = _split_two_float(masked)
+                    h, low = S.segmented_cumextreme2(
+                        up(m_hi), up(m_lo), d_reset, take_max=name == "max")
+                    run_mm = (read_full(h, np.float64)
+                              + read_full(low, np.float64))
         ctx.path = "device"
+        stats.note("exec_path_window", "device")
         return run_sum, run_cnt, run_mm, "device"
     csum = np.cumsum(numeric)
     ccnt = np.cumsum(cnt)
@@ -504,6 +507,7 @@ def _running_scans(numeric, cnt, valid, part_start, name, n,
         for s, e in zip(starts, np.append(starts[1:], n)):
             run_mm[s:e] = op.accumulate(masked[s:e])
     ctx.path = "host"
+    stats.note("exec_path_window", "host")
     return csum - base_sum, ccnt - base_cnt, run_mm, "host"
 
 
@@ -635,6 +639,7 @@ def _rows_pre_sharded(name, numeric, cnt, fs, n, k: int, ctx: WindowCtx):
     dec = planner.decide_mesh_execution(
         mesh, kind="window", rows=n, opts=global_mesh_opts(),
     )
+    planner.record_mesh_decision(dec, "window")
     if not dec.shard:
         return None
     pad = n_pad - n
@@ -648,10 +653,12 @@ def _rows_pre_sharded(name, numeric, cnt, fs, n, k: int, ctx: WindowCtx):
     def up(a):
         return torch.from_numpy(a).to(ctx.device)
 
-    w_sum, w_cnt = _rows_pre_halo_program(up(x), up(c), up(fs_p), ns, k)
-    w_sum = read_gathered(w_sum)[:n]
-    w_cnt = read_gathered(w_cnt)[:n]
+    with stats.timed("window_device_ms"):
+        w_sum, w_cnt = _rows_pre_halo_program(up(x), up(c), up(fs_p), ns, k)
+        w_sum = read_gathered(w_sum)[:n]
+        w_cnt = read_gathered(w_cnt)[:n]
     ctx.path = "device_mesh"
+    stats.note("exec_path_window", "device_mesh")
     if name == "count":
         return w_cnt.astype(np.int64), None
     if name in ("avg", "mean"):

@@ -92,15 +92,21 @@ def read_columns(sst, path: str, groups: list[int], cols: list[str]):
     """Read `cols` over `groups` of the SstFile `sst`, column by group
     through the global cache. Returns {col: (values, validity|None)} with
     arrays concatenated across groups in order."""
+    from greptimedb_tpu_torch.query import stats
+
     per_col: dict[str, list] = {c: [] for c in cols}
+    n_miss = 0
     for g in groups:
         for c in cols:
             key = (path, g, c)
             hit = global_page_cache.get(key)
             if hit is None:
+                n_miss += 1
                 hit = sst.column(g, c)
                 global_page_cache.put(key, hit, _col_nbytes(*hit))
             per_col[c].append(hit)
+    stats.add("page_cache_hit_cols", len(groups) * len(cols) - n_miss)
+    stats.add("page_cache_miss_cols", n_miss)
     out = {}
     for c in cols:
         parts = per_col[c]

@@ -382,6 +382,10 @@ def read_sst(
             if not np.isin(members, sids_sorted, assume_unique=True).any():
                 continue
         groups.append(g)
+    from greptimedb_tpu_torch.query import stats
+
+    stats.add("row_groups_total", len(f.groups))
+    stats.add("row_groups_read", len(groups))
     if not groups:
         return None
     decoded = read_columns(f, meta.path, groups, cols)

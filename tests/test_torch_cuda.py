@@ -2186,3 +2186,63 @@ def test_join_groupby_on_cuda_matches_cpu(cuda, tmp_path):
     finally:
         for inst in insts:
             inst.close()
+
+
+# ----------------------------------------------------------------------
+# EXPLAIN ANALYZE: which path a statement took on the card
+# ----------------------------------------------------------------------
+
+def test_explain_analyze_groupby_on_cuda(cuda, tmp_path):
+    """EXPLAIN ANALYZE of a small GROUP BY on a CUDA Standalone: the
+    device path (`exec_path_aggregate: device`) through G, the plan lines
+    and counts equal to a CPU Standalone's, and the answer of the plain
+    query bit for bit."""
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+
+    rng = np.random.default_rng(19)
+    hosts, steps = 64, 360
+    tags = {"hostname": np.repeat(np.array(
+        [f"host_{i}" for i in range(hosts)], object), steps)}
+    ts = np.tile(np.arange(steps, dtype=np.int64) * 10_000, hosts)
+    fields = {"usage_user": rng.random(hosts * steps) * 100}
+    sql = ("SELECT hostname, max(usage_user), count(*) FROM cpu "
+           "GROUP BY hostname ORDER BY hostname")
+    insts = [Standalone(str(tmp_path / str(d)), device=d,
+                        prefer_device=True, warm_start=False)
+             for d in (cuda, "cpu")]
+    try:
+        for inst in insts:
+            inst.sql("CREATE TABLE cpu (ts TIMESTAMP TIME INDEX, hostname "
+                     "STRING PRIMARY KEY, usage_user DOUBLE)")
+            inst.catalog.table("public", "cpu").write(tags, ts, fields)
+        before = gr.grouped_block_reduce.launches
+        lines = [str(v) for v in insts[0].sql(
+            f"EXPLAIN ANALYZE {sql}").cols[0].values]
+        torch.cuda.synchronize()
+        assert gr.grouped_block_reduce.launches > before
+        want = [str(v) for v in insts[1].sql(
+            f"EXPLAIN ANALYZE {sql}").cols[0].values]
+        notes = {ln.strip().split(": ")[0]: ln.strip().split(": ")[1]
+                 for ln in lines if ln.startswith("    ")}
+        cpu_notes = {ln.strip().split(": ")[0]: ln.strip().split(": ")[1]
+                     for ln in want if ln.startswith("    ")}
+        assert notes["exec_path_aggregate"] == "device"
+        assert set(notes) == set(cpu_notes)
+        for k in ("agg_groups", "rows_scanned", "series_total"):
+            assert notes[k] == cpu_notes[k]
+        assert int(notes["agg_groups"]) == hosts
+        head = [ln for ln in lines if not ln.startswith("    ")]
+        assert head[:-1] == [ln for ln in want
+                             if not ln.startswith("    ")][:-1]
+        assert head[-1].startswith(f"  Metrics: rows={hosts} ")
+        card, cpu = (inst.sql(sql) for inst in insts)
+        for a, b in zip(card.cols, cpu.cols):
+            va, vb = np.asarray(a.values), np.asarray(b.values)
+            assert va.dtype == vb.dtype
+            if va.dtype.kind == "f":
+                va, vb = va.view(np.uint8), vb.view(np.uint8)
+            assert np.array_equal(va, vb)
+    finally:
+        for inst in insts:
+            inst.close()

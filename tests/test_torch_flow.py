@@ -28,7 +28,6 @@ import numpy as np
 import pytest
 
 from greptimedb_tpu.instance import Standalone as JaxStandalone
-from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.instance import Standalone
 
 # the cases with float aggregates run in both modes
@@ -268,9 +267,11 @@ def test_flow_show_and_drop(make_pair):
     assert got.rows() == want.rows() == [["f1"]]
     got, want = pair.sql("SHOW CREATE FLOW f1")
     assert got.rows() == want.rows()
-    # information_schema (the JAX test's second check) waits on A4
-    with pytest.raises(UnsupportedError, match="ROADMAP A4"):
-        pair.port.sql("SELECT flow_name FROM information_schema.flows")
+    # information_schema, the JAX test's second check
+    got, want = pair.sql("SELECT flow_name, source_table, sink_table, "
+                         "processed_rows FROM information_schema.flows")
+    assert got.names == want.names
+    assert got.rows() == want.rows() == [["f1", "requests", "s1", 0]]
     pair.sql("DROP FLOW f1")
     assert pair.port.flows.flow_names() == pair.jax.flows.flow_names() == []
 

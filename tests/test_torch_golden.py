@@ -21,23 +21,13 @@ from tests.test_golden import format_result, golden_files, parse_cases
 
 WAITING = {
     "copy_roundtrip": "A2's tail",           # COPY
-    "describe_show_more": "A4",              # information_schema
-    "explain_output": "A4",                  # EXPLAIN
-    "explain_plan": "A4",
     "fulltext_matches": "A4",                # query/fulltext.py
     "fulltext_search": "A4",
     "geo_network_functions": "A4",           # functions_ext.py
-    "information_schema": "A4",
-    "information_schema_cluster": "A4",
-    "information_schema_joins": "A4",
     "json_functions_edge": "A4",             # functions_ext.py
     "json_geo": "A4",
     "multi_region_partition": "A10",         # more than one region
     "partition_basic": "A10",
-    "pg_catalog": "A4",
-    "prepare_execute": "A4",
-    "session_admin": "A4",                   # SET
-    "timezone_session": "A4",                # SET time_zone
 }
 
 

@@ -6,7 +6,9 @@ after dropping the timing field (`execution_time_ms`). Covered: /v1/sql in
 its three formats and its errors, /v1/promql and the Prometheus API
 endpoints, InfluxDB v1 and v2 writes at every precision with
 auto-widening, Prometheus remote write and read with snappy bodies,
-/health, and a join and a view over /v1/sql. The snappy codec is also held against the JAX package's.
+/health, a join and a view over /v1/sql, and EXPLAIN, information_schema,
+SHOW VARIABLES and SHOW PROCESSLIST over /v1/sql. The snappy codec is
+also held against the JAX package's.
 """
 
 import json
@@ -190,6 +192,78 @@ def test_join_and_view_over_http(servers):
         inproc = servers[0].instance.sql(q, QueryContext(database="rel"))
         want = json.loads(json.dumps(http.result_to_json(inproc)))
         assert body["output"][0] == want, q
+
+
+SESSION_QUERIES = [
+    "explain select host, avg(v) from m where v > 1 group by host "
+    "order by host",
+    "select table_name, column_name, semantic_type from "
+    "information_schema.columns where table_schema = 'ses' order by "
+    "table_name, column_name",
+    "show variables",
+]
+
+
+@pytest.mark.parametrize("q", SESSION_QUERIES,
+                         ids=[q.split()[0] for q in SESSION_QUERIES])
+def test_session_statements_over_http(servers, q):
+    """EXPLAIN, an information_schema query and SHOW VARIABLES through
+    /v1/sql: equal across the packages, and the port's body equal to its
+    in-process answer."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    sql(servers, "create database if not exists ses")
+    sql(servers, "create table if not exists m (ts timestamp time index, "
+                 "host string, v double, primary key (host))", db="ses")
+    status, body = sql(servers, q, db="ses")
+    assert status == 200, body
+    inproc = servers[0].instance.sql(q, QueryContext(database="ses"))
+    want = json.loads(json.dumps(http.result_to_json(inproc)))
+    assert body["output"][0] == want, q
+
+
+def test_processlist_over_http_sees_another_request(servers, monkeypatch):
+    """SHOW PROCESSLIST from one request sees the statement another
+    request runs (each request has a thread of its own; the statement is
+    held at its scan checkpoint until the list has been read)."""
+    import threading
+
+    from greptimedb_tpu_torch import cancellation
+
+    srv = servers[0]
+    q = urllib.parse.urlencode({"sql": "select count(*) from ps",
+                                "db": "ses"})
+    sql(servers, "create database if not exists ses")
+    sql(servers, "create table if not exists ps (ts timestamp time index, "
+                 "v double)", db="ses")
+    started, release, out = threading.Event(), threading.Event(), {}
+    real = cancellation.checkpoint
+
+    def held():
+        started.set()
+        assert release.wait(30)
+        real()
+
+    def other_request():
+        out["resp"] = _request(srv, f"/v1/sql?{q}", data=b"", method="POST")
+
+    monkeypatch.setattr(cancellation, "checkpoint", held)
+    th = threading.Thread(target=other_request)
+    th.start()
+    try:
+        assert started.wait(30)
+        lq = urllib.parse.urlencode({"sql": "show processlist"})
+        status, raw, _ = _request(srv, f"/v1/sql?{lq}", data=b"",
+                                  method="POST")
+    finally:
+        release.set()
+        th.join(30)
+    assert not th.is_alive()
+    assert status == 200, raw
+    rows = json.loads(raw)["output"][0]["records"]["rows"]
+    assert ["ses", "Query", "Running", "Select"] in [
+        [r[2], r[3], r[4], r[6]] for r in rows], rows
+    assert out["resp"][0] == 200, out["resp"]
 
 
 @pytest.mark.parametrize("precision", ["ns", "u", "us", "ms", "s", "m",

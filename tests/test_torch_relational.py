@@ -23,7 +23,6 @@ from greptimedb_tpu.instance import Standalone as JaxStandalone
 from greptimedb_tpu.query import relational as jrel
 from greptimedb_tpu.session import QueryContext as JaxCtx
 from greptimedb_tpu.sql import ast as JA
-from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.instance import Standalone
 from greptimedb_tpu_torch.query import relational as trel
 from greptimedb_tpu_torch.query import reduce as treduce
@@ -396,9 +395,18 @@ def test_cross_join_guard(big_pair):
 
 
 def test_information_schema_join_names_its_item(pair):
-    with pytest.raises(UnsupportedError, match="ROADMAP A4"):
-        pair.port.sql("SELECT t.table_name FROM information_schema.tables t "
-                      "JOIN m ON t.table_name = m.host", pair.pctx)
+    """A join over information_schema runs as on the JAX package (it
+    named ROADMAP A4 before the introspection slice ported it)."""
+    got = pair.same("SELECT t.table_name, t.table_id, m.host FROM "
+                    "information_schema.tables t JOIN m ON t.table_name = "
+                    "m.host ORDER BY m.host")
+    assert got[0] == "result", got
+    got = pair.same("SELECT c.table_name, c.column_name, t.engine FROM "
+                    "information_schema.columns c JOIN "
+                    "information_schema.tables t ON c.table_name = "
+                    "t.table_name WHERE t.table_schema = 'public' "
+                    "ORDER BY c.table_name, c.column_name")
+    assert got[0] == "result" and got[2][0][2], got
 
 
 def test_scan_dtypes_reach_the_join_as_in_jax(pair):

@@ -441,15 +441,16 @@ def test_unported_statements_raise(setup):
     Standalone.sql in tests/test_torch_sql_host.py; INSERT runs since the
     server slice, tests/test_torch_statements.py, and window functions
     since the window slice, tests/test_torch_window.py; set operations
-    since the relational slice, tests/test_torch_relational.py; CREATE TABLE needs
-    a storage engine, which this Instance lacks.)"""
+    since the relational slice, tests/test_torch_relational.py; EXPLAIN
+    since the introspection and session slice, tests/test_torch_session.py,
+    so it answers here.) CREATE TABLE needs a storage engine, which this
+    Instance lacks."""
     _, inst, _, _ = setup
-    for sql in (
-        "EXPLAIN SELECT 1",
-        "CREATE TABLE t (ts timestamp time index, v double)",
-    ):
-        with pytest.raises(UnsupportedError):
-            inst.sql(sql)
+    assert inst.sql("EXPLAIN SELECT 1").rows() == [
+        ["SelectPlan[plain] table=None"],
+        ["  Scan: ts=[None, None] matchers=[] residual=None"]]
+    with pytest.raises(UnsupportedError):
+        inst.sql("CREATE TABLE t (ts timestamp time index, v double)")
 
 
 def test_promql_reads_the_instance(setup):
