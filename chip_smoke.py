@@ -6,14 +6,16 @@
                           [--prom-series 1000000] [--hist-pods 12500]
                           [--rest-warm 5] [--server-hours 1]
                           [--flow-hours 3]
-                          [--phases 1,14,16]
+                          [--phases 1,14,17]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line). `--phases` runs the listed phases only, with phase 1 and the
 phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
-9 phases 2 and 6; 10 phase 7; 15 and 16 phase 14); by default every phase
-runs. The kernels line then holds, and checks the launches of, the
-kernels of the phases that ran.
+9 phases 2 and 6; 10 phase 7; 15, 16 and 17 phase 14); by default every
+phase runs. The kernels line then holds, and checks the launches of, the
+kernels of the phases that ran. Query sessions (query/sessions.py) are off
+in every phase but 17 and phase 7's repeated poll, so every warm call of
+phases 1 to 16 runs its program, as before sessions existed.
 
 1. build   — compile the CUDA kernels from greptimedb_tpu_torch's sources
              (one nvcc per source, all at once) and print the card's name
@@ -91,7 +93,11 @@ kernels of the phases that ran.
              path's shapes and on edge cases (ties, -inf, -0.0, NaN
              payloads and keys, unsorted, kl < k, 8 shards) are held
              against their plain versions and the ring also against the
-             hop ring (bit for bit), and timed.
+             hop ring (bit for bit), and timed. Last, with query
+             sessions on, topk(100, ...) twice on the ring engine: the
+             first poll runs the program (one ring topk launch), the
+             repeat is a session hit that launches nothing and answers
+             the first's float64 bits.
 8. sql     — SQL in: Instance(...).sql(text) answers bench.py's TSBS RANGE
              suite (the headline double-groupby-all and its nine device
              shapes, bench.py:2131-2201, cut to the table's hours) and Q2
@@ -366,9 +372,13 @@ kernels of the phases that ran.
 
 16. session — EXPLAIN and EXPLAIN ANALYZE, PREPARE/EXECUTE, ADMIN kill,
              information_schema and pg_catalog, and SET, through a card
-             Standalone and a CPU one built as phase 15 builds them (phase
-             14's table registered as cpu, the tags table and the view
-             made by SQL). EXPLAIN of Q2 (count/sum/min/max/avg/
+             Standalone built as phase 15 builds its own (phase 14's table
+             registered as cpu, the tags table and the view made by SQL).
+             The CPU port's answers come from a worker process that builds
+             phase 14's table anew on the CPU from the same seed (while
+             phases 14 and 15 run), with the same tags table and view, and
+             answers the phase's statements, sent ahead in order, while
+             the card works. EXPLAIN of Q2 (count/sum/min/max/avg/
              stddev_samp/first/last of usage_user RANGE 2h ALIGN 1h BY
              region, on the grid through K2), of a GROUP BY hostname over
              the first hour (G), of R1 (G) and of the window metric's
@@ -403,6 +413,41 @@ kernels of the phases that ran.
              SET time_zone and read_preference round-trip through SHOW
              VARIABLES on one session. Kernel counts are zeroed before
              the phase and read after it; the data roots are removed.
+
+17. poll   — the dashboard poll path on phase 14's table (17.28 M rows,
+             not cut), in one card Standalone with query sessions on and
+             the result cache enabled as the JAX package's tests enable
+             it. P1 is Q2's SQL text (RANGE 2h ALIGN 1h BY region, through
+             K2), P2 the per-host panel avg(usage_user) RANGE '1m' ALIGN
+             '1m' BY (hostname) (4,000 hosts x 720 cells). For each: a
+             cold poll (the grid's build), three warm polls with sessions
+             off (the program on the cached grid), three session hits
+             (no range program and no K2 may run), three result-cache
+             hits (no kernel may launch, no byte may be read back), and,
+             cache off, a full poll beside a `since` poll whose cursor is
+             the step before the last: it must read back exactly one
+             step's bytes (the full poll's over the step count) and answer
+             the full result's rows past the cursor. Then the aliasing
+             check: another RANGE query through K2, then P1 again, a
+             session hit bit for bit equal to P1's first answer. Then an
+             INSERT of the next minute of usage_user for all 4,000 hosts:
+             the next poll of each must miss both caches and run the
+             program again (K2 for P1), and equal the CPU port's answer
+             over the same rows (the reference worker of phase 16, fed
+             the same INSERT): P1 bit for bit, P2 within C2's
+             reorder bound over its six-cell windows; a `since` poll at
+             the old last step answers exactly the new steps. Admission
+             over /v1/sql with basic auth (two users) under
+             max_concurrency 2: with both slots held, eight client
+             threads polling P1 must all show "Queued" in SHOW PROCESSLIST
+             and then answer the single client's answer; timeout=0.5 on
+             phase 16's 12-leaf UNION ALL (every leaf warm) answers 503
+             within the largest leaf's warm wall (+ 0.1 s) of its
+             deadline; a tenant at 1 qps answers 200 then 429 while the
+             other completes; a wrong password answers 401. Printed per
+             poll: walls, launches, range programs and readback bytes.
+             Kernel counts are zeroed before the phase and read after it;
+             the data root is removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -1998,6 +2043,40 @@ def promql_phase(args, dev):
         raise AssertionError("aggregate past the matrix-product bound")
     agg_rel = float(np.max(diff / np.abs(c.values)))
 
+    # ---- a repeated dashboard poll: the query session ------------------
+    # topk(100) on the ring engine with sessions on: the first poll runs
+    # the program (its ring topk launch), the repeat serves the resident
+    # result and launches nothing, bit for bit the same answer
+    from greptimedb_tpu_torch.query import sessions
+
+    q_poll = "topk(100, rate(prom_bench[1m]))"
+    ring_eng = engines["ring"]
+    sessions.configure({"enable": True})
+    try:
+        polled, session = [], {}
+        for _ in range(2):
+            before = topk_counts()
+            t = time.perf_counter()
+            polled.append(ring_eng.query_range(q_poll, *PROM_SPAN)[0])
+            torch.cuda.synchronize()
+            hit = ring_eng.last_fast["session"]
+            session[hit] = {"ms": (time.perf_counter() - t) * 1e3,
+                            "launches": {k: n - before[k] for k, n in
+                                         topk_counts().items()}}
+    finally:
+        sessions.configure({"enable": False})
+    if sorted(session) != ["hit", "miss"] or \
+            session["miss"]["launches"]["ring_topk_merge_fused"] != 1 or \
+            any(session["hit"]["launches"].values()):
+        raise AssertionError(f"promql repeated poll: {session}")
+    a, b = polled
+    if a.labels != b.labels or not np.array_equal(a.present, b.present) \
+            or not np.array_equal(a.values.view(np.uint64),
+                                  b.values.view(np.uint64)) \
+            or not same_vector(a, results["ring", q_poll]):
+        raise AssertionError("promql repeated poll: the session hit "
+                             "differs from the first answer")
+
     # ---- the topk kernels --------------------------------------------
     ring_entry = next(e for k, e in TF._CACHE._entries.items()
                       if k[3] is not None and k[4] is None)
@@ -2013,8 +2092,8 @@ def promql_phase(args, dev):
     # engine, the merge hop on the hop ring
     launches = {k: int(sum(
         st["launches_cold"][k] + 5 * st["launches_per_warm"][k]
-        for e in ("ring", "hops") for st in per_engine[e].values()))
-        for k in TOPK_KERNELS}
+        for e in ("ring", "hops") for st in per_engine[e].values())
+        + session["miss"]["launches"][k]) for k in TOPK_KERNELS}
     for k, count in launches.items():
         if count == 0:
             raise AssertionError(f"{k} never launched in phase promql")
@@ -2028,6 +2107,7 @@ def promql_phase(args, dev):
                      "agg_max_rel_diff_vs_cpu": agg_rel,
                      "agg_groups": agg.num_series},
           "ring_comm_bytes": notes["ring", topk_qs[1]]["comm_bytes"],
+          "repeated_poll": {"query": q_poll, **session},
           "phase_seconds": time.perf_counter() - t_phase})
     return rows, {"catalog": catalog, "series": n}
 
@@ -4965,7 +5045,8 @@ def window_table(args, dev):
             write_run(table, run)
     k1 = mg.gather_planes.launches
     table.compact(device=dev, verify=False, kernels="on")
-    torch.cuda.synchronize()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
     return (table, time.perf_counter() - t, region_of,
             mg.gather_planes.launches - k1)
 
@@ -5416,16 +5497,19 @@ def relational_tags(seed, region_of, batch=1000) -> list:
             for k in range(0, len(rows), batch)]
 
 
-def relational_standalones(args, dev, window_out, name, roots, insts):
-    """A card Standalone and a CPU one (prefer_device=True), each in a
-    temporary data root (appended to `roots`, the instances to `insts`)
-    with phase 14's table registered as `cpu` and the tags table and the
-    `hot` view made by SQL. Returns (card, cpu)."""
+def relational_standalones(args, dev, window_out, name, roots, insts,
+                           devices=None):
+    """A card Standalone and a CPU one (prefer_device=True; `devices`
+    names others), each in a temporary data root (appended to `roots`,
+    the instances to `insts`) with phase 14's table registered as `cpu`
+    and the tags table and the `hot` view made by SQL. Returns the
+    instances made."""
     import tempfile
 
     from greptimedb_tpu_torch.instance import Standalone
 
-    for device in (dev, "cpu"):
+    devices = (dev, "cpu") if devices is None else devices
+    for device in devices:
         roots.append(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
         inst = Standalone(roots[-1], device=device, prefer_device=True,
                           warm_start=False)
@@ -5434,7 +5518,86 @@ def relational_standalones(args, dev, window_out, name, roots, insts):
         for stmt in [REL_DDL] + relational_tags(
                 args.seed, window_out["region_of"]) + [REL_VIEW]:
             inst.execute_sql(stmt)
-    return insts[0], insts[1]
+    return tuple(insts[-len(devices):])
+
+
+# phases 16 and 17's CPU reference: phase 14's table built again on the
+# CPU from the same seed (the same rows, compacted by the CPU port), in a
+# process of its own (a one-worker pool, so its calls run in the order
+# they were sent), which builds while phases 14 and 15 run and answers
+# while the card works
+_WREF = None
+_WREF_CTX = {}
+
+
+def wref_open(seed, hosts, hours, root):
+    """The reference worker's initializer: phase 14's table registered as
+    cpu in a CPU Standalone in `root`, with the tags table and the view of
+    phases 15 and 16; query sessions off, as on the card in phases 1 to
+    16."""
+    global _WREF
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.query import sessions
+
+    torch.set_num_threads(4)
+    sessions.configure({"enable": False})
+    args = argparse.Namespace(seed=seed, hosts=hosts, hours=hours)
+    table, _, region_of, _ = window_table(args, "cpu")
+    _WREF = Standalone(root, device="cpu", prefer_device=True,
+                       warm_start=False)
+    _WREF.catalog.register(table)
+    for stmt in [REL_DDL] + relational_tags(seed, region_of) + [REL_VIEW]:
+        _WREF.execute_sql(stmt)
+
+
+def wref_sql(text, ctx=None):
+    """(result, seconds) of `text` on the reference; statements that name
+    the same `ctx` share one session (PREPARE, then EXECUTE)."""
+    from greptimedb_tpu_torch.session import QueryContext
+
+    c = None if ctx is None else _WREF_CTX.setdefault(ctx, QueryContext())
+    t = time.perf_counter()
+    res = _WREF.sql(text, c)
+    return res, time.perf_counter() - t
+
+
+def wref_close():
+    _WREF.close()
+
+
+def start_window_reference(args):
+    """The reference worker of phases 16 and 17 (see above), in a
+    temporary data root; stop_window_reference stops it."""
+    import multiprocessing as mp
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_wref_")
+    pool = mp.get_context("spawn").Pool(
+        1, initializer=wref_open, initargs=(args.seed, args.hosts,
+                                            args.hours, root))
+    _WREF_POOL.append((pool, root))
+    return pool
+
+
+class RefCalls:
+    """Calls to the reference worker, sent ahead and collected in order:
+    `ask` sends one, `got` waits for its answer and adds the worker's
+    seconds and the time the phase waited to `seconds`/`waited`."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.seconds = 0.0
+        self.waited = 0.0
+
+    def ask(self, text, ctx=None):
+        return self.pool.apply_async(wref_sql, (text, ctx))
+
+    def got(self, fut):
+        t = time.perf_counter()
+        res, s = fut.get(timeout=900)
+        self.waited += time.perf_counter() - t
+        self.seconds += s
+        return res
 
 
 def relational_phase(args, dev, window_out):
@@ -5630,9 +5793,10 @@ def explain_parts(res):
     return lines[:at], rows, notes
 
 
-def session_phase(args, dev, window_out):
-    """Phase 16 (see the module docstring). Returns the launches of the
-    kernels its statements ran on the card."""
+def session_phase(args, dev, window_out, wref):
+    """Phase 16 (see the module docstring); `wref` is the CPU reference
+    worker (start_window_reference). Returns the launches of the kernels
+    its statements ran on the card."""
     import shutil
     import threading
 
@@ -5659,13 +5823,7 @@ def session_phase(args, dev, window_out):
         ts = [walls_one(fn) for _ in range(SESSION_WARM)]
         return float(np.median(ts)), ts
 
-    cpu_s = [0.0]   # the CPU port's reference work, apart
-
-    def on_cpu(text, ctx=None):
-        t = time.perf_counter()
-        res = cpu.sql(text, ctx)
-        cpu_s[0] += time.perf_counter() - t
-        return res
+    ref = RefCalls(wref)    # the CPU port's answers, from the worker
 
     def g_launches(fn):
         before = gr.grouped_block_reduce.launches
@@ -5673,10 +5831,27 @@ def session_phase(args, dev, window_out):
         torch.cuda.synchronize()
         return res, gr.grouped_block_reduce.launches - before
 
+    # every reference call, sent ahead in the order the checks read them
+    # (Q2 runs once before its EXPLAIN ANALYZE: the grid's note then
+    # reads "hit" on both sides)
+    asked = {}
+    for name, q in session_queries().items():
+        asked["explain", name] = ref.ask(f"EXPLAIN {q}")
+        if name == "Q2":
+            asked["Q2"] = ref.ask(q)
+        asked["analyze", name] = ref.ask(f"EXPLAIN ANALYZE {q}")
+    ref.ask(SESSION_PREPARE, "prepared")
+    for h in (0, 1):
+        asked["execute", h] = ref.ask(
+            f"EXECUTE g ({h * HOUR_MS}, {(h + 1) * HOUR_MS})", "prepared")
+    victim_sql = session_victim(args.hours)
+    asked["victim"] = ref.ask(victim_sql)
+    for name, q in SESSION_SYSTEM.items():
+        asked["system", name] = ref.ask(q)
     try:
         t = time.perf_counter()
-        card, cpu = relational_standalones(args, dev, window_out, "session",
-                                           roots, insts)
+        (card,) = relational_standalones(args, dev, window_out, "session",
+                                         roots, insts, devices=(dev,))
         out["setup_seconds"] = time.perf_counter() - t
         for n, m in mods.items():
             getattr(m, n).launches = 0
@@ -5685,9 +5860,9 @@ def session_phase(args, dev, window_out):
         explain, t_part = {}, time.perf_counter()
         launched = None
         for name, q in session_queries().items():
-            cpu0 = cpu_s[0]
+            cpu0 = ref.seconds
             plan = explain_parts(card.sql(f"EXPLAIN {q}"))[0]
-            if plan != explain_parts(on_cpu(f"EXPLAIN {q}"))[0]:
+            if plan != explain_parts(ref.got(asked["explain", name]))[0]:
                 raise AssertionError(f"session EXPLAIN {name}: plan lines "
                                      f"differ from the CPU port's")
             t = time.perf_counter()
@@ -5695,8 +5870,7 @@ def session_phase(args, dev, window_out):
             torch.cuda.synchronize()
             cold = (time.perf_counter() - t) * 1e3
             if name == "Q2":
-                # the grid's note reads "hit" on both sides
-                on_cpu(q)
+                ref.got(asked["Q2"])
             # warm: the plain query and its EXPLAIN ANALYZE in turns
             # (plain first, then EXPLAIN ANALYZE first, ...: a drift of
             # the host's speed falls on both); the first EXPLAIN ANALYZE
@@ -5723,7 +5897,7 @@ def session_phase(args, dev, window_out):
                     analyzed()
             lines, rows, notes = explain_parts(first)
             _, cpu_rows, cpu_notes = explain_parts(
-                on_cpu(f"EXPLAIN ANALYZE {q}"))
+                ref.got(asked["analyze", name]))
             if lines != plan or rows != plain.num_rows or rows != cpu_rows:
                 raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
                                      f"plan or rows ({rows}, plain "
@@ -5757,7 +5931,7 @@ def session_phase(args, dev, window_out):
                 "overhead_pct": 100.0 * (np.median(ea_ts)
                                          / np.median(plain_ts) - 1.0),
                 "warm_ms": plain_ts, "explain_analyze_warm_ms": ea_ts,
-                "cpu_port_seconds": cpu_s[0] - cpu0,
+                "cpu_port_seconds": ref.seconds - cpu0,
             }
             emit({"session_explain": name, **explain[name]})
         out["explain"] = explain
@@ -5765,9 +5939,8 @@ def session_phase(args, dev, window_out):
 
         # ---- PREPARE / EXECUTE / DEALLOCATE --------------------------
         t_part = time.perf_counter()
-        pctx, cctx = QueryContext(), QueryContext()
+        pctx = QueryContext()
         card.execute_sql(SESSION_PREPARE, pctx)
-        cpu.execute_sql(SESSION_PREPARE, cctx)
         execute = {}
         for h in (0, 1):
             lo, hi = h * HOUR_MS, (h + 1) * HOUR_MS
@@ -5779,7 +5952,7 @@ def session_phase(args, dev, window_out):
             same_window_result(f"session {run_} vs literal", got,
                                card.sql(literal))
             same_window_result(f"session {run_} vs cpu", got,
-                               on_cpu(run_, cctx))
+                               ref.got(asked["execute", h]))
             ex_ts, lit_ts = [], []
             for k in range(SESSION_WARM):
                 # in turns, the order swapped every turn
@@ -5808,7 +5981,6 @@ def session_phase(args, dev, window_out):
 
         # ---- ADMIN kill of a statement running on the card -----------
         t_part = time.perf_counter()
-        victim_sql = session_victim(args.hours)
         leaf = SESSION_LITERAL.format(lo=0, hi=HOUR_MS)
         card.sql(leaf)
         leaf_ms, _ = walls(lambda: card.sql(leaf))
@@ -5850,10 +6022,10 @@ def session_phase(args, dev, window_out):
         kill_ms = (state["raised"] - t_kill) * 1e3
         # the victim whole (its later leaves' scans cold), then once warm
         whole = card.sql(victim_sql)
-        cpu0 = cpu_s[0]
+        cpu0 = ref.seconds
         same_window_result("session victim vs cpu", whole,
-                           on_cpu(victim_sql))
-        victim_cpu_s = cpu_s[0] - cpu0
+                           ref.got(asked["victim"]))
+        victim_cpu_s = ref.seconds - cpu0
         victim_ms = walls_one(lambda: card.sql(victim_sql))
         out["kill"] = {"polls_until_running": polls, "kill_to_raise_ms":
                        kill_ms, "leaf_warm_ms_median": leaf_ms,
@@ -5871,7 +6043,8 @@ def session_phase(args, dev, window_out):
             got = card.sql(q)
             if got.num_rows == 0:
                 raise AssertionError(f"session {name}: no rows")
-            same_window_result(f"session {name} vs cpu", got, on_cpu(q))
+            same_window_result(f"session {name} vs cpu", got,
+                               ref.got(asked["system", name]))
             doc = http_sql(srv.port, q)
             want = json.loads(json.dumps({"output": [result_to_json(got)]}))
             if doc != want:
@@ -5903,10 +6076,392 @@ def session_phase(args, dev, window_out):
             shutil.rmtree(root, ignore_errors=True)
     launches = counts()
     out["launches"] = launches
-    out["cpu_reference_seconds"] = cpu_s[0]
+    # the worker's seconds on these answers, and the time the phase
+    # waited for them (the worker builds its table while 14 and 15 run)
+    out["cpu_reference_seconds"] = ref.seconds
+    out["cpu_reference_wait_seconds"] = ref.waited
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "session", **{k: v for k, v in out.items() if k not in (
         "explain", "execute", "kill", "system_tables")}})
+    return launches
+
+
+# ---- phase 17: poll ----------------------------------------------------
+
+# P1: Q2's SQL text (RANGE 2h ALIGN 1h BY region, through K2); P2: the
+# per-host dashboard panel (4,000 hosts x 720 one-minute cells)
+POLL_QUERIES = {
+    "P1": SESSION_Q2,
+    "P2": ("SELECT ts, hostname, avg(usage_user) RANGE '1m' FROM cpu "
+           "ALIGN '1m' BY (hostname)"),
+}
+# another RANGE query through K2 between two polls of P1 (the session's
+# buffer must not alias memory its launches write)
+POLL_OTHER = ("SELECT ts, region, sum(usage_system) RANGE '1h', "
+              "max(usage_idle) RANGE '1h' FROM cpu ALIGN '1h' BY (region)")
+POLL_WARM = 3           # warm runs of each timing (median)
+POLL_CLIENTS = 8        # client threads polling P1 under the limit
+POLL_USERS = {"grafana": "grafana-pw", "noisy": "noisy-pw"}
+POLL_TIMEOUT_S = 0.5    # the deadline on phase 16's victim (s)
+
+
+def poll_insert(args, region_of) -> str:
+    """The next minute after the table's last (six samples at 10 s) of
+    usage_user for every host, as one INSERT (the other fields NULL)."""
+    rng = np.random.default_rng(args.seed + 17)
+    t0 = args.hours * HOUR_MS
+    vals = rng.random((6, args.hosts)) * 100.0
+    return "INSERT INTO cpu (ts, hostname, region, usage_user) VALUES " + \
+        ", ".join(f"({t0 + k * STEP_MS}, 'host_{h}', '{region_of[h]}', "
+                  f"{float(vals[k, h])!r})"
+                  for k in range(6) for h in range(args.hosts))
+
+
+def poll_http(port, text, user, pwd, extra=""):
+    """(status, answer) of /v1/sql with basic auth; the answer without its
+    timing field."""
+    import base64
+    import urllib.parse
+
+    tok = base64.b64encode(f"{user}:{pwd}".encode()).decode()
+    status, body, _ = http_call(
+        port, "/v1/sql" + extra,
+        urllib.parse.urlencode({"sql": text}).encode(),
+        {"Content-Type": "application/x-www-form-urlencoded",
+         "Authorization": f"Basic {tok}"})
+    doc = json.loads(body)
+    doc.pop("execution_time_ms", None)
+    return status, doc
+
+
+def ts_steps(res) -> np.ndarray:
+    """The distinct step timestamps of a RANGE answer."""
+    return np.unique(np.asarray(res.cols[0].values, np.int64))
+
+
+def rows_after(res, cut):
+    """The rows of `res` whose ts is past `cut`, as columns."""
+    from types import SimpleNamespace
+
+    keep = np.asarray(res.cols[0].values, np.int64) > cut
+    return SimpleNamespace(
+        names=res.names, num_rows=int(keep.sum()),
+        cols=[SimpleNamespace(values=np.asarray(c.values)[keep],
+                              valid_mask=np.asarray(c.valid_mask)[keep])
+              for c in res.cols])
+
+
+def poll_phase(args, dev, window_out, wref):
+    """Phase 17 (see the module docstring); `wref` is the CPU reference
+    worker. Returns the launches of the kernels its polls ran."""
+    import shutil
+    import tempfile
+    import threading
+
+    from greptimedb_tpu_torch.auth import StaticUserProvider
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+    from greptimedb_tpu_torch.query import device_range as dr
+    from greptimedb_tpu_torch.query import readback, sessions
+    from greptimedb_tpu_torch.query.result_cache import ResultCache
+    from greptimedb_tpu_torch.sched import (
+        AdmissionController,
+        SchedulerConfig,
+    )
+    from greptimedb_tpu_torch.servers.http import HttpServer
+    from greptimedb_tpu_torch.session import QueryContext
+
+    t_phase = time.perf_counter()
+    table = window_out["table"]
+    out = {"rows": int(table.row_count())}
+    mods = {"grouped_block_reduce": gr, "blocked_fold_sum": rf,
+            "gather_planes": mg, "segmented_scan": ss}
+    ref = RefCalls(wref)
+
+    def counts():
+        return {n: getattr(m, n).launches for n, m in mods.items()}
+
+    # runs of the range program (its body, around K2), observed
+    programs = [0]
+    real_body = dr._range_body
+
+    def counted_body(*a, **k):
+        programs[0] += 1
+        return real_body(*a, **k)
+
+    def observe(fn):
+        """fn()'s answer and its wall, kernel launches, range programs
+        and readback bytes."""
+        c0, p0, r0 = counts(), programs[0], dict(readback.readback_bytes)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {
+            "ms": (time.perf_counter() - t) * 1e3,
+            "launches": {n: c - c0[n] for n, c in counts().items()},
+            "programs": programs[0] - p0,
+            "readback": {k: v - r0[k]
+                         for k, v in readback.readback_bytes.items()}}
+
+    def since(v):
+        ctx = QueryContext()
+        ctx.extensions["since_ms"] = int(v)
+        return ctx
+
+    def fail(what):
+        raise AssertionError(f"poll {what}")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_poll_")
+    card = srv = None
+    try:
+        dr._range_body = counted_body
+        sessions.configure({"enable": True})
+        card = Standalone(root, device=dev, prefer_device=True,
+                          warm_start=False)
+        card.catalog.register(table)
+        # the result cache as the JAX package's tests enable it
+        rc = ResultCache.from_options({"enable": True})
+        card.result_cache = card.catalog.result_cache = rc
+        eng = card.query_engine
+        for n, m in mods.items():
+            getattr(m, n).launches = 0
+        first = {}
+        polls = {}
+        for name, q in POLL_QUERIES.items():
+            st = polls[name] = {}
+            rc.enabled = False
+            # 1. cold (the grid's build), then warm misses: the program on
+            # the cached grid, sessions off for them
+            res, o = observe(lambda: card.sql(q))
+            if eng.last_exec_path != "device" or eng.last_session != "miss":
+                fail(f"{name} cold: {eng.last_exec_path} "
+                     f"{eng.last_session}")
+            first[name] = res
+            st["cold"] = o
+            sessions.global_sessions.enabled = False
+            misses = [observe(lambda: card.sql(q)) for _ in range(POLL_WARM)]
+            sessions.global_sessions.enabled = True
+            # 2. session hits: no range program, no K2
+            hits = [observe(lambda: card.sql(q)) for _ in range(POLL_WARM)]
+            if eng.last_session != "hit":
+                fail(f"{name} session: {eng.last_session}")
+            for r, o in misses + hits:
+                same_window_result(f"poll {name} warm", r, res)
+            for r, o in misses:
+                if o["programs"] != 1:
+                    fail(f"{name} warm miss ran {o['programs']} programs")
+            for r, o in hits:
+                if o["programs"] or any(o["launches"].values()):
+                    fail(f"{name} session hit launched {o}")
+            if name == "P1" and not all(o["launches"]["blocked_fold_sum"]
+                                        for _, o in misses):
+                fail("P1 warm miss without K2")
+            st["warm_miss"] = [o for _, o in misses]
+            st["session_hit"] = [o for _, o in hits]
+            # 3. the result cache: the first poll stores, then hits with
+            # no launch and no readback
+            rc.enabled = True
+            h0 = rc.hits
+            _, st["cache_store"] = observe(lambda: card.sql(q))
+            cached = [observe(lambda: card.sql(q)) for _ in range(POLL_WARM)]
+            if rc.hits - h0 != POLL_WARM:
+                fail(f"{name} result cache hits {rc.hits - h0}")
+            for r, o in cached:
+                same_window_result(f"poll {name} cached", r, res)
+                if o["programs"] or any(o["launches"].values()) or any(
+                        o["readback"].values()):
+                    fail(f"{name} cache hit ran {o}")
+            st["cache_hit"] = [o for _, o in cached]
+            # 4. `since` at the step before the last (cache off): one
+            # step's bytes, beside a full poll's (both session hits)
+            rc.enabled = False
+            steps = ts_steps(res)
+            _, full = observe(lambda: card.sql(q))
+            delta, o = observe(lambda: card.sql(q, since(steps[-2])))
+            nbytes = full["readback"]["full"]
+            if nbytes % len(steps) or o["readback"] != {
+                    "full": 0, "delta": nbytes // len(steps)}:
+                fail(f"{name} delta bytes {o['readback']} beside full "
+                     f"{nbytes} over {len(steps)} steps")
+            same_window_result(f"poll {name} since", delta,
+                               rows_after(res, steps[-2]))
+            st["full_poll"], st["since_poll"] = full, o
+            st["readback_full_bytes"] = nbytes
+            st["readback_delta_bytes"] = o["readback"]["delta"]
+            st["rows"], st["steps"] = res.num_rows, len(steps)
+        # the aliasing check: P1 again after another query through K2
+        _, o = observe(lambda: card.sql(POLL_OTHER))
+        if not o["launches"]["blocked_fold_sum"]:
+            fail("the other query did not launch K2")
+        again, o = observe(lambda: card.sql(POLL_QUERIES["P1"]))
+        if eng.last_session != "hit" or o["programs"]:
+            fail("P1 after the other query was not a session hit")
+        same_window_result("poll P1 after another K2 query", again,
+                           first["P1"])
+        out["aliasing_check"] = "bit-identical"
+
+        # 5. the next minute for every host: both caches miss, the
+        # program runs again, the answers equal the CPU port's
+        ins = poll_insert(args, window_out["region_of"])
+        ref_ins = ref.ask(ins)
+        asked = {name: ref.ask(q) for name, q in POLL_QUERIES.items()}
+        rc.enabled = True
+        _, out["insert"] = observe(lambda: card.execute_sql(ins))
+        for name, q in POLL_QUERIES.items():
+            st = polls[name]
+            m0 = rc.misses
+            after, o = observe(lambda: card.sql(q))
+            if rc.misses != m0 + 1 or eng.last_session != "miss" or \
+                    o["programs"] != 1:
+                fail(f"{name} after the insert: misses {rc.misses - m0}, "
+                     f"session {eng.last_session}, {o}")
+            if name == "P1" and not o["launches"]["blocked_fold_sum"]:
+                fail("P1 after the insert without K2")
+            st["after_insert"] = o
+            if name == "P1":
+                ref.got(ref_ins)
+            want = ref.got(asked[name])
+            if name == "P1":
+                st["max_abs_diff_vs_cpu"] = compare_results(
+                    "poll P1 after the insert", after, want,
+                    {"count", "sum", "min", "max", "avg", "stddev_samp",
+                     "first_value", "last_value"}, 2 * HOUR_MS // STEP_MS)
+            else:
+                st["identical_to_cpu"], st["max_rel_diff_vs_cpu"] = \
+                    compare_engines("poll P2 after the insert", want, after,
+                                    60_000 // STEP_MS,
+                                    bounded=(after.names[2],))
+            old = ts_steps(first[name])
+            new_steps = ts_steps(after)
+            delta, o = observe(lambda: card.sql(q, since(old[-1])))
+            if set(ts_steps(delta).tolist()) != set(
+                    new_steps[new_steps > old[-1]].tolist()):
+                fail(f"{name} since after the insert: steps "
+                     f"{ts_steps(delta)[:3]}")
+            same_window_result(f"poll {name} since after the insert", delta,
+                               rows_after(after, old[-1]))
+            st["since_after_insert"] = o
+            st["new_steps"] = int((new_steps > old[-1]).sum())
+        out["cpu_reference_seconds"] = ref.seconds
+        out["cpu_reference_wait_seconds"] = ref.waited
+        out["polls"] = polls
+
+        # ---- admission over /v1/sql with basic auth -------------------
+        t_part = time.perf_counter()
+        rc.enabled = False      # every statement below runs for real
+        card.scheduler = AdmissionController(SchedulerConfig(
+            max_concurrency=2, queue_timeout_s=120.0,
+            tenants={"noisy": {"qps": 1.0, "burst": 1.0}}))
+        srv = HttpServer(card, port=0, user_provider=StaticUserProvider(
+            POLL_USERS)).start()
+        p1 = POLL_QUERIES["P1"]
+        status, single = poll_http(srv.port, p1, "grafana",
+                                   POLL_USERS["grafana"])
+        if status != 200:
+            fail(f"P1 over HTTP: {status} {single}")
+        # queueing: both slots held (the controller's own acquire, as a
+        # statement takes one), eight clients wait "Queued"
+        for _ in range(2):
+            card.scheduler._acquire("operator", None)
+        answers, walls_ = [None] * POLL_CLIENTS, [None] * POLL_CLIENTS
+
+        def client(i):
+            t = time.perf_counter()
+            answers[i] = poll_http(srv.port, p1, "grafana",
+                                   POLL_USERS["grafana"])
+            walls_[i] = (time.perf_counter() - t) * 1e3
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(POLL_CLIENTS)]
+        for th in threads:
+            th.start()
+        queued, t_wait = 0, time.perf_counter()
+        try:
+            while queued < POLL_CLIENTS and \
+                    time.perf_counter() - t_wait < 60:
+                procs = card.sql("SHOW PROCESSLIST")
+                queued = sum(1 for row in procs.rows()
+                             if dict(zip(procs.names, row))["State"]
+                             == "Queued")
+        finally:
+            for _ in range(2):
+                card.scheduler._release("operator")
+        for th in threads:
+            th.join(600)
+        if queued != POLL_CLIENTS:
+            fail(f"SHOW PROCESSLIST saw {queued} Queued statements")
+        if any(a != (200, single) for a in answers):
+            fail("a queued client's answer differs from the single one")
+        admission = {"queued_seen": queued,
+                     "client_wall_ms": walls_,
+                     "max_concurrency": 2}
+        # a deadline: timeout=0.5 on phase 16's victim (a scan and so a
+        # checkpoint a leaf), all warm, answers 503 within a leaf of it
+        victim = session_victim(args.hours)
+        card.sql(victim)
+        leaves = [walls_one(lambda h=h: card.sql(SESSION_LITERAL.format(
+            lo=h * HOUR_MS, hi=(h + 1) * HOUR_MS).replace(
+                " ORDER BY hostname", ""))) for h in range(args.hours)]
+        t = time.perf_counter()
+        status, doc = poll_http(srv.port, victim, "grafana",
+                                POLL_USERS["grafana"],
+                                f"?timeout={POLL_TIMEOUT_S}")
+        late = time.perf_counter() - t - POLL_TIMEOUT_S
+        if status != 503 or "deadline" not in doc.get("error", ""):
+            fail(f"the deadline answered {status} {doc}")
+        if late > max(leaves) / 1e3 + 0.1:
+            fail(f"the deadline's answer came {late:.3f} s late; the "
+                 f"largest leaf takes {max(leaves) / 1e3:.3f} s")
+        admission["deadline"] = {"timeout_s": POLL_TIMEOUT_S,
+                                 "status": status,
+                                 "late_s": late, "leaf_warm_ms": leaves,
+                                 "error": doc["error"]}
+        # quotas: noisy (1 qps) is shed while grafana completes
+        tenants = [poll_http(srv.port, "SELECT 1", *pair)[0] for pair in (
+            ("noisy", POLL_USERS["noisy"]), ("noisy", POLL_USERS["noisy"]),
+            ("grafana", POLL_USERS["grafana"]))]
+        if tenants != [200, 429, 200]:
+            fail(f"quota statuses {tenants}")
+        # auth: a wrong password
+        wrong = poll_http(srv.port, "SELECT 1", "grafana", "nope")[0]
+        if wrong != 401:
+            fail(f"a wrong password answered {wrong}")
+        admission.update({"quota_statuses": tenants,
+                          "wrong_password_status": wrong,
+                          "shed": {"/".join(k): v for k, v in
+                                   card.scheduler.shed.items()},
+                          "seconds": time.perf_counter() - t_part})
+        out["admission"] = admission
+    finally:
+        dr._range_body = real_body
+        sessions.configure({"enable": False})
+        if srv is not None:
+            srv.stop()
+        if card is not None:
+            card.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counts()
+    out["launches"] = launches
+    out["sessions"] = {"hits": sessions.global_sessions.hits,
+                       "misses": sessions.global_sessions.misses}
+    out["result_cache"] = {"hits": rc.hits, "misses": rc.misses}
+    out["seconds"] = time.perf_counter() - t_phase
+    for name, st in out["polls"].items():
+        emit({"poll": name, **{k: v for k, v in st.items()
+                               if k not in ("warm_miss", "session_hit",
+                                            "cache_hit")},
+              "warm_miss_ms_median": float(np.median(
+                  [o["ms"] for o in st["warm_miss"]])),
+              "session_hit_ms_median": float(np.median(
+                  [o["ms"] for o in st["session_hit"]])),
+              "cache_hit_ms_median": float(np.median(
+                  [o["ms"] for o in st["cache_hit"]]))})
+    emit({"poll_admission": out["admission"]})
+    emit({"phase": "poll", **{k: v for k, v in out.items()
+                              if k not in ("polls", "admission")}})
     return launches
 
 
@@ -5920,8 +6475,8 @@ def walls_one(fn) -> float:
 
 # phases whose inputs another phase makes: a selected phase brings these
 PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
-               11: {2}, 15: {14}, 16: {14}}
-ALL_PHASES = tuple(range(1, 17))
+               11: {2}, 15: {14}, 16: {14}, 17: {14}}
+ALL_PHASES = tuple(range(1, 18))
 
 
 def selected_phases(text: str | None) -> set:
@@ -6082,12 +6637,44 @@ def run(args) -> int:
         sys.path.insert(0, here)
     from greptimedb_tpu_torch.parallel.kernels import build
     from greptimedb_tpu_torch.query import planner as P
+    from greptimedb_tpu_torch.query import sessions
 
     dev = _device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # query sessions off: every warm call of phases 1 to 16 runs its
+    # program, as before sessions existed; phase 17 and phase 7's
+    # repeated poll turn them on
+    sessions.configure({"enable": False})
     want = selected_phases(args.phases)
     t_script = time.perf_counter()
+    try:
+        return run_phases(args, dev, P, build, want, t_script)
+    finally:
+        stop_window_reference(clean=False)
+
+
+_WREF_POOL = []
+
+
+def stop_window_reference(clean: bool = True):
+    """Stop the reference worker of phases 16 and 17, if one started:
+    closed (its data root removed) after a run, terminated after a
+    failure."""
+    import shutil
+
+    while _WREF_POOL:
+        pool, root = _WREF_POOL.pop()
+        if clean:
+            pool.apply(wref_close)
+            pool.close()
+        else:
+            pool.terminate()
+        pool.join()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_phases(args, dev, P, build, want, t_script) -> int:
 
     # ---- 1. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -6145,7 +6732,10 @@ def run(args) -> int:
         flow_launches, flow_kern = flow_phase(argparse.Namespace(
             **{**vars(args), "hours": args.flow_hours}), dev)
     # ---- 14. window ----------------------------------------------------
-    window_out = None
+    window_out = wref = None
+    if want & {16, 17}:
+        # phases 16 and 17's CPU reference builds its table meanwhile
+        wref = start_window_reference(args)
     if 14 in want:
         window_rows_, window_out = window_phase(args, dev)
         kernels += window_rows_
@@ -6153,13 +6743,18 @@ def run(args) -> int:
     rel_launches = relational_phase(args, dev, window_out) \
         if 15 in want else {}
     # ---- 16. session ---------------------------------------------------
-    session_launches = session_phase(args, dev, window_out) \
+    session_launches = session_phase(args, dev, window_out, wref) \
         if 16 in want else {}
+    # ---- 17. poll ------------------------------------------------------
+    poll_launches = poll_phase(args, dev, window_out, wref) \
+        if 17 in want else {}
+    stop_window_reference()
     # every kernel's launches over the main-path runs of the phases that
     # ran; the hop ring's seed, continuation and combines run in phase 8
     # only, Gt in phase 9 only, G in phases 9, 10, 12, 13, 15 and 16, S in
     # 14 and 16, K1 in 2, 11, 12 and 14 (the compaction of the table 14,
-    # 15 and 16 read); phase 16 adds K2's launches of its RANGE query
+    # 15, 16 and 17 read); phases 16 and 17 add K2's launches of their
+    # RANGE queries
     extreme_row = next((r for r in kernels if r["name"] == "extreme"), {})
     floor = {k: v for k, v in extreme_row.items()
              if k.startswith("launch_floor")}
@@ -6208,6 +6803,9 @@ def run(args) -> int:
         if session_launches.get(name):
             row["launches"] += session_launches[name]
             row["launches_session"] = session_launches[name]
+        if poll_launches.get(name):
+            row["launches"] += poll_launches[name]
+            row["launches_poll"] = poll_launches[name]
         if name == "gather_planes" and window_out is not None:
             row["launches"] += window_out["k1_launches"]
             row["launches_window_table"] = window_out["k1_launches"]

@@ -2,13 +2,17 @@
 
 A kill cannot stop a CUDA kernel in flight, so a running statement polls
 `checkpoint()` at stage boundaries (the start of each table scan) and
-raises there. The check is a context variable: it holds in the thread
-that runs the statement, and in no other.
+raises there: for a kill through the installed check, for a lapsed
+deadline (sched/deadline.py) through QueryDeadlineExceededError. Both
+are context variables: they hold in the thread that runs the statement,
+and in no other.
 """
 
 from __future__ import annotations
 
 import contextvars
+
+from greptimedb_tpu_torch.sched import deadline as _deadline
 
 _check: contextvars.ContextVar = contextvars.ContextVar(
     "statement_cancel_check", default=None)
@@ -26,9 +30,9 @@ def reset(token):
 
 def checkpoint():
     """Raise (through the installed callable) if the current statement
-    was killed. Outside a statement it does nothing."""
+    was killed, or QueryDeadlineExceededError if its deadline lapsed.
+    Outside a statement it does nothing."""
     fn = _check.get()
     if fn is not None:
         fn()
-    # the statement's deadline check (sched/deadline.py) comes with
-    # ROADMAP A4, admission; without a deadline it does nothing
+    _deadline.check()

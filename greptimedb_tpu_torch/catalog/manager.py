@@ -394,6 +394,16 @@ class CatalogManager:
         from greptimedb_tpu_torch.promql import fast as _promql_fast
 
         _promql_fast.drop_table_entries(table)
+        self._purge_result_caches(table)
+
+    def _purge_result_caches(self, table):
+        """Drop a dropped table's cached results: a recreated table can
+        reuse the table id and happen to match versions. (Session buffers
+        are keyed per grid entry and released by the grid caches when
+        they drop the entry.)"""
+        rc = getattr(self, "result_cache", None)
+        if rc is not None:
+            rc.purge_table(table.info.database, table.info.table_id)
 
     def table(self, database: str, name: str):
         with self._lock:

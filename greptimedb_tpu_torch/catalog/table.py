@@ -197,6 +197,14 @@ class Table:
         return (self.region.data_version, tuple(self.field_names),
                 tuple(self.tag_names))
 
+    def physical_version(self) -> tuple:
+        """data_version with every region's physical version and all the
+        column names: it also moves on a flush, a compaction and any
+        schema change. The result cache (query/result_cache.py) keys on
+        it."""
+        return (tuple(r.physical_version for r in self.regions),
+                tuple(self.schema.column_names), tuple(self.tag_names))
+
     def row_count(self) -> int:
         """Rows held (before dedup of pending runs)."""
         return self.region.rows

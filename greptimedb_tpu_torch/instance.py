@@ -29,7 +29,12 @@ one `Output` per statement, `sql` the last statement's result):
 - the session: SET, SHOW VARIABLES, PREPARE/EXECUTE/DEALLOCATE, SHOW
   STATUS/CHARSET/COLLATION, SHOW PROCESSLIST and ADMIN kill (KILL). Every
   statement registers in the process list while it runs; a kill lands at
-  its next cancellation checkpoint (cancellation.py: each table scan).
+  its next cancellation checkpoint (cancellation.py: each table scan);
+- the poll path: a data-plane statement passes admission control first
+  (`scheduler`, sched/: quotas, a concurrency limit, its deadline at
+  every checkpoint); a single-table SELECT meets the result cache
+  (`result_cache`, query/result_cache.py, off by default) and the `since`
+  cursor (`ctx.extensions["since_ms"]`, query/sessions.py).
 
 COPY raises UnsupportedError naming its ROADMAP item (A2's tail). An
 Instance without a storage engine answers DDL with the catalog's
@@ -75,6 +80,12 @@ _log = logging.getLogger("greptimedb_tpu_torch.instance")
 
 # statements that wait, and the ROADMAP item that ports them
 _WAITING = {A.Copy: "A2's tail"}
+# statement kinds that use engine or storage resources and so pass
+# admission control; everything else (SHOW, SET, ADMIN kill, DESCRIBE...)
+# is control plane and bypasses it
+_ADMITTED_STATEMENTS = (
+    A.Select, A.SetOp, A.Tql, A.Insert, A.Delete, A.Copy, A.Explain,
+)
 # ADMIN functions that wait, and their item
 _WAITING_ADMIN = {
     "migrate_region": "A10",
@@ -198,6 +209,19 @@ class Instance:
                                         prefer_device=prefer_device, x64=x64)
         self.flows = None   # flow.FlowManager once flows are enabled
         self._process_list = _ProcessList()
+        # admission control and deadlines (sched/): the default config
+        # is permissive (no quotas or limits: it never queues or sheds);
+        # a caller swaps in a configured controller
+        from greptimedb_tpu_torch.sched import AdmissionController
+
+        self.scheduler = AdmissionController()
+        # the result cache (query/result_cache.py): off by default, a
+        # caller swaps in an enabled one; the catalog gets a handle so a
+        # DROP purges the table's entries
+        from greptimedb_tpu_torch.query.result_cache import ResultCache
+
+        self.result_cache = ResultCache(enabled=False)
+        self.catalog.result_cache = self.result_cache
 
     # ------------------------------------------------------------------
     # entry points
@@ -220,15 +244,23 @@ class Instance:
     def execute_statement(self, stmt: A.Statement,
                           ctx: QueryContext | None = None) -> Output:
         """Run one statement, registered in the process list while it
-        runs; a kill raises at its next cancellation checkpoint. (The
-        JAX package's statement statistics and span wait for ROADMAP A9,
-        its admission for A4's admission part: a statement runs at
-        once.)"""
+        runs; a kill raises at its next cancellation checkpoint. A
+        data-plane statement (`_ADMITTED_STATEMENTS`) passes admission
+        control first: it shows "Queued" until it gets its slot, and its
+        deadline binds for its checkpoints. (The JAX package's statement
+        statistics and span wait for ROADMAP A9.)"""
         ctx = ctx or QueryContext()
         pid = self._process_list.register(type(stmt).__name__, ctx)
         token = cancellation.set_check(
             lambda: self._process_list.check_killed(pid))
         try:
+            if isinstance(stmt, _ADMITTED_STATEMENTS):
+                # control-plane statements (SHOW, SET, USE, ADMIN kill)
+                # bypass, so an operator can still inspect and kill work
+                # on an overloaded instance
+                with self.scheduler.admit(ctx):
+                    self._process_list.set_state(pid, "Running")
+                    return self._execute_statement(stmt, ctx)
             self._process_list.set_state(pid, "Running")
             return self._execute_statement(stmt, ctx)
         finally:
@@ -660,7 +692,59 @@ class Instance:
             if self._is_pg_catalog(stmt.from_table, ctx):
                 return IS.query_pg_catalog(self, stmt, ctx)
         plan, table = self.plan(stmt, ctx)
-        return self.query_engine.execute(plan, table)
+        return self._execute_select_plan(plan, table, ctx)
+
+    def _execute_select_plan(self, plan, table, ctx: QueryContext):
+        """A planned single-table SELECT through the result path: the
+        result cache first (a repeated poll over unchanged physical
+        versions runs nothing on the card and reads nothing back), then
+        the `since` cursor bound for the execution paths (the scan's ts
+        bound, the grid's narrowed readback)."""
+        from greptimedb_tpu_torch.query import result_cache as RC
+        from greptimedb_tpu_torch.query import sessions, stats
+
+        since = ctx.extensions.get("since_ms")
+        rc = self.result_cache
+        # EXPLAIN ANALYZE reports a real execution, never a cached one
+        use_cache = rc.eligible(plan, table) and stats.active() is None
+        if use_cache and since is not None and plan.kind != "aggregate" \
+                and (plan.limit is not None or bool(plan.offset)
+                     or RC.ts_output_name(plan, table) is None):
+            # a since poll is served from the cached FULL result only
+            # where the host row filter equals the execution path's
+            # cursor (applied before ORDER BY/LIMIT): LIMIT/OFFSET plans
+            # and row plans that do not project the time index execute
+            # the delta. Aggregates ignore the cursor.
+            use_cache = False
+        fp = versions = None
+        if use_cache:
+            fp = RC.plan_fingerprint(plan)
+            versions = table.physical_version()
+            entry = rc.get(table.info.database, table, fp, versions)
+            if entry is not None:
+                stats.note("result_cache", "hit")
+                # the path the cached result came from
+                self.query_engine.last_exec_path = entry.exec_path
+                res = entry.result
+                if since is not None:
+                    res = RC.filter_since(res, entry.ts_name, since)
+                return res
+            stats.note("result_cache", "miss")
+        elif rc.enabled:
+            stats.note("result_cache", "bypass")
+        token = sessions.bind_since(since) if since is not None else None
+        try:
+            res = self.query_engine.execute(plan, table)
+        finally:
+            if token is not None:
+                sessions.reset_since(token)
+        if use_cache and since is None:
+            # only full results are stored: a delta answer must never
+            # be served as the statement's result
+            rc.put(table.info.database, table, fp, versions, res,
+                   RC.ts_output_name(plan, table),
+                   self.query_engine.last_exec_path)
+        return res
 
     def plan(self, stmt: A.Select, ctx: QueryContext | None = None):
         """(plan, table) of a single-table SELECT (table None without
@@ -895,6 +979,10 @@ class Standalone(Instance):
             # the ticker stops and the last state reaches the sinks
             # before the engine closes
             self.flows.stop()
+        # the closed instance's cached results, grids and the session
+        # buffers of those grids go with it
+        self.result_cache.clear()
+        self.query_engine.range_cache.clear()
         self.engine.close()
 
 

@@ -12,7 +12,11 @@ promql/fast.py).
   np.unique — no per-series Python;
 - **one device program per query**: range function (ops/window.py) and
   cross-series aggregation or per-step top-k, so a query moves J * 12
-  bytes of window indices to the card and a packed result back.
+  bytes of window indices to the card and a packed result back;
+- **query sessions** (query/sessions.py): the packed result of each query
+  shape stays on the card, so a repeated poll over an unchanged grid runs
+  no program (`_session_exec`); the cache purges an entry's buffers when
+  it drops the entry (`SelectorGridCache._release`).
 
 Shapes served: `agg [by|without (...)] (range_fn(sel[d]) | sel)` with agg
 in sum/avg/min/max/count/group/stddev/stdvar and every range function
@@ -143,10 +147,23 @@ class SelectorGridCache:
         if e is None:
             return None
         with self._lock:
+            old = self._entries.get(key)
+            if old is not None and old is not e:
+                self._release(old)  # a stale version: free its buffers
             self._entries[key] = e
             e.last_used = time.monotonic()
             self._evict_locked(keep=key)
         return e
+
+    @staticmethod
+    def _release(entry: _Entry):
+        """Drop the entry's session buffers with it (query/sessions.py):
+        a dropped entry's id() can be reused by a new entry, and its
+        buffers would otherwise pin the card's memory until unrelated
+        LRU pressure."""
+        from greptimedb_tpu_torch.query import sessions
+
+        sessions.global_sessions.purge_table(("promql", id(entry)))
 
     def _evict_locked(self, keep):
         total = sum(e.nbytes for e in self._entries.values())
@@ -155,20 +172,54 @@ class SelectorGridCache:
             if total <= self.byte_budget:
                 return
             if key != keep:
-                total -= self._entries.pop(key).nbytes
+                victim = self._entries.pop(key)
+                self._release(victim)
+                total -= victim.nbytes
 
     def invalidate(self):
         with self._lock:
+            for e in self._entries.values():
+                self._release(e)
             self._entries.clear()
 
     def drop_table(self, table):
         with self._lock:
             for key in [k for k, e in self._entries.items()
                         if e.table is table]:
-                del self._entries[key]
+                self._release(self._entries.pop(key))
 
 
 _CACHE = SelectorGridCache()
+
+
+def _session_exec(entry: _Entry, skey: tuple, inputs: tuple, run):
+    """The query session of a fused program's packed result
+    (query/sessions.py): an identical repeated poll serves the resident
+    result and runs no program. The key holds the identities of the
+    cached per-query inputs (masks, grouping, window indices); the
+    session entry keeps those objects alive, so no later object can
+    reuse an id while the key can still hit. The entry's version rides
+    the registry's validation, so any write invalidates. Every fused
+    program returns a torch.cat of its outputs, a tensor it owns.
+    Returns (packed, hit)."""
+    from greptimedb_tpu_torch.query import sessions
+
+    tkey = ("promql", id(entry))
+    key = skey + tuple(id(o) for o in inputs)
+    got = sessions.global_sessions.get(tkey, key, entry.version)
+    if got is not None:
+        return got[0], True
+    packed = run()
+    sessions.global_sessions.put(tkey, key, entry.version,
+                                 (packed, inputs),
+                                 sessions.buffer_nbytes(packed), owner=entry)
+    return packed, False
+
+
+def _win_inputs(win) -> tuple:
+    """A window plan's cached tensors (the per-query copy that sets x64
+    shares them)."""
+    return (win.lo, win.hi, win.t_end)
 
 
 def _build_entry(table, fieldname: str, version, *, device, mesh=None,
@@ -554,14 +605,16 @@ def _resolve_fast_selector(engine, inner, ev):
     return entry, table, raw_matchers, fname, fargs, win
 
 
-def _note(engine, entry: _Entry, kind: str, kernel=None, comm_bytes=0):
+def _note(engine, entry: _Entry, kind: str, kernel=None, comm_bytes=0,
+          session=None):
     """What the last fast-path query ran (the JAX package's EXPLAIN
-    ANALYZE notes): shard count, mesh decision, program variant."""
+    ANALYZE notes): shard count, mesh decision, program variant, and its
+    query session ("hit": no program ran)."""
     dec = entry.mesh_decision
     engine.last_fast = {
         "kind": kind, "shards": entry.shards,
         "decision": None if dec is None else dec.label(),
-        "kernel": kernel, "comm_bytes": comm_bytes,
+        "kernel": kernel, "comm_bytes": comm_bytes, "session": session,
     }
 
 
@@ -595,9 +648,15 @@ def try_fast(engine, e, ev):
             device=entry.devices[0])
         ring = kdec == "ring"
         kernel_label = f"{kdec}({kreason})"
-    packed = _fused_query(entry, smask, grp, win, fname=fname, fargs=fargs,
-                          op=e.op, lookback_ticks=lookback_ticks, ring=ring)
-    _note(engine, entry, "promql", kernel_label)
+    skey = ("q", fname, fargs, e.op, grp.g, win.range_ticks, win.l_cells,
+            win.x64, entry.spec.tps, lookback_ticks, ring)
+    packed, hit = _session_exec(
+        entry, skey, (smask, grp, *_win_inputs(win)),
+        lambda: _fused_query(entry, smask, grp, win, fname=fname,
+                             fargs=fargs, op=e.op,
+                             lookback_ticks=lookback_ticks, ring=ring))
+    _note(engine, entry, "promql", kernel_label,
+          session="hit" if hit else "miss")
     return _vector_from_packed(readback.read_full(packed, np.float64),
                                grp.labels, grp.g)
 
@@ -753,11 +812,16 @@ def try_fast_topk(engine, e, ev):
         kernel_label = f"{kdec}({kreason})"
         if use_kernel:
             comm_bytes = topk_comm_bytes(entry.shards, win.num_steps, kk)
-    packed_dev = _fused_topk(entry, smask, win, fname=fname, fargs=fargs,
-                             k=kk, largest=e.op == "topk",
-                             lookback_ticks=lookback_ticks,
-                             kernel=use_kernel)
-    _note(engine, entry, "topk", kernel_label, comm_bytes)
+    skey = ("topk", fname, fargs, kk, e.op == "topk", win.range_ticks,
+            win.l_cells, win.x64, entry.spec.tps, lookback_ticks, use_kernel)
+    packed_dev, hit = _session_exec(
+        entry, skey, (smask, *_win_inputs(win)),
+        lambda: _fused_topk(entry, smask, win, fname=fname, fargs=fargs,
+                            k=kk, largest=e.op == "topk",
+                            lookback_ticks=lookback_ticks,
+                            kernel=use_kernel))
+    _note(engine, entry, "topk", kernel_label, comm_bytes,
+          session="hit" if hit else "miss")
     packed = readback.read_full(packed_dev)
     jj = packed.shape[0] // 3
     top_vals = packed[:jj].astype(np.float64)      # (J, k)
@@ -957,12 +1021,20 @@ def try_fast_binary(engine, e, ev, *, agg=None):
     if not (any_l and any_r):
         return _empty_vector(ev)
     lookback_ticks = max(int(ev.lookback_ms // entry_l.spec.unit), 1)
-    packed = _fused_binary(
-        entry_l, (smask_l, fname_l, fargs_l, win_l),
-        entry_r, (smask_r, fname_r, fargs_r, win_r), op=e.op,
-        bool_mod=bool(e.bool_mod), agg_op="" if agg is None else agg.op,
-        grp=grp, lookback_ticks=lookback_ticks)
-    _note(engine, entry_l, "binary")
+    agg_op = "" if agg is None else agg.op
+    skey = ("binary", fname_l, fargs_l, fname_r, fargs_r, e.op,
+            bool(e.bool_mod), agg_op, win_l.range_ticks, win_l.l_cells,
+            win_r.range_ticks, win_r.l_cells, win_l.x64, lookback_ticks,
+            entry_r.version)
+    packed, hit = _session_exec(
+        entry_l, skey, (entry_r, smask_l, smask_r, grp,
+                        *_win_inputs(win_l), *_win_inputs(win_r)),
+        lambda: _fused_binary(
+            entry_l, (smask_l, fname_l, fargs_l, win_l),
+            entry_r, (smask_r, fname_r, fargs_r, win_r), op=e.op,
+            bool_mod=bool(e.bool_mod), agg_op=agg_op, grp=grp,
+            lookback_ticks=lookback_ticks))
+    _note(engine, entry_l, "binary", session="hit" if hit else "miss")
     packed_np = readback.read_full(packed, np.float64)
     if agg is not None:
         return _vector_from_packed(packed_np, grp.labels, grp.g)
@@ -1178,11 +1250,16 @@ def try_fast_histogram(engine, phi: float, inner, ev):
     if not any_match:
         return _empty_vector(ev)
     lookback_ticks = max(int(ev.lookback_ms // entry.spec.unit), 1)
-    le = torch.from_numpy(np.asarray(uniq_le, np.float32)).to(slot.device)
-    packed = _fused_hist_query(
-        entry, smask, win, fname=fname, fargs=fargs, agg_grp=agg_grp,
-        slot=slot, le=le, g=g, b=b, phi=phi, lookback_ticks=lookback_ticks)
-    _note(engine, entry, "histogram")
+    le_host = np.asarray(uniq_le, np.float32)
+    skey = ("hist", fname, fargs, g, b, float(phi), le_host.tobytes(),
+            win.range_ticks, win.l_cells, win.x64, lookback_ticks)
+    packed, hit = _session_exec(
+        entry, skey, (smask, agg_grp, slot, *_win_inputs(win)),
+        lambda: _fused_hist_query(
+            entry, smask, win, fname=fname, fargs=fargs, agg_grp=agg_grp,
+            slot=slot, le=torch.from_numpy(le_host).to(slot.device), g=g,
+            b=b, phi=phi, lookback_ticks=lookback_ticks))
+    _note(engine, entry, "histogram", session="hit" if hit else "miss")
     return _vector_from_packed(readback.read_full(packed, np.float64),
                                labels, g)
 

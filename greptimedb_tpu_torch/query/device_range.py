@@ -35,6 +35,12 @@ blocked-fold cap, or a series count that is no multiple of FOLD_BLOCKS)
 gathers every shard's grids to the first shard's device and runs the
 one-device program there ("single_gathered").
 
+A poll's folded result stays on the card in the query session registry
+(query/sessions.py), keyed to its entry: a repeated poll runs no program,
+and a `since` poll narrows the resident result to the steps past the
+cursor before the one readback (readback.read_gathered(lo=)). The cache
+releases an entry's buffers wherever it drops the entry (`_release`).
+
 A durable table's entries persist as restart snapshots under its region's
 directory (`persist_entry`, after a build on a thread) and a fresh engine
 restores them with uploads only (`load_entry_snapshot`,
@@ -59,7 +65,7 @@ from greptimedb_tpu_torch.ops import window as W
 from greptimedb_tpu_torch.parallel.dist import LocalFoldCtx, ShardFoldCtx
 from greptimedb_tpu_torch.parallel.kernels import ring_fold
 from greptimedb_tpu_torch.parallel.mesh import FOLD_BLOCKS, shard_count
-from greptimedb_tpu_torch.query import readback, stats
+from greptimedb_tpu_torch.query import readback, sessions, stats
 from greptimedb_tpu_torch.query.planner import (
     Column,
     MeshDecision,
@@ -180,6 +186,14 @@ class DeviceRangeCache:
         self.misses = 0
         self.evictions = 0
 
+    def _release(self, entry: _Entry):
+        """Drop the entry's session buffers with it (query/sessions.py):
+        their keys embed id(entry), so a stale, replaced or evicted
+        entry's buffers could never be probed again, and a later entry
+        that reuses the id must not meet them."""
+        self.evictions += 1
+        sessions.global_sessions.purge_table(("range", id(entry)))
+
     def lookup_compatible(self, tkey, version, r0: int, align_to: int
                           ) -> _Entry | None:
         """A live entry for `tkey` whose resolution serves a query with
@@ -191,7 +205,7 @@ class DeviceRangeCache:
                 e = self._entries[key]
                 if e.version != version:
                     del self._entries[key]
-                    self.evictions += 1
+                    self._release(e)
                     continue
                 if r0 % e.res == 0 and align_to % e.res == e.phase:
                     self._entries.pop(key)
@@ -205,7 +219,7 @@ class DeviceRangeCache:
         with self._lock:
             old = self._entries.pop(key, None)
             if old is not None and old is not entry:
-                self.evictions += 1
+                self._release(old)
             total = sum(e.bytes() for e in self._entries.values())
             total += entry.bytes()
             while self._entries and (
@@ -213,9 +227,16 @@ class DeviceRangeCache:
                 or total > self.byte_budget
             ):
                 victim = self._entries.pop(next(iter(self._entries)))
-                self.evictions += 1
+                self._release(victim)
                 total -= victim.bytes()
             self._entries[key] = entry
+
+    def clear(self):
+        """Drop every entry, and with each its session buffers."""
+        with self._lock:
+            for e in self._entries.values():
+                self._release(e)
+            self._entries.clear()
 
     def has_table(self, tkey) -> bool:
         with self._lock:
@@ -243,7 +264,7 @@ class DeviceRangeCache:
                 if self._entries[key] is entry:
                     continue
                 victim = self._entries.pop(key)
-                self.evictions += 1
+                self._release(victim)
                 total -= victim.bytes()
             return total <= self.byte_budget
 
@@ -1604,6 +1625,18 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         entry.nan_ok.get(fname, fname == "__rows__") for fname, _ in items
     )
     spec = (stride, n_steps, g, memo["fold"], nanenc, prog_items)
+    # the `since` cursor: j0 is the first step past the client's
+    # watermark. With FILL the whole grid assembles first (PREV/LINEAR
+    # carry from steps before the cursor), so the cursor moves to cell
+    # emission; otherwise only the delta's steps are read back
+    since = sessions.current_since()
+    has_fill = plan.fill is not None or any(
+        r.fill is not None for r in plan.range_items)
+    j0 = 0
+    if since is not None and not has_fill:
+        j0 = int(np.searchsorted(step_ts, since, side="right"))
+        if j0 >= n_steps:
+            return empty    # the client has every step already
     ns = len(entry.devices)
     comm_bytes = 0
     ring_form = None
@@ -1634,14 +1667,40 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         # hop by hop) on the ring engine, None otherwise
         "ring_form": ring_form,
     }
+    # the query session: this shape's folded result stays on the card
+    # across polls, so a repeated poll runs no program (no K2, no range
+    # body) and a delta poll narrows the resident result below. Keyed to
+    # THIS grid entry: engines over one table do not share buffers, and
+    # the cache purges an entry's buffers when it drops the entry
+    # (DeviceRangeCache._release). Tables assembled per call opt out
+    # (`session_cacheable`): their entries never repeat. The parts are
+    # torch.stack/cat outputs of _range_body, which the program owns, so
+    # no later launch writes them.
+    use_sessions = getattr(table, "session_cacheable", True)
+    session_tkey = ("range", id(entry))
+    session_key = (memo_key, spec, program, ring_form)
     with stats.timed("device_exec_ms"):
-        parts = _range_body(arrs, memo, spec, ctx)
+        parts = (sessions.global_sessions.get(session_tkey, session_key,
+                                              entry.version)
+                 if use_sessions else None)
+        if parts is not None:
+            stats.note("device_session", "hit")
+            engine.last_session = "hit"
+        else:
+            stats.note("device_session", "miss")
+            engine.last_session = "miss"
+            parts = _range_body(arrs, memo, spec, ctx)
+            if use_sessions:
+                sessions.global_sessions.put(session_tkey, session_key,
+                                             entry.version, parts,
+                                             owner=entry)
         # fold=False leaves the series axis un-folded and series-sharded:
         # the shards' outputs concatenate in shard order, and rows [g:]
         # are the padded/inactive tail, cut on the card before the one
-        # readback
+        # readback; a delta poll narrows the steps axis first
         out = readback.read_gathered(parts, dim=1,
-                                     stop=None if memo["fold"] else g)
+                                     stop=None if memo["fold"] else g,
+                                     lo=j0)
     stats.add("device_readback_bytes", out.nbytes)
     stats.add("range_groups", g)
     stats.add("range_steps", n_steps)
@@ -1662,5 +1721,6 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         item_vals[item.key] = vals[i]
         item_present[item.key] = pres[i]
     return engine._assemble_range_result(
-        plan, table, item_vals, item_present, key_cols, step_ts, g, n_steps,
+        plan, table, item_vals, item_present, key_cols, step_ts[j0:], g,
+        n_steps - j0, since_ms=since if has_fill else None,
     )

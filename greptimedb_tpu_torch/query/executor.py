@@ -45,7 +45,7 @@ from greptimedb_tpu_torch.errors import (
     UnsupportedError,
 )
 from greptimedb_tpu_torch.index import tag_index
-from greptimedb_tpu_torch.query import device_range, stats
+from greptimedb_tpu_torch.query import device_range, sessions, stats
 from greptimedb_tpu_torch.query.expr import (
     Col,
     ColumnSource,
@@ -335,6 +335,10 @@ class QueryEngine:
         # the last device RANGE query's grid was a cache "hit", "restored"
         # from a snapshot or "built" from a scan
         self.last_grid = None
+        # the last device RANGE query's session (query/sessions.py): "hit"
+        # (its folded result served from the card, no program ran) or
+        # "miss"; None after any other query
+        self.last_session = None
 
     def _record_path(self, kind: str, path: str):
         """The path a query took: `last_exec_path` ("device" or "host")
@@ -348,7 +352,7 @@ class QueryEngine:
             return self._execute_tableless(plan)
         self.last_exec_path = "host"
         self.last_window_path = None
-        self.last_range = self.last_reduce = None
+        self.last_range = self.last_reduce = self.last_session = None
         if plan.kind == "range":
             res = device_range.execute_range_device(self, plan, table)
             if res is not None:
@@ -389,8 +393,18 @@ class QueryEngine:
         if plan.having is not None:
             collect_columns(plan.having, needed)
         field_names = [f for f in table.field_names if f in needed]
+        ts_min = plan.scan.ts_min
+        if plan.kind == "plain":
+            # the `since` cursor of a row-returning select is a ts lower
+            # bound at the scan (before ORDER BY/LIMIT, like an extra
+            # WHERE); aggregate and range states fold the whole row set,
+            # and a range emits past the cursor at assembly instead
+            since = sessions.current_since()
+            if since is not None:
+                ts_min = (since + 1 if ts_min is None
+                          else max(ts_min, since + 1))
         with stats.timed("scan_ms"):
-            data = table.scan(field_names, ts_min=plan.scan.ts_min,
+            data = table.scan(field_names, ts_min=ts_min,
                               ts_max=plan.scan.ts_max,
                               matchers=plan.scan.matchers or None)
         # no secondary tag index yet (ROADMAP A8): every scan is full
@@ -688,7 +702,7 @@ class QueryEngine:
             item_present[item.key] = present
         return self._assemble_range_result(
             plan, table, item_vals, item_present, key_cols, step_ts,
-            g, n_steps,
+            g, n_steps, since_ms=sessions.current_since(),
         )
 
     def _range_item(self, item, src, gid, g, ts, align, align_to,
@@ -725,10 +739,13 @@ class QueryEngine:
         return _finalize_window(item.op, sampled, item.q)
 
     def _assemble_range_result(self, plan, table, item_vals, item_present,
-                               key_cols, step_ts, g, n_steps) -> QueryResult:
+                               key_cols, step_ts, g, n_steps,
+                               since_ms: int | None = None) -> QueryResult:
         """Fill + output assembly over (g, n_steps) per-item grids, shared
-        by the host path and the device grid path (the JAX package's,
-        without its `since` delta cursor)."""
+        by the host path and the device grid path. `since_ms` is the delta
+        cursor: only cells whose step ts is strictly greater are emitted
+        (the fill still runs over the whole grid first, so PREV/LINEAR
+        carry from steps before the cursor as in the full result)."""
         ts_type = table.schema.time_index.data_type
         names = [nm for _, nm in plan.post_items]
         any_present = np.zeros((g, n_steps), dtype=bool)
@@ -749,6 +766,8 @@ class QueryEngine:
             cell_mask = np.ones((g, n_steps), dtype=bool)
         else:
             cell_mask = any_present
+        if since_ms is not None:
+            cell_mask = cell_mask & (step_ts > since_ms)[None, :]
         if not plan.order_by:
             # construct rows already in the default (ts, group keys) order:
             # rank groups once (g keys, not g*steps rows), then emit

@@ -12,11 +12,19 @@ the port serves):
 - POST /v1/influxdb/write, /v1/influxdb/api/v2/write, /influxdb/write
                                            line protocol
 
+`/v1/sql` takes `?timeout=` (or X-Greptime-Timeout), the statement's
+deadline in seconds, enforced by admission control (sched/), and `?since=`
+(or X-Greptime-Since), the delta cursor in epoch ms: a row-returning
+SELECT answers only rows whose time index is past it (query/sessions.py).
+With a user provider (auth.py) every route but /health and /ready wants
+HTTP Basic credentials (401 without them), and the user is the
+statement's tenant. Overload and quota sheds answer 429; a queue timeout
+or a lapsed deadline 503.
+
 Routes that wait answer 404 as unknown routes do, with their ROADMAP item
 in the body: /metrics, /status, traces, statement statistics,
 /debug/prof/* and the cluster routes (A9), OTLP, OpenTSDB and events (A3),
-scripts (A10); so do `?since=` delta cursors (A4). Request counters
-and tracing spans wait for A9.
+scripts (A10). Request counters and tracing spans wait for A9.
 
 A stdlib ThreadingHTTPServer: the host plane is IO-bound glue, the card
 does the math. `HttpServer(instance, port=0).start()` binds a free port
@@ -36,7 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from greptimedb_tpu_torch.errors import GreptimeError
+from greptimedb_tpu_torch.errors import GreptimeError, StatusCode
 from greptimedb_tpu_torch.promql.engine import (
     PromEngine,
     ScalarValue,
@@ -81,17 +89,34 @@ def result_to_json(res) -> dict:
                         "total_rows": res.num_rows}}
 
 
+# wire status of the overload and deadline errors: a quota or overload
+# shed is the client's to back off from (429); a saturated queue, a lapsed
+# deadline or unreachable storage is the server's state (503); every
+# other GreptimeError answers 400
+_HTTP_STATUS = {
+    StatusCode.RATE_LIMITED: 429,
+    StatusCode.QUERY_OVERLOADED: 429,
+    StatusCode.QUERY_QUEUE_TIMEOUT: 503,
+    StatusCode.DEADLINE_EXCEEDED: 503,
+    StatusCode.STORAGE_UNAVAILABLE: 503,
+}
+# routes open without credentials
+_OPEN_ROUTES = ("/health", "/ready")
+
+
 class HttpServer:
     def __init__(self, instance, *, addr: str = "127.0.0.1",
-                 port: int = 4000):
+                 port: int = 4000, user_provider=None):
         self.instance = instance
         self.addr = addr
         self.port = port
+        # auth.UserProvider: HTTP Basic on every route but health
+        self.user_provider = user_provider
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
     def start(self):
-        handler = _make_handler(self.instance)
+        handler = _make_handler(self.instance, self.user_provider)
         self._httpd = ThreadingHTTPServer((self.addr, self.port), handler)
         self.port = self._httpd.server_address[1]
         self._thread = threading.Thread(
@@ -108,7 +133,7 @@ class HttpServer:
             self._thread.join(timeout=5)
 
 
-def _make_handler(instance):
+def _make_handler(instance, user_provider=None):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -175,12 +200,36 @@ def _make_handler(instance):
         def do_POST(self):
             self._dispatch()
 
+        def _deny(self, msg: str):
+            body = json.dumps({"error": msg, "code": 401}).encode()
+            self.send_response(401)
+            self.send_header("WWW-Authenticate", 'Basic realm="greptime"')
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def _dispatch(self):
             path = self._raw_path()
             try:
+                if user_provider is not None and path not in _OPEN_ROUTES:
+                    from greptimedb_tpu_torch.auth import (
+                        AccessDeniedError,
+                        check_basic_auth,
+                    )
+
+                    try:
+                        # kept for the route handlers: /v1/sql makes the
+                        # user the statement's tenant without checking
+                        # the credentials again
+                        self._auth_user = check_basic_auth(
+                            self.headers.get("Authorization"),
+                            user_provider) or ""
+                    except AccessDeniedError as e:
+                        return self._deny(str(e))
                 self._route_request(path)
             except GreptimeError as e:
-                self._error(400, str(e))
+                self._error(_HTTP_STATUS.get(e.status_code, 400), str(e))
             except BrokenPipeError:
                 pass
             except Exception as e:  # noqa: BLE001 - the wire answers 500
@@ -222,6 +271,11 @@ def _make_handler(instance):
             if fmt not in ("csv", "table", "greptimedb_v1"):
                 return self._error(400, f"unknown format {fmt!r}")
             ctx = QueryContext(database=db)
+            # the user the dispatch gate authenticated: the statement's
+            # tenant for admission control
+            ctx.username = getattr(self, "_auth_user", "")
+            # the statement's deadline in seconds; admission control
+            # binds it for every checkpoint of the statement
             timeout = (params.get("timeout")
                        or self.headers.get("X-Greptime-Timeout"))
             if timeout is not None:
@@ -229,16 +283,24 @@ def _make_handler(instance):
                     t = float(timeout)
                 except ValueError:
                     return self._error(400, f"bad timeout {timeout!r}")
+                # nan or inf would make the deadline's arithmetic
+                # nonsense; <= 0 is a spent budget: client errors
                 if not math.isfinite(t) or t <= 0:
                     return self._error(400, f"bad timeout {timeout!r}")
-                # validated as the JAX server validates it; deadlines
-                # are enforced by admission control (ROADMAP A4)
                 ctx.extensions["deadline_s"] = t
-            if (params.get("since")
-                    or self.headers.get("X-Greptime-Since")) is not None:
-                return self._error(
-                    404, "the since cursor is not ported yet (ROADMAP A4, "
-                         "query/sessions.py)")
+            # the delta cursor (epoch ms): a row-returning SELECT answers
+            # only rows whose time index is past it; the client advances
+            # it to the largest ts it has seen
+            since = (params.get("since")
+                     or self.headers.get("X-Greptime-Since"))
+            if since is not None:
+                try:
+                    v = float(since)
+                except ValueError:
+                    return self._error(400, f"bad since {since!r}")
+                if not math.isfinite(v) or v < 0:
+                    return self._error(400, f"bad since {since!r}")
+                ctx.extensions["since_ms"] = int(v)
             t0 = time.perf_counter()
             outputs = instance.execute_sql(sql, ctx)
             elapsed = (time.perf_counter() - t0) * 1000

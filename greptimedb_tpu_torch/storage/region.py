@@ -308,6 +308,18 @@ class Region:
         return (self._seq, self._truncate_epoch, trunc)
 
     @property
+    def physical_version(self) -> tuple:
+        """data_version extended with the manifest's version, which also
+        moves on every manifest commit (flush, compaction, truncate); an
+        in-memory region, which has no manifest, counts its compactions
+        there. The result cache keys on it, so a cached result is never
+        served across a physical change of the region, even one that
+        keeps the row set."""
+        edits = (self.manifest.version if self.manifest is not None
+                 else self._compactions)
+        return self.data_version + (edits,)
+
+    @property
     def rows(self) -> int:
         """Rows held, before dedup."""
         n = self.memtable.rows + sum(t.rows for t in self._frozen)

@@ -2246,3 +2246,139 @@ def test_explain_analyze_groupby_on_cuda(cuda, tmp_path):
     finally:
         for inst in insts:
             inst.close()
+
+
+# ----------------------------------------------------------------------
+# the poll path: query sessions, the result cache and `since` deltas
+# ----------------------------------------------------------------------
+
+def _poll_table(rng, hosts=300, steps=720):
+    t = Table("cpu", ts_name="ts", tag_names=["hostname", "region"],
+              fields=["u", "v"])
+    names = np.array([f"host_{i}" for i in range(hosts)])
+    regions = np.array(["a", "b", "c"])[rng.integers(0, 3, hosts)]
+    ts = np.tile(np.arange(steps) * 10_000, hosts)
+    hi = np.repeat(np.arange(hosts), steps)
+    t.write({"hostname": names[hi], "region": regions[hi]}, ts,
+            {"u": rng.random(len(ts)) * 100, "v": rng.random(len(ts))})
+    return t
+
+
+_POLL_A = ("SELECT ts, region, count(u) RANGE '1h', sum(u) RANGE '1h', "
+           "max(v) RANGE '1h' FROM cpu ALIGN '30m' BY (region)")
+_POLL_B = ("SELECT ts, region, sum(v) RANGE '2h', min(u) RANGE '1h' FROM "
+           "cpu ALIGN '1h' BY (region)")
+
+
+def _same_result(a, b):
+    assert a.names == b.names and a.num_rows == b.num_rows > 0
+    for x, y in zip(a.cols, b.cols):
+        va, vb = np.asarray(x.values), np.asarray(y.values)
+        assert np.array_equal(x.valid_mask, y.valid_mask)
+        if va.dtype.kind == "f":
+            va, vb = va.view(np.uint8), vb.view(np.uint8)
+        assert np.array_equal(va, vb)
+
+
+def test_session_hit_does_not_alias_on_cuda(cuda):
+    """Poll A (K2), run B through the same kernels, poll A again: a session
+    hit that launches nothing and answers A's first bits; both equal the
+    CPU port."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.query import sessions
+
+    t = _poll_table(np.random.default_rng(20))
+    card, cpu = Instance(device=cuda), Instance(device="cpu")
+    for inst in (card, cpu):
+        inst.catalog.register(t)
+    sessions.global_sessions.clear()
+    first = card.sql(_POLL_A)
+    eng = card.query_engine
+    assert eng.last_session == "miss" and eng.last_exec_path == "device"
+    before = rf.blocked_fold_sum.launches
+    other = card.sql(_POLL_B)
+    torch.cuda.synchronize()
+    assert rf.blocked_fold_sum.launches > before
+    before = rf.blocked_fold_sum.launches
+    again = card.sql(_POLL_A)
+    torch.cuda.synchronize()
+    assert eng.last_session == "hit"
+    assert rf.blocked_fold_sum.launches == before
+    _same_result(again, first)
+    _same_result(first, cpu.sql(_POLL_A))
+    _same_result(other, cpu.sql(_POLL_B))
+
+
+@pytest.mark.parametrize("by", ["region", "hostname"])
+def test_since_delta_reads_back_its_bytes_on_cuda(cuda, by):
+    """A `since` poll narrows the resident result on the card: it reads
+    back planes x groups x (steps past the cursor) x 4 bytes, and answers
+    the full result's rows past the cursor."""
+    from greptimedb_tpu_torch.instance import Instance
+    from greptimedb_tpu_torch.query import readback
+    from greptimedb_tpu_torch.session import QueryContext
+
+    t = _poll_table(np.random.default_rng(21), hosts=64)
+    card = Instance(device=cuda)
+    card.catalog.register(t)
+    q = (f"SELECT ts, {by}, avg(u) RANGE '10m', max(v) RANGE '10m' FROM "
+         f"cpu ALIGN '10m' BY ({by})")
+    full = card.sql(q)
+    f0 = readback.readback_bytes["full"]
+    card.sql(q)
+    assert card.query_engine.last_session == "hit"
+    full_bytes = readback.readback_bytes["full"] - f0
+    ts = np.asarray(full.cols[0].values, np.int64)
+    steps = np.unique(ts)
+    groups = full.num_rows // len(steps)
+    planes = full_bytes // (groups * len(steps) * 4)
+    assert planes * groups * len(steps) * 4 == full_bytes
+    for j0 in (1, len(steps) // 2, len(steps) - 1):
+        ctx = QueryContext()
+        ctx.extensions["since_ms"] = int(steps[j0 - 1])
+        d0 = readback.readback_bytes["delta"]
+        delta = card.sql(q, ctx)
+        assert readback.readback_bytes["delta"] - d0 == \
+            planes * groups * (len(steps) - j0) * 4
+        keep = ts > steps[j0 - 1]
+        for a, b in zip(delta.cols, full.cols):
+            assert np.array_equal(np.asarray(a.values),
+                                  np.asarray(b.values)[keep])
+
+
+def test_result_cache_hit_launches_nothing_on_cuda(cuda, tmp_path):
+    """A result-cache hit on a card Standalone: no kernel launch, no byte
+    read back, the same answer; an INSERT makes the next poll miss."""
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.query import readback
+    from greptimedb_tpu_torch.query.result_cache import ResultCache
+
+    card = Standalone(str(tmp_path / "card"), device=cuda,
+                      prefer_device=True, warm_start=False)
+    try:
+        card.catalog.register(_poll_table(np.random.default_rng(22)))
+        rc = ResultCache.from_options({"enable": True})
+        card.result_cache = card.catalog.result_cache = rc
+        for q in (_POLL_A, "SELECT hostname, max(u), avg(v) FROM cpu "
+                           "GROUP BY hostname ORDER BY hostname"):
+            want = card.sql(q)
+            counts = (rf.blocked_fold_sum.launches,
+                      gr.grouped_block_reduce.launches,
+                      dict(readback.readback_bytes))
+            h0 = rc.hits
+            got = card.sql(q)
+            torch.cuda.synchronize()
+            assert rc.hits == h0 + 1
+            assert (rf.blocked_fold_sum.launches,
+                    gr.grouped_block_reduce.launches,
+                    dict(readback.readback_bytes)) == counts
+            _same_result(got, want)
+        m0 = rc.misses
+        card.sql("INSERT INTO cpu (ts, hostname, region, u, v) VALUES "
+                 "(7200000, 'host_1', 'a', 1.0, 2.0)")
+        card.sql(_POLL_A)
+        assert rc.misses == m0 + 1
+        assert card.query_engine.last_session == "miss"
+    finally:
+        card.close()

@@ -208,6 +208,44 @@ print("LEAKED", leaked)
 """
 
 
+_POLL_WORKLOAD = """
+import base64, json, sys, tempfile, urllib.request
+from greptimedb_tpu_torch.auth import StaticUserProvider
+from greptimedb_tpu_torch.instance import Standalone
+from greptimedb_tpu_torch.query.result_cache import ResultCache
+from greptimedb_tpu_torch.sched import AdmissionController, SchedulerConfig
+from greptimedb_tpu_torch.servers.http import HttpServer
+
+inst = Standalone(tempfile.mkdtemp(), device="cpu", prefer_device=True)
+inst.result_cache = inst.catalog.result_cache = ResultCache(enabled=True)
+inst.scheduler = AdmissionController(SchedulerConfig(max_concurrency=1))
+inst.sql("CREATE TABLE cpu (h STRING PRIMARY KEY, u DOUBLE, "
+         "ts TIMESTAMP TIME INDEX)")
+inst.sql("INSERT INTO cpu VALUES " + ", ".join(
+    f"('h{i % 3}', {float(i)}, {i * 1000})" for i in range(60)))
+srv = HttpServer(inst, port=0, user_provider=StaticUserProvider(
+    {"u": "p"})).start()
+q = "SELECT ts, h, avg(u) RANGE '10s' FROM cpu ALIGN '10s' BY (h)"
+tok = base64.b64encode(b"u:p").decode()
+for since in ("", "&since=30000", "&since=30000"):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/v1/sql?sql={q.replace(' ', '+')}"
+        + since, data=b"", headers={"Authorization": f"Basic {tok}"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200
+        rows = json.load(r)["output"][0]["records"]["rows"]
+    assert rows and all(r[0] > 30000 for r in rows) == bool(since)
+assert inst.query_engine.last_exec_path == "device"
+assert inst.result_cache.hits == 2
+srv.stop()
+inst.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
+print("LEAKED", leaked)
+"""
+
+
 def _run_workload(workload):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -240,6 +278,13 @@ def test_flow_workload_loads_no_jax():
     state, ADMIN flush_flow, a reopen that reloads the flow) load nothing
     of JAX, the JAX package, pyarrow or msgpack."""
     _run_workload(_FLOW_WORKLOAD)
+
+
+def test_poll_workload_loads_no_jax():
+    """The poll path (the result cache, the grid's session and `since`
+    delta over HTTP, admission control, basic auth) loads nothing of JAX,
+    the JAX package, pyarrow or msgpack."""
+    _run_workload(_POLL_WORKLOAD)
 
 
 @pytest.fixture

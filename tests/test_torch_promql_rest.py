@@ -33,6 +33,7 @@ from greptimedb_tpu_torch.catalog.table import Table
 from greptimedb_tpu_torch.parallel.mesh import MeshOptions, make_mesh
 from greptimedb_tpu_torch.promql import fast as TF
 from greptimedb_tpu_torch.promql.engine import PromEngine
+from greptimedb_tpu_torch.query import sessions
 from greptimedb_tpu_torch.query.executor import QueryEngine
 
 T0 = 1_700_000_000_000
@@ -289,6 +290,9 @@ def test_declined_shapes_match_jax_generic(rest, promql, span):
 
 
 def test_on_matching_never_enters_the_fused_binary(rest, monkeypatch):
+    # the fixture ran the binary query already: drop its resident result
+    # (query/sessions.py) so the query runs its program here
+    sessions.global_sessions.clear()
     calls = []
     real = TF._fused_binary
     monkeypatch.setattr(TF, "_fused_binary",

@@ -53,10 +53,9 @@ STEP_MS = 10_000
 # their rooflines (telemetry/device_trace.py); the `Trace:` block too
 A9_ONLY = {"stmt_fingerprint"}
 A9_PREFIXES = ("device_program_", "roofline_")
-# keys that wait for another item: the device session registry
-# (query/sessions.py, ROADMAP A4's sessions part) and the secondary tag
-# index (A8), whose scans the JAX package notes as index_pruned
-WAITING_NOTES = {"device_session": "A4", "index_lookups": "A8"}
+# keys that wait for another item: the secondary tag index (A8), whose
+# scans the JAX package notes as index_pruned
+WAITING_NOTES = {"index_lookups": "A8"}
 
 
 def _cpu_columns(rng):
