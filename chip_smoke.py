@@ -5,14 +5,14 @@
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
                           [--rest-warm 5] [--server-hours 1]
-                          [--flow-hours 3]
+                          [--flow-hours 2]
                           [--phases 1,14,17]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line). `--phases` runs the listed phases only, with phase 1 and the
 phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
-9 phases 2 and 6; 10 phase 7; 15, 16 and 17 phase 14); by default every
-phase runs. The kernels line then holds, and checks the launches of, the
+9 phases 2 and 6; 10 and 18 phase 7; 15, 16 and 17 phase 14); by default
+every phase runs. The kernels line then holds, and checks the launches of, the
 kernels of the phases that ran. Query sessions (query/sessions.py) are off
 in every phase but 17 and phase 7's repeated poll, so every warm call of
 phases 1 to 16 runs its program, as before sessions existed.
@@ -261,12 +261,12 @@ phases 1 to 16 runs its program, as before sessions existed.
 
 13. flow   — flows (continuous aggregation): phase 2's TSBS devops rows
              (same seed; 4000 hosts at 10 s, ten usage_* fields), cut to
-             the first --flow-hours 3 hours for the script's time limit
+             the first --flow-hours 2 hours for the script's time limit
              (12 is phase 2's whole span), each hour's four 15-minute
              runs without the re-delivery and tombstone runs (a flow
              mirrors every insert, so a re-delivered row would count
              twice), written in deltas of 10,000 rows (tsbs_load's
-             --batch-size; 432 deltas at 3 hours) through `_insert`'s
+             --batch-size; 288 deltas at 2 hours) through `_insert`'s
              columnar write and its flow delta into a Standalone on the card
              (engine-opened, WAL on, wal_sync at its default) with two
              flows created first: cpu_1h (avg and max of the ten fields BY
@@ -343,8 +343,10 @@ phases 1 to 16 runs its program, as before sessions existed.
              (hostname, its region, a datacenter of that region, a rack
              and an os, drawn from --seed as TSBS devops draws them,
              cmd/tsbs_generate_data/devops/host.go in the TSBS sources),
-             created by SQL DDL and INSERT in a card Standalone and in a
-             CPU Standalone, each with the cpu table registered. The first
+             created by SQL DDL and INSERT in a card Standalone with the
+             cpu table registered. The CPU port's answers come from phase
+             16's reference worker (see there), sent ahead at the phase's
+             start and compared after the card's queries. The first
              hour is ts < 3600000 (1.44 M rows). R1: a join, then GROUP BY
              datacenter over the 1.44 M-row frame (G on the card; counts
              against the tags table); R2: an uncorrelated IN over a device
@@ -359,7 +361,7 @@ phases 1 to 16 runs its program, as before sessions existed.
              (median of 3; the first warm call under query/stats'
              collector, for the join's host ms and rows) and once under
              the profiler (device ms, idle share), and equals the CPU
-             Standalone's answer bit for bit (names, row order, dtypes,
+             port's answer bit for bit (names, row order, dtypes,
              values, validity), but for R3's max of the CTE's means:
              the grid sums an hour's 360 ten-second cells in torch's
              order, which differs between the card and the CPU (ROADMAP
@@ -376,9 +378,9 @@ phases 1 to 16 runs its program, as before sessions existed.
              registered as cpu, the tags table and the view made by SQL).
              The CPU port's answers come from a worker process that builds
              phase 14's table anew on the CPU from the same seed (while
-             phases 14 and 15 run), with the same tags table and view, and
-             answers the phase's statements, sent ahead in order, while
-             the card works. EXPLAIN of Q2 (count/sum/min/max/avg/
+             phase 14 runs), with the same tags table and view, and
+             answers phase 15's queries and then this phase's statements,
+             sent ahead in order, while the card works. EXPLAIN of Q2 (count/sum/min/max/avg/
              stddev_samp/first/last of usage_user RANGE 2h ALIGN 1h BY
              region, on the grid through K2), of a GROUP BY hostname over
              the first hour (G), of R1 (G) and of the window metric's
@@ -448,6 +450,57 @@ phases 1 to 16 runs its program, as before sessions existed.
              poll: walls, launches, range programs and readback bytes.
              Kernel counts are zeroed before the phase and read after it;
              the data root is removed.
+
+18. index  — the secondary tag index, its card-resident label plane and
+             fulltext, with the json, geo and net functions.
+             a. Phase 7's prom_bench table (1 M series, no new ingest) and
+                its one-device and ring engines: sum by (dc) (rate(...))
+                and topk(5, ...) over {dc="dc3"}, {dc=~"dc(1|2)"},
+                {host=~"host_1.*"} and {dc!="dc0", host!~"host_9.*"}
+                (phase 7's dc labels are dc0..dc31), each cold and warm
+                (median of 3), with the label plane on (the mask is a
+                gather and AND over the resident (S_pad, 2) code matrix;
+                only the ok-tables move) and off
+                (`tag_index.configure({"device_plane": False})`: the host
+                mask through the index, uploaded). The set's first query
+                must take the plane with it on and the host mask with it
+                off; a repeated query must upload nothing. Plane and host
+                masks answer bit for bit; the ring equals one device as in
+                phase 7; one device equals the port on the CPU (topk
+                exactly, the aggregate within phase 7's matrix-product
+                bound), which a worker process started after phase 7
+                runs over the same rows written anew. Then per set and engine: the ok-table bytes beside
+                the S_pad bytes, the plane's gather and AND (CUDA events,
+                median of 20), the host mask's upload, and on one device
+                the host ms of each whole path (the regex over the
+                distinct values runs in both); the plane's mask must equal
+                the host's and its repeat be a cache hit that uploads
+                nothing. The plane's build ms and bytes are printed.
+             b. bench.py's index probe (bench.py:4333-4357): 1.2 M series
+                holding a host tag of 2,000 and one of 20,000 values (one
+                registry, host code only, in the same worker):
+                TagIndex.match_sids of v17(00)? equals the registry's
+                linear match, timed beside it; and 12 SSTs of
+                500 fresh hosts x 12 points in a card Standalone, where a
+                host = '...' SELECT and GROUP BY must note scan_path
+                index_pruned with index_pruned_bytes > 0 in EXPLAIN
+                ANALYZE and answer the same rows with the index off.
+             c. An append-mode access log with a FULLTEXT message column:
+                4 flushes of 270,000 lines shaped like Apache's common log
+                format (16 web servers, a line every 10 ms, from --seed),
+                so 4 SSTs of two row groups at the default 262,144 rows;
+                only the third holds "/wp_login.php", on its first row
+                group. count(*) of matches(message, ...) for that term (3
+                SSTs and 1 row group pruned), an absent term (4 SSTs), an
+                OR (nothing pruned) and a phrase (as the term), then
+                json_get_*, json_path_exists, json_is_object, st_distance,
+                geohash, h3_latlng_to_cell, st_point and the ipv4
+                functions over the first 1,000 lines; every answer equals
+                the port on the CPU (the worker, over the same rows
+                written anew) with the sidecars removed (which must prune
+                nothing).
+             Kernel counts are zeroed before the phase and read after its
+             queries; the data roots are removed.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -2109,7 +2162,9 @@ def promql_phase(args, dev):
           "ring_comm_bytes": notes["ring", topk_qs[1]]["comm_bytes"],
           "repeated_poll": {"query": q_poll, **session},
           "phase_seconds": time.perf_counter() - t_phase})
-    return rows, {"catalog": catalog, "series": n}
+    return rows, {"catalog": catalog, "series": n, "engine": engine,
+                  "engines": engines, "max_rate": max_rate,
+                  "members": members, "gamma": gamma}
 
 
 # ---- phase 10: promql_rest -------------------------------------------
@@ -5521,7 +5576,7 @@ def relational_standalones(args, dev, window_out, name, roots, insts,
     return tuple(insts[-len(devices):])
 
 
-# phases 16 and 17's CPU reference: phase 14's table built again on the
+# phases 15 to 17's CPU reference: phase 14's table built again on the
 # CPU from the same seed (the same rows, compacted by the CPU port), in a
 # process of its own (a one-worker pool, so its calls run in the order
 # they were sent), which builds while phases 14 and 15 run and answers
@@ -5566,7 +5621,7 @@ def wref_close():
 
 
 def start_window_reference(args):
-    """The reference worker of phases 16 and 17 (see above), in a
+    """The reference worker of phases 15 to 17 (see above), in a
     temporary data root; stop_window_reference stops it."""
     import multiprocessing as mp
     import tempfile
@@ -5600,9 +5655,10 @@ class RefCalls:
         return res
 
 
-def relational_phase(args, dev, window_out):
-    """Phase 15 (see the module docstring). Returns the launches of the
-    kernels its queries ran on the card."""
+def relational_phase(args, dev, window_out, wref):
+    """Phase 15 (see the module docstring); `wref` is the CPU reference
+    worker (start_window_reference). Returns the launches of the kernels
+    its queries ran on the card."""
     import shutil
 
     from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
@@ -5615,8 +5671,11 @@ def relational_phase(args, dev, window_out):
     out = {"rows": int(table.row_count())}
     try:
         t = time.perf_counter()
-        card, cpu = relational_standalones(args, dev, window_out, "relational",
-                                           roots, insts)
+        ref = RefCalls(wref)    # the CPU port's answers, from the worker
+        asked = {name: ref.ask(sql) for name, sql in REL_QUERIES.items()}
+        asked_tags = ref.ask("SELECT datacenter FROM tags")
+        card, = relational_standalones(args, dev, window_out, "relational",
+                                       roots, insts, devices=(dev,))
         out["setup_seconds"] = time.perf_counter() - t
         gr.grouped_block_reduce.launches = 0
         rf.blocked_fold_sum.launches = 0
@@ -5655,19 +5714,6 @@ def relational_phase(args, dev, window_out):
                     times.append((time.perf_counter() - t) * 1e3)
                 if k == 0:
                     joined = dict(st.counters)
-            t = time.perf_counter()
-            want = cpu.sql(sql)
-            cpu_ms = (time.perf_counter() - t) * 1e3
-            identical, worst = True, 0.0
-            if name in REL_BOUNDED:
-                if [np.asarray(c.values).dtype for c in res.cols] != [
-                        np.asarray(c.values).dtype for c in want.cols]:
-                    raise AssertionError(f"relational {name}: dtypes")
-                identical, worst = compare_engines(
-                    f"relational {name}", want, res, HOUR_MS // STEP_MS,
-                    bounded=REL_BOUNDED[name])
-            else:
-                same_window_result(f"relational {name}", res, want)
             if res.num_rows == 0:
                 raise AssertionError(f"relational {name}: no rows")
             if g_cold == 0:
@@ -5686,12 +5732,27 @@ def relational_phase(args, dev, window_out):
                 "idle_share": prof["idle_share"],
                 "join_ms": joined.get("join_ms"),
                 "join_rows": joined.get("join_rows"),
-                "cpu_port_ms": cpu_ms, "g_launches_cold": g_cold,
-                "bit_identical_to_cpu": identical,
-                "max_rel_diff_to_cpu": worst,
+                "g_launches_cold": g_cold,
                 "range_plans": range_paths, "grid": grid,
                 "profile_warm": prof,
             }
+        # the CPU port's answers, in the order they were asked
+        for name, res in results.items():
+            s0 = ref.seconds
+            want = ref.got(asked[name])
+            identical, worst = True, 0.0
+            if name in REL_BOUNDED:
+                if [np.asarray(c.values).dtype for c in res.cols] != [
+                        np.asarray(c.values).dtype for c in want.cols]:
+                    raise AssertionError(f"relational {name}: dtypes")
+                identical, worst = compare_engines(
+                    f"relational {name}", want, res, HOUR_MS // STEP_MS,
+                    bounded=REL_BOUNDED[name])
+            else:
+                same_window_result(f"relational {name}", res, want)
+            out[name].update({"cpu_port_ms": (ref.seconds - s0) * 1e3,
+                              "bit_identical_to_cpu": identical,
+                              "max_rel_diff_to_cpu": worst})
             emit({"relational_query": name,
                   **{k: v for k, v in out[name].items()
                      if k not in ("profile_warm", "warm_ms")}})
@@ -5706,7 +5767,7 @@ def relational_phase(args, dev, window_out):
         got = dict(zip(r1.column("datacenter").values.tolist(),
                        r1.column("count(*)").values.tolist()))
         want = {}
-        for d in cpu.sql("SELECT datacenter FROM tags").cols[0].values:
+        for d in ref.got(asked_tags).cols[0].values:
             want[d] = want.get(d, 0) + HOUR_MS // STEP_MS
         if got != want:
             raise AssertionError("relational R1: counts differ from the "
@@ -5719,6 +5780,8 @@ def relational_phase(args, dev, window_out):
     launches = {"grouped_block_reduce": gr.grouped_block_reduce.launches,
                 "blocked_fold_sum": rf.blocked_fold_sum.launches}
     out["launches"] = launches
+    out["cpu_reference_seconds"] = ref.seconds
+    out["cpu_reference_wait_seconds"] = ref.waited
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "relational", **out})
     return launches
@@ -6465,6 +6528,670 @@ def poll_phase(args, dev, window_out, wref):
     return launches
 
 
+# ---- phase 18: index --------------------------------------------------
+
+# phase 7's prom_bench labels are host_i and dc = "dc{i % 32}": the four
+# matcher sets as PromQL selector text and as registry matchers
+INDEX_SETS = {
+    "dc_eq": ('dc="dc3"', [("dc", "eq", "dc3")]),
+    "dc_re": ('dc=~"dc(1|2)"', [("dc", "re", "dc(1|2)")]),
+    "host_re": ('host=~"host_1.*"', [("host", "re", "host_1.*")]),
+    "neg": ('dc!="dc0", host!~"host_9.*"',
+            [("dc", "ne", "dc0"), ("host", "nre", "host_9.*")]),
+}
+INDEX_QUERIES = ("sum by (dc) (rate(prom_bench{{{m}}}[1m]))",
+                 "topk(5, rate(prom_bench{{{m}}}[1m]))")
+INDEX_WARM = 3
+# bench.py's index probe (bench.py:4333-4357): 12 SSTs of 500 fresh hosts
+# x 12 points, and a regex over 1.2 M series at 2,000 and 20,000 values
+IDX_BATCHES = 12
+IDX_HOSTS_PER_BATCH = 500
+IDX_POINTS = 12
+IDX_CARD_SERIES = 1_200_000
+IDX_CARDS = (2_000, 20_000)
+# the log table: 4 flushes of 270,000 access-log lines (two row groups of
+# the default 262,144 rows each), 16 web servers, a line every 10 ms
+LOG_SSTS = 4
+LOG_ROWS = 270_000
+LOG_HOSTS = 16
+LOG_T0 = 1_700_000_000_000
+LOG_STEP_MS = 10
+LOG_RARE_SST = 2        # the only flush with "/wp_login.php" lines
+LOG_PATHS = ("/", "/index.html", "/robots.txt", "/favicon.ico",
+             "/static/app.js", "/static/site.css", "/img/logo.png",
+             "/api/v1/items", "/api/v1/orders", "/search", "/login",
+             "/cart", "/checkout", "/blog/2023/tsdb", "/docs/install")
+LOG_USERS = ("-", "-", "-", "-", "alice", "bob", "carol", "dave")
+LOG_STATUS = (200, 200, 200, 200, 200, 304, 301, 404, 403, 500)
+LOG_UA = ("curl/8.4.0", "Mozilla/5.0", "Googlebot/2.1", "python/3.12")
+LOG_QUERIES = {
+    "present": ("wp_login", {"ssts_pruned_fulltext": 3,
+                             "row_groups_pruned_fulltext": 1}),
+    "absent": ("xmlrpc", {"ssts_pruned_fulltext": 4}),
+    "or": ("wp_login OR robots", {}),
+    "phrase": ('"POST /wp_login.php HTTP"',
+               {"ssts_pruned_fulltext": 3, "row_groups_pruned_fulltext": 1}),
+}
+LOG_FUNCS = (
+    "SELECT ts, host, ipv4_string_to_num(client), "
+    "ipv4_in_range(client, '10.0.0.0/8'), ipv4_num_to_string(bytes), "
+    "json_get_int(attrs, '$.status'), json_get_string(attrs, '$.ua'), "
+    "json_get_float(attrs, '$.rt'), json_path_exists(attrs, '$.ref'), "
+    "json_is_object(attrs), st_distance(lat, lon, 37.7749, -122.4194), "
+    "geohash(lat, lon, 6), h3_latlng_to_cell(lat, lon, 8), "
+    "st_point(lat, lon) FROM access_log WHERE ts < {cut} "
+    "ORDER BY host, ts")
+LOG_FUNC_ROWS = 1000
+
+
+def same_bits(a, b) -> bool:
+    """Two PromQL vectors bit for bit at their own dtype: labels in
+    order, presence and every present value."""
+    if a.labels != b.labels or not np.array_equal(a.present, b.present):
+        return False
+    va, vb = a.values[a.present], b.values[b.present]
+    return va.dtype == vb.dtype and bool(np.array_equal(
+        va.view(f"u{va.dtype.itemsize}"), vb.view(f"u{vb.dtype.itemsize}")))
+
+
+def index_sets():
+    """INDEX_SETS' registry matchers with their regexes compiled as the
+    PromQL engine compiles them."""
+    from greptimedb_tpu_torch.query.expr import compile_matcher
+
+    return {name: [(t, op, compile_matcher(v) if op in ("re", "nre")
+                    else v) for t, op, v in m]
+            for name, (_, m) in INDEX_SETS.items()}
+
+
+_IREF_POOL = []
+
+
+def start_index_reference(args):
+    """Phase 18's host-only work in a worker process, started after phase
+    7 so that it runs beside phases 8 to 17: the port on the CPU
+    over phase 7's prom_bench rows (18a's references), the 1.2 M-series
+    cardinality probe (18b) and the port on the CPU over the access log
+    (18c's references). stop_index_reference stops it."""
+    import multiprocessing as mp
+
+    pool = mp.get_context("spawn").Pool(1)
+    _IREF_POOL.append(pool)
+    # in the order phase 18 reads them
+    return {"prom": pool.apply_async(prom_cpu_reference,
+                                     (args.prom_series,)),
+            "probe": pool.apply_async(cardinality_probe),
+            "logs": pool.apply_async(log_cpu_reference, (args.seed,))}
+
+
+def stop_index_reference(clean: bool = True):
+    while _IREF_POOL:
+        pool = _IREF_POOL.pop()
+        if clean:
+            pool.close()
+        else:
+            pool.terminate()
+        pool.join()
+
+
+def prom_cpu_reference(n):
+    """The port on the CPU (x64, as phase 7's engines) over prom_bench's
+    n series: every 18a query's answer, and the seconds it took."""
+    import types
+
+    from greptimedb_tpu_torch.catalog.manager import CatalogManager
+    from greptimedb_tpu_torch.catalog.table import Table
+    from greptimedb_tpu_torch.promql.engine import PromEngine
+    from greptimedb_tpu_torch.query import sessions
+    from greptimedb_tpu_torch.query.executor import QueryEngine
+
+    torch.set_num_threads(4)
+    sessions.configure({"enable": False})
+    t = time.perf_counter()
+    table = Table("prom_bench", ts_name="ts", tag_names=["host", "dc"],
+                  fields=["greptime_value"])
+    prom_ingest(table, n)
+    catalog = CatalogManager()
+    catalog.register(table)
+    eng = PromEngine(types.SimpleNamespace(catalog=catalog,
+                                           query_engine=QueryEngine(
+                                               device="cpu", x64=True)))
+    res = {key: eng.query_range(q, *PROM_SPAN)[0]
+           for key, q in index_queries().items()}
+    return res, time.perf_counter() - t
+
+
+def cardinality_probe():
+    """18b's first half (host code only): TagIndex.match_sids of
+    v17(00)? over 1.2 M series against the registry's linear match, at
+    2,000 and at 20,000 host values."""
+    import re
+
+    from greptimedb_tpu_torch.index import tag_index
+    from greptimedb_tpu_torch.storage.series import SeriesRegistry
+
+    # one registry of 1.2 M series holds both host columns (bench.py
+    # builds one registry a cardinality; the interning is the cost)
+    t = time.perf_counter()
+    reg = SeriesRegistry([f"host_{c}" for c in IDX_CARDS] + ["id"])
+    reg.intern_rows(
+        [np.asarray([f"v{i % c}" for i in range(IDX_CARD_SERIES)], object)
+         for c in IDX_CARDS]
+        + [np.asarray([f"s{i}" for i in range(IDX_CARD_SERIES)], object)])
+    card = {"intern_s": time.perf_counter() - t}
+    ix = tag_index.TagIndex(reg)
+    for c in IDX_CARDS:
+        m = [(f"host_{c}", "re", re.compile(r"v17(00)?"))]
+        t = time.perf_counter()
+        got = ix.match_sids(m)          # the first builds the postings
+        cold_ms = (time.perf_counter() - t) * 1e3
+        want = reg.match_sids(m)
+        if got.dtype != np.int32 or not np.array_equal(got, want):
+            raise AssertionError(f"index: postings differ from the linear "
+                                 f"match at {c} values")
+        ix_ms, lin_ms = [], []
+        for _ in range(3):
+            ix._results.clear()     # evaluate, not the result cache
+            t = time.perf_counter()
+            ix.match_sids(m)
+            ix_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            reg.match_sids(m)
+            lin_ms.append((time.perf_counter() - t) * 1e3)
+        card[c] = {"cold_ms": cold_ms, "index_ms": min(ix_ms),
+                   "linear_ms": min(lin_ms), "matched": int(len(got))}
+    return card
+
+
+def index_queries() -> dict:
+    """18a's queries by (matcher set, query)."""
+    return {(s, j): t.format(m=sel)
+            for s, (sel, _) in INDEX_SETS.items()
+            for j, t in enumerate(INDEX_QUERIES)}
+
+
+def plane_part(dev, prom_out, iref, out):
+    """18a: the four matcher sets on phase 7's 1 M series, plane on and
+    off, one device and the four-shard ring, against the CPU port; then
+    per set what the mask moves and costs on each path."""
+    from greptimedb_tpu_torch.index import device_plane, tag_index
+    from greptimedb_tpu_torch.promql import fast as TF
+
+    engines = {k: prom_out["engines"][k] for k in ("single", "ring")}
+    queries = index_queries()
+
+    def entry_of(eng):
+        # phase 7's cached grids: one device, and the ring's (mesh, no
+        # mesh options; the gather twin's carry kernels off)
+        return next(e for k, e in TF._CACHE._entries.items()
+                    if k[2] == str(dev) and k[4] is None
+                    and (k[3] is None) == (eng == "single"))
+
+    def clear_masks():
+        for e in TF._CACHE._entries.values():
+            e.match_cache.clear()
+        device_plane.invalidate()
+
+    res, walls, paths = {}, {}, {}
+    for mode in ("plane", "host"):
+        tag_index.configure({"device_plane": mode == "plane"})
+        clear_masks()
+        for eng_name, eng in engines.items():
+            for key, q in queries.items():
+                p0, l0 = device_plane.stats(), tag_index.lookup_counts()
+                t = time.perf_counter()
+                res[mode, eng_name, key] = eng.query_range(q, *PROM_SPAN)[0]
+                torch.cuda.synchronize()
+                cold = (time.perf_counter() - t) * 1e3
+                p1, l1 = device_plane.stats(), tag_index.lookup_counts()
+                warm = [walls_one(lambda: eng.query_range(q, *PROM_SPAN))
+                        for _ in range(INDEX_WARM)]
+                p2 = device_plane.stats()
+                if p2["ok_upload_bytes"] != p1["ok_upload_bytes"] or \
+                        p2["plane_upload_bytes"] != p1["plane_upload_bytes"]:
+                    raise AssertionError(f"index: a repeated {q} uploaded")
+                walls[mode, eng_name, key] = {
+                    "cold_ms": cold, "warm_median_ms": float(np.median(warm))}
+                moved = {k: p1[k] - p0[k] for k in (
+                    "builds", "build_ms", "plane_upload_bytes",
+                    "mask_misses", "ok_upload_bytes")}
+                moved["host_lookups"] = sum(l1.values()) - sum(l0.values())
+                paths[mode, eng_name, key] = moved
+                # the set's first query makes its mask: on the plane with
+                # the plane on, through the index on the host without it
+                if key[1] == 0:
+                    on_plane = moved["mask_misses"] == 1
+                    if on_plane != (mode == "plane") or (
+                            mode == "host" and not moved["host_lookups"]):
+                        raise AssertionError(
+                            f"index: {q} on {eng_name} took the wrong mask "
+                            f"path with the plane {mode}: {moved}")
+    tag_index.configure({"device_plane": True})
+    # ---- answers: plane = host mask bit for bit; engines agree as phase
+    # 7's do; one device = the CPU port (topk exact, the aggregate within
+    # phase 7's matrix-product bound)
+    t = time.perf_counter()
+    cpu_res, cpu_s = iref["prom"].get(timeout=900)
+    waited = time.perf_counter() - t
+    bound_per = 2 * prom_out["gamma"] * prom_out["max_rate"]
+    agg_rel = 0.0
+    for key, q in queries.items():
+        for eng_name in engines:
+            if not same_bits(res["plane", eng_name, key],
+                             res["host", eng_name, key]):
+                raise AssertionError(f"index: plane and host masks answer "
+                                     f"{q} differently on {eng_name}")
+        if not same_vector(res["plane", "single", key],
+                           res["plane", "ring", key]):
+            raise AssertionError(f"index: ring differs from one device on "
+                                 f"{q}")
+        a, c = res["plane", "single", key], cpu_res[key]
+        if key[1] == 1:
+            if not same_vector(a, c):
+                raise AssertionError(f"index: {q} differs from the CPU port")
+            continue
+        if a.labels != c.labels or not np.array_equal(a.present, c.present):
+            raise AssertionError(f"index: {q}'s groups differ from the CPU")
+        members = np.asarray([prom_out["members"][int(lb["dc"][2:])]
+                              for lb in a.labels])
+        diff = np.abs(a.values - c.values)
+        if not np.all(diff <= bound_per * members[:, None]):
+            raise AssertionError(f"index: {q} past the matrix-product bound")
+        if a.present.any():
+            agg_rel = max(agg_rel, float(np.max(
+                diff[a.present] / np.abs(c.values[a.present]))))
+    # ---- per set: what the mask moves and costs on each path ---------
+    sets = index_sets()
+    per_set = {}
+    for name, m in sets.items():
+        row = {}
+        for eng_name in engines:
+            entry = entry_of(eng_name)
+            p = device_plane._get_plane(entry.registry, entry.s_pad,
+                                        entry.devices)
+            cols, oks = device_plane._ok_tables(p, entry.registry, m)
+            oks_dev = [torch.from_numpy(ok).to(dev) for ok in oks]
+
+            def gather(p=p, cols=cols, oks_dev=oks_dev):
+                for c in p.dev_codes:
+                    device_plane._gather_and(c, cols, oks_dev)
+
+            def plane_call(p=p, entry=entry, m=m):
+                p.mask_cache.clear()
+                device_plane.matcher_mask_dev(
+                    entry.registry, m, entry.s_pad, devices=entry.devices,
+                    num_series=entry.num_series)
+
+            ix = tag_index.index_for(entry.registry)
+
+            def host_mask(ix=ix, entry=entry, m=m):
+                ix._results.clear()
+                mask = np.zeros(entry.s_pad, bool)
+                mask[:entry.num_series] = tag_index.match_mask(
+                    entry.registry, m)
+                return mask
+
+            mask = host_mask()
+            s0 = device_plane.stats()
+            plane_call()
+            again = device_plane.matcher_mask_dev(
+                entry.registry, m, entry.s_pad, devices=entry.devices,
+                num_series=entry.num_series)
+            s1 = device_plane.stats()
+            if s1["mask_hits"] != s0["mask_hits"] + 1 or \
+                    s1["ok_upload_bytes"] != s0["ok_upload_bytes"] + sum(
+                        ok.nbytes for ok in oks):
+                raise AssertionError(f"index: set {name}'s repeat on "
+                                     f"{eng_name} was no cache hit")
+            got = torch.cat([t.cpu() for t in again[0]]).numpy()
+            if not np.array_equal(got, mask):
+                raise AssertionError(f"index: plane mask of {name} on "
+                                     f"{eng_name} differs from the host's")
+            row[eng_name] = {
+                "ok_table_bytes": int(sum(ok.nbytes for ok in oks)),
+                "ok_table_entries": [int(ok.size) for ok in oks],
+                "s_pad_bytes": int(entry.s_pad),
+                "matched": int(mask.sum()),
+                "plane_gather_ms": cuda_ms(gather),
+                "host_upload_ms": host_ms(
+                    lambda entry=entry, mask=mask: (
+                        TF._sharded(entry, mask),
+                        torch.cuda.synchronize()), reps=5, warm=1),
+            }
+            if eng_name == "single":
+                # the host work of both paths (the regex over the distinct
+                # values runs in each), three calls each
+                row[eng_name]["plane_call_ms"] = host_ms(plane_call, reps=3,
+                                                         warm=0)
+                row[eng_name]["host_mask_ms"] = host_ms(host_mask, reps=3,
+                                                        warm=0)
+        per_set[name] = row
+    builds = {eng_name: {k: paths["plane", eng_name, (s, j)][k]
+                         for k in ("build_ms", "plane_upload_bytes")}
+              for eng_name in engines
+              for s, j in [next(iter(queries))]}
+    out["plane"] = {
+        "queries": {f"{mode}/{eng}/{queries[key]}": {
+            **walls[mode, eng, key], "moved": paths[mode, eng, key]}
+            for mode, eng, key in walls},
+        "per_set": per_set, "plane_builds": builds,
+        "cpu_reference_worker_s": cpu_s, "cpu_reference_waited_s": waited,
+        "agg_max_rel_diff_vs_cpu": agg_rel,
+        "checks": {"plane_equals_host_mask": True, "engines_identical": True,
+                   "equals_cpu_port": True, "repeat_uploads_nothing": True}}
+
+
+def index_probe_part(dev, iref, out):
+    """18b: the tag index at bench.py's index-probe shapes: the worker's
+    cardinality probe, then pruned SQL on the card."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.index import tag_index
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.query.executor import QueryResult
+
+    t = time.perf_counter()
+    card = iref["probe"].get(timeout=900)
+    card["waited_s"] = time.perf_counter() - t
+    root = tempfile.mkdtemp(prefix="chip_smoke_index_")
+    inst = None
+    try:
+        inst = Standalone(root, device=dev, warm_start=False)
+        inst.sql("create table idxt (ts timestamp time index, "
+                 "host string primary key, v double)")
+        table = inst.catalog.table("public", "idxt")
+        for b in range(IDX_BATCHES):
+            hosts = np.repeat(np.asarray(
+                [f"b{b}_h{i}" for i in range(IDX_HOSTS_PER_BATCH)], object),
+                IDX_POINTS)
+            ts = (np.tile(np.arange(IDX_POINTS, dtype=np.int64) * 1000,
+                          IDX_HOSTS_PER_BATCH) + b)
+            table.write({"host": hosts}, ts,
+                        {"v": np.arange(len(ts), dtype=np.float64)})
+            table.flush()
+        target = f"b{IDX_BATCHES // 2}_h7"
+        qs = {"plain": f"SELECT ts, host, v FROM idxt WHERE host = "
+                       f"'{target}' ORDER BY ts",
+              "groupby": f"SELECT host, sum(v), count(*) FROM idxt WHERE "
+                         f"host = '{target}' GROUP BY host"}
+        sql = {}
+        for name, q in qs.items():
+            got = inst.sql(q)
+            _, rows, notes = explain_parts(inst.sql(f"EXPLAIN ANALYZE {q}"))
+            if notes.get("scan_path") != "index_pruned" or \
+                    float(notes.get("index_pruned_bytes", 0)) <= 0:
+                raise AssertionError(f"index: {name} notes {notes}")
+            warm = [walls_one(lambda q=q: inst.sql(q)) for _ in range(3)]
+            tag_index.configure({"enable": False})
+            try:
+                off = inst.sql(q)
+                _, _, off_notes = explain_parts(
+                    inst.sql(f"EXPLAIN ANALYZE {q}"))
+                off_warm = [walls_one(lambda q=q: inst.sql(q))
+                            for _ in range(3)]
+            finally:
+                tag_index.configure({"enable": True})
+            if not isinstance(got, QueryResult) or rows != got.num_rows or \
+                    list(got.names) != list(off.names) or not all(
+                        same_column(a, b) for a, b in zip(got.cols,
+                                                          off.cols)):
+                raise AssertionError(f"index: {name} differs with the "
+                                     f"index off")
+            if off_notes.get("scan_path") != "full_scan":
+                raise AssertionError(f"index off: {name} {off_notes}")
+            sql[name] = {
+                "rows": got.num_rows, "warm_median_ms": float(np.median(warm)),
+                "warm_median_ms_index_off": float(np.median(off_warm)),
+                **{k: notes[k] for k in notes if k.startswith(("index_",
+                                                               "row_groups"))},
+                "off": {k: off_notes[k] for k in off_notes
+                        if k.startswith(("index_", "row_groups"))}}
+    finally:
+        if inst is not None:
+            inst.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["probe"] = {"cardinality": card, "sql": sql,
+                    "ssts": IDX_BATCHES,
+                    "rows": IDX_BATCHES * IDX_HOSTS_PER_BATCH * IDX_POINTS}
+
+
+def log_batch(rng, b):
+    """One flush of the access log: LOG_ROWS lines shaped like Apache's
+    common log format, with the client's address, status, size, a json
+    attribute document and the client's coordinates as their own
+    columns. Only flush LOG_RARE_SST holds "/wp_login.php" lines, all on
+    the first web server."""
+    n = LOG_ROWS
+    i0 = b * n
+    hosts = np.asarray([f"web_{j % LOG_HOSTS:02d}"
+                        for j in range(i0, i0 + n)], object)
+    ts = LOG_T0 + (np.arange(i0, i0 + n, dtype=np.int64) * LOG_STEP_MS)
+    ip = rng.integers(0, 256, (n, 4))
+    ip[:, 0] = rng.choice([10, 66, 172, 192, 203], n)
+    client = np.asarray([f"{a}.{b_}.{c}.{d}" for a, b_, c, d in ip.tolist()],
+                        object)
+    users = np.asarray(LOG_USERS, object)[rng.integers(0, len(LOG_USERS), n)]
+    paths = np.asarray(LOG_PATHS, object)[rng.integers(0, len(LOG_PATHS), n)]
+    methods = np.where(rng.random(n) < 0.85, "GET", "POST").astype(object)
+    if b == LOG_RARE_SST:
+        rare = (np.arange(n) % LOG_HOSTS == 0) & (rng.random(n) < 0.05)
+        paths[rare] = "/wp_login.php"
+        methods[rare] = "POST"
+    status = np.asarray(LOG_STATUS, np.int64)[
+        rng.integers(0, len(LOG_STATUS), n)]
+    size = rng.integers(0, 1 << 20, n).astype(np.int64)
+    rt = np.round(rng.gamma(2.0, 0.05, n), 4)
+    ua = np.asarray(LOG_UA, object)[rng.integers(0, len(LOG_UA), n)]
+    stamps = np.datetime_as_string(ts.astype("datetime64[ms]"), unit="s")
+    msg = np.asarray([
+        f'{c} - {u} [{d}+0000] "{mt} {p} HTTP/1.1" {s} {z}'
+        for c, u, d, mt, p, s, z in zip(
+            client.tolist(), users.tolist(), stamps.tolist(),
+            methods.tolist(), paths.tolist(), status.tolist(),
+            size.tolist())], object)
+    attrs = np.asarray([
+        f'{{"status": {s}, "ua": "{a}", "rt": {r}}}' if j % 7 else
+        f'{{"status": {s}, "ua": "{a}", "rt": {r}, "ref": "/"}}'
+        for j, (s, a, r) in enumerate(zip(status.tolist(), ua.tolist(),
+                                          rt.tolist()))], object)
+    lat = np.round(rng.uniform(-60, 70, n), 4)
+    lon = np.round(rng.uniform(-180, 180, n), 4)
+    return ({"host": hosts}, ts,
+            {"message": msg, "client": client, "status": status,
+             "bytes": size, "lat": lat, "lon": lon, "attrs": attrs})
+
+
+LOG_DDL = ("CREATE TABLE access_log (ts TIMESTAMP TIME INDEX, "
+           "host STRING PRIMARY KEY, message STRING FULLTEXT, "
+           "client STRING, status BIGINT, bytes BIGINT, lat DOUBLE, "
+           "lon DOUBLE, attrs STRING) WITH (append_mode = 'true')")
+
+
+def log_matches(query: str) -> str:
+    return (f"SELECT count(*) FROM access_log WHERE matches(message, "
+            f"'{query}')")
+
+
+def write_logs(inst, seed) -> tuple:
+    """The access log in `inst` (LOG_DDL), written and flushed a batch at
+    a time from `seed`: (its region, the seconds of each step)."""
+    inst.sql(LOG_DDL)
+    table = inst.catalog.table("public", "access_log")
+    region = table.regions[0]
+    if region.meta.fulltext_fields != ["message"]:
+        raise AssertionError(f"index: fulltext fields "
+                             f"{region.meta.fulltext_fields}")
+    rng = np.random.default_rng(seed + 18)
+    seconds = {"generate": 0.0, "write": 0.0, "flush": 0.0}
+    for b in range(LOG_SSTS):
+        t = time.perf_counter()
+        tags, ts, fields = log_batch(rng, b)
+        seconds["generate"] += time.perf_counter() - t
+        t = time.perf_counter()
+        table.write(tags, ts, fields)
+        seconds["write"] += time.perf_counter() - t
+        t = time.perf_counter()
+        table.flush()
+        seconds["flush"] += time.perf_counter() - t
+    metas = list(region.manifest.state.ssts)
+    if len(metas) != LOG_SSTS or not all(m.fulltext for m in metas):
+        raise AssertionError("index: the log SSTs lack their sidecars")
+    return region, seconds
+
+
+def plain_result(res) -> tuple:
+    """A query result as picklable arrays: names, (values, validity)."""
+    return (list(res.names), [(np.asarray(c.values),
+                               np.asarray(c.valid_mask)) for c in res.cols])
+
+
+def same_plain(a, b) -> bool:
+    import types
+
+    if a[0] != b[0] or len(a[1]) != len(b[1]):
+        return False
+    return all(same_column(types.SimpleNamespace(values=va, valid_mask=ma),
+                           types.SimpleNamespace(values=vb, valid_mask=mb))
+               for (va, ma), (vb, mb) in zip(a[1], b[1]))
+
+
+def log_cpu_reference(seed):
+    """18c's reference: the port on the CPU over the same access-log rows
+    written anew, with the sidecars removed after the flushes so that
+    nothing may be pruned: every count and the functions' rows."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.query import stats
+    from greptimedb_tpu_torch.storage.sst import sidecar_path
+
+    torch.set_num_threads(4)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_logs_cpu_")
+    inst = None
+    try:
+        inst = Standalone(root, device="cpu", warm_start=False)
+        region, _ = write_logs(inst, seed)
+        for m in region.manifest.state.ssts:
+            region.store.delete(sidecar_path(m.path))
+        answers = {}
+        for name, (query, _) in LOG_QUERIES.items():
+            with stats.collect() as st:
+                answers[name] = plain_result(inst.sql(log_matches(query)))
+            if st.counters.get("ssts_pruned_fulltext") or \
+                    st.counters.get("row_groups_pruned_fulltext"):
+                raise AssertionError("index: the sidecar-less scan pruned")
+        answers["functions"] = plain_result(inst.sql(LOG_FUNCS.format(
+            cut=LOG_T0 + LOG_FUNC_ROWS * LOG_STEP_MS)))
+    finally:
+        if inst is not None:
+            inst.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return answers, time.perf_counter() - t0
+
+
+def fulltext_part(args, dev, iref, out):
+    """18c: fulltext on an append-mode access log with a FULLTEXT message
+    column, flushed into LOG_SSTS SSTs at the default row-group size,
+    against the worker's CPU port over the same rows without sidecars."""
+    import shutil
+    import tempfile
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.query import stats
+    from greptimedb_tpu_torch.storage.sst import sidecar_path
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_logs_")
+    inst = None
+    try:
+        inst = Standalone(root, device=dev, warm_start=False)
+        region, seconds = write_logs(inst, args.seed)
+        sidecar_bytes = sum(len(region.store.read(sidecar_path(m.path)))
+                            for m in region.manifest.state.ssts)
+        answers, q_out = {}, {}
+        for name, (query, want) in LOG_QUERIES.items():
+            with stats.collect() as st:
+                t = time.perf_counter()
+                res = inst.sql(log_matches(query))
+                wall = (time.perf_counter() - t) * 1e3
+            answers[name] = plain_result(res)
+            c = st.counters
+            got = {k: int(c.get(k, 0)) for k in (
+                "ssts_pruned_fulltext", "row_groups_pruned_fulltext",
+                "row_groups_read", "row_groups_total")}
+            for k, v in want.items():
+                if got[k] != v:
+                    raise AssertionError(f"index: {name} pruned {got}, "
+                                         f"not {want}")
+            if not want and (got["ssts_pruned_fulltext"]
+                             or got["row_groups_pruned_fulltext"]):
+                raise AssertionError(f"index: {name} pruned {got}")
+            q_out[name] = {"query": query, "wall_ms": wall,
+                           "count": int(res.cols[0].values[0]), **got}
+        if q_out["present"]["count"] == 0 or q_out["absent"]["count"] != 0:
+            raise AssertionError(f"index: log counts {q_out}")
+        t = time.perf_counter()
+        funcs = inst.sql(LOG_FUNCS.format(
+            cut=LOG_T0 + LOG_FUNC_ROWS * LOG_STEP_MS))
+        funcs_ms = (time.perf_counter() - t) * 1e3
+        if funcs.num_rows != LOG_FUNC_ROWS:
+            raise AssertionError(f"index: functions rows {funcs.num_rows}")
+        answers["functions"] = plain_result(funcs)
+    finally:
+        if inst is not None:
+            inst.close()
+        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    ref, ref_s = iref["logs"].get(timeout=900)
+    seconds["cpu_reference_waited"] = time.perf_counter() - t
+    seconds["cpu_reference_worker"] = ref_s
+    for name, got in answers.items():
+        if not same_plain(got, ref[name]):
+            raise AssertionError(f"index: {name} differs from the CPU port "
+                                 f"without sidecars")
+    out["fulltext"] = {"rows": LOG_SSTS * LOG_ROWS, "ssts": LOG_SSTS,
+                       "sidecar_bytes": sidecar_bytes, "seconds": seconds,
+                       "queries": q_out, "functions_rows": LOG_FUNC_ROWS,
+                       "functions_ms": funcs_ms}
+
+
+def index_phase(args, dev, prom_out, iref):
+    """Phase 18 (see the module docstring); `iref` is the reference
+    worker's pending answers (start_index_reference). Returns every
+    kernel's launches over the phase's main path."""
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.parallel.kernels import segmented_scan as ss
+    from greptimedb_tpu_torch.parallel.kernels import topk_merge as tm
+
+    t_phase = time.perf_counter()
+    out = {}
+    # every kernel wrapper's count (the PromQL programs launch K2, the
+    # ring topk and G here)
+    mods = {"gather_planes": mg, **{f: rf for f in FOLD_KERNELS},
+            **{k: tm for k in TOPK_KERNELS},
+            **{k: gr for k in GROUPED_KERNELS}, "segmented_scan": ss}
+    for n, m in mods.items():
+        getattr(m, n).launches = 0
+    t = time.perf_counter()
+    plane_part(dev, prom_out, iref, out)
+    out["plane"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    index_probe_part(dev, iref, out)
+    out["probe"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fulltext_part(args, dev, iref, out)
+    out["fulltext"]["part_seconds"] = time.perf_counter() - t
+    launches = {n: getattr(m, n).launches for n, m in mods.items()
+                if getattr(m, n).launches}
+    emit({"phase": "index", **out, "launches": launches,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 def walls_one(fn) -> float:
     """One warm host wall (ms) of `fn`, synchronised with the card."""
     t = time.perf_counter()
@@ -6475,8 +7202,8 @@ def walls_one(fn) -> float:
 
 # phases whose inputs another phase makes: a selected phase brings these
 PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
-               11: {2}, 15: {14}, 16: {14}, 17: {14}}
-ALL_PHASES = tuple(range(1, 18))
+               11: {2}, 15: {14}, 16: {14}, 17: {14}, 18: {7}}
+ALL_PHASES = tuple(range(1, 19))
 
 
 def selected_phases(text: str | None) -> set:
@@ -6652,13 +7379,14 @@ def run(args) -> int:
         return run_phases(args, dev, P, build, want, t_script)
     finally:
         stop_window_reference(clean=False)
+        stop_index_reference(clean=False)
 
 
 _WREF_POOL = []
 
 
 def stop_window_reference(clean: bool = True):
-    """Stop the reference worker of phases 16 and 17, if one started:
+    """Stop the reference worker of phases 15 to 17, if one started:
     closed (its data root removed) after a run, terminated after a
     failure."""
     import shutil
@@ -6700,10 +7428,14 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
         mesh_out = mesh_phase(args, dev, P)
         kernels += mesh_out["rows"]
     # ---- 7. promql ---------------------------------------------------
-    prom_out = None
+    prom_out = iref = None
     if 7 in want:
         prom_rows, prom_out = promql_phase(args, dev)
         kernels += prom_rows
+    if 18 in want:
+        # phase 18's CPU references build meanwhile, after phase 7's
+        # timings
+        iref = start_index_reference(args)
     # ---- 8. sql ------------------------------------------------------
     sql_launches, hop_launches, sql_per_launch = {}, {}, {}
     q2_warm = {"hops": {}, "fused": {}}
@@ -6733,14 +7465,14 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
             **{**vars(args), "hours": args.flow_hours}), dev)
     # ---- 14. window ----------------------------------------------------
     window_out = wref = None
-    if want & {16, 17}:
-        # phases 16 and 17's CPU reference builds its table meanwhile
+    if want & {15, 16, 17}:
+        # phases 15 to 17's CPU reference builds its table meanwhile
         wref = start_window_reference(args)
     if 14 in want:
         window_rows_, window_out = window_phase(args, dev)
         kernels += window_rows_
     # ---- 15. relational ------------------------------------------------
-    rel_launches = relational_phase(args, dev, window_out) \
+    rel_launches = relational_phase(args, dev, window_out, wref) \
         if 15 in want else {}
     # ---- 16. session ---------------------------------------------------
     session_launches = session_phase(args, dev, window_out, wref) \
@@ -6749,6 +7481,10 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
     poll_launches = poll_phase(args, dev, window_out, wref) \
         if 17 in want else {}
     stop_window_reference()
+    # ---- 18. index -----------------------------------------------------
+    index_launches = index_phase(args, dev, prom_out, iref) \
+        if 18 in want else {}
+    stop_index_reference()
     # every kernel's launches over the main-path runs of the phases that
     # ran; the hop ring's seed, continuation and combines run in phase 8
     # only, Gt in phase 9 only, G in phases 9, 10, 12, 13, 15 and 16, S in
@@ -6806,6 +7542,9 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
         if poll_launches.get(name):
             row["launches"] += poll_launches[name]
             row["launches_poll"] = poll_launches[name]
+        if index_launches.get(name):
+            row["launches"] += index_launches[name]
+            row["launches_index"] = index_launches[name]
         if name == "gather_planes" and window_out is not None:
             row["launches"] += window_out["k1_launches"]
             row["launches_window_table"] = window_out["k1_launches"]
@@ -6839,7 +7578,7 @@ def main() -> int:
                     help="warm runs of each phase-10 query (median)")
     ap.add_argument("--server-hours", type=int, default=1,
                     help="hours of TSBS devops phase 12 writes over HTTP")
-    ap.add_argument("--flow-hours", type=int, default=3,
+    ap.add_argument("--flow-hours", type=int, default=2,
                     help="hours of TSBS devops phase 13 writes into flows")
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run (default: all); "

@@ -71,7 +71,8 @@ class TableInfo:
             "columns": [
                 {"name": c.name, "type": c.data_type.name,
                  "semantic": int(c.semantic_type), "nullable": c.nullable,
-                 "default": c.default}
+                 "default": c.default, "fulltext": c.fulltext,
+                 "inverted_index": c.inverted_index}
                 for c in self.schema.columns
             ],
             "schema_version": self.schema.version,
@@ -85,7 +86,10 @@ class TableInfo:
                 data_type=ConcreteDataType.from_name(c["type"]),
                 semantic_type=SemanticType(c["semantic"]),
                 nullable=c.get("nullable", True),
-                default=c.get("default"))
+                default=c.get("default"),
+                # a catalog written before the flags has no such keys
+                fulltext=c.get("fulltext", False),
+                inverted_index=c.get("inverted_index", False))
             for c in d["columns"]
         ]
         return TableInfo(
@@ -236,7 +240,9 @@ class CatalogManager:
             region_id=info.region_id, table=info.name,
             tag_names=s.tag_names, field_names=s.field_names,
             ts_name=s.ts_name,
-            options=region_options_from_table(info.options))
+            options=region_options_from_table(info.options),
+            fulltext_fields=[c.name for c in s.field_columns
+                             if getattr(c, "fulltext", False)])
 
     def _open_table(self, info: TableInfo):
         from greptimedb_tpu_torch.catalog.table import Table

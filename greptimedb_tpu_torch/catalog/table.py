@@ -31,7 +31,6 @@ from greptimedb_tpu_torch.datatypes.schema import (
     Schema,
     SemanticType,
 )
-from greptimedb_tpu_torch.index import tag_index
 from greptimedb_tpu_torch.storage.memtable import (
     OP_DELETE,
     OP_PUT,
@@ -172,10 +171,12 @@ class Table:
 
     def scan(self, field_names: list[str] | None = None, *,
              ts_min: int | None = None, ts_max: int | None = None,
-             matchers: list | None = None) -> TableScanData:
+             matchers: list | None = None,
+             fulltext: list | None = None) -> TableScanData:
         """Merged rows of `field_names` (default: every field) with ts in
         [ts_min, ts_max], of the series every tag matcher (tag, op, value)
-        accepts; rows sorted by (sid, ts)."""
+        accepts; rows sorted by (sid, ts). `fulltext` (column, required
+        terms) pairs let the SST reads skip row groups."""
         names = field_names if field_names is not None else self.field_names
         from greptimedb_tpu_torch import cancellation
 
@@ -185,10 +186,11 @@ class Table:
         region = self.region
         sids = None
         if matchers:
-            sids = tag_index.match_sids(region.series, matchers)
+            sids = region.match_sids(matchers)
             if len(sids) == 0:
                 return TableScanData(None, region.series, names)
-        rows = region.scan(names, ts_min=ts_min, ts_max=ts_max, sids=sids)
+        rows = region.scan(names, ts_min=ts_min, ts_max=ts_max, sids=sids,
+                           fulltext=fulltext)
         return TableScanData(rows, region.series, names)
 
     def data_version(self) -> tuple:

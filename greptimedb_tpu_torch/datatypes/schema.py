@@ -35,6 +35,10 @@ class ColumnSchema:
     semantic_type: SemanticType = SemanticType.FIELD
     nullable: bool = True
     default: Any = None
+    # fulltext-index flag, mirroring upstream's fulltext column option
+    fulltext: bool = False
+    # inverted-index flag for tag pruning
+    inverted_index: bool = False
 
     @property
     def is_tag(self) -> bool:

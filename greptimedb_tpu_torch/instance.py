@@ -549,7 +549,7 @@ class Instance:
             cols.append(ColumnSchema(
                 name=cd.name, data_type=cd.data_type, semantic_type=sem,
                 nullable=cd.nullable and sem == SemanticType.FIELD,
-                default=_const_default(cd.default)))
+                default=_const_default(cd.default), fulltext=cd.fulltext))
         schema = Schema(cols)
         options = dict(stmt.options)
         num_regions = int(options.pop("num_regions", 1))

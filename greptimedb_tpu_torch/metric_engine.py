@@ -64,19 +64,17 @@ class LogicalTable(Table):
                                    field_valid=field_valid, op=op)
 
     def scan(self, field_names=None, *, ts_min=None, ts_max=None,
-             matchers=None) -> TableScanData:
+             matchers=None, fulltext=None) -> TableScanData:
         m = list(matchers) if matchers else []
         m.append((TABLE_ID_TAG, "eq", self._tid))
         names = field_names if field_names is not None else self.field_names
         return self.physical.scan(names, ts_min=ts_min, ts_max=ts_max,
-                                  matchers=m)
+                                  matchers=m, fulltext=fulltext)
 
     def scoped_sids(self, region) -> np.ndarray:
-        """This table's sids on the physical region."""
-        from greptimedb_tpu_torch.index import tag_index
-
-        return tag_index.match_sids(region.series,
-                                    [(TABLE_ID_TAG, "eq", self._tid)])
+        """This table's sids on the physical region: a posting lookup on
+        the __table_id tag through the secondary index."""
+        return region.match_sids([(TABLE_ID_TAG, "eq", self._tid)])
 
     def data_version(self) -> tuple:
         return (self.physical.region.data_version,

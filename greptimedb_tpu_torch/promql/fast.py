@@ -55,6 +55,7 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
+from greptimedb_tpu_torch.index import device_plane, tag_index
 from greptimedb_tpu_torch.ops import promql as K
 from greptimedb_tpu_torch.ops import window as W
 from greptimedb_tpu_torch.promql.parser import (
@@ -407,20 +408,31 @@ def _plan_windows(entry: _Entry, ev, range_ms: int, offset_ms: int, *,
 
 def _matcher_mask_dev(entry: _Entry, matchers):
     """Per-shard card-resident (S_pad / shards,) bool masks for a matcher
-    set (padded series are always False) and whether any series matched.
-    Cached so repeated queries move no bytes."""
+    set (padded series are always False) and whether any series matched:
+    from the resident label plane where it serves the set, else the host
+    mask through the secondary index, uploaded. Cached so repeated queries
+    move no bytes."""
     key = tuple((name, op, value.pattern if hasattr(value, "pattern")
                  else value) for name, op, value in matchers)
     hit = entry.match_cache.get(key)
     if hit is not None:
         return hit
-    mask = np.zeros(entry.s_pad, bool)
+    out = None
     if matchers:
-        mask[:entry.num_series] = entry.registry.match_mask(
-            matchers)[:entry.num_series]
-    else:
-        mask[:entry.num_series] = True
-    out = (_sharded(entry, mask), bool(mask.any()))
+        # card-resident label plane (index/device_plane): the mask is a
+        # gather+AND over the resident codes matrix, per shard — only the
+        # per-distinct-value ok-tables cross to the card
+        out = device_plane.matcher_mask_dev(
+            entry.registry, matchers, entry.s_pad, devices=entry.devices,
+            num_series=entry.num_series)
+    if out is None:
+        mask = np.zeros(entry.s_pad, bool)
+        if matchers:
+            mask[:entry.num_series] = tag_index.match_mask(
+                entry.registry, matchers)[:entry.num_series]
+        else:
+            mask[:entry.num_series] = True
+        out = (_sharded(entry, mask), bool(mask.any()))
     if len(entry.match_cache) >= 128:
         entry.match_cache.pop(next(iter(entry.match_cache)))
     entry.match_cache[key] = out

@@ -25,7 +25,8 @@ device-resident (series x time-cell) partial-state grids:
 
 States are float32/int32 as in the JAX package's device path; indices are
 int64 only where torch indexing requires it. Tag matchers of the WHERE
-clause become a host sid mask (index/tag_index.match_sids) that the
+clause become a host sid mask (index/tag_index.match_sids, through the
+secondary index's postings) that the
 prelude and every shard's program apply. Where the JAX package declines
 a shape (residual filters, expression arguments, non-tag keys, unaligned
 time bounds, oversized grids, `prefer_device` off or a small table), the
@@ -1527,9 +1528,8 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     empty = engine._empty_result(names)
     sid_mask = None
     mask_key = None
-    # no secondary tag index yet (ROADMAP A8): the registry matches
-    record_scan_path(False)
     if s.matchers:
+        record_scan_path(tag_index.enabled())
         sids = tag_index.match_sids(entry.registry, s.matchers)
         if len(sids) == 0:
             return empty
@@ -1539,6 +1539,8 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         # of hashing an O(num_series) mask per query
         mask_key = (tag_index.matcher_key(s.matchers),
                     entry.registry.version)
+    else:
+        record_scan_path(False)
     active, ts_min_f, ts_max_f = run_prelude(entry, sid_mask, lo, hi)
     if ts_min_f is None:
         return empty

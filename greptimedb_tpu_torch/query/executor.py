@@ -404,17 +404,27 @@ class QueryEngine:
                 ts_min = (since + 1 if ts_min is None
                           else max(ts_min, since + 1))
         with stats.timed("scan_ms"):
+            ft = None
+            if getattr(plan.scan, "fulltext", None):
+                from greptimedb_tpu_torch.query.fulltext import required_terms
+
+                ft = [
+                    (col, terms) for col, q in plan.scan.fulltext
+                    if (terms := required_terms(q))
+                ] or None
             data = table.scan(field_names, ts_min=ts_min,
                               ts_max=plan.scan.ts_max,
-                              matchers=plan.scan.matchers or None)
-        # no secondary tag index yet (ROADMAP A8): every scan is full
-        record_scan_path(False)
+                              matchers=plan.scan.matchers or None,
+                              fulltext=ft)
+        record_scan_path(bool(plan.scan.matchers) and tag_index.enabled())
         stats.add("rows_scanned", data.num_rows)
         stats.add("series_total", data.registry.num_series)
         if stats.active() is not None and plan.scan.matchers:
             # selectivity is worth a re-match under EXPLAIN ANALYZE only
-            stats.add("series_matched", len(tag_index.match_sids(
-                table.region.series, plan.scan.matchers)))
+            # (the index result cache makes this a dict hit, not a scan)
+            stats.add("series_matched", sum(
+                len(r.match_sids(plan.scan.matchers))
+                for r in table.regions))
         src = RowsSource(data.rows, data.registry, table.tag_names,
                          table.ts_name)
         if plan.scan.residual is not None and src.num_rows:

@@ -4,8 +4,8 @@ package's query/functions.py).
 GreptimeDB's function registry (src/common/function/src/scalars/ upstream
 and DataFusion built-ins): date/time functions, math, string helpers,
 conditionals. Aggregate functions are NOT here — the planner turns them
-into range items. The fulltext, `version` and json/geo/net families live
-in modules not ported yet and raise UnsupportedError naming the function.
+into range items. The fulltext functions evaluate through
+query/fulltext.py, the json/geo/net families through query/functions_ext.py.
 """
 
 from __future__ import annotations
@@ -362,11 +362,23 @@ def eval_scalar_function(e: A.FuncCall, src: ColumnSource) -> Col:
             np.asarray([bool(rx.search(str(v))) for v in c.values], bool),
             c.validity,
         )
-    if name in ("matches", "matches_term"):
-        # fulltext matching lives in query/fulltext.py, not ported yet
-        raise UnsupportedError(
-            f"{name}: the fulltext functions are not ported yet "
-            "(ROADMAP A4)")
+    if name == "matches":
+        # fulltext query over a string column: terms with AND/OR/NOT and
+        # "quoted phrases" (upstream: common-function scalars matches +
+        # the tantivy-backed fulltext index, src/index/src/fulltext_index/)
+        from greptimedb_tpu_torch.query.fulltext import eval_matches
+
+        c = eval_expr(args[0], src)
+        query = str(_const_arg(args[1]))
+        return Col(eval_matches(c.values, query), c.validity)
+    if name == "matches_term":
+        # literal term occurrence with non-alphanumeric boundaries — the
+        # term is NOT parsed as a query
+        from greptimedb_tpu_torch.query.fulltext import eval_matches_term
+
+        c = eval_expr(args[0], src)
+        term = str(_const_arg(args[1]))
+        return Col(eval_matches_term(c.values, term), c.validity)
     if name == "starts_with":
         c = eval_expr(args[0], src)
         prefix = str(_const_arg(args[1]))
@@ -391,10 +403,13 @@ def eval_scalar_function(e: A.FuncCall, src: ColumnSource) -> Col:
         return Col(np.full(n, "public", object))
 
     # ---- json / geo / net families (query/functions_ext.py) -----------
-    # not ported yet: they raise below, naming the function
-    raise UnsupportedError(
-        f"unknown function: {name} (the json, geo and net functions are "
-        "not ported yet: ROADMAP A4)")
+    from greptimedb_tpu_torch.query import functions_ext
+
+    out = functions_ext.try_eval(name, args, src)
+    if out is not None:
+        return out
+
+    raise UnsupportedError(f"unknown function: {name}")
 
 
 def _string_fn(name: str, args, src) -> Col:

@@ -268,9 +268,9 @@ def record_kernel_decision(kind: str, kernel: str, reason: str) -> None:
 
 
 def record_scan_path(pruned: bool) -> None:
-    """Note whether a scan rode the secondary tag index (`index_pruned`)
-    or read the whole table (`full_scan`). The port has no secondary
-    index yet (ROADMAP A8), so its scans pass False."""
+    """Note whether a scan rode the secondary tag index (`index_pruned`:
+    it had matchers and the index is enabled) or read the whole table
+    (`full_scan`)."""
     stats.note("scan_path", "index_pruned" if pruned else "full_scan")
 
 

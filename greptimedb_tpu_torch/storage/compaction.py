@@ -44,7 +44,9 @@ from greptimedb_tpu_torch.storage.memtable import _concat_rows
 from greptimedb_tpu_torch.storage.sst import (
     TIER_COLD,
     TIER_HOT,
+    delete_sst,
     read_sst_bytes,
+    sidecar_path,
     write_sst,
 )
 
@@ -292,7 +294,7 @@ def run_task(region, task: CompactionTask,
                 "add_ssts": [],
             })
         for m in task.files:
-            region.store_for(m).delete(m.path)
+            delete_sst(region.store_for(m), m)
         region._compactions += 1
         return True
 
@@ -311,7 +313,7 @@ def run_task(region, task: CompactionTask,
         if not all(m.file_id in live for m in task.files):
             # lost a race with truncate/TTL purge/another compaction:
             # abort without touching the manifest
-            out_store.delete(new_path)
+            delete_sst(out_store, new_meta)
             return False
         region.manifest.commit({
             "kind": "compact",
@@ -320,7 +322,7 @@ def run_task(region, task: CompactionTask,
         })
         region._compactions += 1
     for m in task.files:
-        region.store_for(m).delete(m.path)
+        delete_sst(region.store_for(m), m)
     return True
 
 
@@ -401,17 +403,21 @@ def purge_expired(region, *, now_ms: int | None = None) -> int:
         # purged rows
         region._truncate_epoch += 1
     for m in expired:
-        region.store_for(m).delete(m.path)
+        delete_sst(region.store_for(m), m)
     return len(expired)
 
 
 def cleanup_orphan_ssts(region) -> int:
-    """Delete SST objects under the region's sst/ and
+    """Delete SST objects (and sidecars) under the region's sst/ and
     cold/ prefixes that the freshly loaded manifest does not reference
     — the leftovers of a crash between an SST write and its manifest
     commit (flush or compaction). Runs at region open, before any
     concurrent flush can add new files."""
-    live = {m.path for m in region.manifest.state.ssts}
+    live: set[str] = set()
+    for m in region.manifest.state.ssts:
+        live.add(m.path)
+        if m.fulltext:
+            live.add(sidecar_path(m.path))
     removed = 0
     for tier in (TIER_HOT, TIER_COLD):
         store = region.store_for_tier(tier)

@@ -72,7 +72,7 @@ class RegionMetadata:
     field_names: list[str]
     ts_name: str
     options: RegionOptions = field(default_factory=RegionOptions)
-    # columns with flush-time fulltext indexes: not ported (must be empty)
+    # columns with flush-time fulltext term indexes (puffin sidecars)
     fulltext_fields: list = field(default_factory=list)
 
 
@@ -596,18 +596,30 @@ class Region:
         return (self.data_version, self._compactions,
                 tuple(self.meta.field_names))
 
+    def match_sids(self, matchers) -> np.ndarray:
+        """Matched sids for a tag-matcher set, routed through the
+        secondary tag index (index/): eq/in are posting lookups, re/ne
+        evaluate over the distinct-value dictionary; results memoized per
+        matcher set and validated against the registry version."""
+        from greptimedb_tpu_torch import index as _index
+
+        return _index.match_sids(self.series, matchers)
+
     def scan(self, field_names: list[str] | None = None, *,
              ts_min: int | None = None, ts_max: int | None = None,
              sids: np.ndarray | None = None,
-             raw: bool = False) -> ColumnarRows | None:
+             raw: bool = False,
+             fulltext: list | None = None) -> ColumnarRows | None:
         """Merged + deduped rows sorted by (sid, ts), tombstones applied,
         cut to ts in [ts_min, ts_max] and the series in `sids` (None:
-        unbounded). `raw` keeps every version (sorted by (sid, ts, seq))."""
+        unbounded). `raw` keeps every version (sorted by (sid, ts, seq)).
+        `fulltext` is a list of (column, required terms) that lets the
+        SST reads skip row groups by their fulltext sidecars."""
         if self.meta.options.ttl_ms is not None and ts_min is None:
             ts_min = int(time.time() * 1000) - self.meta.options.ttl_ms
         names = (field_names if field_names is not None
                  else self.meta.field_names)
-        if not raw:
+        if fulltext is None and not raw:
             hit = self._scan_cached(names, ts_min, ts_max, sids)
             if hit is not None:
                 return hit
@@ -623,7 +635,8 @@ class Region:
             # merge below is never stamped as included in the cache
             snap_key = self._scan_key()
             scan_names = names
-            if sids is None and not raw and ts_min is None and ts_max is None:
+            if (sids is None and fulltext is None and not raw
+                    and ts_min is None and ts_max is None):
                 approx = (sum(t.rows for t in tables)
                           + sum(len(r) for r in stored)
                           + sum(m.rows for m in ssts))
@@ -636,12 +649,20 @@ class Region:
             rows = self._scan_memory(tables, stored, scan_names, ts_min,
                                      ts_max, sids, raw)
         else:
+            # fulltext row-group pruning is VALUE-based: under last-write-
+            # wins dedup, skipping a group that holds a newer overwrite or
+            # tombstone would resurrect the shadowed row. Append-mode
+            # regions (the log-table shape fulltext serves) have no dedup,
+            # so pruning is sound there; everywhere else the residual
+            # filter alone does the matching.
+            ft = fulltext if self.meta.options.append_mode else None
             rows = self._scan_durable(tables, ssts, scan_names, ts_min,
-                                      ts_max, sids, raw)
+                                      ts_max, sids, raw, ft)
         if rows is None:
             return None
-        if not raw and self._maybe_cache_scan(snap_key, rows, ts_min,
-                                              ts_max, sids):
+        if (not raw and fulltext is None
+                and self._maybe_cache_scan(snap_key, rows, ts_min,
+                                           ts_max, sids)):
             # the cached container never escapes
             rows = _shallow_rows(rows, names)
         elif scan_names is not names:
@@ -666,7 +687,10 @@ class Region:
         # by sid alone yields (sid, ts) order, as dedup_rows would
         return _slice_rows(rows, np.argsort(rows.sid, kind="stable"))
 
-    def _scan_durable(self, tables, ssts, names, ts_min, ts_max, sids, raw):
+    def _scan_durable(self, tables, ssts, names, ts_min, ts_max, sids, raw,
+                      fulltext=None):
+        from greptimedb_tpu_torch.index.tag_index import count_pruned
+        from greptimedb_tpu_torch.query import stats as _stats
         from greptimedb_tpu_torch.storage.sst import read_sst
 
         chunks: list[ColumnarRows] = []
@@ -679,9 +703,12 @@ class Region:
                                      or meta.sid_min > smax):
                 # the manifest's sid range misses the matched set: the
                 # file is skipped without opening it
+                _stats.add("index_ssts_skipped", 1)
+                count_pruned(bytes_=meta.size_bytes, scope="sst")
                 continue
             r = read_sst(self.store_for(meta), meta, ts_min=ts_min,
-                         ts_max=ts_max, field_names=names, sids=sids)
+                         ts_max=ts_max, field_names=names, sids=sids,
+                         fulltext=fulltext)
             if r is not None:
                 chunks.append(r)
         for mt in tables:
@@ -759,6 +786,8 @@ class Region:
 
     # ------------------------------------------------------------------
     def truncate(self):
+        from greptimedb_tpu_torch.storage.sst import delete_sst
+
         with self._lock:
             _scan_pool.drop(self)
             self._truncate_epoch += 1
@@ -770,7 +799,7 @@ class Region:
                 return
             entry_id = self.wal.next_entry_id - 1
             for s in self.manifest.state.ssts:
-                self.store_for(s).delete(s.path)
+                delete_sst(self.store_for(s), s)
             self.manifest.commit({
                 "kind": "truncate",
                 "truncated_entry_id": entry_id,

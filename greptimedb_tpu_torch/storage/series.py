@@ -222,6 +222,12 @@ class SeriesRegistry:
             keep &= ok_codes_for(vals, op, value)[codes[:, i]]
         return keep
 
+    def match_sids(self, matchers: list[tuple[str, str, object]]
+                   ) -> np.ndarray:
+        """Ascending int32 sids whose tags satisfy all matchers: the
+        full-plane compare the secondary index (index/) is held to."""
+        return np.nonzero(self.match_mask(matchers))[0].astype(np.int32)
+
     def series_tags(self, sid: int) -> dict[str, str]:
         row = self._rows[sid]
         return {

@@ -25,18 +25,22 @@ Rows inside an SST are sorted by (__series, __ts, __seq). Readers prune row
 groups by their ts range and the sid index before decoding. A null reads
 back as 0 ("" for strings), as the JAX package's Arrow decode fills it;
 parity with the JAX package is on what is read back, never on file bytes.
-The fulltext sidecar (a puffin file) is not ported.
+
+The fulltext sidecar is the JAX package's, byte for byte: a puffin
+container (storage/puffin.py) beside the SST holding, per FULLTEXT column,
+a zlib-compressed JSON term -> row-group map. `read_sst` skips the row
+groups that lack a query's required terms.
 """
 
 from __future__ import annotations
 
 import json
 import struct
+import zlib
 from dataclasses import dataclass
 
 import numpy as np
 
-from greptimedb_tpu_torch.errors import UnsupportedError
 from greptimedb_tpu_torch.storage.memtable import ColumnarRows, _slice_rows
 from greptimedb_tpu_torch.storage.object_store import ObjectStore
 
@@ -71,7 +75,7 @@ class SstMeta:
     # sid range floor for whole-SST pruning (region.scan skips files whose
     # [sid_min, sid_max] cannot intersect the matched sid set)
     sid_min: int = 0
-    # a fulltext sidecar: never set by the port (kept for the manifest)
+    # a <path>.puffin sidecar with flush-time fulltext term indexes
     fulltext: bool = False
     # storage tier
     tier: str = TIER_HOT
@@ -89,8 +93,79 @@ def sort_rows(rows: ColumnarRows) -> ColumnarRows:
     return _slice_rows(rows, order)
 
 
+FULLTEXT_BLOB = "greptime-fulltext-index-v1"
+
+
 def sidecar_path(path: str) -> str:
     return path + ".puffin"
+
+
+def delete_sst(store: ObjectStore, meta: SstMeta) -> None:
+    """Delete an SST object and, where it has one, its fulltext
+    sidecar."""
+    store.delete(meta.path)
+    if meta.fulltext:
+        store.delete(sidecar_path(meta.path))
+
+
+def _build_fulltext_sidecar(rows: ColumnarRows, fulltext_fields,
+                            row_group_rows: int) -> bytes | None:
+    """Flush-time fulltext index: per fulltext-flagged column a
+    term -> row-group map (upstream's tantivy index at row-group
+    granularity, this engine's pruning unit), shipped in a puffin
+    sidecar next to the SST. The bytes equal the JAX package's for the
+    same sorted rows (JSON key order is first appearance; zlib's default
+    level). A row group's values are tokenized as one text joined by a
+    space, with the JAX package's `_WORD_RE`: a word never spans a
+    non-word character, so the words and their order are the rows'
+    own."""
+    from greptimedb_tpu_torch.query.fulltext import _WORD_RE
+    from greptimedb_tpu_torch.storage.puffin import PuffinWriter
+
+    w = PuffinWriter()
+    any_blob = False
+    n = len(rows)
+    for col in fulltext_fields or ():
+        vals = rows.fields.get(col)
+        if vals is None:
+            continue
+        valid = (rows.field_valid or {}).get(col)
+        doc: dict[str, list] = {}
+        for g, start in enumerate(range(0, n, row_group_rows)):
+            part = vals[start:start + row_group_rows]
+            if valid is not None:
+                part = part[valid[start:start + row_group_rows]]
+            text = " ".join(str(v) for v in part).lower()
+            for t in dict.fromkeys(_WORD_RE.findall(text)):
+                doc.setdefault(t, []).append(g)
+        w.add_blob(FULLTEXT_BLOB, zlib.compress(json.dumps(doc).encode()),
+                   {"column": col})
+        any_blob = True
+    return w.finish() if any_blob else None
+
+
+def _fulltext_allowed_groups(store, meta, fulltext) -> set | None:
+    """Row groups that can satisfy EVERY (column, required-terms)
+    constraint; None -> no constraint applies; empty set -> whole SST
+    prunable."""
+    from greptimedb_tpu_torch.storage.puffin import PuffinReader
+
+    try:
+        reader = PuffinReader(store.read(sidecar_path(meta.path)))
+    except (FileNotFoundError, ValueError):
+        return None
+    allowed: set | None = None
+    for col, terms in fulltext:
+        blob = reader.find(FULLTEXT_BLOB, column=col)
+        if blob is None:
+            continue   # column unindexed in this SST: no pruning
+        index = json.loads(zlib.decompress(reader.read(blob)))
+        for t in terms:
+            groups = set(index.get(t, ()))
+            allowed = groups if allowed is None else (allowed & groups)
+            if not allowed:
+                return set()
+    return allowed
 
 
 def _col_bytes(vals: np.ndarray) -> tuple[bytes, str]:
@@ -241,6 +316,13 @@ class SstFile:
                                      np.uint8).astype(bool)
         return values, validity
 
+    def group_bytes(self, g: int) -> int:
+        """Bytes of one row group's column and validity buffers (what the
+        JAX package reads as Parquet's row-group total_byte_size)."""
+        grp = self.groups[g]
+        return (sum(at[1] for at in grp["cols"].values())
+                + sum(at[1] for at in grp["valid"].values()))
+
     def sid_index(self) -> tuple[np.ndarray, np.ndarray]:
         idx = self.header["sid_index"]
         sids = np.frombuffer(bytes(self._raw(idx["at"])), "<i4").astype(
@@ -259,13 +341,14 @@ def write_sst(
     tier: str = TIER_HOT,
     fulltext_fields: list | None = None,
 ) -> SstMeta:
-    """Write sorted rows as one SST object; returns its metadata."""
-    if fulltext_fields:
-        raise UnsupportedError(
-            "fulltext SST sidecars (puffin) are not ported (ROADMAP A4/A8)")
+    """Write sorted rows as one SST object (and its fulltext sidecar, when
+    a fulltext column is given); returns its metadata."""
     rows = sort_rows(rows)
     data = encode_sst(rows, row_group_rows=row_group_rows)
     store.write(path, data)
+    sidecar = _build_fulltext_sidecar(rows, fulltext_fields, row_group_rows)
+    if sidecar is not None:
+        store.write(sidecar_path(path), sidecar)
     n = len(rows)
     return SstMeta(
         file_id=file_id,
@@ -276,6 +359,7 @@ def write_sst(
         sid_max=int(rows.sid.max()) if n else -1,
         sid_min=int(rows.sid.min()) if n else 0,
         size_bytes=len(data),
+        fulltext=sidecar is not None,
         level=level,
         tier=tier,
     )
@@ -351,16 +435,21 @@ def read_sst(
     sids: np.ndarray | None = None,
     fulltext: list | None = None,
 ) -> ColumnarRows | None:
-    """Read an SST with row-group pruning by ts range and the sid index,
-    then row-filter to the exact range (and optional sid set). Decoded
-    row groups ride the page cache."""
-    if fulltext and meta.fulltext:
-        raise UnsupportedError(
-            "fulltext SST sidecars (puffin) are not ported (ROADMAP A4/A8)")
+    """Read an SST with row-group pruning by ts range, the sid index and
+    the fulltext sidecar, then row-filter to the exact range (and
+    optional sid set). Decoded row groups ride the page cache."""
+    from greptimedb_tpu_torch.query import stats
+
     if ts_min is not None and meta.ts_max < ts_min:
         return None
     if ts_max is not None and meta.ts_min > ts_max:
         return None
+    ft_allowed = None
+    if fulltext and meta.fulltext:
+        ft_allowed = _fulltext_allowed_groups(store, meta, fulltext)
+        if ft_allowed is not None and not ft_allowed:
+            stats.add("ssts_pruned_fulltext", 1)
+            return None
     from greptimedb_tpu_torch.storage.page_cache import read_columns
 
     f = SstFile.open(store, meta.path)
@@ -371,7 +460,13 @@ def read_sst(
     sids_sorted = np.sort(sids) if sids is not None else None
     sid_index = f.sid_index() if sids is not None else None
     groups = []
+    ft_pruned = 0
+    sid_pruned = 0
+    sid_pruned_bytes = 0
     for g, grp in enumerate(f.groups):
+        if ft_allowed is not None and g not in ft_allowed:
+            ft_pruned += 1
+            continue
         if ts_min is not None and grp["ts_max"] < ts_min:
             continue
         if ts_max is not None and grp["ts_min"] > ts_max:
@@ -380,12 +475,19 @@ def read_sst(
             offsets, all_sids = sid_index
             members = all_sids[offsets[g]:offsets[g + 1]]
             if not np.isin(members, sids_sorted, assume_unique=True).any():
+                sid_pruned += 1
+                sid_pruned_bytes += f.group_bytes(g)
                 continue
         groups.append(g)
-    from greptimedb_tpu_torch.query import stats
-
     stats.add("row_groups_total", len(f.groups))
     stats.add("row_groups_read", len(groups))
+    if ft_pruned:
+        stats.add("row_groups_pruned_fulltext", ft_pruned)
+    if sid_pruned:
+        from greptimedb_tpu_torch.index.tag_index import count_pruned
+
+        count_pruned(row_groups=sid_pruned, bytes_=sid_pruned_bytes,
+                     scope="row_group")
     if not groups:
         return None
     decoded = read_columns(f, meta.path, groups, cols)

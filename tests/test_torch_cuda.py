@@ -2382,3 +2382,52 @@ def test_result_cache_hit_launches_nothing_on_cuda(cuda, tmp_path):
         assert card.query_engine.last_session == "miss"
     finally:
         card.close()
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_device_plane_masks_match_host_mask_on_cuda(cuda, shards):
+    """The resident label plane's masks (gather + AND on the card) equal
+    the host mask through the secondary index, on one device and on four
+    shards of one card; a repeated set uploads nothing."""
+    import re
+
+    from greptimedb_tpu_torch.index import device_plane, tag_index
+    from greptimedb_tpu_torch.storage.series import SeriesRegistry
+
+    rng = np.random.default_rng(21)
+    n, s_pad = 100_003, 1 << 17
+    reg = SeriesRegistry(["host", "dc", "os"])
+    reg.intern_rows([
+        np.asarray([f"host_{i}" for i in range(n)], object),
+        np.asarray([f"dc_{v}" for v in rng.integers(0, 8, n)], object),
+        np.asarray([f"os_{v}" for v in rng.integers(0, 3, n)], object)])
+    device_plane.invalidate()
+    devices = [cuda] * shards
+    sets = [
+        [("dc", "eq", "dc_3")],
+        [("dc", "re", re.compile("dc_(1|2)"))],
+        [("host", "re", re.compile("host_1.*"))],
+        [("dc", "ne", "dc_0"), ("host", "nre", re.compile("host_9.*"))],
+        [("os", "in", ["os_0", "os_2"]), ("dc", "nin", ["dc_7"])],
+        [("ghost", "eq", "x")],
+        [("host", "eq", "nosuch")],
+    ]
+    for m in sets:
+        out = device_plane.matcher_mask_dev(reg, m, s_pad, devices=devices,
+                                            num_series=n)
+        assert out is not None, m
+        masks, any_match = out
+        assert len(masks) == shards
+        assert all(t.is_cuda and t.dtype == torch.bool for t in masks)
+        host = np.zeros(s_pad, bool)
+        host[:n] = tag_index.match_mask(reg, m)
+        got = torch.cat([t.cpu() for t in masks]).numpy()
+        assert np.array_equal(got, host), m
+        assert any_match == bool(host.any())
+        before = device_plane.stats()
+        again = device_plane.matcher_mask_dev(reg, m, s_pad, devices=devices,
+                                              num_series=n)
+        after = device_plane.stats()
+        assert again is out
+        assert after["ok_upload_bytes"] == before["ok_upload_bytes"]
+        assert after["plane_upload_bytes"] == before["plane_upload_bytes"]

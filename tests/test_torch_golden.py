@@ -21,11 +21,6 @@ from tests.test_golden import format_result, golden_files, parse_cases
 
 WAITING = {
     "copy_roundtrip": "A2's tail",           # COPY
-    "fulltext_matches": "A4",                # query/fulltext.py
-    "fulltext_search": "A4",
-    "geo_network_functions": "A4",           # functions_ext.py
-    "json_functions_edge": "A4",             # functions_ext.py
-    "json_geo": "A4",
     "multi_region_partition": "A10",         # more than one region
     "partition_basic": "A10",
 }

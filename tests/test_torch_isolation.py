@@ -246,6 +246,42 @@ print("LEAKED", leaked)
 """
 
 
+_INDEX_WORKLOAD = """
+import sys, tempfile
+from greptimedb_tpu_torch.index import device_plane
+from greptimedb_tpu_torch.instance import Standalone
+from greptimedb_tpu_torch.promql.engine import PromEngine
+
+inst = Standalone(tempfile.mkdtemp(), device="cpu", prefer_device=True)
+inst.sql("CREATE TABLE logs (host STRING PRIMARY KEY, msg STRING FULLTEXT, "
+         "ip STRING, doc STRING, lat DOUBLE, lon DOUBLE, "
+         "ts TIMESTAMP TIME INDEX) WITH (append_mode = 'true')")
+inst.sql("INSERT INTO logs VALUES " + ", ".join(
+    f"('h{i % 3}', 'GET /p{i % 5} error {i}', '10.0.0.{i}', "
+    f"'{{\\"a\\": {i}}}', 37.5, -122.1, {i * 1000})" for i in range(60)))
+inst.sql("ADMIN flush_table('logs')")
+res = inst.sql("SELECT count(*) FROM logs WHERE matches(msg, 'p3 AND error')")
+assert res.rows() == [[12]]
+res = inst.sql("SELECT json_get_int(doc, '$.a'), ipv4_string_to_num(ip), "
+               "geohash(lat, lon, 5) FROM logs WHERE ts = 2000")
+assert res.rows()[0][:2] == [2, 167772162]
+inst.sql("CREATE TABLE cpu (h STRING PRIMARY KEY, u DOUBLE, "
+         "ts TIMESTAMP TIME INDEX)")
+inst.sql("INSERT INTO cpu VALUES " + ", ".join(
+    f"('h{i % 3}', {float(i)}, {i * 10000})" for i in range(90)))
+v, _ = PromEngine(inst).query_range('sum(rate(cpu{h=~"h[12]"}[1m]))',
+                                    300_000, 600_000, 60_000)
+assert v.num_series == 1 and device_plane.stats()["mask_misses"] == 1
+res = inst.sql("SELECT h, sum(u) FROM cpu WHERE h = 'h1' GROUP BY h")
+assert res.num_rows == 1
+inst.close()
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "greptimedb_tpu",
+                                       "pyarrow", "msgpack"))
+print("LEAKED", leaked)
+"""
+
+
 def _run_workload(workload):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
@@ -285,6 +321,14 @@ def test_poll_workload_loads_no_jax():
     delta over HTTP, admission control, basic auth) loads nothing of JAX,
     the JAX package, pyarrow or msgpack."""
     _run_workload(_POLL_WORKLOAD)
+
+
+def test_index_workload_loads_no_jax():
+    """A FULLTEXT log table flushed with its puffin sidecar, matches(),
+    the json, geo and net functions, a PromQL matcher through the label
+    plane and a pruned GROUP BY load nothing of JAX, the JAX package,
+    pyarrow or msgpack."""
+    _run_workload(_INDEX_WORKLOAD)
 
 
 @pytest.fixture
@@ -339,6 +383,18 @@ def test_standalone_refuses_to_fall_back_without_cuda(no_cuda, tmp_path):
     assert inst.query_engine.device.type == "cpu"
     assert inst.engine.device.type == "cpu"
     inst.close()
+
+
+def test_device_plane_refuses_to_fall_back_without_cuda(no_cuda):
+    import numpy as np
+
+    from greptimedb_tpu_torch.index import device_plane
+    from greptimedb_tpu_torch.storage.series import SeriesRegistry
+
+    reg = SeriesRegistry(["h"])
+    reg.intern_rows([np.asarray(["a", "b"], object)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_plane.matcher_mask_dev(reg, [("h", "eq", "a")], 8)
 
 
 def test_kernel_gate_semantics():

@@ -13,7 +13,7 @@ EXPLAIN ANALYZE is compared in parts: the plan lines and the row count
 exactly; every count and note key of the collector with equal values,
 and of the time keys (`*_ms`) only their presence. The one stated
 difference is the keys the port cannot have yet, listed by name below
-with the ROADMAP item that brings them (A9_ONLY, WAITING_NOTES).
+with the ROADMAP item that brings them (A9_ONLY).
 """
 
 import re
@@ -53,9 +53,6 @@ STEP_MS = 10_000
 # their rooflines (telemetry/device_trace.py); the `Trace:` block too
 A9_ONLY = {"stmt_fingerprint"}
 A9_PREFIXES = ("device_program_", "roofline_")
-# keys that wait for another item: the secondary tag index (A8), whose
-# scans the JAX package notes as index_pruned
-WAITING_NOTES = {"index_lookups": "A8"}
 
 
 def _cpu_columns(rng):
@@ -244,8 +241,7 @@ def _analyze(res):
 
 
 def _port_can_have(key):
-    return not (key in A9_ONLY or key.startswith(A9_PREFIXES)
-                or key in WAITING_NOTES)
+    return not (key in A9_ONLY or key.startswith(A9_PREFIXES))
 
 
 def _same_analyze(pair, q, ctxs=None):
@@ -264,8 +260,6 @@ def _same_analyze(pair, q, ctxs=None):
     for k, v in notes.items():
         if k.endswith("_ms"):
             float(v)            # a time: only its presence is compared
-        elif k == "scan_path" and jnotes[k] == "index_pruned":
-            assert v == "full_scan"     # no secondary index yet (A8)
         else:
             assert v == jnotes[k], (k, v, jnotes[k])
     return notes

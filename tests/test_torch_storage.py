@@ -455,8 +455,10 @@ def test_sst_prunes_row_groups_by_time_and_sid_index(tmp_path):
                           rows.fields["v"][rows.field_valid["v"]])
     assert (whole.fields["v"][~whole.field_valid["v"]] == 0).all()
     assert TS.read_sst(store, meta, ts_min=200_000) is None
-    with pytest.raises(Exception, match="A4/A8"):
-        TS.write_sst(store, "sst/y.sst", "y", rows, fulltext_fields=["v"])
+    # a fulltext column gets its puffin sidecar beside the SST
+    fmeta = TS.write_sst(store, "sst/y.sst", "y", rows,
+                         fulltext_fields=["v"])
+    assert fmeta.fulltext and store.exists(TS.sidecar_path("sst/y.sst"))
 
 
 def test_manifest_checkpoint_and_torn_checkpoint_fallback(caplog):
