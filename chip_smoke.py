@@ -4,14 +4,14 @@
     python3 chip_smoke.py [--seed 0] [--hosts 4000] [--hours 12]
                           [--mesh-hosts 8192] [--mesh-hours 6]
                           [--prom-series 1000000] [--hist-pods 12500]
-                          [--rest-warm 5] [--server-hours 1]
+                          [--rest-warm 5] [--server-hours 0.5]
                           [--flow-hours 2]
-                          [--phases 1,14,17]
+                          [--phases 1,14,19]
 
 Phases (each failure raises; the script then exits non-zero and prints no
 result line). `--phases` runs the listed phases only, with phase 1 and the
 phases whose inputs they take (3, 4, 5 and 11 take phase 2's table; 8 and
-9 phases 2 and 6; 10 and 18 phase 7; 15, 16 and 17 phase 14); by default
+9 phases 2 and 6; 10 and 18 phase 7; 15, 16, 17 and 19 phase 14); by default
 every phase runs. The kernels line then holds, and checks the launches of, the
 kernels of the phases that ran. Query sessions (query/sessions.py) are off
 in every phase but 17 and phase 7's repeated poll, so every warm call of
@@ -225,9 +225,9 @@ phases 1 to 16 runs its program, as before sessions existed.
              and statements through the same module functions (no HTTP)
              while the card's server works. Data: phase 2's TSBS devops
              rows (4000 hosts, 9 regions, 10 s, ten usage_* fields, same
-             seed), cut to the first --server-hours 1 hour (1.44 M rows
-             plus 10 % re-deliveries) for the script's time limit. CREATE
-             TABLE goes over /v1/sql; each hour's four runs and its
+             seed), cut to the first --server-hours 0.5 hour (0.72 M
+             rows plus 10 % re-deliveries) for the script's time limit.
+             CREATE TABLE goes over /v1/sql; each hour's runs and its
              re-delivery go as line protocol (precision=ms) in bodies of
              10,000 lines (tsbs_load's --batch-size, formatted ahead on
              four worker processes) to /v1/influxdb/write, with an ADMIN
@@ -501,6 +501,27 @@ phases 1 to 16 runs its program, as before sessions existed.
                 nothing).
              Kernel counts are zeroed before the phase and read after its
              queries; the data roots are removed.
+19. telemetry — the port's telemetry (greptimedb_tpu_torch/telemetry/) on
+             phase 14's table in a card Standalone, with every module on
+             (its defaults). Q2 (phase 16's), a GROUP BY hostname over
+             the first hour, a PromQL query (max by (region) over the 12
+             hours, TQL) and one merge (400,000 rows over 4000 series, a
+             fifth of the keys twice and 1 % deletes, through
+             storage/device_merge.merge_rows on the fused path, checked
+             against the host merge) run cold, then once each under
+             torch.profiler: the device-program registry's events time
+             of the call's programs must lie between the profiler's
+             kernel ms (copies excluded) and the call's wall. Then the
+             registry's three surfaces (information_schema.device_
+             programs, the /debug/prof/device document and the
+             gtpu_device_program_* families) must agree exactly; the
+             memory ledger's census (allocated, accounted, unaccounted)
+             is printed and fails if accounted exceeds allocated; and Q2
+             and the GROUP BY run warm 7 times with telemetry on and 7
+             off, in turns (medians and every wall printed). Kernel
+             counts are zeroed after the cold calls and read after the
+             profiled ones; the card's name and power limit are printed
+             with the phase's line.
 
 Output: one JSON line per phase, the nvidia-smi line, a line with the
 phases that ran and the script's seconds, a {"kernels": [...]} line, and
@@ -676,13 +697,17 @@ def make_plans(P):
 def tsbs_hours(rng, hosts, region_of, hours):
     """The TSBS runs, hour by hour: per hour the four 15-minute runs, then
     a late re-delivery of 10% of the hour's keys, then 1% tombstones, as
-    ("put" | "delete", tags, ts, fields) in write order."""
+    ("put" | "delete", tags, ts, fields) in write order. A fractional
+    last hour (`hours` 0.5) holds its first runs only (two), and its
+    re-delivery and tombstones cover those runs' minutes; whole hours
+    draw exactly as before."""
     per_hour = HOUR_MS // STEP_MS
     per_run = per_hour // 4
     n_hosts = len(hosts)
-    for h in range(hours):
+    for h in range(-(-int(hours * 4) // 4)):
+        n_runs = min(4, int(round((hours - h) * 4)))
         runs = []
-        for r in range(4):
+        for r in range(n_runs):
             t0 = h * per_hour + r * per_run
             ts = np.tile(np.arange(t0, t0 + per_run, dtype=np.int64)
                          * STEP_MS, n_hosts)
@@ -691,9 +716,10 @@ def tsbs_hours(rng, hosts, region_of, hours):
                           * 100.0).astype(np.float64) for f in FIELDS}
             runs.append(("put", {"hostname": hosts[hi],
                                  "region": region_of[hi]}, ts, fields))
-        ts_h = np.tile(np.arange(h * per_hour, (h + 1) * per_hour,
+        ts_h = np.tile(np.arange(h * per_hour,
+                                 h * per_hour + n_runs * per_run,
                                  dtype=np.int64) * STEP_MS, n_hosts)
-        hi_h = np.repeat(np.arange(n_hosts), per_hour)
+        hi_h = np.repeat(np.arange(n_hosts), n_runs * per_run)
         re = rng.random(len(ts_h)) < 0.10
         runs.append(("put", {"hostname": hosts[hi_h[re]],
                              "region": region_of[hi_h[re]]}, ts_h[re],
@@ -3861,8 +3887,8 @@ def run_bodies(run):
 
 def server_batches(args, rng, hosts, region_of, pool):
     """Phase 12's writes in order: ("lp", body) line-protocol bodies of
-    each hour's four runs and its re-delivery (phase 2's rows: the same
-    rng, drawn as phase 2 draws it), each followed by ("sql", flush), then
+    each hour's runs and its re-delivery (phase 2's rows: the same rng,
+    drawn as phase 2 draws it), each followed by ("sql", flush), then
     ("sql", DELETE) for the hour's tombstones (1 % of its rows: 1 % of the
     hosts, drawn from their own rng, over the hour) and a flush. The
     bodies are formatted on `pool`'s worker processes, ahead of the
@@ -3870,10 +3896,10 @@ def server_batches(args, rng, hosts, region_of, pool):
     flush = "ADMIN flush_table('cpu')"
     hours = list(tsbs_hours(rng, hosts, region_of, args.server_hours))
     bodies = pool.imap(run_bodies, [run for runs in hours
-                                    for run in runs[:5]])
+                                    for run in runs[:-1]])
     gone_rng = np.random.default_rng(args.seed + 12)
-    for h in range(len(hours)):
-        for _ in range(5):
+    for h, runs in enumerate(hours):
+        for _ in range(len(runs) - 1):
             for body in next(bodies):
                 yield "lp", body
             yield "sql", flush
@@ -5845,15 +5871,26 @@ def session_victim(hours: int) -> str:
 
 def explain_parts(res):
     """(plan lines, row count or None, {key: value}) of an EXPLAIN or
-    EXPLAIN ANALYZE answer."""
+    EXPLAIN ANALYZE answer (the `Trace:` span tree after the notes is
+    left out)."""
     lines = [str(v) for v in res.cols[0].values]
     at = next((i for i, ln in enumerate(lines)
                if ln.startswith("  Metrics:")), len(lines))
+    end = next((i for i, ln in enumerate(lines)
+                if ln.startswith("  Trace:")), len(lines))
     rows = None
     if at < len(lines):
         rows = int(lines[at].split("rows=")[1].split()[0])
-    notes = dict(ln.strip().split(": ", 1) for ln in lines[at + 1:])
+    notes = dict(ln.strip().split(": ", 1) for ln in lines[at + 1:end])
     return lines[:at], rows, notes
+
+
+def comparable_notes(notes: dict) -> dict:
+    """EXPLAIN ANALYZE notes a card and a CPU run must share: the
+    roofline notes (the card has peaks, the CPU none) are left out, and a
+    device program id only says that one ran."""
+    return {k: ("<program>" if k.startswith("device_program_") else v)
+            for k, v in notes.items() if not k.startswith("roofline_")}
 
 
 def session_phase(args, dev, window_out, wref):
@@ -5961,6 +5998,8 @@ def session_phase(args, dev, window_out, wref):
             lines, rows, notes = explain_parts(first)
             _, cpu_rows, cpu_notes = explain_parts(
                 ref.got(asked["analyze", name]))
+            notes, cpu_notes = (comparable_notes(notes),
+                                comparable_notes(cpu_notes))
             if lines != plan or rows != plain.num_rows or rows != cpu_rows:
                 raise AssertionError(f"session EXPLAIN ANALYZE {name}: "
                                      f"plan or rows ({rows}, plain "
@@ -6236,6 +6275,7 @@ def poll_phase(args, dev, window_out, wref):
     )
     from greptimedb_tpu_torch.servers.http import HttpServer
     from greptimedb_tpu_torch.session import QueryContext
+    from greptimedb_tpu_torch.telemetry import global_registry
 
     t_phase = time.perf_counter()
     table = window_out["table"]
@@ -6258,7 +6298,10 @@ def poll_phase(args, dev, window_out, wref):
     def observe(fn):
         """fn()'s answer and its wall, kernel launches, range programs
         and readback bytes."""
-        c0, p0, r0 = counts(), programs[0], dict(readback.readback_bytes)
+        def moved():
+            return {m: readback.readback_bytes(m) for m in ("full", "delta")}
+
+        c0, p0, r0 = counts(), programs[0], moved()
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -6266,8 +6309,7 @@ def poll_phase(args, dev, window_out, wref):
             "ms": (time.perf_counter() - t) * 1e3,
             "launches": {n: c - c0[n] for n, c in counts().items()},
             "programs": programs[0] - p0,
-            "readback": {k: v - r0[k]
-                         for k, v in readback.readback_bytes.items()}}
+            "readback": {k: v - r0[k] for k, v in moved().items()}}
 
     def since(v):
         ctx = QueryContext()
@@ -6494,8 +6536,9 @@ def poll_phase(args, dev, window_out, wref):
             fail(f"a wrong password answered {wrong}")
         admission.update({"quota_statuses": tenants,
                           "wrong_password_status": wrong,
-                          "shed": {"/".join(k): v for k, v in
-                                   card.scheduler.shed.items()},
+                          "shed": {"/".join(k): c.value for k, c in
+                                   global_registry.get(
+                                       "gtpu_sched_shed_total")._snapshot()},
                           "seconds": time.perf_counter() - t_part})
         out["admission"] = admission
     finally:
@@ -7200,10 +7243,230 @@ def walls_one(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
+# ----------------------------------------------------------------------
+# phase 19: the telemetry
+# ----------------------------------------------------------------------
+
+TELEMETRY_WARM = 7      # warm walls a query with telemetry on and off
+TELEMETRY_PROMQL = ("TQL EVAL (0, 43200, '60s') max by (region) "
+                    "(cpu{__field__=\"usage_user\"})")
+TELEMETRY_MERGE_ROWS = 400_000
+
+
+def telemetry_switch(on: bool):
+    """Every telemetry module of the port on (its defaults) or off."""
+    from greptimedb_tpu_torch.telemetry import device_programs as tdp
+    from greptimedb_tpu_torch.telemetry import memory as tmem
+    from greptimedb_tpu_torch.telemetry import stmt_stats as tss
+    from greptimedb_tpu_torch.telemetry import tracing as ttr
+
+    opts = None if on else {"enable": False}
+    ttr.configure(opts)
+    tss.configure(opts)
+    tdp.configure(opts)
+    tmem.configure(opts)
+
+
+def telemetry_merge_rows(seed: int):
+    """Runs to merge: TELEMETRY_MERGE_ROWS rows over 4000 series with
+    one key in five written twice (a later seq wins) and 1 % deletes."""
+    from greptimedb_tpu_torch.storage.memtable import ColumnarRows
+
+    rng = np.random.default_rng(seed + 19)
+    n = TELEMETRY_MERGE_ROWS
+    sid = rng.integers(0, 4000, n).astype(np.int32)
+    ts = (rng.integers(0, n // 5, n) * STEP_MS).astype(np.int64)
+    op = (rng.random(n) < 0.01).astype(np.uint8)
+    return ColumnarRows(sid=sid, ts=ts, seq=np.arange(n, dtype=np.uint64),
+                        op=op, fields={"v": rng.random(n)})
+
+
+def program_rows():
+    """(site, program) -> (calls, execute ms total) of the registry."""
+    from greptimedb_tpu_torch.telemetry.device_programs import (
+        global_programs,
+    )
+
+    return {(d["site"], d["program"]): (d["calls"], d["execute_ms_total"])
+            for d in global_programs.snapshot()}
+
+
+def telemetry_phase(args, dev, window_out):
+    """Phase 19 (see the module docstring). Returns the launches of the
+    kernels its queries and merge ran on the card."""
+    import shutil
+
+    from greptimedb_tpu_torch.parallel.kernels import grouped_reduce as gr
+    from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
+    from greptimedb_tpu_torch.parallel.kernels import ring_fold as rf
+    from greptimedb_tpu_torch.storage import device_merge
+    from greptimedb_tpu_torch.telemetry import device_programs as tdp
+    from greptimedb_tpu_torch.telemetry import memory as tmem
+    from greptimedb_tpu_torch.telemetry import stmt_stats as tss
+    from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+    t_phase = time.perf_counter()
+    roots, insts = [], []
+    mods = {"grouped_block_reduce": gr, "blocked_fold_sum": rf,
+            "gather_planes": mg}
+    smi = nvidia_smi_line()
+    out = {"phase": "telemetry", "card": smi}
+
+    def counts():
+        return {n: getattr(m, n).launches for n, m in mods.items()}
+
+    def fail(what):
+        raise AssertionError(f"telemetry: {what}")
+
+    rows_in = telemetry_merge_rows(args.seed)
+    try:
+        (card,) = relational_standalones(args, dev, window_out, "telemetry",
+                                         roots, insts, devices=(dev,))
+        telemetry_switch(True)
+        tdp.global_programs.reset()
+        tss.global_stmt_stats.reset()
+
+        def merge():
+            return device_merge.merge_rows(rows_in, device=dev, verify=True)
+
+        ops = {
+            "q2": (lambda: card.sql(SESSION_Q2),
+                   {"range", "range_prelude"}),
+            "groupby": (lambda: card.sql(SESSION_GROUPBY), {"groupby"}),
+            "promql": (lambda: card.sql(TELEMETRY_PROMQL), {"promql"}),
+            "merge": (merge, {"compact_merge", "compact_gather"}),
+        }
+        # cold: the programs' first calls (their compile_ms), and the
+        # grids and PromQL selector grid built
+        for name, (fn, _) in ops.items():
+            fn()
+        torch.cuda.synchronize()
+        if merge()[1] != "fused":
+            fail("the merge did not take the fused path")
+        for n, m in mods.items():
+            getattr(m, n).launches = 0
+        # one warm call of each under the profiler: the registry's events
+        # time of the call's programs lies between the profiler's kernel
+        # ms (copies excluded: the uploads and the readback lie outside
+        # the programs' events) and the call's wall
+        calls = {}
+        for name, (fn, sites) in ops.items():
+            before = program_rows()
+            p = profiled(fn)
+            torch.cuda.synchronize()
+            after = program_rows()
+            events = {s: 0.0 for s in sites}
+            n_calls = 0
+            for key, (c, ms) in after.items():
+                c0, ms0 = before.get(key, (0, 0.0))
+                if key[0] in sites and c > c0:
+                    events[key[0]] += ms - ms0
+                    n_calls += c - c0
+            kernel_ms = (None if p["device_ms"] is None
+                         else p["device_ms"] - p["copy_ms"])
+            ev_ms = sum(events.values())
+            calls[name] = {"events_ms": events, "program_calls": n_calls,
+                           "profiler_device_ms": p["device_ms"],
+                           "profiler_kernel_ms": kernel_ms,
+                           "wall_ms": p["wall_ms"],
+                           "idle_share": p["idle_share"]}
+            if n_calls == 0:
+                fail(f"{name} dispatched no program of {sorted(sites)}")
+            if kernel_ms is None:
+                calls[name]["between"] = "not measured (no device rows)"
+            elif not kernel_ms <= ev_ms + 1e-3 <= p["wall_ms"] + 1e-3:
+                fail(f"{name}: events {ev_ms:.4f} ms outside [kernel "
+                     f"{kernel_ms:.4f} ms, wall {p['wall_ms']:.4f} ms]")
+        out["calls"] = calls
+        launched = counts()
+        for n in ("grouped_block_reduce", "blocked_fold_sum",
+                  "gather_planes"):
+            if not launched[n]:
+                fail(f"{n} never launched: {launched}")
+        out["launches"] = launched
+
+        # the three surfaces of the registry at one scrape
+        torch.cuda.synchronize()
+        res = card.sql("SELECT site, program, calls, execute_ms_total, "
+                       "upload_bytes, readback_bytes FROM "
+                       "information_schema.device_programs")
+        table = {(s, p): (int(c), float(e), int(u), int(r))
+                 for s, p, c, e, u, r in zip(*(c.values for c in res.cols))}
+        doc = {(d["site"], d["program"]): (
+            d["calls"], d["execute_ms_total"], d["upload_bytes"],
+            d["readback_bytes"])
+            for d in tdp.global_programs.report(top=0)["programs"]}
+        text = global_registry.render()
+        fams = {"calls": {}, "execute_ms": {}, "upload_bytes": {},
+                "readback_bytes": {}}
+        for line in text.splitlines():
+            for fam in fams:
+                head = f"gtpu_device_program_{fam}_total{{"
+                if line.startswith(head):
+                    labels, value = line.rsplit(" ", 1)
+                    site = labels.split('site="', 1)[1].split('"', 1)[0]
+                    prog = labels.split('program="', 1)[1].split('"', 1)[0]
+                    fams[fam][site, prog] = float(value)
+        # a series of a row gone (a reset) reads 0: not a program
+        exported = {k: (int(fams["calls"][k]), fams["execute_ms"][k],
+                        int(fams["upload_bytes"][k]),
+                        int(fams["readback_bytes"][k]))
+                    for k in fams["calls"] if fams["calls"][k]}
+        if not (table == doc == exported):
+            fail(f"the three surfaces differ: {table} {doc} {exported}")
+        out["surfaces"] = {"programs": len(doc), "equal": True,
+                           "sites": sorted({k[0] for k in doc})}
+
+        # the census: the allocator's bytes, the pools' storages in it
+        census = tmem.hbm_report(top=5)["census"]
+        out["census"] = {k: census[k] for k in (
+            "live_bytes", "accounted_bytes", "unaccounted_bytes")}
+        if census["accounted_bytes"] > census["live_bytes"]:
+            fail(f"accounted {census['accounted_bytes']} exceeds "
+                 f"allocated {census['live_bytes']}")
+
+        # warm walls with telemetry on and off, in turns; the registry's
+        # events ms a call over the runs with it on (no profiler)
+        walls = {}
+        for name in ("q2", "groupby"):
+            fn, sites = ops[name]
+            on, off = [], []
+            before = program_rows()
+            for _ in range(TELEMETRY_WARM):
+                telemetry_switch(True)
+                on.append(walls_one(fn))
+                telemetry_switch(False)
+                off.append(walls_one(fn))
+            telemetry_switch(True)
+            after = program_rows()
+            ev = {}
+            for key, (c, ms) in after.items():
+                c0, ms0 = before.get(key, (0, 0.0))
+                if key[0] in sites and c > c0:
+                    ev[key[0]] = (ms - ms0) / (c - c0)
+            walls[name] = {
+                "on_median_ms": float(np.median(on)),
+                "off_median_ms": float(np.median(off)),
+                "on_ms": on, "off_ms": off,
+                "overhead_ms": float(np.median(on) - np.median(off)),
+                "events_ms_per_call": ev}
+        out["walls"] = walls
+    finally:
+        telemetry_switch(True)
+        for inst in insts:
+            inst.close()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    print(smi, flush=True)
+    return launched
+
+
 # phases whose inputs another phase makes: a selected phase brings these
 PHASE_NEEDS = {3: {2}, 4: {2}, 5: {2}, 8: {2, 6}, 9: {2, 6}, 10: {7},
-               11: {2}, 15: {14}, 16: {14}, 17: {14}, 18: {7}}
-ALL_PHASES = tuple(range(1, 19))
+               11: {2}, 15: {14}, 16: {14}, 17: {14}, 18: {7}, 19: {14}}
+ALL_PHASES = tuple(range(1, 20))
 
 
 def selected_phases(text: str | None) -> set:
@@ -7485,6 +7748,9 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
     index_launches = index_phase(args, dev, prom_out, iref) \
         if 18 in want else {}
     stop_index_reference()
+    # ---- 19. telemetry -------------------------------------------------
+    telemetry_launches = telemetry_phase(args, dev, window_out) \
+        if 19 in want else {}
     # every kernel's launches over the main-path runs of the phases that
     # ran; the hop ring's seed, continuation and combines run in phase 8
     # only, Gt in phase 9 only, G in phases 9, 10, 12, 13, 15 and 16, S in
@@ -7545,6 +7811,9 @@ def run_phases(args, dev, P, build, want, t_script) -> int:
         if index_launches.get(name):
             row["launches"] += index_launches[name]
             row["launches_index"] = index_launches[name]
+        if telemetry_launches.get(name):
+            row["launches"] += telemetry_launches[name]
+            row["launches_telemetry"] = telemetry_launches[name]
         if name == "gather_planes" and window_out is not None:
             row["launches"] += window_out["k1_launches"]
             row["launches_window_table"] = window_out["k1_launches"]
@@ -7576,8 +7845,9 @@ def main() -> int:
     ap.add_argument("--hist-pods", type=int, default=12_500)
     ap.add_argument("--rest-warm", type=int, default=5,
                     help="warm runs of each phase-10 query (median)")
-    ap.add_argument("--server-hours", type=int, default=1,
-                    help="hours of TSBS devops phase 12 writes over HTTP")
+    ap.add_argument("--server-hours", type=float, default=0.5,
+                    help="hours of TSBS devops phase 12 writes over HTTP "
+                         "(in quarter hours)")
     ap.add_argument("--flow-hours", type=int, default=2,
                     help="hours of TSBS devops phase 13 writes into flows")
     ap.add_argument("--phases", default=None,

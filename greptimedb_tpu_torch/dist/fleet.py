@@ -7,22 +7,12 @@ from __future__ import annotations
 
 import time
 
-from greptimedb_tpu_torch.version import __version__
-
 
 def local_node_doc(inst) -> dict:
     """The serving process as a cluster_nodes-shaped doc."""
-    # the JAX package's node-stats payload (telemetry/node_stats.py) also
-    # carries start_ms, uptime_s, regions, wal_backlog_rows,
-    # memtable_bytes, sst_count, sst_bytes, compaction_backlog,
-    # mem_host_bytes, mem_device_bytes, device_live_bytes,
-    # ingest_rows_total, queries_total and flows; they wait for ROADMAP
-    # A9, and readers take the default of a missing stat (0, 0.0)
-    stats = {
-        "role": getattr(inst, "node_role", "standalone"),
-        "addr": getattr(inst, "node_addr", "") or "",
-        "version": __version__,
-    }
+    from greptimedb_tpu_torch.telemetry import node_stats as _ns
+
+    stats = _ns.build_node_stats(inst)
     return {
         "node_id": getattr(inst, "node_id", 0) or 0,
         "role": stats["role"],

@@ -432,13 +432,25 @@ class DeviceFlowState:
                     has[j] = np.asarray(validity, bool)
             all_valid.append(bool(has[j].all()))
         dev = self.device
+        # the apply does not wait for its launches (the next apply's data
+        # dependency orders them), so its timing is the dispatch's
+        # (dispatch_only) and the registry claims no achieved rate
+        from greptimedb_tpu_torch.telemetry import device_trace
+
         idx = torch.from_numpy(np.stack(
             [gids.astype(np.int32), hi, lo])).to(dev)
         d_vals = torch.from_numpy(vals).to(dev)
         d_has = torch.from_numpy(has).to(dev)
-        self.state = _apply(self.state, idx[0], idx[1], idx[2], d_vals,
-                            d_has, all_valid, ops=self.ops,
-                            g=self.capacity)
+        upload = sum(t.numel() * t.element_size()
+                     for t in (idx, d_vals, d_has))
+        with device_trace.device_call(
+                "flow_apply", key=("flow_apply", self.ops, self.capacity),
+                rows=n, device=dev) as dcall:
+            dcall.transfer(upload, "upload")
+            self.state = dcall.run(
+                _apply, self.state, idx[0], idx[1], idx[2], d_vals, d_has,
+                all_valid, ops=self.ops, g=self.capacity)
+            dcall.executed(dispatch_only=True)
         self.dirty[np.unique(gids)] = True
 
     # ---- finalize ------------------------------------------------------
@@ -457,20 +469,35 @@ class DeviceFlowState:
         gather the dirty slice on the device and read it back (one copy of
         the float results, one of the counts, one of the presence).
         Returns (dirty_gids, {agg_idx: (float64 values, present)})."""
-        state, _, dirty = snap
-        outs, pres = _finalize(state, self.ops, self.fdt)
-        didx = torch.from_numpy(dirty.astype(np.int64)).to(self.device)
-        floats = [j for j, o in enumerate(outs) if o.dtype != torch.int32]
-        ints = [j for j, o in enumerate(outs) if o.dtype == torch.int32]
-        host = {}
-        for group in (floats, ints):
-            if group:
-                block = torch.stack([outs[j].index_select(0, didx)
-                                     for j in group]).cpu().numpy()
-                for r, j in enumerate(group):
-                    host[j] = block[r].astype(np.float64)
-        present = torch.stack([p.index_select(0, didx)
-                               for p in pres]).cpu().numpy()
+        from greptimedb_tpu_torch.telemetry import device_trace
+
+        state, cap, dirty = snap
+        with device_trace.device_call(
+                "flow_finalize", key=("flow_finalize", self.ops, cap),
+                groups=int(len(dirty)), device=self.device) as dcall:
+            outs, pres = dcall.run(_finalize, state, self.ops, self.fdt)
+            dcall.executed()
+            if dcall.first:
+                # every state slot read once, the outputs written once
+                dcall.declare(sum(t.numel() for t in state),
+                              sum(t.numel() * t.element_size()
+                                  for t in (*state, *outs, *pres)))
+            didx = torch.from_numpy(dirty.astype(np.int64)).to(self.device)
+            floats = [j for j, o in enumerate(outs)
+                      if o.dtype != torch.int32]
+            ints = [j for j, o in enumerate(outs) if o.dtype == torch.int32]
+            host = {}
+            nbytes = 0
+            for group in (floats, ints):
+                if group:
+                    block = torch.stack([outs[j].index_select(0, didx)
+                                         for j in group]).cpu().numpy()
+                    nbytes += block.nbytes
+                    for r, j in enumerate(group):
+                        host[j] = block[r].astype(np.float64)
+            present = torch.stack([p.index_select(0, didx)
+                                   for p in pres]).cpu().numpy()
+            dcall.transfer(nbytes + present.nbytes)
         return dirty, {j: (host[j], present[j])
                        for j in range(len(self.ops))}
 

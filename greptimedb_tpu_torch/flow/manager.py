@@ -371,6 +371,15 @@ class FlowManager:
                 traceback.print_exc()
 
     def _apply_delta(self, flow: Flow, table, data: dict, valid: dict):
+        from greptimedb_tpu_torch.telemetry import tracing
+
+        # joins the triggering insert's trace; tick-driven backfills
+        # carry no trace and skip the span
+        with tracing.child_span("flow.eval", flow=flow.name):
+            self._apply_delta_traced(flow, table, data, valid)
+
+    def _apply_delta_traced(self, flow: Flow, table, data: dict,
+                            valid: dict):
         if flow.plan is None:
             with flow.lock:
                 # concurrent first inserts must not each build a plan +

@@ -20,10 +20,11 @@ back to the host mask when a device op fails: the error propagates.
 
 Planes are version-validated against the registry (like the postings in
 tag_index.py), one per (registry, s_pad, shard devices), at most
-`_MAX_PLANES`, each with at most `_MAX_MASKS` memoized masks. The JAX
-package registers them as a device memory pool (ROADMAP A9); here
-`pool_stats()`/`pool_buffers()` report what that pool reports and
-`stats()` adds the bytes moved.
+`_MAX_PLANES`, each with at most `_MAX_MASKS` memoized masks. They are
+the `tag_index_plane` device pool of the memory ledger
+(telemetry/memory.py: `pool_stats()`/`pool_buffers()` report it, and
+the global watermark evicts planes through `evict_bytes`); `stats()`
+adds the bytes moved.
 """
 
 from __future__ import annotations
@@ -151,6 +152,10 @@ def _get_plane(registry, s_pad: int, devices) -> _Plane | None:
         _TALLY["builds"] += 1
         _TALLY["build_ms"] += (time.perf_counter() - t0) * 1000.0
         _TALLY["plane_upload_bytes"] += int(plane.nbytes)
+    _ensure_pool()
+    from greptimedb_tpu_torch.telemetry import memory as _memory
+
+    _memory.note_device_bytes()
     return p
 
 
@@ -230,8 +235,7 @@ def stats() -> dict:
 
 
 # ---------------------------------------------------------------------
-# what the JAX package's device pool reports (its registration, with
-# eviction under the memory accountant, waits for ROADMAP A9)
+# the memory ledger's surface (device tier)
 # ---------------------------------------------------------------------
 def pool_buffers() -> list:
     """(tensor, owner) of every resident plane and memoized mask."""
@@ -250,3 +254,49 @@ def pool_stats() -> dict:
         return {"bytes": total, "entries": len(_PLANES), "budget_bytes": 0,
                 "hits": _TALLY["hits"], "misses": _TALLY["misses"],
                 "evictions": _TALLY["evictions"]}
+
+
+def evict_bytes(target: int) -> int:
+    """Drop LRU planes (with their masks) until `target` bytes are freed
+    (the global device watermark); returns the bytes freed."""
+    freed = 0
+    with _LOCK:
+        while _PLANES and freed < target:
+            _, p = _PLANES.popitem(last=False)
+            freed += sum(t.numel() * t.element_size() for t in p.dev_codes)
+            for masks, _ in p.mask_cache.values():
+                freed += sum(t.numel() * t.element_size() for t in masks)
+            _TALLY["evictions"] += 1
+    return freed
+
+
+class _PlanePool:
+    """The pool object the ledger holds (module state behind it)."""
+
+    def stats(self) -> dict:
+        return pool_stats()
+
+    def evict_bytes(self, target: int) -> int:
+        return evict_bytes(target)
+
+    def buffers(self):
+        return pool_buffers()
+
+
+_POOL = _PlanePool()
+_POOL_REGISTERED = False
+
+
+def _ensure_pool() -> None:
+    global _POOL_REGISTERED
+    with _LOCK:
+        if _POOL_REGISTERED:
+            return
+        _POOL_REGISTERED = True
+    from greptimedb_tpu_torch.telemetry import memory as _memory
+
+    _memory.register_pool(
+        "tag_index_plane", "device", _POOL,
+        stats=_PlanePool.stats, evict=_PlanePool.evict_bytes,
+        buffers=_PlanePool.buffers,
+    )

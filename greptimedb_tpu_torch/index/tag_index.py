@@ -30,10 +30,11 @@ rebuilt. ALTER ADD TAG (column-count change) always rebuilds. Matched
 sid sets are memoized per canonical matcher key, keyed on the registry
 version.
 
-The JAX package's process counters and its memory-pool registration wait
-for the telemetry (ROADMAP A9); their tallies are kept here as plain
-numbers (`lookup_counts`, `pruned_counts`, `pool_stats`, `TagIndex.stats`).
-The per-query notes (`index_lookups`, `index_pruned_bytes`,
+Lookups count in `gtpu_index_lookups_total{path}` and pruned scan data
+in `gtpu_index_pruned_row_groups_total` and
+`gtpu_index_pruned_bytes_total{scope}` (`lookup_counts` and
+`pruned_counts` read them); every live index reports as the `tag_index`
+host pool of the memory ledger (`pool_stats`). The per-query notes (`index_lookups`, `index_pruned_bytes`,
 `index_pruned_row_groups`) go to query/stats as in the JAX package.
 """
 
@@ -46,6 +47,7 @@ import numpy as np
 
 from greptimedb_tpu_torch import concurrency
 from greptimedb_tpu_torch.storage.series import missing_tag_ok, ok_codes_for
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
 
 _CFG = {
     "enable": True,
@@ -127,7 +129,7 @@ class TagIndex:
         self._hits = 0
         self._misses = 0
         self._builds = 0
-        _LIVE.add(self)
+        _track(self)
 
     # -- maintenance ---------------------------------------------------
     def _ensure_built(self, codes: np.ndarray, version: int) -> int:
@@ -300,64 +302,123 @@ class TagIndex:
 
 
 # ---------------------------------------------------------------------
-# registry -> index association, and the tallies the JAX package keeps
-# as process counters and a host memory pool (ROADMAP A9)
+# registry -> index association, the process counters and the host pool
 # ---------------------------------------------------------------------
 _INDEXES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _INDEXES_LOCK = concurrency.Lock()
+# separate from _INDEXES_LOCK: TagIndex.__init__ runs under it (via
+# index_for) and _track must not re-acquire the same non-reentrant lock
+_POOL_LOCK = concurrency.Lock()
+_POOL_REGISTERED = False
 _LIVE: "weakref.WeakSet[TagIndex]" = weakref.WeakSet()
-_TALLY_LOCK = concurrency.Lock()
-_LOOKUPS = {"cache": 0, "postings": 0, "host": 0}
-_PRUNED = {"row_groups": 0, "bytes_sst": 0, "bytes_row_group": 0}
+
+# the gtpu_index_* counters register at their first count, as the JAX
+# package's do (a process that never looked up exports none)
+def _lookups():
+    return global_registry.counter(
+        "gtpu_index_lookups_total",
+        "Secondary tag-index matcher lookups by path "
+        "(cache | postings | host)",
+        labels=("path",),
+    )
+
+
+def _pruned_row_groups():
+    return global_registry.counter(
+        "gtpu_index_pruned_row_groups_total",
+        "Row groups skipped by the secondary-index sid pruning",
+    )
+
+
+def _pruned_bytes():
+    return global_registry.counter(
+        "gtpu_index_pruned_bytes_total",
+        "Bytes skipped by secondary-index sid pruning "
+        "(sst = whole files via the manifest sid range, "
+        "row_group = row groups via the SST sid index)",
+        labels=("scope",),
+    )
+
+
+def _value(name: str, *labels) -> float:
+    try:
+        return global_registry.get(name).labels(*labels).value
+    except KeyError:
+        return 0.0
+
+
+class _IndexPool:
+    """Memory-ledger surface over every live TagIndex (host tier)."""
+
+    def stats(self) -> dict:
+        total = entries = hits = misses = 0
+        for ix in list(_LIVE):
+            s = ix.stats()
+            total += s["bytes"]
+            entries += s["cached_results"]
+            hits += s["hits"]
+            misses += s["misses"]
+        return {
+            "bytes": total, "entries": entries, "budget_bytes": 0,
+            "hits": hits, "misses": misses, "evictions": 0,
+        }
+
+
+_POOL = _IndexPool()
+
+
+def _track(ix: "TagIndex") -> None:
+    global _POOL_REGISTERED
+    _LIVE.add(ix)
+    with _POOL_LOCK:
+        if _POOL_REGISTERED:
+            return
+        _POOL_REGISTERED = True
+    from greptimedb_tpu_torch.telemetry import memory as _memory
+
+    _memory.register_pool("tag_index", "host", _POOL,
+                          stats=_IndexPool.stats)
 
 
 def pool_stats() -> dict:
-    """The JAX package's `tag_index` host pool: bytes, cached results and
-    hits over every live TagIndex."""
-    total = entries = hits = misses = 0
-    for ix in list(_LIVE):
-        s = ix.stats()
-        total += s["bytes"]
-        entries += s["cached_results"]
-        hits += s["hits"]
-        misses += s["misses"]
-    return {
-        "bytes": total, "entries": entries, "budget_bytes": 0,
-        "hits": hits, "misses": misses, "evictions": 0,
-    }
+    """The `tag_index` host pool: bytes, cached results and hits over
+    every live TagIndex."""
+    return _POOL.stats()
 
 
 def lookup_counts() -> dict:
-    """Matcher lookups by path (cache | postings | host) since start."""
-    with _TALLY_LOCK:
-        return dict(_LOOKUPS)
+    """Matcher lookups by path (cache | postings | host), read from
+    `gtpu_index_lookups_total`."""
+    return {p: _value("gtpu_index_lookups_total", p)
+            for p in ("cache", "postings", "host")}
 
 
 def pruned_counts() -> dict:
-    """Row groups and bytes skipped by sid pruning since start."""
-    with _TALLY_LOCK:
-        return dict(_PRUNED)
+    """Row groups and bytes skipped by sid pruning, read from the
+    `gtpu_index_pruned_*` counters."""
+    return {"row_groups": _value("gtpu_index_pruned_row_groups_total"),
+            "bytes_sst": _value("gtpu_index_pruned_bytes_total", "sst"),
+            "bytes_row_group": _value("gtpu_index_pruned_bytes_total",
+                                      "row_group")}
 
 
 def _count_lookup(path: str) -> None:
-    with _TALLY_LOCK:
-        _LOOKUPS[path] += 1
+    _lookups().labels(path).inc()
 
 
 def count_pruned(*, row_groups: int = 0, bytes_: int = 0,
                  scope: str = "row_group") -> None:
     """Record scan data skipped by sid-range/sid-index pruning, in the
-    per-query ExecStats (EXPLAIN ANALYZE) and the process tallies.
+    per-query ExecStats (EXPLAIN ANALYZE) and the process counters.
     scope: "row_group" (SST sid index) | "sst" (manifest sid range)."""
     from greptimedb_tpu_torch.query import stats
 
     if row_groups:
         stats.add("index_pruned_row_groups", row_groups)
+        _pruned_row_groups().inc(row_groups)
     if bytes_:
         stats.add("index_pruned_bytes", bytes_)
-    with _TALLY_LOCK:
-        _PRUNED["row_groups"] += row_groups
-        _PRUNED["bytes_" + scope] += bytes_
+        _pruned_bytes().labels(scope).inc(bytes_)
 
 
 def index_for(registry) -> TagIndex:

@@ -9,10 +9,11 @@ query engine's plain and aggregate paths, so WHERE, GROUP BY, ORDER BY
 and LIMIT work on them, and a join reads them as frames.
 
 Tables of one region each: `partitions`, `region_statistics` and
-`region_peers` list that region. The tables the telemetry fills
+`region_peers` list that region. The telemetry's tables
 (`runtime_metrics`, `slow_queries`, `traces`, `memory_pools`,
-`statement_statistics`, `device_programs`, `autotune_*`) raise
-UnsupportedError naming ROADMAP A9; the cluster fan-out tables
+`statement_statistics`, `device_programs`) read the process-wide
+registries of `telemetry/`. The autotuner's tables (`autotune_*`) raise
+UnsupportedError naming ROADMAP A12; the cluster fan-out tables
 (`cluster_*`) name A10.
 """
 
@@ -299,6 +300,162 @@ def _collations_doc(inst) -> dict[str, list]:
     }
 
 
+def _runtime_metrics_doc(inst) -> dict[str, list]:
+    from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+    rows = {"metric_name": [], "value": [], "labels": []}
+    for line in global_registry.render().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, val = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        try:
+            fval = float(val)
+        except ValueError:
+            continue
+        rows["metric_name"].append(name)
+        rows["value"].append(fval)
+        rows["labels"].append(labels.rstrip("}"))
+    return rows
+
+
+def _slow_queries_doc(inst) -> dict[str, list]:
+    rows = {"cost_time_ms": [], "threshold_ms": [], "query": [],
+            "schema_name": [], "channel": [], "timestamp": [],
+            "trace_id": [], "fingerprint": []}
+    log = getattr(inst, "slow_query_log", None)
+    if log is not None:
+        for e in log.entries():
+            rows["cost_time_ms"].append(e["cost_ms"])
+            rows["threshold_ms"].append(e["threshold_ms"])
+            rows["query"].append(e["query"])
+            rows["schema_name"].append(e["schema"])
+            rows["channel"].append(e["channel"])
+            rows["timestamp"].append(e["ts_ms"])
+            rows["trace_id"].append(e.get("trace_id", ""))
+            # joins the aggregate statement_statistics row for this
+            # statement shape (see README "Statement statistics")
+            rows["fingerprint"].append(e.get("fingerprint", ""))
+    return rows
+
+
+def _statement_statistics_doc(inst) -> dict[str, list]:
+    """The process-wide statement-statistics registry
+    (telemetry/stmt_stats.py), one row per (schema, fingerprint) —
+    the pg_stat_statements face of the node. `last_trace_id` is an
+    exemplar: join it against information_schema.traces (or
+    /v1/traces?trace_id=) for one concrete execution of the shape."""
+    import json as _json
+
+    from greptimedb_tpu_torch.telemetry.stmt_stats import global_stmt_stats
+
+    cols = [
+        "fingerprint", "schema_name", "tenant", "channel", "query",
+        "calls", "errors", "errors_by_code", "rows_returned",
+        "total_ms", "mean_ms", "p50_ms", "p99_ms", "queue_total_ms",
+        "queue_p99_ms", "exec_path", "mesh_decision", "compile_count",
+        "compile_cache_hits", "upload_bytes", "readback_full_bytes",
+        "readback_delta_bytes", "session_hit_rate",
+        "result_cache_hit_rate", "scan_cache_hit_rate", "shed_count",
+        "deadline_count", "datanodes", "rpc_ms", "last_trace_id",
+        "program_ids", "first_seen_ms", "last_seen_ms",
+    ]
+    rows: dict[str, list] = {c: [] for c in cols}
+    for doc in global_stmt_stats.snapshot():
+        for c in cols:
+            v = doc.get(c)
+            if c == "errors_by_code":
+                v = _json.dumps(v or {})
+            elif c == "program_ids":
+                # joins information_schema.device_programs.program
+                v = _json.dumps(v or [])
+            rows[c].append(v)
+    return rows
+
+
+def _device_programs_doc(inst) -> dict[str, list]:
+    """The process-wide device-program profiler
+    (telemetry/device_programs.py), one row per program — the SQL face
+    of /debug/prof/device. The flops and bytes columns are what each
+    site declared at its program's first dispatch. `program` joins the
+    statement_statistics `program_ids` column and the `program` attr
+    on device.execute spans."""
+    from greptimedb_tpu_torch.telemetry.device_programs import global_programs
+
+    cols = [
+        "site", "program", "key", "calls", "errors", "compile_ms",
+        "execute_ms_total", "execute_p50_ms", "execute_p99_ms",
+        "device_ms_total", "upload_bytes", "readback_bytes",
+        "collective", "comm_bytes",
+        "dispatch_only", "analysis", "analysis_error", "flops",
+        "bytes_accessed", "temp_bytes", "output_bytes",
+        "argument_bytes", "aot_compile_ms", "achieved_gflops",
+        "achieved_hbm_gbps", "bound", "pct_of_peak", "first_seen_ms",
+        "last_seen_ms",
+    ]
+    rows: dict[str, list] = {c: [] for c in cols}
+    for doc in global_programs.snapshot():
+        for c in cols:
+            v = doc.get(c)
+            if c == "dispatch_only":
+                v = 1 if v else 0
+            rows[c].append(v)
+    return rows
+
+
+def _traces_doc(inst) -> dict[str, list]:
+    """The in-memory trace ring, one row per span (the SQL-queryable
+    face of /v1/traces: `SELECT * FROM information_schema.traces WHERE
+    trace_id = ...` renders the same stitched spans)."""
+    import json as _json
+
+    from greptimedb_tpu_torch.telemetry.tracing import global_traces
+
+    rows = {"trace_id": [], "span_id": [], "parent_span_id": [],
+            "span_name": [], "start_timestamp": [], "duration_ms": [],
+            "attributes": []}
+    for tr in global_traces.traces(limit=global_traces.cap or 256):
+        for s in tr["spans"]:
+            rows["trace_id"].append(tr["trace_id"])
+            rows["span_id"].append(s["span_id"])
+            rows["parent_span_id"].append(s["parent_id"] or "")
+            rows["span_name"].append(s["name"])
+            rows["start_timestamp"].append(int(s["start_ms"]))
+            rows["duration_ms"].append(
+                -1.0 if s["duration_ms"] is None else s["duration_ms"]
+            )
+            rows["attributes"].append(_json.dumps(s["attributes"]))
+    return rows
+
+
+def _memory_pools_doc(inst) -> dict[str, list]:
+    """The process-wide memory accountant's ledger, one row per
+    registered pool (telemetry/memory.py — the SQL face of
+    /debug/prof/hbm). Device pools additionally carry their live-
+    buffer-census bytes; the census residue rides the
+    gtpu_mem_unaccounted_device_bytes gauge in runtime_metrics."""
+    from greptimedb_tpu_torch.telemetry import memory as _memory
+
+    doc = _memory.hbm_report(top=0)
+    rows = {"pool": [], "tier": [], "bytes": [], "entries": [],
+            "budget_bytes": [], "max_entries": [], "hits": [],
+            "misses": [], "evictions": [], "census_bytes": [],
+            "instances": []}
+    for p in doc["pools"]:
+        rows["pool"].append(p["pool"])
+        rows["tier"].append(p["tier"])
+        rows["bytes"].append(p["bytes"])
+        rows["entries"].append(p["entries"])
+        rows["budget_bytes"].append(p["budget_bytes"])
+        rows["max_entries"].append(p["max_entries"])
+        rows["hits"].append(p["hits"])
+        rows["misses"].append(p["misses"])
+        rows["evictions"].append(p["evictions"])
+        rows["census_bytes"].append(int(p.get("census_bytes", 0)))
+        rows["instances"].append(p["instances"])
+    return rows
+
+
 _PROVIDERS = {
     "tables": _tables_doc,
     "columns": _columns_doc,
@@ -316,15 +473,19 @@ _PROVIDERS = {
     "build_info": _build_info_doc,
     "character_sets": _character_sets_doc,
     "collations": _collations_doc,
+    "runtime_metrics": _runtime_metrics_doc,
+    "slow_queries": _slow_queries_doc,
+    "statement_statistics": _statement_statistics_doc,
+    "device_programs": _device_programs_doc,
+    "traces": _traces_doc,
+    "memory_pools": _memory_pools_doc,
 }
 
 # the system tables that wait, and the ROADMAP item that ports them:
-# the telemetry's (A9) and the cluster fan-out's (A10)
+# the autotuner's (A12) and the cluster fan-out's (A10)
 WAITING_TABLES = {
-    "runtime_metrics": "A9", "slow_queries": "A9", "traces": "A9",
-    "memory_pools": "A9", "statement_statistics": "A9",
-    "device_programs": "A9", "autotune_decisions": "A9",
-    "autotune_knobs": "A9", "cluster_node_stats": "A10",
+    "autotune_decisions": "A12",
+    "autotune_knobs": "A12", "cluster_node_stats": "A10",
     "cluster_runtime_metrics": "A10",
     "cluster_statement_statistics": "A10",
     "cluster_device_programs": "A10", "cluster_memory_pools": "A10",

@@ -89,9 +89,8 @@ _ADMITTED_STATEMENTS = (
 # ADMIN functions that wait, and their item
 _WAITING_ADMIN = {
     "migrate_region": "A10",
-    "set_config": "A9", "autotune_freeze": "A9",
-    "autotune_unfreeze": "A9", "reset_device_profiler": "A9",
-    "reset_statement_statistics": "A9",
+    "set_config": "A12", "autotune_freeze": "A12",
+    "autotune_unfreeze": "A12",
 }
 
 
@@ -222,15 +221,47 @@ class Instance:
 
         self.result_cache = ResultCache(enabled=False)
         self.catalog.result_cache = self.result_cache
+        from greptimedb_tpu_torch.telemetry.slow_query import SlowQueryLog
+
+        self.slow_query_log = SlowQueryLog()
 
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
     def execute_sql(self, sql: str, ctx: QueryContext | None = None
                     ) -> list[Output]:
-        """Run every statement of `sql`; one Output each."""
+        """Run every statement of `sql`; one Output each. One
+        `sql.execute` span covers the batch; each statement carries its
+        fingerprint (from the raw text, split on ';' as parse_sql
+        splits), and the batch lands in the slow-query log past its
+        threshold."""
+        from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
+
         ctx = ctx or QueryContext()
-        return [self.execute_statement(stmt, ctx) for stmt in parse_sql(sql)]
+        outputs = []
+        t0 = time.perf_counter()
+        trace_id = None
+        fps = (stmt_stats.fingerprint_sql(sql)
+               if stmt_stats.enabled() else [])
+        try:
+            with tracing.span("sql.execute", db=ctx.database,
+                              channel=ctx.channel) as root:
+                trace_id = root.trace_id or None
+                for i, stmt in enumerate(parse_sql(sql)):
+                    token = stmt_stats.bind_fingerprint(
+                        fps[i] if i < len(fps) else None)
+                    try:
+                        outputs.append(self.execute_statement(stmt, ctx))
+                    finally:
+                        stmt_stats.reset_fingerprint(token)
+        finally:
+            self.slow_query_log.maybe_record(
+                sql, time.perf_counter() - t0,
+                db=ctx.database, channel=ctx.channel,
+                trace_id=trace_id,
+                fingerprint=fps[0].fp if fps else "",
+            )
+        return outputs
 
     def sql(self, sql: str, ctx: QueryContext | None = None) -> QueryResult:
         """The last statement's result set (affected rows as a one-cell
@@ -247,22 +278,35 @@ class Instance:
         runs; a kill raises at its next cancellation checkpoint. A
         data-plane statement (`_ADMITTED_STATEMENTS`) passes admission
         control first: it shows "Queued" until it gets its slot, and its
-        deadline binds for its checkpoints. (The JAX package's statement
-        statistics and span wait for ROADMAP A9.)"""
+        deadline binds for its checkpoints. One statement-statistics
+        observation and one `sql.<kind>` span cover it: what the layers
+        below attribute (queue time, exec path, first calls, transfer
+        bytes) folds into its fingerprint's row on exit."""
+        from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
+
         ctx = ctx or QueryContext()
-        pid = self._process_list.register(type(stmt).__name__, ctx)
+        kind = type(stmt).__name__
+        pid = self._process_list.register(kind, ctx)
         token = cancellation.set_check(
             lambda: self._process_list.check_killed(pid))
         try:
-            if isinstance(stmt, _ADMITTED_STATEMENTS):
-                # control-plane statements (SHOW, SET, USE, ADMIN kill)
-                # bypass, so an operator can still inspect and kill work
-                # on an overloaded instance
-                with self.scheduler.admit(ctx):
+            with stmt_stats.global_stmt_stats.observe(ctx, kind) as obs, \
+                    tracing.span(f"sql.{kind}"):
+                if isinstance(stmt, _ADMITTED_STATEMENTS):
+                    # control-plane statements (SHOW, SET, USE, ADMIN
+                    # kill) bypass, so an operator can still inspect and
+                    # kill work on an overloaded instance
+                    with self.scheduler.admit(ctx):
+                        self._process_list.set_state(pid, "Running")
+                        out = self._execute_statement(stmt, ctx)
+                else:
                     self._process_list.set_state(pid, "Running")
-                    return self._execute_statement(stmt, ctx)
-            self._process_list.set_state(pid, "Running")
-            return self._execute_statement(stmt, ctx)
+                    out = self._execute_statement(stmt, ctx)
+                if obs is not None:
+                    obs.add("rows", out.result.num_rows
+                            if out.result is not None
+                            else (out.affected_rows or 0))
+                return out
         finally:
             cancellation.reset(token)
             self._process_list.unregister(pid)
@@ -409,6 +453,27 @@ class Instance:
         name = stmt.func
         if name in _WAITING_ADMIN:
             raise _waiting(f"ADMIN {name}", _WAITING_ADMIN[name])
+        if name == "reset_device_profiler":
+            # drops every program row; the exported
+            # gtpu_device_program_* series zero at the next scrape, so
+            # the three surfaces stay equal
+            from greptimedb_tpu_torch.telemetry.device_programs import (
+                global_programs,
+            )
+
+            return Output.records(_result_from_lists(
+                ["ADMIN reset_device_profiler()"],
+                [[global_programs.reset()]]))
+        if name == "reset_statement_statistics":
+            # drops every statement row; the gtpu_stmt_* counters keep
+            # counting (carried bases)
+            from greptimedb_tpu_torch.telemetry.stmt_stats import (
+                global_stmt_stats,
+            )
+
+            return Output.records(_result_from_lists(
+                ["ADMIN reset_statement_statistics()"],
+                [[global_stmt_stats.reset()]]))
 
         def arg(i: int) -> A.Expr:
             if i >= len(stmt.args):
@@ -691,7 +756,11 @@ class Instance:
                 return IS.query_information_schema(self, stmt, ctx)
             if self._is_pg_catalog(stmt.from_table, ctx):
                 return IS.query_pg_catalog(self, stmt, ctx)
-        plan, table = self.plan(stmt, ctx)
+        from greptimedb_tpu_torch.telemetry import tracing
+
+        with tracing.child_span("query.plan",
+                                table=stmt.from_table or ""):
+            plan, table = self.plan(stmt, ctx)
         return self._execute_select_plan(plan, table, ctx)
 
     def _execute_select_plan(self, plan, table, ctx: QueryContext):
@@ -702,6 +771,7 @@ class Instance:
         bound, the grid's narrowed readback)."""
         from greptimedb_tpu_torch.query import result_cache as RC
         from greptimedb_tpu_torch.query import sessions, stats
+        from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
 
         since = ctx.extensions.get("since_ms")
         rc = self.result_cache
@@ -722,16 +792,22 @@ class Instance:
             versions = table.physical_version()
             entry = rc.get(table.info.database, table, fp, versions)
             if entry is not None:
+                tracing.set_attr(result_cache="hit")
                 stats.note("result_cache", "hit")
+                stmt_stats.add("result_cache_hits")
                 # the path the cached result came from
                 self.query_engine.last_exec_path = entry.exec_path
                 res = entry.result
                 if since is not None:
                     res = RC.filter_since(res, entry.ts_name, since)
                 return res
+            tracing.set_attr(result_cache="miss")
             stats.note("result_cache", "miss")
+            stmt_stats.add("result_cache_misses")
         elif rc.enabled:
+            tracing.set_attr(result_cache="bypass")
             stats.note("result_cache", "bypass")
+            stmt_stats.add("result_cache_bypass")
         token = sessions.bind_since(since) if since is not None else None
         try:
             res = self.query_engine.execute(plan, table)
@@ -764,9 +840,10 @@ class Instance:
         `SelectPlan[relational]` for a CTE, a join, a subquery in FROM or
         a set operation. ANALYZE also runs it under query/stats'
         collector: a `Metrics:` line (rows, elapsed ms), then the
-        collector's lines. (The JAX package's statement fingerprint and
-        span tree wait for ROADMAP A9.)"""
+        collector's lines (the analyzed statement's fingerprint among
+        them), then the `Trace:` span tree of this execution."""
         from greptimedb_tpu_torch.query import relational, stats
+        from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
 
         inner = stmt.statement
         if not isinstance(inner, (A.Select, A.SetOp)):
@@ -780,7 +857,13 @@ class Instance:
             lines = ["SelectPlan[relational]"]
         if stmt.analyze:
             t0 = time.perf_counter()
-            with stats.collect() as st:
+            with stats.collect() as st, tracing.export_spans() as tspans:
+                # the ANALYZED statement's fingerprint ("EXPLAIN ANALYZE
+                # <q>" and a plain "<q>" share it), so the metrics join
+                # its statement_statistics row
+                sfp = stmt_stats.explain_fingerprint()
+                if sfp:
+                    st.note("stmt_fingerprint", sfp)
                 if isinstance(inner, A.SetOp):
                     res = relational.execute(self, inner, ctx)
                 else:
@@ -788,6 +871,19 @@ class Instance:
             dt = (time.perf_counter() - t0) * 1000
             lines.append(f"  Metrics: rows={res.num_rows} elapsed={dt:.3f}ms")
             lines.extend(st.lines())
+            if tspans:
+                # this execution's span tree, as /v1/traces serves it
+                tid = tracing.current_trace_id()
+                remote = tracing.global_traces.trace(tid) if tid else []
+                local_ids = {s.span_id for s in tspans}
+                docs = [s.to_json() for s in tspans] + [
+                    d for d in remote
+                    if d["span_id"] not in local_ids
+                    and d.get("duration_ms") is not None
+                ]
+                lines.append(f"  Trace: {tid or '(sampling disabled)'}")
+                lines.extend(
+                    "    " + ln for ln in tracing.render_tree(docs))
         return _result_from_lists(["plan"], [lines])
 
     def _is_information_schema(self, name: str, ctx: QueryContext) -> bool:

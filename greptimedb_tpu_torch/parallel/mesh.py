@@ -111,6 +111,12 @@ def configure(opts: MeshOptions, device=None) -> Mesh | None:
         if len(devices) <= 1:
             return None
         _global_mesh = Mesh(devices)
+        from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+        global_registry.gauge(
+            "gtpu_mesh_devices",
+            "Devices in the process-wide query mesh (shard axis)",
+        ).set(len(devices))
         return _global_mesh
 
 

@@ -66,6 +66,7 @@ from greptimedb_tpu_torch.promql.parser import (
     NumberLit,
     VectorSelector,
 )
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
 
 # the range functions the fast path evaluates per series (prefix sums or
 # gathered windows of L cells): every range function but absent_over_time
@@ -130,6 +131,17 @@ class SelectorGridCache:
         self.byte_budget = byte_budget
         self._entries: dict[tuple, _Entry] = {}
         self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "promql_grid", "device", self,
+            stats=SelectorGridCache._mem_stats,
+            evict=SelectorGridCache.evict_bytes,
+            buffers=SelectorGridCache._device_buffers,
+        )
 
     def get_entry(self, table, fieldname: str, *, device, mesh=None,
                   mesh_opts=None) -> _Entry | None:
@@ -141,7 +153,9 @@ class SelectorGridCache:
             e = self._entries.get(key)
             if e is not None and e.table is table and e.version == version:
                 e.last_used = time.monotonic()
+                self.hits += 1
                 return e
+            self.misses += 1
         e = _build_entry(table, fieldname, version, device=device,
                          mesh=mesh, mesh_opts=mesh_opts,
                          byte_budget=self.byte_budget)
@@ -154,16 +168,19 @@ class SelectorGridCache:
             self._entries[key] = e
             e.last_used = time.monotonic()
             self._evict_locked(keep=key)
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.note_device_bytes()
         return e
 
-    @staticmethod
-    def _release(entry: _Entry):
+    def _release(self, entry: _Entry):
         """Drop the entry's session buffers with it (query/sessions.py):
         a dropped entry's id() can be reused by a new entry, and its
         buffers would otherwise pin the card's memory until unrelated
         LRU pressure."""
         from greptimedb_tpu_torch.query import sessions
 
+        self.evictions += 1
         sessions.global_sessions.purge_table(("promql", id(entry)))
 
     def _evict_locked(self, keep):
@@ -189,8 +206,104 @@ class SelectorGridCache:
                         if e.table is table]:
                 self._release(self._entries.pop(key))
 
+    # ------------------------------------------------------------------
+    # memory ledger surface (telemetry/memory.py)
+    # ------------------------------------------------------------------
+    _DERIVED = ("match_cache", "group_cache", "win_cache")
+
+    def _mem_stats(self) -> dict:
+        from greptimedb_tpu_torch.telemetry.memory import iter_device_arrays
+
+        with self._lock:
+            total = 0
+            seen: set[int] = set()
+            for e in self._entries.values():
+                total += e.nbytes
+                # the derived per-query inputs pinned on the entry count
+                # too: the watermark must see every resident byte
+                for cname in self._DERIVED:
+                    for v in list(getattr(e, cname).values()):
+                        for t in iter_device_arrays(v):
+                            if id(t) not in seen:
+                                seen.add(id(t))
+                                total += t.numel() * t.element_size()
+            return {
+                "bytes": total,
+                "entries": len(self._entries),
+                "budget_bytes": self.byte_budget,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+    def evict_bytes(self, target: int) -> int:
+        """Shed least-recently-used grids until `target` bytes are
+        freed (the global device watermark)."""
+        freed = 0
+        with self._lock:
+            for key, e in sorted(self._entries.items(),
+                                 key=lambda kv: kv[1].last_used):
+                if freed >= target:
+                    break
+                self._release(self._entries.pop(key))
+                freed += e.nbytes
+        return freed
+
+    def _device_buffers(self):
+        from greptimedb_tpu_torch.telemetry.memory import iter_device_arrays
+
+        out = []
+        with self._lock:
+            for e in self._entries.values():
+                tag = f"promql:{e.fieldname}"
+                out += [(t, tag) for t in iter_device_arrays(
+                    [e.vals, e.has, e.tsg])]
+                for cname in self._DERIVED:
+                    for v in list(getattr(e, cname).values()):
+                        out += [(t, f"{tag}:{cname}")
+                                for t in iter_device_arrays(v)]
+        return out
+
 
 _CACHE = SelectorGridCache()
+
+_FAST_HITS = global_registry.counter(
+    "greptime_promql_fast_path_total",
+    "PromQL queries served from the selector grid cache", ("event",),
+)
+
+
+def _hit(out):
+    _FAST_HITS.labels("hit").inc()
+    return out
+
+
+def _fallback():
+    _FAST_HITS.labels("fallback").inc()
+
+
+def _run_program(site: str, key: tuple, entry: _Entry, skey: tuple,
+                 inputs: tuple, run, dtype=np.float64, **attrs):
+    """One fused program through its query session under a
+    `device.execute` span (telemetry/device_trace.py): a session hit runs
+    nothing and counts no program call. Declares the program's least
+    bytes (the entry's grid planes read once, the packed result written
+    once) and one op per grid cell at its first dispatch. Returns (the
+    packed result read back, session hit)."""
+    from greptimedb_tpu_torch.query import readback
+    from greptimedb_tpu_torch.telemetry import device_trace
+
+    with device_trace.device_call(site, key=key, device=entry.devices[0],
+                                  **attrs) as dcall:
+        packed, hit = _session_exec(entry, skey, inputs,
+                                    lambda: dcall.run(run))
+        dcall.executed()
+        if dcall.first:
+            dcall.declare(entry.nbytes // 9,
+                          entry.nbytes + packed.numel()
+                          * packed.element_size())
+        out = readback.read_full(packed, dtype)
+        dcall.transfer(out.nbytes, "readback")
+    return out, hit
 
 
 def _session_exec(entry: _Entry, skey: tuple, inputs: tuple, run):
@@ -276,13 +389,25 @@ def _build_entry(table, fieldname: str, version, *, device, mesh=None,
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev0)
 
-    gvals, ghas, gtsg = G.gridify(
-        up(np.asarray(rows.sid, np.int32)),
-        up(spec.cell_of(ts).astype(np.int32)),
-        up(spec.device_ts(ts)),
-        up(np.asarray(rows.fields[fieldname], np.float32)),
-        up(mask), s_pad, nc,
-    )
+    # the grid build is this path's big host->device transfer: a span
+    # on the trace (a cold selector's first query pays it)
+    from greptimedb_tpu_torch.telemetry import tracing
+
+    t0_build = time.perf_counter()
+    with tracing.child_span("device.upload", site="promql_grid",
+                            upload_bytes=s_pad * nc * 9):
+        gvals, ghas, gtsg = G.gridify(
+            up(np.asarray(rows.sid, np.int32)),
+            up(spec.cell_of(ts).astype(np.int32)),
+            up(spec.device_ts(ts)),
+            up(np.asarray(rows.fields[fieldname], np.float32)),
+            up(mask), s_pad, nc,
+        )
+    _FAST_HITS.labels("grid_build").inc()
+    global_registry.gauge(
+        "greptime_promql_grid_build_seconds",
+        "wall seconds of the last selector grid build",
+    ).set(time.perf_counter() - t0_build)
     per = s_pad // ns
 
     def cut(x):
@@ -634,20 +759,19 @@ def try_fast(engine, e, ev):
     """Serve `agg(range_fn(selector))` / `agg(selector)` from the grid
     cache. Returns a VectorValue, or None for a shape it does not serve."""
     from greptimedb_tpu_torch.promql.engine import _empty_vector
-    from greptimedb_tpu_torch.query import readback
 
     if not isinstance(e, Agg) or e.op not in _SIMPLE_AGGS:
         return None
     resolved = _resolve_fast_selector(engine, e.expr, ev)
     if resolved is None:
-        return None
+        return _fallback()
     if resolved == "empty":
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     entry, table, raw_matchers, fname, fargs, win = resolved
     matchers = engine._to_registry_matchers(raw_matchers, table)
     smask, any_match = _matcher_mask_dev(entry, matchers)
     if not any_match:
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     grp = _grouping_dev(entry, table, e.grouping, e.without)
     lookback_ticks = max(int(ev.lookback_ms // entry.spec.unit), 1)
     ring, kernel_label = False, None
@@ -662,15 +786,16 @@ def try_fast(engine, e, ev):
         kernel_label = f"{kdec}({kreason})"
     skey = ("q", fname, fargs, e.op, grp.g, win.range_ticks, win.l_cells,
             win.x64, entry.spec.tps, lookback_ticks, ring)
-    packed, hit = _session_exec(
-        entry, skey, (smask, grp, *_win_inputs(win)),
+    packed_np, hit = _run_program(
+        "promql", ("promql", entry.shards) + skey, entry, skey,
+        (smask, grp, *_win_inputs(win)),
         lambda: _fused_query(entry, smask, grp, win, fname=fname,
                              fargs=fargs, op=e.op,
-                             lookback_ticks=lookback_ticks, ring=ring))
+                             lookback_ticks=lookback_ticks, ring=ring),
+        groups=grp.g)
     _note(engine, entry, "promql", kernel_label,
           session="hit" if hit else "miss")
-    return _vector_from_packed(readback.read_full(packed, np.float64),
-                               grp.labels, grp.g)
+    return _hit(_vector_from_packed(packed_np, grp.labels, grp.g))
 
 
 # ----------------------------------------------------------------------
@@ -782,7 +907,7 @@ def try_fast_topk(engine, e, ev):
     """Serve global `topk/bottomk(k, range_fn(sel) | sel)` from the grid
     cache; grouped topk returns None."""
     from greptimedb_tpu_torch.promql.engine import VectorValue, _empty_vector
-    from greptimedb_tpu_torch.query import planner, readback
+    from greptimedb_tpu_torch.query import planner
 
     if not isinstance(e, Agg) or e.op not in ("topk", "bottomk"):
         return None
@@ -795,14 +920,14 @@ def try_fast_topk(engine, e, ev):
         return _empty_vector(ev)
     resolved = _resolve_fast_selector(engine, e.expr, ev)
     if resolved is None:
-        return None
+        return _fallback()
     if resolved == "empty":
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     entry, table, raw_matchers, fname, fargs, win = resolved
     matchers = engine._to_registry_matchers(raw_matchers, table)
     smask, any_match = _matcher_mask_dev(entry, matchers)
     if not any_match:
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     if entry.s_pad >= (1 << 24):
         # packed winner indices ride as f32 (exact only below 2^24)
         return None
@@ -826,15 +951,16 @@ def try_fast_topk(engine, e, ev):
             comm_bytes = topk_comm_bytes(entry.shards, win.num_steps, kk)
     skey = ("topk", fname, fargs, kk, e.op == "topk", win.range_ticks,
             win.l_cells, win.x64, entry.spec.tps, lookback_ticks, use_kernel)
-    packed_dev, hit = _session_exec(
-        entry, skey, (smask, *_win_inputs(win)),
+    packed, hit = _run_program(
+        "topk", ("topk", entry.shards) + skey, entry, skey,
+        (smask, *_win_inputs(win)),
         lambda: _fused_topk(entry, smask, win, fname=fname, fargs=fargs,
                             k=kk, largest=e.op == "topk",
                             lookback_ticks=lookback_ticks,
-                            kernel=use_kernel))
+                            kernel=use_kernel),
+        dtype=None, collective=use_kernel, comm_bytes=comm_bytes)
     _note(engine, entry, "topk", kernel_label, comm_bytes,
           session="hit" if hit else "miss")
-    packed = readback.read_full(packed_dev)
     jj = packed.shape[0] // 3
     top_vals = packed[:jj].astype(np.float64)      # (J, k)
     top_idx = packed[jj:2 * jj].astype(np.int64)
@@ -842,7 +968,7 @@ def try_fast_topk(engine, e, ev):
     j = top_vals.shape[0]
     sids = np.unique(top_idx[top_pres])
     if len(sids) == 0:
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     pos = {int(s): i for i, s in enumerate(sids)}
     vals_out = np.zeros((len(sids), j))
     pres_out = np.zeros((len(sids), j), bool)
@@ -854,7 +980,7 @@ def try_fast_topk(engine, e, ev):
     if fname == "__instant__":
         for lab in labels:
             lab["__name__"] = table.name
-    return VectorValue(labels, vals_out, pres_out)
+    return _hit(VectorValue(labels, vals_out, pres_out))
 
 
 # ----------------------------------------------------------------------
@@ -1011,7 +1137,6 @@ def try_fast_binary(engine, e, ev, *, agg=None):
     """Serve `vecL <op> vecR` (and `agg(...)` around it) when both sides
     live on the same table's grid cache. Returns a VectorValue or None."""
     from greptimedb_tpu_torch.promql.engine import _empty_vector
-    from greptimedb_tpu_torch.query import readback
 
     if agg is not None and agg.op not in _SIMPLE_AGGS:
         return None
@@ -1031,27 +1156,27 @@ def try_fast_binary(engine, e, ev, *, agg=None):
     smask_r, any_r = _matcher_mask_dev(
         entry_r, engine._to_registry_matchers(raw_m_r, table))
     if not (any_l and any_r):
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     lookback_ticks = max(int(ev.lookback_ms // entry_l.spec.unit), 1)
     agg_op = "" if agg is None else agg.op
     skey = ("binary", fname_l, fargs_l, fname_r, fargs_r, e.op,
             bool(e.bool_mod), agg_op, win_l.range_ticks, win_l.l_cells,
             win_r.range_ticks, win_r.l_cells, win_l.x64, lookback_ticks,
             entry_r.version)
-    packed, hit = _session_exec(
-        entry_l, skey, (entry_r, smask_l, smask_r, grp,
-                        *_win_inputs(win_l), *_win_inputs(win_r)),
+    packed_np, hit = _run_program(
+        "promql_binary", skey[:-1], entry_l, skey,
+        (entry_r, smask_l, smask_r, grp,
+         *_win_inputs(win_l), *_win_inputs(win_r)),
         lambda: _fused_binary(
             entry_l, (smask_l, fname_l, fargs_l, win_l),
             entry_r, (smask_r, fname_r, fargs_r, win_r), op=e.op,
             bool_mod=bool(e.bool_mod), agg_op=agg_op, grp=grp,
             lookback_ticks=lookback_ticks))
     _note(engine, entry_l, "binary", session="hit" if hit else "miss")
-    packed_np = readback.read_full(packed, np.float64)
     if agg is not None:
-        return _vector_from_packed(packed_np, grp.labels, grp.g)
-    return _vector_from_packed(packed_np, _series_labels(entry_l, table),
-                               entry_l.num_series)
+        return _hit(_vector_from_packed(packed_np, grp.labels, grp.g))
+    return _hit(_vector_from_packed(
+        packed_np, _series_labels(entry_l, table), entry_l.num_series))
 
 
 # ----------------------------------------------------------------------
@@ -1228,7 +1353,6 @@ def try_fast_histogram(engine, phi: float, inner, ev):
     `histogram_quantile(phi, sum by (le, ...)(range_fn(sel)))` from the
     grid cache. Returns a VectorValue, or None for the generic engine."""
     from greptimedb_tpu_torch.promql.engine import _empty_vector
-    from greptimedb_tpu_torch.query import readback
 
     agg = None
     if (isinstance(inner, Agg) and inner.op == "sum" and not inner.without
@@ -1237,9 +1361,9 @@ def try_fast_histogram(engine, phi: float, inner, ev):
         inner = inner.expr
     resolved = _resolve_fast_selector(engine, inner, ev)
     if resolved is None:
-        return None
+        return _fallback()
     if resolved == "empty":
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     entry, table, raw_matchers, fname, fargs, win = resolved
     agg_grp = None
     if agg is not None:
@@ -1250,30 +1374,30 @@ def try_fast_histogram(engine, phi: float, inner, ev):
                 *cells[:1], torch.from_numpy(cells[1]).to(entry.devices[0]),
                 *cells[2:])
         if agg_grp.hist_slots == "unservable":
-            return None
+            return _fallback()
         labels, slot, uniq_le, g, b = agg_grp.hist_slots
     else:
         grouping = _hist_grouping(entry, table)
         if grouping is None:
-            return None
+            return _fallback()
         labels, slot, uniq_le, g, b = grouping
     matchers = engine._to_registry_matchers(raw_matchers, table)
     smask, any_match = _matcher_mask_dev(entry, matchers)
     if not any_match:
-        return _empty_vector(ev)
+        return _hit(_empty_vector(ev))
     lookback_ticks = max(int(ev.lookback_ms // entry.spec.unit), 1)
     le_host = np.asarray(uniq_le, np.float32)
     skey = ("hist", fname, fargs, g, b, float(phi), le_host.tobytes(),
             win.range_ticks, win.l_cells, win.x64, lookback_ticks)
-    packed, hit = _session_exec(
-        entry, skey, (smask, agg_grp, slot, *_win_inputs(win)),
+    packed_np, hit = _run_program(
+        "promql_histogram", skey[:5] + skey[7:], entry, skey,
+        (smask, agg_grp, slot, *_win_inputs(win)),
         lambda: _fused_hist_query(
             entry, smask, win, fname=fname, fargs=fargs, agg_grp=agg_grp,
             slot=slot, le=torch.from_numpy(le_host).to(slot.device), g=g,
             b=b, phi=phi, lookback_ticks=lookback_ticks))
     _note(engine, entry, "histogram", session="hit" if hit else "miss")
-    return _vector_from_packed(readback.read_full(packed, np.float64),
-                               labels, g)
+    return _hit(_vector_from_packed(packed_np, labels, g))
 
 
 def invalidate_cache():

@@ -186,6 +186,14 @@ class DeviceRangeCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "range_grid", "device", self,
+            stats=DeviceRangeCache._mem_stats,
+            evict=DeviceRangeCache.evict_bytes,
+            buffers=DeviceRangeCache._device_buffers,
+        )
 
     def _release(self, entry: _Entry):
         """Drop the entry's session buffers with it (query/sessions.py):
@@ -231,6 +239,9 @@ class DeviceRangeCache:
                 self._release(victim)
                 total -= victim.bytes()
             self._entries[key] = entry
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.note_device_bytes()
 
     def clear(self):
         """Drop every entry, and with each its session buffers."""
@@ -268,6 +279,70 @@ class DeviceRangeCache:
                 self._release(victim)
                 total -= victim.bytes()
             return total <= self.byte_budget
+
+    # ------------------------------------------------------------------
+    # memory ledger surface (telemetry/memory.py)
+    # ------------------------------------------------------------------
+    def _mem_stats(self) -> dict:
+        with self._lock:
+            total = 0
+            for e in self._entries.values():
+                total += e.bytes()
+                # the per-query-shape inputs ride the entry (query_memo)
+                # outside recount_bytes' grid bytes: the watermark must
+                # still see them
+                for memo in list(e.query_memo.values()):
+                    total += sum(t.numel() * t.element_size()
+                                 for t in _memo_tensors(memo))
+            return {
+                "bytes": total,
+                "entries": len(self._entries),
+                "budget_bytes": self.byte_budget,
+                "max_entries": _MAX_ENTRIES,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+    def evict_bytes(self, target: int) -> int:
+        """Shed LRU grid entries until `target` bytes are freed (the
+        global device watermark)."""
+        freed = 0
+        with self._lock:
+            while freed < target and self._entries:
+                victim = self._entries.pop(next(iter(self._entries)))
+                self._release(victim)
+                freed += victim.bytes()
+        return freed
+
+    def _device_buffers(self):
+        from greptimedb_tpu_torch.telemetry.memory import iter_device_arrays
+
+        out = []
+        with self._lock:
+            for key, e in self._entries.items():
+                tag = f"range:{key[0][0]}.{key[0][1]}"
+                out += [(t, tag) for t in iter_device_arrays(
+                    [e.nrow, e.imin, e.imax])]
+                # list() snapshots: fields and query_memo grow under the
+                # entry's own lock, not this one
+                for fname, d in list(e.fields.items()):
+                    out += [(t, f"{tag}:{fname}") for t in
+                            iter_device_arrays(list(d.values()))]
+                for memo in list(e.query_memo.values()):
+                    out += [(t, f"{tag}:query_memo")
+                            for t in _memo_tensors(memo)]
+        return out
+
+
+def _memo_tensors(memo: dict) -> list:
+    """The device inputs a query shape keeps on its entry: the group ids,
+    the active mask and K2's member lists."""
+    from greptimedb_tpu_torch.telemetry.memory import iter_device_arrays
+
+    parts = [memo.get("gid"), memo.get("mask")]
+    for fm in memo.get("fold_members") or ():
+        parts.extend(vars(fm).values())
+    return list(iter_device_arrays(parts))
 
 
 # ----------------------------------------------------------------------
@@ -679,6 +754,40 @@ def run_prelude(entry: _Entry, sid_mask: np.ndarray | None, lo: int, hi: int):
         entry.prelude.pop(next(iter(entry.prelude)))
     masks = (_put(entry.devices)(sid_mask) if sid_mask is not None
              else [None] * len(entry.devices))
+    from greptimedb_tpu_torch.telemetry import device_trace
+
+    # the prelude runs before every device RANGE query; one program per
+    # grid geometry
+    with device_trace.device_call(
+            "range_prelude",
+            key=("prelude", tuple(tuple(t.shape) for t in entry.nrow)),
+            device=entry.devices[0]) as dcall:
+        act_any, bounds = dcall.run(_prelude_program, entry, masks, lo, hi)
+        dcall.executed()
+        if dcall.first:
+            # the nrow/imin/imax planes read once; a compare per cell
+            dcall.declare(sum(t.numel() for t in entry.nrow),
+                          sum(t.numel() * t.element_size()
+                              for t in (*entry.nrow, *entry.imin,
+                                        *entry.imax)))
+        act_h = readback.read_gathered(act_any)
+        c_lo, i_lo, c_hi, i_hi = (int(v) for v in readback.read_full(bounds))
+        dcall.transfer(act_h.nbytes + bounds.numel() * bounds.element_size())
+    if not act_h.any():
+        out = (act_h, None, None)
+    else:
+        out = (
+            act_h,
+            entry.t0c + c_lo * entry.res + i_lo,
+            entry.t0c + c_hi * entry.res + i_hi,
+        )
+    entry.prelude[key] = out
+    return out
+
+
+def _prelude_program(entry: _Entry, masks: list, lo: int, hi: int):
+    """The prelude's launches: (per-shard active-sid masks, the stacked
+    int32 (c_lo, i_lo, c_hi, i_hi)) on the card."""
     nb = entry.nb
     dev0 = entry.devices[0]
     acts, cells = [], []
@@ -703,19 +812,8 @@ def run_prelude(entry: _Entry, sid_mask: np.ndarray | None, lo: int, hi: int):
                            -1).max().to(dev0)
         i_lo = lo_k if i_lo is None else torch.minimum(i_lo, lo_k)
         i_hi = hi_k if i_hi is None else torch.maximum(i_hi, hi_k)
-    act_h = readback.read_gathered([a.any(dim=1) for a in acts])
-    c_lo, i_lo, c_hi, i_hi = (int(v) for v in readback.read_full(
-        torch.stack([c_lo, i_lo, c_hi, i_hi])))
-    if not act_h.any():
-        out = (act_h, None, None)
-    else:
-        out = (
-            act_h,
-            entry.t0c + c_lo * entry.res + i_lo,
-            entry.t0c + c_hi * entry.res + i_hi,
-        )
-    entry.prelude[key] = out
-    return out
+    return ([a.any(dim=1) for a in acts],
+            torch.stack([c_lo, i_lo, c_hi, i_hi]))
 
 
 # window-combine machinery (device mirror of the host path's
@@ -1568,6 +1666,7 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     memo_key = (mask_key, tuple(k.expr.name for k in plan.keys), delta,
                 lo_c, hi_c)
     memo = entry.query_memo.get(memo_key)
+    uploaded_bytes = 0
     if memo is None:
         gid_full, g, key_cols = _group_ids_from_sids(
             plan, entry.registry, active
@@ -1601,6 +1700,7 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
                 for k, dev in enumerate(devices)] if fold else None),
             "delta": int(delta), "lo": lo_c, "hi": hi_c,
         }
+        uploaded_bytes = int(gid_full.nbytes) + int(active.nbytes)
         if len(entry.query_memo) >= 32:
             entry.query_memo.pop(next(iter(entry.query_memo)))
         entry.query_memo[memo_key] = memo
@@ -1681,17 +1781,39 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
     use_sessions = getattr(table, "session_cacheable", True)
     session_tkey = ("range", id(entry))
     session_key = (memo_key, spec, program, ring_form)
-    with stats.timed("device_exec_ms"):
+    from greptimedb_tpu_torch.telemetry import device_trace
+
+    # one device.execute span a query (a session hit keeps it, with no
+    # program call); the program identity carries the mesh variant
+    with stats.timed("device_exec_ms"), device_trace.device_call(
+            "range", key=("range", program, ring_form, spec),
+            groups=g, steps=n_steps,
+            collective=program == "sharded_ring", comm_bytes=comm_bytes,
+            device=entry.devices[0]) as dcall:
         parts = (sessions.global_sessions.get(session_tkey, session_key,
                                               entry.version)
                  if use_sessions else None)
         if parts is not None:
             stats.note("device_session", "hit")
             engine.last_session = "hit"
+            dcall.executed()
         else:
             stats.note("device_session", "miss")
             engine.last_session = "miss"
-            parts = _range_body(arrs, memo, spec, ctx)
+            if uploaded_bytes:
+                dcall.transfer(uploaded_bytes, "upload")
+            parts = dcall.run(_range_body, arrs, memo, spec, ctx)
+            dcall.executed()
+            if dcall.first:
+                # every state plane read once, the gid/mask inputs once,
+                # the result written once; an add per state cell
+                planes = [t for d in arrs.values() for v in d.values()
+                          for t in v]
+                ins = planes + list(memo["gid"]) + list(memo["mask"])
+                dcall.declare(
+                    sum(t.numel() for t in planes),
+                    sum(t.numel() * t.element_size()
+                        for t in ins + list(parts)))
             if use_sessions:
                 sessions.global_sessions.put(session_tkey, session_key,
                                              entry.version, parts,
@@ -1703,6 +1825,7 @@ def execute_on_entry(engine, plan, table, entry: _Entry, items=None):
         out = readback.read_gathered(parts, dim=1,
                                      stop=None if memo["fold"] else g,
                                      lo=j0)
+        dcall.transfer(out.nbytes, "readback")
     stats.add("device_readback_bytes", out.nbytes)
     stats.add("range_groups", g)
     stats.add("range_steps", n_steps)

@@ -341,11 +341,21 @@ class QueryEngine:
         self.last_session = None
 
     def _record_path(self, kind: str, path: str):
-        """The path a query took: `last_exec_path` ("device" or "host")
-        and EXPLAIN ANALYZE's `exec_path_<kind>` note ("device" or
-        "host:<reason>")."""
+        """The path a query took: `last_exec_path` ("device" or "host"),
+        EXPLAIN ANALYZE's `exec_path_<kind>` note ("device" or
+        "host:<reason>"), the statement's statistics row and
+        gtpu_query_exec_path_total."""
+        from greptimedb_tpu_torch.telemetry import stmt_stats
+        from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
         self.last_exec_path = "device" if path == "device" else "host"
         stats.note(f"exec_path_{kind}", path)
+        stmt_stats.note_exec_path(path)
+        global_registry.counter(
+            "gtpu_query_exec_path_total",
+            "Query executions by path (device | host:<fallback reason>)",
+            labels=("kind", "path"),
+        ).labels(kind, path).inc()
 
     def execute(self, plan, table) -> QueryResult:
         if table is None:
@@ -412,10 +422,13 @@ class QueryEngine:
                     (col, terms) for col, q in plan.scan.fulltext
                     if (terms := required_terms(q))
                 ] or None
-            data = table.scan(field_names, ts_min=ts_min,
-                              ts_max=plan.scan.ts_max,
-                              matchers=plan.scan.matchers or None,
-                              fulltext=ft)
+            from greptimedb_tpu_torch.telemetry import tracing
+
+            with tracing.span("query.scan", table=table.name):
+                data = table.scan(field_names, ts_min=ts_min,
+                                  ts_max=plan.scan.ts_max,
+                                  matchers=plan.scan.matchers or None,
+                                  fulltext=ft)
         record_scan_path(bool(plan.scan.matchers) and tag_index.enabled())
         stats.add("rows_scanned", data.num_rows)
         stats.add("series_total", data.registry.num_series)

@@ -257,28 +257,58 @@ def decide_kernel(kind: str = "range", *, series: int | None = None,
 
 
 # ----------------------------------------------------------------------
-# EXPLAIN ANALYZE notes of the planner's decisions (the JAX package's
-# record_* helpers, their query/stats part; its metrics and statement
-# statistics wait for ROADMAP A9)
+# the planner's decisions: EXPLAIN ANALYZE notes, span attributes, the
+# statement's statistics row and the gtpu_mesh_*/gtpu_index_* counters
 # ----------------------------------------------------------------------
 
+def _mesh_queries():
+    from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+    return global_registry.counter(
+        "gtpu_mesh_queries_total",
+        "Mesh execution decisions by mode/reason/site",
+        labels=("kind", "mode", "reason"),
+    )
+
+
 def record_kernel_decision(kind: str, kernel: str, reason: str) -> None:
-    """Note one program-variant choice (`mesh_kernel_<kind>`)."""
-    stats.note(f"mesh_kernel_{kind}", f"{kernel}({reason})")
+    """Surface one program-variant choice (`mesh_kernel_<kind>`), under
+    the "<kind>_kernel" site label of gtpu_mesh_queries_total."""
+    from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
+
+    label = f"{kernel}({reason})"
+    stats.note(f"mesh_kernel_{kind}", label)
+    tracing.set_attr(**{f"mesh_kernel_{kind}": label})
+    stmt_stats.note("mesh_kernel", label)
+    _mesh_queries().labels(f"{kind}_kernel", kernel, reason).inc()
 
 
 def record_scan_path(pruned: bool) -> None:
-    """Note whether a scan rode the secondary tag index (`index_pruned`:
+    """Surface whether a scan rode the secondary tag index (`index_pruned`:
     it had matchers and the index is enabled) or read the whole table
     (`full_scan`)."""
-    stats.note("scan_path", "index_pruned" if pruned else "full_scan")
+    from greptimedb_tpu_torch.telemetry import stmt_stats
+    from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+    path = "index_pruned" if pruned else "full_scan"
+    stats.note("scan_path", path)
+    stmt_stats.note("scan_path", path)
+    global_registry.counter(
+        "gtpu_index_scans_total",
+        "Statement scans by path (index_pruned | full_scan)",
+        labels=("path",),
+    ).labels(path).inc()
 
 
 def record_mesh_decision(decision: MeshDecision, kind: str) -> None:
-    """Note one replicate-vs-shard decision (`mesh_decision_<kind>`),
+    """Surface one replicate-vs-shard decision (`mesh_decision_<kind>`),
     the shard count of a sharded one (`mesh_devices`) and its program
-    variant."""
+    variant. No counter on a one-device process."""
+    from greptimedb_tpu_torch.telemetry import stmt_stats, tracing
+
     stats.note(f"mesh_decision_{kind}", decision.label())
+    tracing.set_attr(**{f"mesh_decision_{kind}": decision.label()})
+    stmt_stats.note("mesh_decision", decision.label())
     if decision.devices <= 1:
         return
     if decision.shard:
@@ -286,9 +316,10 @@ def record_mesh_decision(decision: MeshDecision, kind: str) -> None:
         active = stats.active()
         if active is not None:
             active.counters["mesh_devices"] = decision.devices
-        if decision.kernel_reason:
-            record_kernel_decision(kind, decision.kernel,
-                                   decision.kernel_reason)
+    _mesh_queries().labels(kind, decision.mode, decision.reason).inc()
+    if decision.shard and decision.kernel_reason:
+        record_kernel_decision(kind, decision.kernel,
+                               decision.kernel_reason)
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,11 @@
 """Device -> host readback: the only places the port syncs with the card.
 
 Every device result the host consumes crosses here, so the bytes moved
-are counted in one place (`readback_bytes`: "full" for whole buffers,
-"delta" for the step slices of `since` polls). A delta poll narrows the
+are counted in one place: `gtpu_readback_bytes_total{mode}` ("full" for
+whole buffers, "delta" for the step slices of `since` polls; the host
+array's bytes, after an optional host cast, as the JAX package counts
+them) and the statement's statistics row (`readback_bytes(mode)` reads
+the counter). A delta poll narrows the
 buffer along its steps axis on the card and makes it contiguous there
 before the copy, so only the delta's bytes cross PCIe. A sharded result
 is gathered onto its first shard's device and read back once.
@@ -14,16 +17,29 @@ import numpy as np
 import torch
 
 from greptimedb_tpu_torch.parallel.dist import gather_blocks
+from greptimedb_tpu_torch.telemetry import stmt_stats
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
 
-readback_bytes = {"full": 0, "delta": 0}
+_READBACK_BYTES = global_registry.counter(
+    "gtpu_readback_bytes_total",
+    "device->host result readback bytes by mode "
+    "(full buffer vs since-cursor delta slice)",
+    labels=("mode",),
+)
 
 
 def _copy(t: torch.Tensor, mode: str, dtype=None) -> np.ndarray:
     out = t.detach().cpu().numpy()
-    readback_bytes[mode] += out.nbytes
     if dtype is not None:
         out = out.astype(dtype, copy=False)
+    _READBACK_BYTES.labels(mode).inc(int(out.nbytes))
+    stmt_stats.add(f"readback_{mode}_bytes", int(out.nbytes))
     return out
+
+
+def readback_bytes(mode: str) -> float:
+    """The counter's current value for `mode` ("full" or "delta")."""
+    return _READBACK_BYTES.labels(mode).value
 
 
 def read_full(t: torch.Tensor, dtype=None) -> np.ndarray:

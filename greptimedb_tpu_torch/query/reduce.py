@@ -420,21 +420,36 @@ def _device_reduce_fused(specs, values: dict, gid, valid_map, g: int, ts, *,
                "tslo": put(h_tslo, k), "row0": k * nbl}
               for k in range(ns)]
     ctx, program, ring_form = _fold_ctx(mesh, kernel, ns)
-    blocked, single = _fused_program(shards, spec, ctx)
-    # reassemble the JAX program's row layout on shard 0's device: per
-    # mask its count rows, then per item its blocked rows or one row
-    pieces = list(blocked[:len(mask_arrays)])
-    bi, si = len(mask_arrays), 0
-    for op, _vi, _mi in items:
-        if op == "count":
-            continue
-        if op in ("sum", "mean") or op in _VAR_OPS:
-            pieces.append(blocked[bi])
-            bi += 1
-        else:
-            pieces.append(single[si][None, :])
-            si += 1
-    out_mat = readback.read_full(torch.cat(pieces), np.float64)
+    upload = sum(a.nbytes for a in (h_vals, h_masks, h_gid, h_tshi, h_tslo))
+    from greptimedb_tpu_torch.telemetry import device_trace
+
+    with device_trace.device_call(
+            "groupby", key=(program, spec), groups=g, collective=kernel,
+            device=devices[0]) as dcall:
+        dcall.transfer(upload, "upload")
+        blocked, single = dcall.run(_fused_program, shards, spec, ctx)
+        # reassemble the JAX program's row layout on shard 0's device:
+        # per mask its count rows, then per item its blocked rows or one
+        pieces = list(blocked[:len(mask_arrays)])
+        bi, si = len(mask_arrays), 0
+        for op, _vi, _mi in items:
+            if op == "count":
+                continue
+            if op in ("sum", "mean") or op in _VAR_OPS:
+                pieces.append(blocked[bi])
+                bi += 1
+            else:
+                pieces.append(single[si][None, :])
+                si += 1
+        packed = torch.cat(pieces)
+        dcall.executed()
+        if dcall.first:
+            # each uploaded row read once, the partials written once; one
+            # op per row and item
+            dcall.declare(nb * max(len(items), 1),
+                          upload + packed.numel() * packed.element_size())
+        out_mat = readback.read_full(packed, np.float64)
+        dcall.transfer(out_mat.nbytes, "readback")
 
     # decode: host f64 combine of the blocked partials (the JAX package's)
     cnts = []

@@ -20,10 +20,11 @@ filter on the time-index output column. A miss while `since` is bound
 executes the delta (the narrowed device readback) and is not stored:
 only full results are.
 
-Bounded by an LRU byte budget. The JAX package's `gtpu_result_cache_*`
-metrics and memory pool wait for the telemetry (ROADMAP A9); their
-tallies are the cache's own attributes (`hits`, `misses`, `evictions`,
-`byte_count`, `entry_count`).
+Bounded by an LRU byte budget. Hits, misses and evictions count in the
+process-wide `gtpu_result_cache_*` families; the cache's own tallies
+(`hits`, `misses`, `evictions`, `byte_count`, `entry_count`) are what it
+reports as the "result_cache" host pool of the memory ledger
+(telemetry/memory.py).
 """
 
 from __future__ import annotations
@@ -35,6 +36,28 @@ import numpy as np
 
 from greptimedb_tpu_torch import concurrency
 from greptimedb_tpu_torch.sql import ast as A
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+_HITS = global_registry.counter(
+    "gtpu_result_cache_hits_total",
+    "frontend result-set cache hits (served without datanode/device)",
+)
+_MISSES = global_registry.counter(
+    "gtpu_result_cache_misses_total",
+    "frontend result-set cache misses",
+)
+_EVICTIONS = global_registry.counter(
+    "gtpu_result_cache_evictions_total",
+    "frontend result-set cache entries evicted (budget or staleness)",
+)
+_BYTES = global_registry.gauge(
+    "gtpu_result_cache_bytes",
+    "bytes held by the frontend result-set cache",
+)
+_ENTRIES = global_registry.gauge(
+    "gtpu_result_cache_entries",
+    "entries held by the frontend result-set cache",
+)
 
 _DEFAULT_BYTES = 256 * 1024 * 1024
 
@@ -162,6 +185,10 @@ class ResultCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "result_cache", "host", self, stats=ResultCache._mem_stats)
 
     @classmethod
     def from_options(cls, options: dict | None) -> "ResultCache":
@@ -199,9 +226,11 @@ class ResultCache:
                 self._drop_locked(key, e)
                 e = None
             if e is None:
+                _MISSES.inc()
                 self.misses += 1
                 return None
             self._entries.move_to_end(key)
+            _HITS.inc()
             self.hits += 1
             return e
 
@@ -221,6 +250,7 @@ class ResultCache:
             while self._bytes > self.max_bytes and len(self._entries) > 1:
                 k = next(iter(self._entries))
                 self._drop_locked(k, self._entries[k])
+            self._publish_locked()
 
     # ------------------------------------------------------------------
     def purge_table(self, db: str, table_id: int) -> None:
@@ -230,16 +260,32 @@ class ResultCache:
             for k in [k for k in self._entries
                       if k[0] == db and k[1] == table_id]:
                 self._drop_locked(k, self._entries[k])
+            self._publish_locked()
 
     def clear(self) -> None:
         with self._lock:
             for k in list(self._entries):
                 self._drop_locked(k, self._entries[k])
+            self._publish_locked()
 
     def _drop_locked(self, key, entry) -> None:
         self._entries.pop(key, None)
         self._bytes -= entry.nbytes
+        _EVICTIONS.inc()
         self.evictions += 1
+
+    def _publish_locked(self) -> None:
+        _BYTES.set(float(self._bytes))
+        _ENTRIES.set(float(len(self._entries)))
+
+    def _mem_stats(self) -> dict:
+        with self._lock:
+            return {
+                "bytes": self._bytes, "entries": len(self._entries),
+                "budget_bytes": self.max_bytes if self.enabled else 0,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+            }
 
     @property
     def entry_count(self) -> int:

@@ -19,9 +19,11 @@ buffer. A buffer is a tensor or a list of tensors (the
 parts of a sharded result) that the program owns: nothing a later launch
 writes. Bounded by an LRU byte budget (1 GiB) and an entry cap (512).
 
-The JAX package's `gtpu_session_*` metrics and its memory pool wait for
-the telemetry (ROADMAP A9); their tallies are the registry's own
-attributes (`hits`, `misses`, `evictions`, `byte_count`, `entry_count`).
+Hits, misses and evictions count in the process-wide `gtpu_session_*`
+families; the registry's own tallies (`hits`, `misses`, `evictions`,
+`byte_count`, `entry_count`) are what it reports as the "sessions"
+device pool of the memory ledger (telemetry/memory.py), and each lookup
+lands on its statement's statistics row.
 
 The `since` cursor lives here too: the protocol layer binds the client's
 watermark (HTTP `since`) and the execution paths emit only rows whose
@@ -35,6 +37,28 @@ import weakref
 from collections import OrderedDict
 
 from greptimedb_tpu_torch import concurrency
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+_HITS = global_registry.counter(
+    "gtpu_session_hits_total",
+    "query-session registry hits (device result buffer reused)",
+)
+_MISSES = global_registry.counter(
+    "gtpu_session_misses_total",
+    "query-session registry misses",
+)
+_EVICTIONS = global_registry.counter(
+    "gtpu_session_evictions_total",
+    "query-session entries evicted (budget or staleness)",
+)
+_BYTES = global_registry.gauge(
+    "gtpu_session_bytes",
+    "device bytes pinned by the query-session registry",
+)
+_ENTRIES = global_registry.gauge(
+    "gtpu_session_entries",
+    "entries held by the query-session registry",
+)
 
 _DEFAULT_BYTES = 1 * 1024**3
 # an entry cap beside the byte budget: result buffers can be tiny, and a
@@ -68,6 +92,14 @@ class SessionRegistry:
         # finalizer runs wherever the collector runs, so it only queues)
         self._owned: set = set()
         self._dead: list = []
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "sessions", "device", self,
+            stats=SessionRegistry._mem_stats,
+            evict=SessionRegistry.evict_bytes,
+            buffers=SessionRegistry._device_buffers,
+        )
 
     # ------------------------------------------------------------------
     def _reap_locked(self) -> None:
@@ -80,6 +112,8 @@ class SessionRegistry:
     def get(self, tkey, shape_key, version):
         if not self.enabled:
             return None
+        from greptimedb_tpu_torch.telemetry import stmt_stats
+
         key = (tkey, shape_key)
         with self._lock:
             self._reap_locked()
@@ -90,11 +124,16 @@ class SessionRegistry:
                 self._drop_locked(key)
                 hit = None
             if hit is None:
+                _MISSES.inc()
                 self.misses += 1
-                return None
-            self._entries.move_to_end(key)
-            self.hits += 1
-            return hit[1]
+            else:
+                self._entries.move_to_end(key)
+                _HITS.inc()
+                self.hits += 1
+        # per-statement attribution outside the lock
+        stmt_stats.add("session_hits" if hit is not None
+                       else "session_misses")
+        return None if hit is None else hit[1]
 
     def put(self, tkey, shape_key, version, buf, nbytes: int | None = None,
             owner=None):
@@ -119,6 +158,12 @@ class SessionRegistry:
                    or len(self._entries) > _MAX_ENTRIES) \
                     and len(self._entries) > 1:
                 self._drop_locked(next(iter(self._entries)))
+            self._publish_locked()
+        # the global watermark check outside the lock: it may evict from
+        # other pools (and re-enter this one)
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.note_device_bytes()
 
     # ------------------------------------------------------------------
     def purge_table(self, tkey) -> None:
@@ -138,7 +183,36 @@ class SessionRegistry:
         ent = self._entries.pop(key, None)
         if ent is not None:
             self._bytes -= ent[2]
+            _EVICTIONS.inc()
             self.evictions += 1
+        self._publish_locked()
+
+    def _publish_locked(self) -> None:
+        _BYTES.set(float(self._bytes))
+        _ENTRIES.set(float(len(self._entries)))
+
+    # ------------------------------------------------------------------
+    # memory ledger surface (telemetry/memory.py)
+    # ------------------------------------------------------------------
+    def _mem_stats(self) -> dict:
+        with self._lock:
+            return {
+                "bytes": self._bytes,
+                "entries": len(self._entries),
+                "budget_bytes": self.max_bytes if self.enabled else 0,
+                "max_entries": _MAX_ENTRIES,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+            }
+
+    def _device_buffers(self):
+        with self._lock:
+            return [
+                (t, f"sessions:{key[0]!r}")
+                for key, ent in self._entries.items()
+                for t in (ent[1] if isinstance(ent[1], (list, tuple))
+                          else [ent[1]])
+            ]
 
     def evict_bytes(self, target: int) -> int:
         """Shed LRU entries until `target` bytes are freed; returns the

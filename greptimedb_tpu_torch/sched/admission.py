@@ -11,13 +11,13 @@ admission is the one place where "never a hang" is enforced.
 The defaults are permissive (no qps quota, no concurrency limit): the
 controller rides every data-plane statement but never queues and never
 sheds until limits are configured (`SchedulerConfig.from_options` takes
-the JAX package's `[scheduler]` dict). The JAX package's `gtpu_sched_*`
-metrics wait for the telemetry (ROADMAP A9); their tallies are the
-controller's own attributes here (`admitted`, `shed`,
-`deadline_expired`), keyed by a bounded tenant label. The JAX package's
-runtime limit update (`set_max_concurrency`) waits for its caller, the
-autotuner (A9), and its partial results for the distributed roles
-(A10).
+the JAX package's `[scheduler]` dict). Admissions, sheds, expired
+deadlines, the queue depth, the running count and the queue time count
+in the `gtpu_sched_*` families, keyed by a bounded tenant label; the
+`sched.admit` span's duration is the queue wait, which also lands on
+the statement's statistics row. The JAX package's runtime limit update
+(`set_max_concurrency`) waits for its caller, the autotuner (A12), and
+its partial results for the distributed roles (A10).
 """
 
 from __future__ import annotations
@@ -32,6 +32,36 @@ from greptimedb_tpu_torch.errors import (
     QueryDeadlineExceededError,
     QueryOverloadedError,
     QueryQueueTimeoutError,
+)
+from greptimedb_tpu_torch.telemetry import stmt_stats
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
+
+_QUEUE_DEPTH = global_registry.gauge(
+    "gtpu_sched_queue_depth",
+    "statements waiting for an execution slot",
+)
+_RUNNING = global_registry.gauge(
+    "gtpu_sched_running",
+    "statements holding an execution slot",
+)
+_ADMITTED = global_registry.counter(
+    "gtpu_sched_admitted_total",
+    "statements admitted to execution, per tenant",
+    labels=("tenant",),
+)
+_SHED = global_registry.counter(
+    "gtpu_sched_shed_total",
+    "statements shed by admission control, per tenant and reason",
+    labels=("tenant", "reason"),
+)
+_QUEUE_TIME = global_registry.histogram(
+    "gtpu_sched_queue_time_seconds",
+    "admission-queue sojourn time of admitted/expired statements",
+)
+_DEADLINE_EXPIRED = global_registry.counter(
+    "gtpu_sched_deadline_expired_total",
+    "statements whose deadline lapsed before or during execution",
+    labels=("tenant",),
 )
 from greptimedb_tpu_torch.sched import deadline as _deadline
 
@@ -158,11 +188,6 @@ class AdmissionController:
         self._seq = 0
         self._buckets: OrderedDict[str, list[float]] = OrderedDict()
         self._label_tenants: set = set()
-        # tallies (the JAX package's gtpu_sched_* series): tenant label ->
-        # count, (tenant label, reason) -> count
-        self.admitted: dict[str, int] = {}
-        self.shed: dict[tuple[str, str], int] = {}
-        self.deadline_expired: dict[str, int] = {}
 
     # ---- public surface ---------------------------------------------
     def admit(self, ctx=None, *, tenant: str | None = None,
@@ -176,16 +201,13 @@ class AdmissionController:
 
     # ---- internals ----------------------------------------------------
     def _label(self, tenant: str) -> str:
-        """The tally key of `tenant`: bounded under name rotation."""
+        """The metric label of `tenant`: bounded under name rotation."""
         if self.config.configured(tenant) or tenant in self._label_tenants:
             return tenant
         if len(self._label_tenants) < _LABEL_TENANTS_MAX:
             self._label_tenants.add(tenant)
             return tenant
         return "_other"
-
-    def _tally(self, tally: dict, key) -> None:
-        tally[key] = tally.get(key, 0) + 1
 
     def _can_run_locked(self, tenant: str, lim: _TenantLimits) -> bool:
         if 0 < self.config.max_concurrency <= self._running_total:
@@ -198,6 +220,7 @@ class AdmissionController:
         self._running_total += 1
         self._running_tenant[tenant] = \
             self._running_tenant.get(tenant, 0) + 1
+        _RUNNING.set(self._running_total)
 
     def _take_token_locked(self, tenant: str, lim: _TenantLimits) -> bool:
         if lim.qps <= 0:
@@ -227,23 +250,24 @@ class AdmissionController:
             # a spent budget never reaches execution, whichever path
             # would run the query
             with self._lock:
-                self._tally(self.shed, (mt, "deadline"))
-                self._tally(self.deadline_expired, mt)
+                _SHED.labels(mt, "deadline").inc()
+                _DEADLINE_EXPIRED.labels(mt).inc()
             raise QueryDeadlineExceededError(
                 "query deadline expired before admission")
         lim = cfg.limits(tenant)
+        t0 = time.monotonic()
         with self._lock:
             if not self._take_token_locked(tenant, lim):
-                self._tally(self.shed, (mt, "qps"))
+                _SHED.labels(mt, "qps").inc()
                 raise QueryOverloadedError(
                     f"tenant {tenant!r} is over its rate quota "
                     f"({lim.qps:g} qps); back off and retry")
             if self._can_run_locked(tenant, lim):
                 self._start_locked(tenant)
-                self._tally(self.admitted, mt)
+                _ADMITTED.labels(mt).inc()
                 return
             if 0 < cfg.queue_depth <= self._queued:
-                self._tally(self.shed, (mt, "queue_full"))
+                _SHED.labels(mt, "queue_full").inc()
                 raise QueryOverloadedError(
                     f"admission queue is full ({cfg.queue_depth}); "
                     "back off and retry")
@@ -251,6 +275,7 @@ class AdmissionController:
             self._seq += 1
             heapq.heappush(self._heap, (lim.priority, self._seq, w))
             self._queued += 1
+            _QUEUE_DEPTH.set(self._queued)
         # queue_timeout_s 0 = no SLO, like every other limit knob: wait
         # until a slot frees or the deadline lapses
         wait_s = cfg.queue_timeout_s if cfg.queue_timeout_s > 0 else None
@@ -267,15 +292,17 @@ class AdmissionController:
                 # dropped from the heap lazily by the next handover
                 w.abandoned = True
                 self._queued -= 1
+                _QUEUE_DEPTH.set(self._queued)
+            _QUEUE_TIME.observe(time.monotonic() - t0)
             if admitted:
-                self._tally(self.admitted, mt)
+                _ADMITTED.labels(mt).inc()
                 return
             if dl is not None and dl.expired():
-                self._tally(self.shed, (mt, "deadline"))
-                self._tally(self.deadline_expired, mt)
+                _SHED.labels(mt, "deadline").inc()
+                _DEADLINE_EXPIRED.labels(mt).inc()
                 expired = True
             else:
-                self._tally(self.shed, (mt, "queue_timeout"))
+                _SHED.labels(mt, "queue_timeout").inc()
                 expired = False
         if expired:
             raise QueryDeadlineExceededError(
@@ -290,6 +317,7 @@ class AdmissionController:
         wake = None
         with self._lock:
             self._running_total = max(0, self._running_total - 1)
+            _RUNNING.set(self._running_total)
             n = self._running_tenant.get(tenant, 0) - 1
             if n > 0:
                 self._running_tenant[tenant] = n
@@ -307,6 +335,7 @@ class AdmissionController:
                     self._start_locked(w.tenant)
                     w.admitted = True
                     self._queued -= 1
+                    _QUEUE_DEPTH.set(self._queued)
                     wake = w
                     break
                 stash.append((prio, seq, w))
@@ -361,7 +390,14 @@ class _Admission:
             self._resolve_timeout())
         self._dl_token = _deadline.bind(self.deadline)
         try:
-            self._c._acquire(self._tenant, self.deadline)
+            # the span's duration is the queue wait; a shed raises inside
+            # it, so shed traces carry the error and survive sampling
+            from greptimedb_tpu_torch.telemetry import tracing
+
+            t0 = time.monotonic()
+            with tracing.child_span("sched.admit", tenant=self._tenant):
+                self._c._acquire(self._tenant, self.deadline)
+            stmt_stats.add("queue_ms", (time.monotonic() - t0) * 1000.0)
         except BaseException:
             _deadline.reset(self._dl_token)
             self._dl_token = None
@@ -379,5 +415,6 @@ class _Admission:
                 exc_type, QueryDeadlineExceededError):
             c = self._c
             with c._lock:
-                c._tally(c.deadline_expired, c._label(self._tenant))
+                mt = c._label(self._tenant)
+            _DEADLINE_EXPIRED.labels(mt).inc()
         return False

@@ -1,7 +1,17 @@
 """HTTP protocol server (the JAX package's servers/http.py, for the routes
 the port serves):
 
-- GET  /health, /ready                     liveness
+- GET  /health, /ready                     liveness (`?deep=1`: the
+                                           per-role readiness checks)
+- GET  /status, /metrics                   build info; the exposition
+- GET  /v1/traces[/<id>], /v1/stats/statements
+                                           the trace ring; statement
+                                           statistics
+- GET  /debug/prof/{cpu,mem,hbm,device,device/trace}
+                                           CPU samples, heap, the
+                                           memory ledger, the device-
+                                           program registry, a
+                                           torch.profiler capture
 - POST /v1/sql                             SQL in the GreptimeDB JSON
                                            envelope, or csv / table text
 - POST /v1/promql, GET/POST /v1/prometheus/api/v1/{query,query_range,
@@ -21,10 +31,13 @@ HTTP Basic credentials (401 without them), and the user is the
 statement's tenant. Overload and quota sheds answer 429; a queue timeout
 or a lapsed deadline 503.
 
+Every request but the probes and scrapes runs under an `http <route>`
+span continuing the client's W3C `traceparent`; requests, latency and
+ingested rows count in the `greptime_servers_*` families.
+
 Routes that wait answer 404 as unknown routes do, with their ROADMAP item
-in the body: /metrics, /status, traces, statement statistics,
-/debug/prof/* and the cluster routes (A9), OTLP, OpenTSDB and events (A3),
-scripts (A10). Request counters and tracing spans wait for A9.
+in the body: the cluster routes (A10), OTLP, OpenTSDB and events (A3),
+scripts (A10).
 
 A stdlib ThreadingHTTPServer: the host plane is IO-bound glue, the card
 does the math. `HttpServer(instance, port=0).start()` binds a free port
@@ -52,13 +65,22 @@ from greptimedb_tpu_torch.promql.engine import (
 )
 from greptimedb_tpu_torch.servers import influx, prom_store
 from greptimedb_tpu_torch.session import QueryContext
+from greptimedb_tpu_torch.telemetry import global_registry
 from greptimedb_tpu_torch.version import __version__
+
+_REQS = global_registry.counter(
+    "greptime_servers_http_requests_total", "HTTP requests", ("path", "code")
+)
+_LATENCY = global_registry.histogram(
+    "greptime_servers_http_latency_seconds", "HTTP latency", ("path",)
+)
+_INGEST_ROWS = global_registry.counter(
+    "greptime_servers_ingest_rows_total", "Rows ingested", ("api",)
+)
 
 # route prefixes that wait, and the ROADMAP item that ports them
 _WAITING_ROUTES = (
-    ("/metrics", "A9"), ("/status", "A9"), ("/v1/traces", "A9"),
-    ("/v1/stats/", "A9"), ("/debug/prof/", "A9"), ("/v1/cluster/", "A9"),
-    ("/v1/otlp/", "A3"), ("/v1/opentsdb/", "A3"), ("/opentsdb/", "A3"),
+    ("/v1/cluster/", "A10"), ("/v1/otlp/", "A3"), ("/v1/opentsdb/", "A3"), ("/opentsdb/", "A3"),
     ("/api/put", "A3"), ("/v1/events", "A3"), ("/v1/scripts", "A10"),
     ("/v1/run-script", "A10"),
 )
@@ -148,9 +170,33 @@ def _make_handler(instance, user_provider=None):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+            _REQS.labels(self._route(), str(code)).inc()
+
+        _KNOWN_ROUTES = (
+            "/health", "/ready", "/status", "/metrics", "/v1/sql",
+            "/v1/promql", "/v1/prometheus/api/v1/", "/v1/prometheus/write",
+            "/v1/prometheus/read", "/v1/influxdb/", "/influxdb/",
+            "/v1/events", "/v1/opentsdb/api/put", "/api/put",
+            "/v1/otlp/v1/metrics", "/v1/traces", "/v1/traces/",
+            "/v1/stats/statements",
+            "/v1/cluster/metrics", "/v1/cluster/health",
+            "/debug/prof/cpu", "/debug/prof/mem", "/debug/prof/hbm",
+            "/debug/prof/device", "/debug/prof/device/trace",
+        )
 
         def _raw_path(self) -> str:
             return urllib.parse.urlparse(self.path).path
+
+        def _route(self) -> str:
+            """Metric-label-safe route: unknown paths collapse to 'other'
+            (unbounded label cardinality would leak memory per 404)."""
+            path = self._raw_path()
+            for r in self._KNOWN_ROUTES:
+                if path == r:
+                    return path
+                if r.endswith("/") and path.startswith(r):
+                    return r + "*"
+            return "other"
 
         def _json(self, code: int, obj):
             self._send(code, json.dumps(obj).encode())
@@ -208,9 +254,27 @@ def _make_handler(instance, user_provider=None):
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+            _REQS.labels(self._route(), "401").inc()
+
+        _UNTRACED = ("/health", "/ready", "/metrics", "/v1/traces",
+                     "/v1/stats/statements", "/v1/cluster/metrics",
+                     "/v1/cluster/health")
 
         def _dispatch(self):
+            from greptimedb_tpu_torch.telemetry import tracing
+
             path = self._raw_path()
+            t0 = time.perf_counter()
+            if path in self._UNTRACED or path.startswith("/v1/traces/"):
+                # probe and scrape noise would churn real query traces
+                # out of the bounded ring
+                return self._dispatch_traced(path, t0)
+            with tracing.start_remote(
+                    self.headers.get("traceparent"),
+                    f"http {self._route()}", method=self.command):
+                self._dispatch_traced(path, t0)
+
+        def _dispatch_traced(self, path: str, t0: float):
             try:
                 if user_provider is not None and path not in _OPEN_ROUTES:
                     from greptimedb_tpu_torch.auth import (
@@ -235,10 +299,39 @@ def _make_handler(instance, user_provider=None):
             except Exception as e:  # noqa: BLE001 - the wire answers 500
                 traceback.print_exc()
                 self._error(500, f"internal error: {e}")
+            finally:
+                _LATENCY.labels(self._route()).observe(
+                    time.perf_counter() - t0)
 
         def _route_request(self, path: str):
             if path in ("/health", "/ready"):
+                if self._params().get("deep") not in (None, "", "0",
+                                                      "false"):
+                    # per-role readiness (telemetry/node_stats.py); 503
+                    # when degraded so probes can act on it
+                    from greptimedb_tpu_torch.telemetry import (
+                        node_stats as _ns,
+                    )
+
+                    doc = _ns.deep_health(instance)
+                    return self._json(
+                        200 if doc["status"] == "ok" else 503, doc)
                 return self._json(200, {})
+            if path == "/status":
+                return self._json(200, {
+                    "source_time": "", "commit": "", "branch": "",
+                    "rustc_version": "n/a (python/torch)",
+                    "hostname": "localhost", "version": __version__,
+                })
+            if path == "/metrics":
+                return self._send(200, global_registry.render().encode(),
+                                  "text/plain; version=0.0.4")
+            if path == "/v1/traces" or path.startswith("/v1/traces/"):
+                return self._handle_traces(path)
+            if path == "/v1/stats/statements":
+                return self._handle_statements()
+            if path.startswith("/debug/prof/"):
+                return self._handle_prof(path)
             if path == "/v1/sql":
                 return self._handle_sql()
             if path == "/v1/promql":
@@ -434,8 +527,9 @@ def _make_handler(instance, user_provider=None):
             db = params.get("db", "public")
             compressed = "snappy" in (
                 self.headers.get("Content-Encoding") or "snappy")
-            prom_store.remote_write(instance, self._body(), db=db,
-                                    compressed=compressed)
+            _series, samples = prom_store.remote_write(
+                instance, self._body(), db=db, compressed=compressed)
+            _INGEST_ROWS.labels("prom_remote_write").inc(samples)
             self._send(204, b"")
 
         def _handle_remote_read(self):
@@ -448,14 +542,128 @@ def _make_handler(instance, user_provider=None):
             self.send_header("Content-Length", str(len(resp)))
             self.end_headers()
             self.wfile.write(resp)
+            _REQS.labels(self._route(), "200").inc()
 
         def _handle_influx_write(self):
             params = self._params()
             db = params.get("db", params.get("bucket", "public"))
             precision = params.get("precision", "ns")
             body = self._body().decode("utf-8", "replace")
-            influx.write_lines(instance, body, db=db, precision=precision)
+            rows = influx.write_lines(instance, body, db=db,
+                                      precision=precision)
+            _INGEST_ROWS.labels("influx_line").inc(rows)
             self._send(204, b"")
+
+        # --------------------------------------------------------------
+        # telemetry surfaces
+        # --------------------------------------------------------------
+        def _handle_traces(self, path: str):
+            from greptimedb_tpu_torch.telemetry.tracing import global_traces
+
+            params = self._params()
+            tid = params.get("trace_id")
+            if path.startswith("/v1/traces/"):
+                tid = path.rsplit("/", 1)[-1]
+            if tid:
+                # one stitched trace
+                return self._json(200, {"trace_id": tid,
+                                        "spans": global_traces.trace(tid)})
+            try:
+                limit = int(params.get("limit", "50") or 50)
+            except ValueError:
+                return self._error(400, "bad limit")
+            return self._json(200, {"traces": global_traces.traces(limit)})
+
+        def _handle_statements(self):
+            # ?order_by=calls|total_ms|p99_ms|...&limit=N
+            from greptimedb_tpu_torch.telemetry.stmt_stats import (
+                global_stmt_stats,
+            )
+
+            params = self._params()
+            try:
+                limit = int(params.get("limit", "0") or 0)
+            except ValueError:
+                return self._error(400, "bad limit")
+            if limit < 0:
+                return self._error(400, "bad limit")
+            return self._json(200, {
+                "statements": global_stmt_stats.snapshot(
+                    order_by=params.get("order_by", "total_ms"),
+                    limit=limit),
+            })
+
+        def _handle_prof(self, path: str):
+            from greptimedb_tpu_torch.telemetry import device_programs as _dp
+            from greptimedb_tpu_torch.telemetry import memory as _memory
+            from greptimedb_tpu_torch.telemetry import pprof
+
+            params = self._params()
+            if path == "/debug/prof/cpu":
+                # sampling CPU profile of the whole process
+                try:
+                    seconds = float(params.get("seconds", "1"))
+                except ValueError:
+                    return self._error(400, "bad seconds")
+                stacks = pprof.sample_cpu(seconds)
+                fmt = params.get("format", "text")
+                if fmt == "speedscope":
+                    return self._send(
+                        200, pprof.render_speedscope(stacks).encode(),
+                        "application/json")
+                body = (pprof.render_collapsed(stacks)
+                        if fmt == "collapsed"
+                        else pprof.render_report(stacks))
+                return self._send(200, body.encode(), "text/plain")
+            if path == "/debug/prof/mem":
+                # the host heap (tracemalloc)
+                try:
+                    top = int(params.get("top", "30"))
+                except ValueError:
+                    return self._error(400, "bad top")
+                diff = params.get("diff", "0") not in ("0", "", "false")
+                return self._send(
+                    200, pprof.mem_profile(top, diff=diff).encode(),
+                    "text/plain")
+            if path == "/debug/prof/hbm":
+                # the memory ledger: per-pool bytes, the census and its
+                # unaccounted residue
+                try:
+                    top = int(params.get("top", "10"))
+                except ValueError:
+                    return self._error(400, "bad top")
+                doc = _memory.hbm_report(top=top)
+                if params.get("format", "text") == "json":
+                    return self._json(200, doc)
+                return self._send(200, _memory.render_hbm_text(doc).encode(),
+                                  "text/plain")
+            if path == "/debug/prof/device":
+                # the device-program registry, top-N by device time
+                try:
+                    top = int(params.get("top", "20"))
+                except ValueError:
+                    return self._error(400, "bad top")
+                doc = _dp.global_programs.report(top=top)
+                if params.get("format", "text") == "json":
+                    return self._json(200, doc)
+                return self._send(200, _dp.render_text(doc).encode(),
+                                  "text/plain")
+            if path == "/debug/prof/device/trace":
+                # a torch.profiler capture of ?seconds=, written as a
+                # Chrome trace under [profiling] trace_dir
+                try:
+                    seconds = float(params.get("seconds", "1"))
+                except ValueError:
+                    return self._error(400, "bad seconds")
+                if not (0.0 < seconds <= 60.0):
+                    return self._error(400, "seconds must be in (0, 60]")
+                try:
+                    doc = _dp.capture_trace(seconds,
+                                            params.get("dir") or None)
+                except _dp.CaptureBusyError as e:
+                    return self._error(409, str(e))
+                return self._json(200, doc)
+            return self._error(404, f"no route: {path}")
 
     return Handler
 

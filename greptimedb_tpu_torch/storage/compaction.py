@@ -19,9 +19,14 @@ storage/compaction.py).
 - **Bounded pool** (`CompactionScheduler`): merges run on a per-engine
   worker pool with per-region in-flight dedupe.
 
-The JAX package's compaction counters wait for the port's telemetry (A9);
-each region lists its merges' paths and input rows (`merge_paths`,
-`merge_rows_in`).
+Merges, stage times, bytes, merge paths, dropped tombstones, expired
+and orphan SSTs, failures and the read amplification count in the
+`gtpu_compaction_*` families; every task runs under a `region.compact`
+span, a pool job under `compaction.job` (parented to the span that
+scheduled it), and the in-flight jobs are the `compaction` host pool of
+the memory ledger. Each region also lists its merges' paths and input
+rows (`merge_paths`, `merge_rows_in`), the per-merge record a check of
+the fused path reads.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from greptimedb_tpu_torch.storage.device_merge import (
     DEFAULT_DEVICE_MIN_ROWS,
     merge_rows,
 )
-from greptimedb_tpu_torch.storage.memtable import _concat_rows
+from greptimedb_tpu_torch.storage.memtable import OP_DELETE, _concat_rows
 from greptimedb_tpu_torch.storage.sst import (
     TIER_COLD,
     TIER_HOT,
@@ -49,8 +54,56 @@ from greptimedb_tpu_torch.storage.sst import (
     sidecar_path,
     write_sst,
 )
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
 
 _log = logging.getLogger("greptimedb_tpu_torch.storage.compaction")
+
+# ----------------------------------------------------------------------
+# telemetry
+# ----------------------------------------------------------------------
+_compactions = global_registry.counter(
+    "gtpu_compaction_total",
+    "completed compaction merges by task kind",
+    ("kind",),
+)
+_stage_ms = global_registry.counter(
+    "gtpu_compaction_stage_ms_total",
+    "cumulative compaction wall time per stage, milliseconds",
+    ("stage",),
+)
+_bytes_total = global_registry.counter(
+    "gtpu_compaction_bytes_total",
+    "SST bytes consumed (in) and produced (out) by compaction",
+    ("direction",),
+)
+_merge_path_total = global_registry.counter(
+    "gtpu_compaction_merge_total",
+    "merge executions by path (device kernel vs host fallback)",
+    ("path",),
+)
+_tombstones_dropped = global_registry.counter(
+    "gtpu_compaction_tombstones_dropped_total",
+    "delete tombstones garbage-collected by covering merges",
+)
+_expired_total = global_registry.counter(
+    "gtpu_compaction_expired_ssts_total",
+    "whole SSTs physically dropped past the TTL horizon, per tier",
+    ("tier",),
+)
+_orphans_total = global_registry.counter(
+    "gtpu_compaction_orphan_ssts_cleaned_total",
+    "unreferenced SST objects removed at region open "
+    "(crash mid-compaction/flush leftovers)",
+)
+_errors_total = global_registry.counter(
+    "gtpu_compaction_errors_total",
+    "compaction jobs that failed (inputs retained, retried next tick)",
+)
+_read_amp = global_registry.gauge(
+    "gtpu_compaction_read_amp",
+    "live SST files in the busiest time window, max across open "
+    "regions (every scan of that window merges this many runs)",
+)
 
 MAX_LEVEL = 2
 # cascade bound per compact_once call: L0->L1->L2->tier is 4 picks;
@@ -240,6 +293,7 @@ def _read_inputs(region, task: CompactionTask,
     items = [(region.raw_store_for(m), m) for m in task.files]
     with PipelinedFetcher(items, depth=opts.prefetch_depth) as fetcher:
         for meta, data in fetcher:
+            _bytes_total.labels("in").inc(len(data))
             r = read_sst_bytes(data, field_names=region.meta.field_names)
             if r is not None:
                 chunks.append(r)
@@ -252,8 +306,20 @@ def run_task(region, task: CompactionTask,
     write, validated manifest swap, input deletion. Returns True if the
     swap committed; False when a concurrent truncate/compaction removed an
     input first (the new output is deleted, nothing else changed)."""
+    from greptimedb_tpu_torch.telemetry import tracing
+
+    with tracing.span("region.compact", region=region.meta.region_id,
+                      kind=task.kind, files=len(task.files),
+                      level=task.output_level, tier=task.output_tier,
+                      drop_deletes=task.drop_deletes):
+        return _run_task_traced(region, task, opts)
+
+
+def _run_task_traced(region, task: CompactionTask,
+                     opts: CompactionOptions) -> bool:
     from greptimedb_tpu_torch.errors import SstRestoreError
 
+    t0 = time.perf_counter()
     try:
         chunks = _read_inputs(region, task, opts)
     except SstRestoreError:
@@ -264,10 +330,13 @@ def run_task(region, task: CompactionTask,
             # input between pick and read — nothing to merge anymore
             return False
         raise
+    t1 = time.perf_counter()
+    _stage_ms.labels("read").inc((t1 - t0) * 1000.0)
     if not chunks:
         return False
     rows = (_concat_rows(chunks, region.meta.field_names)
             if len(chunks) > 1 else chunks[0])
+    deletes_in = int((rows.op == OP_DELETE).sum())
     if not region.meta.options.append_mode:
         rows_in = len(rows)
         rows, path = merge_rows(
@@ -280,6 +349,11 @@ def run_task(region, task: CompactionTask,
         )
         region.merge_paths.append(path)
         region.merge_rows_in.append(rows_in)
+        _merge_path_total.labels(path).inc()
+        if task.drop_deletes and deletes_in:
+            _tombstones_dropped.inc(deletes_in)
+    t2 = time.perf_counter()
+    _stage_ms.labels("merge").inc((t2 - t1) * 1000.0)
 
     if len(rows) == 0:
         # every surviving row was a GC'd tombstone: commit a pure
@@ -296,6 +370,7 @@ def run_task(region, task: CompactionTask,
         for m in task.files:
             delete_sst(region.store_for(m), m)
         region._compactions += 1
+        _compactions.labels(task.kind).inc()
         return True
 
     file_id = uuid.uuid4().hex
@@ -307,6 +382,9 @@ def run_task(region, task: CompactionTask,
         tier=task.output_tier,
         fulltext_fields=region.meta.fulltext_fields,
     )
+    t3 = time.perf_counter()
+    _stage_ms.labels("write").inc((t3 - t2) * 1000.0)
+    _bytes_total.labels("out").inc(new_meta.size_bytes)
 
     with region._lock:
         live = {m.file_id for m in region.manifest.state.ssts}
@@ -321,8 +399,10 @@ def run_task(region, task: CompactionTask,
             "add_ssts": [new_meta.to_json()],
         })
         region._compactions += 1
+    _stage_ms.labels("commit").inc((time.perf_counter() - t3) * 1000.0)
     for m in task.files:
         delete_sst(region.store_for(m), m)
+    _compactions.labels(task.kind).inc()
     return True
 
 
@@ -360,6 +440,7 @@ def compact_once(region, opts: CompactionOptions | None = None, *,
                 # region's OTHER windows: count it, skip the window
                 # for the rest of this call, surface the first error
                 # after every window got its attempt
+                _errors_total.inc()
                 failed.add((task.kind, task.window))
                 if first_err is None:
                     first_err = e
@@ -404,6 +485,7 @@ def purge_expired(region, *, now_ms: int | None = None) -> int:
         region._truncate_epoch += 1
     for m in expired:
         delete_sst(region.store_for(m), m)
+        _expired_total.labels(getattr(m, "tier", TIER_HOT)).inc()
     return len(expired)
 
 
@@ -430,6 +512,8 @@ def cleanup_orphan_ssts(region) -> int:
             removed += 1
             _log.warning("removed orphan sst object %s (region %s)",
                          obj.path, region.meta.region_id)
+    if removed:
+        _orphans_total.inc(removed)
     return removed
 
 
@@ -455,6 +539,21 @@ class CompactionScheduler:
         self._pool = None
         self._closed = False
         self._inflight: dict[int, object] = {}      # region_id -> Future
+        self._inflight_bytes: dict[int, int] = {}   # region_id -> bytes
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "compaction", "host", self,
+            stats=CompactionScheduler._mem_stats,
+        )
+
+    def _mem_stats(self) -> dict:
+        with self._lock:
+            return {
+                "bytes": sum(self._inflight_bytes.values()),
+                "entries": len(self._inflight),
+                "budget_bytes": 0,
+            }
 
     # -- pool lifecycle -------------------------------------------------
     def _ensure_pool(self):
@@ -489,22 +588,30 @@ class CompactionScheduler:
         tasks = pick_tasks(region, self.opts)
         if not tasks:
             return False
-        return self.schedule(region) is not None
+        return self.schedule(region, tasks=tasks) is not None
 
-    def schedule(self, region, *, force: bool = False):
+    def schedule(self, region, *, force: bool = False, tasks=None):
         """Submit one merge job for the region (per-region in-flight
         dedupe: returns None when a job is already running or the
-        scheduler is closed)."""
+        scheduler is closed). ``tasks``: a probe's picks, whose input
+        bytes are the job's memory-ledger estimate."""
+        from greptimedb_tpu_torch.telemetry import tracing
+
         rid = region.meta.region_id
         with self._lock:
             if self._closed or rid in self._inflight:
                 return None
         pool = self._ensure_pool()
+        est = sum(m.size_bytes for t in tasks or () for m in t.files)
+        # the parent span is captured on the submitting thread: the
+        # worker runs with an empty context
+        parent = tracing.current_span()
         with self._lock:
             if self._closed or rid in self._inflight:
                 return None
-            fut = pool.submit(self._run_region, region, force)
+            fut = pool.submit(self._run_region, region, force, parent)
             self._inflight[rid] = fut
+            self._inflight_bytes[rid] = est
         # release via done-callback, NOT a finally inside the job: a job
         # cancelled at close() never runs, and its slot must not stay
         # taken. Attached OUTSIDE the lock: an already-done future fires
@@ -516,10 +623,19 @@ class CompactionScheduler:
     def _release(self, rid: int):
         with self._lock:
             self._inflight.pop(rid, None)
+            self._inflight_bytes.pop(rid, None)
 
-    def _run_region(self, region, force: bool = False) -> bool:
+    def _run_region(self, region, force: bool = False,
+                    _trace_parent=None) -> bool:
+        from greptimedb_tpu_torch.telemetry import tracing
+
         try:
-            return compact_once(region, self.opts, force=force)
+            # a traced trigger gets its merge attributed to its trace;
+            # an untraced one pays nothing (no parent: a no-op span)
+            with tracing.child_span("compaction.job",
+                                    _parent=_trace_parent,
+                                    region=region.meta.region_id):
+                return compact_once(region, self.opts, force=force)
         except Exception:
             # the background path has no caller to observe the Future: a
             # failing merge must surface in the log, then the next
@@ -550,7 +666,7 @@ class CompactionScheduler:
                 idle = not self._closed and rid not in self._inflight
             if not tasks and idle:
                 return False
-            fut = self.schedule(region, force=force)
+            fut = self.schedule(region, force=force, tasks=tasks)
             if fut is not None:
                 try:
                     return fut.result()
@@ -580,6 +696,8 @@ class CompactionScheduler:
 
     # -- observability --------------------------------------------------
     def update_read_amp(self, regions) -> int:
-        return max(
+        amp = max(
             (read_amplification(r) for r in regions), default=0
         )
+        _read_amp.set(amp)
+        return amp

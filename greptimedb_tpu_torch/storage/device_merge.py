@@ -31,6 +31,7 @@ from greptimedb_tpu_torch.errors import CompactionError
 from greptimedb_tpu_torch.parallel.kernels import merge_gather as mg
 from greptimedb_tpu_torch.query import readback
 from greptimedb_tpu_torch.storage.memtable import OP_DELETE, ColumnarRows
+from greptimedb_tpu_torch.telemetry import device_trace
 
 # below this the upload + launch overhead beats the host sort
 DEFAULT_DEVICE_MIN_ROWS = 262144
@@ -147,18 +148,35 @@ def _prep_uploads(rows: ColumnarRows, *, backfill: bool, device):
     return up, valids, pad
 
 
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def _device_merge_indices(rows: ColumnarRows, *, backfill: bool,
                           drop_deletes: bool, device):
     """Classic variant: (keep_row_indices, fill_src) in ORIGINAL row index
     space, read back for a host gather."""
-    up, valids, _ = _prep_uploads(rows, backfill=backfill, device=device)
-    order_d, keep_d, fills_d = _merge_program(
-        up, len(rows), valids, drop_deletes=drop_deletes,
-    )
-    order = readback.read_full(order_d, np.int64)
-    keep = readback.read_full(keep_d)
-    fills = {name: readback.read_full(f, np.int64)
-             for name, f in fills_d.items()}
+    n = len(rows)
+    up, valids, pad = _prep_uploads(rows, backfill=backfill, device=device)
+    upload = _nbytes([*up.values(), *valids.values()])
+    key = (pad, tuple(sorted(valids)), drop_deletes)
+    with device_trace.device_call("compact_merge", key=key, rows=n,
+                                  device=device) as d:
+        d.transfer(upload, "upload")
+        order_d, keep_d, fills_d = d.run(
+            _merge_program, up, n, valids, drop_deletes=drop_deletes)
+        d.executed()
+        if d.first:
+            # the sort keys read once, the order/keep/fill arrays
+            # written once; a compare per row and key
+            d.declare(pad * 5, upload + _nbytes(
+                [order_d, keep_d, *fills_d.values()]))
+        order = readback.read_full(order_d, np.int64)
+        keep = readback.read_full(keep_d)
+        fills = {name: readback.read_full(f, np.int64)
+                 for name, f in fills_d.items()}
+        d.transfer(order.nbytes + keep.nbytes
+                   + sum(f.nbytes for f in fills.values()))
     keep_idx = order[keep]
     fill_src = None
     if fills:
@@ -199,8 +217,20 @@ def _gather_group(cols, src_dev: torch.Tensor, *, pad: int, n: int,
         big = np.concatenate(
             [big, np.zeros((big.shape[0], pad - n), np.uint32)], axis=1
         )
-    planes_d = torch.from_numpy(big.view(np.int32)).to(src_dev.device)
-    out = readback.read_full(mg.gather_planes(planes_d, src_dev[:n_out]))
+    p_total = big.shape[0]
+    with device_trace.device_call(
+            "compact_gather", key=(p_total, pad, n_out), rows=n,
+            device=src_dev.device) as d:
+        d.transfer(big.nbytes, "upload")
+        planes_d = torch.from_numpy(big.view(np.int32)).to(src_dev.device)
+        out_d = d.run(mg.gather_planes, planes_d, src_dev[:n_out])
+        d.executed()
+        if d.first:
+            # K1: each gathered plane read and written once, the index
+            # read once; no arithmetic
+            d.declare(0, 4 * n_out * (2 * p_total + 1))
+        out = readback.read_full(out_d)
+        d.transfer(out.nbytes)
     res, off = {}, 0
     for tag, dt, p_i in metas:
         res[tag] = mg.unpack_planes(out[off:off + p_i], dt, n_keep)
@@ -215,10 +245,21 @@ def _device_merge_fused(rows: ColumnarRows, *, backfill: bool,
     every value column is gathered through them by K1."""
     n = len(rows)
     up, valids, pad = _prep_uploads(rows, backfill=backfill, device=device)
-    n_keep_d, src_keep_d, src_fills_d = _merge_program(
-        up, n, valids, drop_deletes=drop_deletes, fused=True,
-    )
-    n_keep = int(readback.read_full(n_keep_d))
+    upload = _nbytes([*up.values(), *valids.values()])
+    key = (pad, tuple(sorted(valids)), drop_deletes, "fused")
+    with device_trace.device_call("compact_merge", key=key, rows=n,
+                                  device=device) as d:
+        d.transfer(upload, "upload")
+        n_keep_d, src_keep_d, src_fills_d = d.run(
+            _merge_program, up, n, valids, drop_deletes=drop_deletes,
+            fused=True)
+        d.executed()
+        if d.first:
+            # the sort keys read once, the source indices written once
+            d.declare(pad * 5, upload + _nbytes(
+                [src_keep_d, *src_fills_d.values()]))
+        n_keep = int(readback.read_full(n_keep_d))
+        d.transfer(4)
     has_valid = rows.field_valid is not None
     if n_keep == 0:
         return ColumnarRows(

@@ -128,7 +128,8 @@ class TsdbEngine:
 
     def open_region(self, meta: RegionMetadata, *,
                     restore: bool | None = None,
-                    _require_new: bool = False) -> Region:
+                    _require_new: bool = False,
+                    _trace_parent=None) -> Region:
         """Open (possibly existing) region, replaying its WAL.
 
         The registry lock covers only the dict check/swap; the open
@@ -157,7 +158,14 @@ class TsdbEngine:
         if waiter:
             return slot.result()
         try:
-            region = self._open(meta, restore=restore)
+            # joins the caller's trace, or the batch span passed from a
+            # pool worker (which does not inherit the submitting thread's
+            # context); the recovery.* stage spans nest under it
+            from greptimedb_tpu_torch.telemetry import tracing
+
+            with tracing.child_span("region.open", _parent=_trace_parent,
+                                    region=meta.region_id):
+                region = self._open(meta, restore=restore)
         except BaseException as e:
             with self._lock:
                 self._opening.pop(meta.region_id, None)
@@ -188,29 +196,39 @@ class TsdbEngine:
                        if m.region_id not in self._regions]
         errors: list = []
         if missing:
+            from greptimedb_tpu_torch.telemetry import tracing
+
             par = (self.config.recovery.open_parallelism
                    if parallelism is None else int(parallelism))
             if par <= 0:
                 par = min(8, len(missing))
             par = min(par, len(missing))
-            if par <= 1:
-                for m in missing:
-                    try:
-                        self.open_region(m, restore=restore)
-                    except Exception as e:  # noqa: BLE001 - below
-                        errors.append(e)
-            else:
-                with concurrency.ThreadPoolExecutor(
-                    max_workers=par, thread_name_prefix="region-open",
-                ) as pool:
-                    futs = [pool.submit(self.open_region, m,
-                                        restore=restore)
-                            for m in missing]
-                    for fut in futs:
+            # one span for the batch: a root trace at startup, a child
+            # of the statement's trace on DDL-triggered opens; pool
+            # workers parent to it explicitly
+            with tracing.span("recovery.open_regions",
+                              regions=len(missing)) as batch_sp:
+                parent = batch_sp if batch_sp.trace_id else None
+                if par <= 1:
+                    for m in missing:
                         try:
-                            fut.result()
-                        except Exception as e:  # noqa: BLE001
+                            self.open_region(m, restore=restore,
+                                             _trace_parent=parent)
+                        except Exception as e:  # noqa: BLE001 - below
                             errors.append(e)
+                else:
+                    with concurrency.ThreadPoolExecutor(
+                        max_workers=par, thread_name_prefix="region-open",
+                    ) as pool:
+                        futs = [pool.submit(self.open_region, m,
+                                            restore=restore,
+                                            _trace_parent=parent)
+                                for m in missing]
+                        for fut in futs:
+                            try:
+                                fut.result()
+                            except Exception as e:  # noqa: BLE001
+                                errors.append(e)
         if errors:
             raise errors[0]
         return [self.open_region(m, restore=restore) for m in metas]

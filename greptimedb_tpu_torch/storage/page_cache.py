@@ -26,6 +26,20 @@ class PageCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        from greptimedb_tpu_torch.telemetry import memory as _memory
+
+        _memory.register_pool(
+            "page_cache", "host", self, stats=PageCache._mem_stats)
+
+    def _mem_stats(self) -> dict:
+        with self._lock:
+            return {
+                "bytes": self._bytes,
+                "entries": len(self._entries),
+                "budget_bytes": self.capacity,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+            }
 
     def get(self, key: tuple):
         """-> (values, validity|None) or None."""

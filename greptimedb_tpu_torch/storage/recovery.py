@@ -11,8 +11,9 @@ package's storage/recovery.py).
   it has FREE budget (restore never evicts hot scan data), and
   cache-backed stores (``CachedObjectStore``) are bypassed exactly like
   the WAL bypasses them: restore is write-once/read-once.
-- stage totals — cumulative milliseconds per recovery stage in a plain
-  dict (``stage_totals``) until the port has its telemetry.
+- stage totals — cumulative milliseconds per recovery stage in
+  ``gtpu_recovery_stage_ms_total`` (``stage_totals`` reads them), each
+  also an event span on the active trace.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from dataclasses import dataclass
 
 from greptimedb_tpu_torch import concurrency
 from greptimedb_tpu_torch.errors import SstRestoreError
+from greptimedb_tpu_torch.telemetry.metrics import global_registry
 
 _log = logging.getLogger("greptimedb_tpu_torch.storage.recovery")
 
@@ -47,27 +49,36 @@ _RESTORE_WINDOW_BYTES = 256 * 1024 * 1024
 STAGES = ("manifest_load", "wal_replay", "recovery_flush", "sst_restore",
           "total")
 
-_totals_lock = threading.Lock()
-_stage_ms: dict[str, float] = {s: 0.0 for s in STAGES}
-_regions = [0]
+_stage_ms = global_registry.counter(
+    "gtpu_recovery_stage_ms_total",
+    "cumulative recovery wall time per stage, milliseconds",
+    ("stage",),
+)
+_regions_total = global_registry.counter(
+    "gtpu_recovery_regions_total",
+    "regions opened through the recovery dataplane",
+)
 
 
 def record_stage(stage: str, ms: float) -> None:
-    with _totals_lock:
-        _stage_ms[stage] = _stage_ms.get(stage, 0.0) + ms
+    _stage_ms.labels(stage).inc(ms)
+    # the same stage numbers ride the active trace (the region.open span
+    # parents them), so a recovery trace and the counter agree
+    from greptimedb_tpu_torch.telemetry import tracing
+
+    tracing.event_span(f"recovery.{stage}", ms)
 
 
 def record_region() -> None:
-    with _totals_lock:
-        _regions[0] += 1
+    _regions_total.inc()
 
 
 def stage_totals() -> dict[str, float]:
-    """Current aggregate per-stage ms, plus "regions" opened."""
-    with _totals_lock:
-        out = dict(_stage_ms)
-        out["regions"] = _regions[0]
-        return out
+    """Current aggregate per-stage ms, plus "regions" opened, read from
+    the gtpu_recovery_* counters."""
+    out = {s: _stage_ms.labels(s).value for s in STAGES}
+    out["regions"] = _regions_total.labels().value
+    return out
 
 
 @dataclass

@@ -406,8 +406,15 @@ class Region:
             "fmt": 2, "op": op, "base_seq": base_seq,
             "new_series": [[sid, tags] for sid, tags in delta],
         })
+        from greptimedb_tpu_torch.telemetry import tracing
+
         try:
-            self.wal.append(payload)
+            # joins the INSERT's trace when one is active; its duration
+            # is the batch's durability cost
+            with tracing.child_span("wal.append",
+                                    region=self.meta.region_id,
+                                    bytes=len(payload)):
+                self.wal.append(payload)
         except Exception:
             # the registry holds the delta already; a later entry must
             # report it again (ensure_series is idempotent on replay)
@@ -502,6 +509,13 @@ class Region:
         """Freeze the memtable, write an SST, commit the manifest, trim the
         WAL; returns the SST's SstMeta (None: nothing to flush, or the
         in-memory path, which has nothing to persist)."""
+        from greptimedb_tpu_torch.telemetry import tracing
+
+        with tracing.child_span("region.flush",
+                                region=self.meta.region_id):
+            return self._flush_traced()
+
+    def _flush_traced(self):
         if self.store is None:
             return None
         from greptimedb_tpu_torch.storage.sst import write_sst

@@ -2217,17 +2217,25 @@ def test_explain_analyze_groupby_on_cuda(cuda, tmp_path):
                      "STRING PRIMARY KEY, usage_user DOUBLE)")
             inst.catalog.table("public", "cpu").write(tags, ts, fields)
         before = gr.grouped_block_reduce.launches
-        lines = [str(v) for v in insts[0].sql(
-            f"EXPLAIN ANALYZE {sql}").cols[0].values]
+        def before_trace(res):
+            # the lines above the `Trace:` span tree
+            lines = [str(v) for v in res.cols[0].values]
+            end = next(i for i, ln in enumerate(lines)
+                       if ln.startswith("  Trace:"))
+            return lines[:end]
+
+        lines = before_trace(insts[0].sql(f"EXPLAIN ANALYZE {sql}"))
         torch.cuda.synchronize()
         assert gr.grouped_block_reduce.launches > before
-        want = [str(v) for v in insts[1].sql(
-            f"EXPLAIN ANALYZE {sql}").cols[0].values]
+        want = before_trace(insts[1].sql(f"EXPLAIN ANALYZE {sql}"))
         notes = {ln.strip().split(": ")[0]: ln.strip().split(": ")[1]
                  for ln in lines if ln.startswith("    ")}
         cpu_notes = {ln.strip().split(": ")[0]: ln.strip().split(": ")[1]
                      for ln in want if ln.startswith("    ")}
         assert notes["exec_path_aggregate"] == "device"
+        # the peaks are the process's (an H100's once CUDA is up), so
+        # both instances carry the roofline note
+        assert notes["roofline_groupby"].endswith("GB/s)")
         assert set(notes) == set(cpu_notes)
         for k in ("agg_groups", "rows_scanned", "series_total"):
             assert notes[k] == cpu_notes[k]
@@ -2280,6 +2288,86 @@ def _same_result(a, b):
         assert np.array_equal(va, vb)
 
 
+def test_telemetry_adds_no_sync_on_cuda(cuda, tmp_path, monkeypatch):
+    """A warm Q2 and a GROUP BY on a CUDA Standalone with every telemetry
+    module on call torch.cuda.synchronize and Event.synchronize no more
+    often, and raise no more sync-debug warnings, than with it off: the
+    program registry reads its CUDA events only once they completed."""
+    import warnings
+
+    from greptimedb_tpu_torch.instance import Standalone
+    from greptimedb_tpu_torch.query import sessions
+    from greptimedb_tpu_torch.telemetry import device_programs as tdp
+    from greptimedb_tpu_torch.telemetry import memory as tmem
+    from greptimedb_tpu_torch.telemetry import stmt_stats as tss
+    from greptimedb_tpu_torch.telemetry import tracing as ttr
+
+    def switch(on):
+        opts = None if on else {"enable": False}
+        for mod in (ttr, tss, tdp, tmem):
+            mod.configure(opts)
+
+    syncs = [0]
+    real_sync, real_ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+
+    def sync(*a, **k):
+        syncs[0] += 1
+        return real_sync(*a, **k)
+
+    def ev_sync(self):
+        syncs[0] += 1
+        return real_ev_sync(self)
+
+    rng = np.random.default_rng(22)
+    hosts, steps = 64, 6 * 360
+    tags = {"hostname": np.repeat(np.array(
+        [f"host_{i}" for i in range(hosts)], object), steps),
+        "region": np.repeat(np.array(
+            [f"r{i % 4}" for i in range(hosts)], object), steps)}
+    ts = np.tile(np.arange(steps, dtype=np.int64) * 10_000, hosts)
+    fields = {"usage_user": rng.random(hosts * steps) * 100}
+    queries = [
+        "SELECT ts, region, avg(usage_user) RANGE '2h', max(usage_user) "
+        "RANGE '2h' FROM cpu ALIGN '1h' BY (region) ORDER BY region, ts",
+        "SELECT hostname, max(usage_user), count(*) FROM cpu GROUP BY "
+        "hostname ORDER BY hostname",
+    ]
+    sessions.configure({"enable": False})
+    inst = Standalone(str(tmp_path / "card"), device=cuda,
+                      prefer_device=True, warm_start=False)
+    try:
+        inst.sql("CREATE TABLE cpu (ts TIMESTAMP TIME INDEX, hostname "
+                 "STRING, region STRING, usage_user DOUBLE, PRIMARY KEY "
+                 "(hostname, region))")
+        inst.catalog.table("public", "cpu").write(tags, ts, fields)
+        for q in queries:       # cold: grids built, libraries loaded
+            inst.sql(q)
+        torch.cuda.synchronize()
+        monkeypatch.setattr(torch.cuda, "synchronize", sync)
+        monkeypatch.setattr(torch.cuda.Event, "synchronize", ev_sync)
+        seen = {}
+        for on in (False, True):
+            switch(on)
+            syncs[0] = 0
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    for q in queries:
+                        inst.sql(q)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            n_warn = sum("synchroniz" in str(w.message) for w in caught)
+            seen[on] = (syncs[0], n_warn)
+        assert seen[True][0] <= seen[False][0]
+        assert seen[True][1] <= seen[False][1], seen
+        assert tdp.global_programs.snapshot()   # the registry folded
+    finally:
+        switch(True)
+        sessions.configure(None)
+        inst.close()
+
+
 def test_session_hit_does_not_alias_on_cuda(cuda):
     """Poll A (K2), run B through the same kernels, poll A again: a session
     hit that launches nothing and answers A's first bits; both equal the
@@ -2324,10 +2412,10 @@ def test_since_delta_reads_back_its_bytes_on_cuda(cuda, by):
     q = (f"SELECT ts, {by}, avg(u) RANGE '10m', max(v) RANGE '10m' FROM "
          f"cpu ALIGN '10m' BY ({by})")
     full = card.sql(q)
-    f0 = readback.readback_bytes["full"]
+    f0 = readback.readback_bytes("full")
     card.sql(q)
     assert card.query_engine.last_session == "hit"
-    full_bytes = readback.readback_bytes["full"] - f0
+    full_bytes = readback.readback_bytes("full") - f0
     ts = np.asarray(full.cols[0].values, np.int64)
     steps = np.unique(ts)
     groups = full.num_rows // len(steps)
@@ -2336,9 +2424,9 @@ def test_since_delta_reads_back_its_bytes_on_cuda(cuda, by):
     for j0 in (1, len(steps) // 2, len(steps) - 1):
         ctx = QueryContext()
         ctx.extensions["since_ms"] = int(steps[j0 - 1])
-        d0 = readback.readback_bytes["delta"]
+        d0 = readback.readback_bytes("delta")
         delta = card.sql(q, ctx)
-        assert readback.readback_bytes["delta"] - d0 == \
+        assert readback.readback_bytes("delta") - d0 == \
             planes * groups * (len(steps) - j0) * 4
         keep = ts > steps[j0 - 1]
         for a, b in zip(delta.cols, full.cols):
@@ -2365,14 +2453,16 @@ def test_result_cache_hit_launches_nothing_on_cuda(cuda, tmp_path):
             want = card.sql(q)
             counts = (rf.blocked_fold_sum.launches,
                       gr.grouped_block_reduce.launches,
-                      dict(readback.readback_bytes))
+                      readback.readback_bytes("full"),
+                      readback.readback_bytes("delta"))
             h0 = rc.hits
             got = card.sql(q)
             torch.cuda.synchronize()
             assert rc.hits == h0 + 1
             assert (rf.blocked_fold_sum.launches,
                     gr.grouped_block_reduce.launches,
-                    dict(readback.readback_bytes)) == counts
+                    readback.readback_bytes("full"),
+                    readback.readback_bytes("delta")) == counts
             _same_result(got, want)
         m0 = rc.misses
         card.sql("INSERT INTO cpu (ts, hostname, region, u, v) VALUES "

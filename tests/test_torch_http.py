@@ -108,8 +108,39 @@ def test_health_and_unknown_routes(servers):
     assert same(servers, "/health")[0] == 200
     assert same(servers, "/ready")[0] == 200
     assert same(servers, "/nope")[0] == 404
-    status, body = _request(servers[0], "/metrics")[:2]
-    assert status == 404 and b"ROADMAP A9" in body
+    # /metrics answers the exposition on both: the same content type, and
+    # the request counter family with its kind and labels (values are
+    # each process's own)
+    (status, body, hdr), (jstatus, jbody, jhdr) = (
+        _request(s, "/metrics") for s in servers)
+    assert status == jstatus == 200
+    assert hdr["Content-Type"] == jhdr["Content-Type"]
+    for text in (body, jbody):
+        assert (b"# TYPE greptime_servers_http_requests_total counter"
+                in text)
+    assert _request(servers[0], "/status")[0] == 200
+
+
+@pytest.mark.parametrize("path", [
+    "/status", "/health?deep=1", "/v1/traces?limit=5",
+    "/v1/stats/statements?limit=3", "/debug/prof/device?format=json",
+    "/debug/prof/hbm?format=json&top=2", "/debug/prof/cpu?seconds=0.05",
+    "/debug/prof/mem?top=3", "/debug/prof/device",
+])
+def test_telemetry_routes_answer(servers, path):
+    """The telemetry's routes answer on both servers: the same status,
+    content type and, for a JSON document, the same keys (values are each
+    process's own)."""
+    (status, body, hdr), (jstatus, jbody, jhdr) = (
+        _request(s, path) for s in servers)
+    assert status == jstatus == 200, (path, body[:200])
+    ctype = hdr["Content-Type"]
+    assert ctype == jhdr["Content-Type"]
+    if "json" in ctype:
+        got, want = json.loads(body), json.loads(jbody)
+        assert set(got) == set(want), path
+    else:
+        assert body and jbody
 
 
 def test_influx_write_then_sql_formats(servers):

@@ -8,9 +8,9 @@ device plane's masks and census, SST and manifest sid pruning, the pool's
 stats) run through both packages from the same numpy seed; every sid set
 is compared exactly, as ascending int32. The device plane runs its plain
 torch gather on CPU tensors, on one device and on four shards. The JAX
-package's process counters and memory-pool registration wait for the
-telemetry (ROADMAP A9): the port's tallies (`lookup_counts`,
-`pruned_counts`, `pool_stats`) stand in for them.
+package's process counters are the port's `gtpu_index_*` families
+(`lookup_counts` and `pruned_counts` read them) and its host pool the
+port's `tag_index` pool (`pool_stats`).
 
 The cases of tests/test_index_invalidation.py run through a Standalone of
 each package (the port has one region a table; the JAX test's frontend and

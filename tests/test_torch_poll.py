@@ -103,7 +103,7 @@ class Side:
 
     def delta_bytes(self) -> int:
         if self.pkg == "port":
-            return readback.readback_bytes["delta"]
+            return readback.readback_bytes("delta")
         return int(jax_readback.readback_bytes("delta"))
 
     def configure_sessions(self, options):
@@ -611,10 +611,10 @@ def _delta_cases(inst, q, expect_program):
     full = inst.sql(q)
     assert eng.last_exec_path == "device"
     assert eng.last_range["program"] == expect_program
-    f0 = readback.readback_bytes["full"]
+    f0 = readback.readback_bytes("full")
     again = inst.sql(q)         # a session hit: the result alone crosses
     assert eng.last_session == "hit" and key(again) == key(full)
-    full_bytes = readback.readback_bytes["full"] - f0
+    full_bytes = readback.readback_bytes("full") - f0
     ts = np.asarray(full.cols[0].values, np.int64)
     steps = np.unique(ts)
     groups = full.num_rows // len(steps)
@@ -625,10 +625,10 @@ def _delta_cases(inst, q, expect_program):
     for j0, cut in enumerate(steps[:-1].tolist(), start=1):
         ctx = QueryContext()
         ctx.extensions["since_ms"] = cut
-        d0 = readback.readback_bytes["delta"]
+        d0 = readback.readback_bytes("delta")
         delta = inst.sql(q, ctx)
         assert eng.last_session == "hit"
-        moved = readback.readback_bytes["delta"] - d0
+        moved = readback.readback_bytes("delta") - d0
         assert moved == planes * groups * (len(steps) - j0) * 4
         keep = ts > cut
         assert delta.num_rows == int(keep.sum())
@@ -637,9 +637,9 @@ def _delta_cases(inst, q, expect_program):
                                   np.asarray(b.values)[keep])
     ctx = QueryContext()
     ctx.extensions["since_ms"] = int(steps[-1])
-    d0 = readback.readback_bytes["delta"]
+    d0 = readback.readback_bytes("delta")
     assert inst.sql(q, ctx).num_rows == 0
-    assert readback.readback_bytes["delta"] == d0   # nothing to read
+    assert readback.readback_bytes("delta") == d0   # nothing to read
 
 
 @pytest.mark.parametrize("by", ["host", "region"])
@@ -689,11 +689,11 @@ def test_read_delta_moves_exactly_the_delta(lo):
     import torch
 
     t = torch.arange(2 * 3 * 6, dtype=torch.float32).reshape(2, 3, 6)
-    f0, d0 = readback.readback_bytes["full"], readback.readback_bytes["delta"]
+    f0, d0 = readback.readback_bytes("full"), readback.readback_bytes("delta")
     got = readback.read_delta(t, lo)
     assert np.array_equal(got, t.numpy()[..., max(lo, 0):])
-    moved = (readback.readback_bytes["full"] - f0,
-             readback.readback_bytes["delta"] - d0)
+    moved = (readback.readback_bytes("full") - f0,
+             readback.readback_bytes("delta") - d0)
     assert moved == ((t.numel() * 4, 0) if lo <= 0
                      else (0, 2 * 3 * (6 - lo) * 4))
     mid = readback.read_delta(t, 2, axis=1)

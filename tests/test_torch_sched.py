@@ -8,8 +8,8 @@ controller scenarios with the same assertions, and the observable
 outcomes (which statement was admitted, queued, shed and with which typed
 error class, in which order) must be equal. The instance and HTTP cases
 run both Standalones and compare answers, status codes and bodies. The
-port's tallies are attributes (the JAX package's scheduler metrics wait
-for ROADMAP A9). Every sleep and join is bounded.
+port's gtpu_sched_* families count admissions and sheds as the JAX
+package's do. Every sleep and join is bounded.
 """
 
 import base64
@@ -325,10 +325,26 @@ def test_disabled_controller_never_sheds(pkg):
                 pass
 
 
+def _family(name: str) -> dict:
+    """label values -> value of a port metric family."""
+    from greptimedb_tpu_torch.telemetry import global_registry
+
+    return {k: c.value for k, c in global_registry.get(name)._snapshot()}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
 def test_port_tallies_sheds_by_reason():
-    """The port's attributes in place of the scheduler's metric series."""
+    """The port's gtpu_sched_* series count admissions, sheds by reason
+    and expired deadlines per tenant."""
+    names = ("gtpu_sched_admitted_total", "gtpu_sched_shed_total",
+             "gtpu_sched_deadline_expired_total")
     c = _controller(PKGS["port"], tenants={"noisy": {"qps": 1.0,
                                                      "burst": 1.0}})
+    before = {n: _family(n) for n in names}
     ctx = QueryContext(username="noisy")
     with c.admit(ctx):
         pass
@@ -338,9 +354,11 @@ def test_port_tallies_sheds_by_reason():
     with pytest.raises(port_errors.QueryDeadlineExceededError):
         with c.admit(QueryContext(username="late"), timeout_s=1e-9):
             pass
-    assert c.admitted == {"noisy": 1}
-    assert c.shed == {("noisy", "qps"): 1, ("late", "deadline"): 1}
-    assert c.deadline_expired == {"late": 1}
+    d = {n: _delta(before[n], _family(n)) for n in names}
+    assert d["gtpu_sched_admitted_total"] == {("noisy",): 1}
+    assert d["gtpu_sched_shed_total"] == {("noisy", "qps"): 1,
+                                          ("late", "deadline"): 1}
+    assert d["gtpu_sched_deadline_expired_total"] == {("late",): 1}
 
 
 # ---------------------------------------------------------------------
